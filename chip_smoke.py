@@ -38,6 +38,37 @@ exit code:
 5. **profile** — a steady decode round of 16 rows on the host clock and
    under ``torch.profiler``: device busy share and device time by kernel
    family.
+6. **train-kernel parity** — the flash forward, dQ and dK/dV kernels
+   against their plain versions at ``[2, S, 16, 128]`` (S = 1024 and the
+   unaligned 1000, causal and not; f32 within 1e-4, bf16 within 2e-2
+   elementwise, a few bf16 ulps at these magnitudes, and within 1e-2 in
+   ``||got - plain|| / ||plain||``), q/k/v read as strided views of one
+   fused projection; the autograd gradients of ``flash_attention_bshd``
+   against autograd through the plain chain (f32, 1e-4); fused AdamW in
+   one multi-tensor launch over mixed sizes with one bf16 tensor (f32
+   within 1e-6, bf16 within one rounding).
+7. **train parity** — a 2-layer f32 model at ``gpt_1p3b`` widths takes one
+   step (B 2, S 512) through the kernels: its loss and every gradient are
+   held against autograd through a dense plain forward written here, then
+   its AdamW step against the plain update.
+8. **train** — ``gpt_1p3b`` (24 layers), f32 master weights, ``auto_cast``
+   O1 bf16, ``AdamW(1e-4)``, a fixed batch of B 8 x S 1024 from numpy
+   seed 0: 2 warm-up steps, then 10 timed steps. The losses must be finite
+   and fall; the counters, zeroed after warm-up, must read exactly 24
+   launches of each flash kernel, one of AdamW and 49 of LayerNorm per
+   step. Prints median step ms, tokens/s, ``gpt_train_step_mfu``
+   (``bench.py:435`` FLOPs over step time over 989 TFLOP/s) and peak
+   memory.
+9. **train timing and profile** — one step under ``torch.profiler``
+   (device time by family, busy share); each new kernel held against its
+   plain version at the slice's shapes (flash at ``[8, 1024, 16, 128]``
+   bf16 causal with phase 6's limits; AdamW in one launch over the
+   model's 292 tensors against the plain update of clones, within 1e-6),
+   whose errors are the kernels' ``max_abs_err``; then device time per
+   call of each beside its bound, its plain version's time and
+   ``library_ms`` (``F.scaled_dot_product_attention`` forward,
+   its backward for the two backward kernels, ``torch._fused_adamw_``;
+   timed here only, never called by the port).
 
 The lines before the last carry the ``{"kernels": [...]}`` JSON and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
@@ -107,13 +138,23 @@ def time_ms(fn, iters=20, warmup=3):
     return dev_us / 1e3 / iters, wall_ms, "profiler"
 
 
-def check_close(name, got, want, rtol, atol):
+def check_close(name, got, want, rtol, atol, norm_tol=None):
+    """Elementwise ``|got - want| <= atol + rtol |want|``; with
+    ``norm_tol`` also ``||got - want|| / ||want|| <= norm_tol``, which
+    catches a fault that moves every output by a few percent where an
+    elementwise bound wide enough for bf16's worst element would not.
+    -> the max abs error."""
     err = (got.float() - want.float()).abs()
     max_abs = float(err.max()) if err.numel() else 0.0
     ok = bool(torch.all(err <= atol + rtol * want.float().abs()))
     finite = bool(torch.isfinite(got.float()).all())
+    norm = ""
+    if norm_tol is not None:
+        rel = float(err.norm() / want.float().norm().clamp_min(1e-30))
+        ok = ok and rel <= norm_tol
+        norm = f" rel_norm_err={rel:.3e} (tolerance {norm_tol:g})"
     log(f"  {name}: max_abs_err={max_abs:.3e} (tolerance atol={atol:g} "
-        f"rtol={rtol:g}) finite={finite} {'ok' if ok else 'MISMATCH'}")
+        f"rtol={rtol:g}){norm} finite={finite} {'ok' if ok else 'MISMATCH'}")
     if not (ok and finite):
         fail(f"{name} disagrees with its plain version")
     return max_abs
@@ -146,36 +187,41 @@ def mixed_launch(H, KVH, D, dtype, page=16, num_pages=96, max_pages=64,
 
 
 def dense_reference_logits(model, ids):
-    """Plain causal forward of the port's GPT over ``ids`` (no cache, no
-    kernels): -> logits [S, V] in f32."""
+    """Plain causal forward of the port's GPT over ``ids`` (a list of S
+    tokens, or a [B, S] tensor; no cache, no kernels, differentiable in
+    the model's parameters): -> f32 logits [S, V] or [B, S, V]."""
     from paddle_tpu_torch.ops.kernels import layer_norm_reference as ln
     cfg, g = model.config, model.gpt
     H, KVH = cfg.num_heads, cfg.num_kv_heads
     D = cfg.hidden_size // H
     eps = cfg.layer_norm_epsilon
-    S, dev = len(ids), model.device
-    idx = torch.tensor(ids, device=dev)
+    dev = model.device
+    idx = torch.as_tensor(ids, device=dev)
+    one_row = idx.dim() == 1
+    idx = idx[None] if one_row else idx
+    B, S = idx.shape
     x = g.wte.weight[idx] + g.wpe.weight[torch.arange(S, device=dev)]
     causal = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
     for blk in g.h:
         a = blk.attn
         h = ln(x, blk.ln_1.weight, blk.ln_1.bias, eps)
         qkv = h @ a.qkv_proj.weight + a.qkv_proj.bias
-        q = qkv[:, :H * D].reshape(S, H, D)
-        k = qkv[:, H * D:(H + KVH) * D].reshape(S, KVH, D)
-        v = qkv[:, (H + KVH) * D:].reshape(S, KVH, D)
-        k = k.repeat_interleave(H // KVH, dim=1)
-        v = v.repeat_interleave(H // KVH, dim=1)
-        s = torch.einsum("shd,thd->hst", q, k) / math.sqrt(D)
+        q = qkv[..., :H * D].reshape(B, S, H, D)
+        k = qkv[..., H * D:(H + KVH) * D].reshape(B, S, KVH, D)
+        v = qkv[..., (H + KVH) * D:].reshape(B, S, KVH, D)
+        k = k.repeat_interleave(H // KVH, dim=2)
+        v = v.repeat_interleave(H // KVH, dim=2)
+        s = torch.einsum("bshd,bthd->bhst", q, k) / math.sqrt(D)
         p = torch.softmax(s.masked_fill(~causal, -1e30), dim=-1)
-        o = torch.einsum("hst,thd->shd", p, v).reshape(S, H * D)
+        o = torch.einsum("bhst,bthd->bshd", p, v).reshape(B, S, H * D)
         x = x + o @ a.out_proj.weight + a.out_proj.bias
         h = ln(x, blk.ln_2.weight, blk.ln_2.bias, eps)
         f = torch.nn.functional.gelu(h @ blk.mlp.fc1.weight
                                      + blk.mlp.fc1.bias, approximate="tanh")
         x = x + f @ blk.mlp.fc2.weight + blk.mlp.fc2.bias
     x = ln(x, g.ln_f.weight, g.ln_f.bias, eps)
-    return (x @ g.wte.weight.t()).float()
+    logits = (x @ g.wte.weight.t()).float()
+    return logits[0] if one_row else logits
 
 
 # ---------------------------------------------------------------- bounds
@@ -253,6 +299,450 @@ def profile_decode_rounds(eng, vocab, n_rounds=20):
     return round_ms, busy_us / 1e3 / n_rounds, families, top
 
 
+# ------------------------------------------------------------ train phases
+def _bhsd(x):
+    b, s, h, d = x.shape
+    return x.transpose(1, 2).reshape(b * h, s, d)
+
+
+def _bshd(x, b, h):
+    return x.reshape(b, h, -1, x.shape[-1]).transpose(1, 2)
+
+
+def flash_inputs(B, S, H, D, dtype, seed):
+    """q, k, v as views of one fused [B, S, 3*H*D] projection (the GPT's
+    layout: strided, no copy), and dO."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(B, S, 3 * H * D, device="cuda", generator=g).to(dtype)
+    q, k, v = (qkv[..., i * H * D:(i + 1) * H * D].reshape(B, S, H, D)
+               for i in range(3))
+    do = torch.randn(B, S, H, D, device="cuda", generator=g).to(dtype)
+    return qkv, q, k, v, do
+
+
+def flash_plain(q, k, v, do, scale, causal):
+    """The three plain versions chained as the autograd Function chains the
+    kernels: -> O, lse, delta, dQ, dK, dV (in [B, S, H, D] / [B, H, S])."""
+    from paddle_tpu_torch.ops import kernels as K
+    B, S, H, _ = q.shape
+    ro, rl = K.flash_fwd_reference(_bhsd(q), _bhsd(k), _bhsd(v), scale,
+                                   causal)
+    ro = _bshd(ro, B, H)
+    delta = K.flash_delta(ro, do)
+    rl = rl.reshape(B, H, S)
+    args = [_bhsd(x) for x in (q, k, v, do)] + [
+        rl.reshape(B * H, S), delta.reshape(B * H, S), scale, causal]
+    rq = _bshd(K.flash_bwd_dq_reference(*args), B, H)
+    rk, rv = (_bshd(x, B, H) for x in K.flash_bwd_dkv_reference(*args))
+    return ro, rl, delta, rq, rk, rv
+
+
+# bf16 flash limits: elementwise 2e-2 (the causal rows with few keys
+# carry |O| near 1, where a bf16 ulp is 8e-3), and the error's norm within
+# 1e-2 of the plain output's
+FLASH_BF16_TOL, FLASH_BF16_NORM_TOL = 2e-2, 1e-2
+
+
+def check_flash(K, tag, q, k, v, do, scale, causal, tol, norm_tol):
+    """The flash forward, dQ and dK/dV kernels against their plain
+    versions on the same inputs (the backward kernels take the plain
+    chain's lse and delta). -> max abs errors {kernel: err}."""
+    ro, rl, delta, rq, rk, rv = flash_plain(q, k, v, do, scale, causal)
+    o, lse = K.flash_fwd(q, k, v, scale, causal)
+    dq = K.flash_bwd_dq(q, k, v, do, rl, delta, scale, causal)
+    dk, dv = K.flash_bwd_dkv(q, k, v, do, rl, delta, scale, causal)
+    torch.cuda.synchronize()
+    errs = {"flash_fwd": check_close(f"flash_fwd O {tag}", o, ro, tol, tol,
+                                     norm_tol)}
+    check_close(f"flash_fwd lse {tag}", lse, rl, 1e-4, 1e-4)
+    errs["flash_bwd_dq"] = check_close(f"flash_bwd_dq {tag}", dq, rq, tol,
+                                       tol, norm_tol)
+    errs["flash_bwd_dkv"] = max(
+        check_close(f"flash_bwd_dkv dK {tag}", dk, rk, tol, tol, norm_tol),
+        check_close(f"flash_bwd_dkv dV {tag}", dv, rv, tol, tol, norm_tol))
+    return errs
+
+
+def train_kernel_parity(K):
+    """Flash forward, dQ and dK/dV against their plain versions at
+    [2, S, 16, 128], S in (1024, 1000), causal and not, f32 and bf16; the
+    autograd gradients of ``flash_attention_bshd`` against autograd
+    through the plain chain; fused AdamW multi-tensor against its plain
+    version over mixed sizes."""
+    for dt, tol, norm_tol in ((torch.float32, 1e-4, None),
+                              (torch.bfloat16, FLASH_BF16_TOL,
+                               FLASH_BF16_NORM_TOL)):
+        for S in (1024, 1000):
+            for causal in (True, False):
+                _, q, k, v, do = flash_inputs(2, S, 16, 128, dt, seed=S)
+                tag = f"{str(dt)[6:]} S={S} {'causal' if causal else 'full'}"
+                check_flash(K, tag, q, k, v, do, 1.0 / math.sqrt(128),
+                            causal, tol, norm_tol)
+    # the full autograd path (delta and both backward kernels) on the
+    # strided views of one fused projection, f32
+    qkv, q, k, v, do = flash_inputs(2, 1000, 16, 128, torch.float32, 7)
+    qkv.requires_grad_(True)
+    B, S, H, D = q.shape
+
+    def split(t):
+        return [t[..., i * H * D:(i + 1) * H * D].reshape(B, S, H, D)
+                for i in range(3)]
+
+    got = torch.autograd.grad((K.flash_attention_bshd(*split(qkv))
+                               * do).sum(), qkv)[0]
+    q, k, v = split(qkv)
+    sc = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(D)
+    causal = torch.ones(S, S, dtype=torch.bool, device="cuda").tril()
+    o = torch.einsum("bhqk,bkhd->bqhd",
+                     sc.masked_fill(~causal, -1e30).softmax(-1), v)
+    want = torch.autograd.grad((o * do).sum(), qkv)[0]
+    check_close("flash_attention_bshd autograd d[qkv] vs plain chain "
+                "(f32, S=1000)", got, want, 1e-4, 1e-4)
+    del qkv, q, k, v, do, got, want, sc, o
+    # fused AdamW: one multi-tensor launch, mixed sizes and one bf16 w
+    g = torch.Generator(device="cuda").manual_seed(8)
+    shapes = [(2048, 6144), (6144,), (3,), (50304, 2048), (1000, 33)]
+    ws = [torch.randn(sh, device="cuda", generator=g) for sh in shapes]
+    ws.append(torch.randn(777, device="cuda", generator=g).bfloat16())
+    gs = [torch.randn(w.shape, device="cuda", generator=g) for w in ws]
+    ms = [0.1 * torch.randn(w.shape, device="cuda", generator=g)
+          for w in ws]
+    vs = [torch.rand(w.shape, device="cuda", generator=g) for w in ws]
+    n = len(ws)
+    wds = [0.1 * (i % 2) for i in range(n)]
+    c1, c2 = 1.0 / (1 - 0.9 ** 3), 1.0 / (1 - 0.95 ** 3)
+    want = [K.fused_adamw_reference(w, gr, m, v, 1e-3, 0.9, 0.95, 1e-8, wd,
+                                    c1, c2)
+            for w, gr, m, v, wd in zip(ws, gs, ms, vs, wds)]
+    K.fused_adamw(ws, gs, ms, vs, [1e-3] * n, 0.9, 0.95, 1e-8, wds,
+                  [c1] * n, [c2] * n)
+    torch.cuda.synchronize()
+    for (w2, m2, v2), w, m, v in zip(want, ws, ms, vs):
+        # f32: IEEE sqrt and division, FMA contraction: within 1e-6;
+        # bf16 w: one bf16 rounding of the updated value
+        wtol = 1e-6 if w.dtype == torch.float32 else 8e-3
+        tag = f"{tuple(w.shape)} {str(w.dtype)[6:]}"
+        check_close(f"fused_adamw w {tag}", w, w2, wtol, wtol)
+        check_close(f"fused_adamw m {tag}", m, m2, 1e-6, 1e-6)
+        check_close(f"fused_adamw v {tag}", v, v2, 1e-6, 1e-6)
+
+
+def train_parity(pt, K):
+    """A 2-layer f32 model at gpt_1p3b widths takes one AdamW step (B 2,
+    S 512) through the kernels; its loss and every gradient are held
+    against autograd through :func:`dense_reference_logits` over the same
+    parameters, then the step against the plain AdamW update."""
+    cfg = pt.gpt_1p3b(dropout=0.0)
+    cfg.num_layers = 2
+    model = pt.GPTForCausalLM(cfg, dtype=torch.float32, seed=SEED + 2)
+    model.train()
+    rng = np.random.RandomState(SEED + 2)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 512))).cuda()
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                          (2, 512))).cuda()
+    params = list(model.parameters())
+    names = [p.param_name for p in params]
+    want_loss = torch.nn.functional.cross_entropy(
+        dense_reference_logits(model, ids).reshape(-1, cfg.vocab_size),
+        labels.reshape(-1))
+    want_grads = torch.autograd.grad(want_loss, params)
+    opt = pt.AdamW(learning_rate=1e-4, parameters=params)
+    K.reset_launch_counts()
+    loss = pt.GPTPretrainingCriterion(cfg)(model(ids), labels)
+    loss.backward()
+    torch.cuda.synchronize()
+    launched = K.launch_counts()
+    if min(launched["flash_fwd"], launched["flash_bwd_dq"],
+           launched["flash_bwd_dkv"], launched["layer_norm"]) <= 0:
+        fail(f"train parity: the step did not run the kernels {launched}")
+    check_close("loss vs dense plain forward", loss.detach(),
+                want_loss.detach(), 1e-5, 1e-5)
+    worst = 0.0
+    for name, p, wg in zip(names, params, want_grads):
+        scale = float(wg.abs().max())
+        err = (p.grad - wg).abs()
+        ok = bool((err <= 1e-4 * scale + 1e-3 * wg.abs()).all())
+        worst = max(worst, float(err.max()) / max(scale, 1e-30))
+        if not ok or not bool(torch.isfinite(p.grad).all()):
+            fail(f"train parity: grad of {name} disagrees (max abs err "
+                 f"{float(err.max()):.3e}, max |grad| {scale:.3e})")
+    log(f"  {len(params)} gradients within 1e-4 x max|grad| + 1e-3 x |grad| "
+        f"of the plain chain's; worst max-err/max|grad| {worst:.3e}")
+    before = [(p.detach().clone(), p.grad.clone()) for p in params]
+    opt.step()
+    torch.cuda.synchronize()
+    if K.fused_adamw.launches != 1:
+        fail(f"train parity: AdamW launched {K.fused_adamw.launches} "
+             f"kernels for one step")
+    worst = 0.0
+    for name, p, (w0, g0) in zip(names, params, before):
+        zero = torch.zeros_like(w0)
+        w2, _, _ = K.fused_adamw_reference(w0, g0, zero, zero, 1e-4, 0.9,
+                                           0.999, 1e-8, 0.01, 1 / (1 - 0.9),
+                                           1 / (1 - 0.999))
+        err = float((p.detach() - w2).abs().max())
+        worst = max(worst, err)
+        if err > 1e-6:
+            fail(f"train parity: AdamW step of {name} off by {err:.3e}")
+    log(f"  AdamW step (one launch over {len(params)} tensors) vs the plain "
+        f"update: max abs err {worst:.3e} (tolerance 1e-6)")
+
+
+def train_flops(n_params, B, S, L, h):
+    """Model FLOPs of one step, the formula of ``bench.py:435``."""
+    return 6 * n_params * B * S + 6 * L * B * S * S * h
+
+
+def train_slice(pt, K, steps=10, warmup=2, B=8, S=1024):
+    """gpt_1p3b, f32 master weights, auto_cast O1 bf16, AdamW(1e-4) on a
+    fixed batch from numpy seed 0. -> the model, the optimizer, the step
+    function and the timed steps' launch counts; fails unless the losses
+    are finite and fall and the kernels launched exactly as the step
+    prescribes."""
+    cfg = pt.gpt_1p3b(dropout=0.0)
+    t0 = time.perf_counter()
+    model = pt.GPTForCausalLM(cfg, dtype=torch.float32, seed=SEED)
+    model.train()
+    crit = pt.GPTPretrainingCriterion(cfg)
+    opt = pt.AdamW(learning_rate=1e-4, parameters=model.parameters())
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.RandomState(SEED)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, S))).cuda()
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                          (B, S))).cuda()
+    torch.cuda.synchronize()
+    log(f"[train] gpt_1p3b f32 master weights, {n_params / 1e9:.4f} B "
+        f"params, {len(list(model.parameters()))} tensors, built in "
+        f"{time.perf_counter() - t0:.2f} s; B={B} S={S} "
+        f"({B * S} tokens/step), auto_cast O1 bf16, AdamW(lr=1e-4)")
+
+    def step():
+        with pt.auto_cast(level="O1", dtype="bfloat16"):
+            loss = crit(model(ids), labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.item()
+
+    losses, times = [], []
+    for _ in range(warmup):
+        losses.append(step())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(step())
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log("  losses: " + " ".join(f"{x:.4f}" for x in losses)
+        + f" (first {warmup} are warm-up)")
+    log("  step ms: " + " ".join(f"{x:.2f}" for x in times))
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        fail(f"train: losses not finite or not falling: {losses}")
+    L = cfg.num_layers
+    # per step: one flash forward and one dQ and one dK/dV launch per
+    # layer, one AdamW launch (the multi-tensor kernel over all tensors),
+    # two LayerNorms per layer plus ln_f (forward kernels; the backward
+    # is plain torch); no ragged attention
+    want = {"ragged_paged_attention": 0, "layer_norm": steps * (2 * L + 1),
+            "flash_fwd": steps * L, "flash_bwd_dq": steps * L,
+            "flash_bwd_dkv": steps * L, "fused_adamw": steps}
+    log(f"  launches over {steps} timed steps: {launches}")
+    if launches != want:
+        fail(f"train: kernel launches {launches} != {want}")
+    med = float(np.median(times))
+    flops = train_flops(n_params, B, S, L, cfg.hidden_size)
+    summary = {"step_ms_median": med, "tokens_per_s": B * S / med * 1e3,
+               "gpt_train_step_mfu": flops / (med / 1e3) / BF16_FLOPS_PER_S,
+               "model_tflop_per_step": flops / 1e12,
+               "max_memory_allocated_gb": peak / 1e9,
+               "first_loss": losses[0], "last_loss": losses[-1]}
+    log(f"  {json.dumps(summary)}")
+    return model, opt, step, launches
+
+
+def _busy_ms(spans):
+    """The union of device intervals (a synchronous copy's interval can
+    span the kernels it waits behind, so the sum double-counts)."""
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    return busy_us / 1e3
+
+
+def profile_train_step(step):
+    """One training step under ``torch.profiler``: device time by kernel
+    family, the union of device intervals and the step's host time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    families, names, spans = {}, {}, []
+    for e in _device_events(prof):
+        spans.append((e.time_range.start, e.time_range.end))
+        name = e.name.lower()
+        fam = ("flash forward" if "flash_fwd" in name else
+               "flash backward" if "flash_bwd" in name else
+               "fused_adamw" if "fused_adamw" in name else
+               "layer_norm (triton)" if "layer_norm_fwd" in name else
+               "matmul (cuBLAS)" if any(k in name for k in (
+                   "gemm", "gemv", "nvjet", "cutlass", "xmma")) else
+               "copies" if "memcpy" in name or "memset" in name else
+               "other elementwise/reduction")
+        ms = e.time_range.elapsed_us() / 1e3
+        families[fam] = families.get(fam, 0.0) + ms
+        names[(fam, e.name)] = names.get((fam, e.name), 0.0) + ms
+    ranked = sorted(names.items(), key=lambda kv: -kv[1])
+    # the ten largest kernels, and the six largest of the catch-all family
+    top = ranked[:10] + [kv for kv in ranked[10:] if kv[0][0].startswith(
+        "other")][:6]
+    return wall_ms, _busy_ms(spans), families, top
+
+
+def train_timing(K, model, opt, launches):
+    """Each new kernel at the slice's shapes: held against its plain
+    version on the same inputs (the flash kernels at [8, 1024, 16, 128]
+    bf16 causal on views of one fused projection, AdamW over the model's
+    whole parameter list), then its device time per call beside its
+    bound, its plain version's time and one PyTorch call's
+    (``library_ms``, timed here only). -> the kernels' JSON entries, with
+    these comparisons' errors as ``max_abs_err``."""
+    B, S, H, D = 8, 1024, 16, 128
+    scale = 1.0 / math.sqrt(D)
+    _, q, k, v, do = flash_inputs(B, S, H, D, torch.bfloat16, seed=9)
+    errs = check_flash(K, f"bf16 [{B}, {S}, {H}, {D}] causal (main path)",
+                       q, k, v, do, scale, True, FLASH_BF16_TOL,
+                       FLASH_BF16_NORM_TOL)
+    torch.cuda.empty_cache()
+    o, lse = K.flash_fwd(q, k, v, scale, True)
+    delta = K.flash_delta(o, do)
+    plain = {}
+    plain["flash_fwd"] = lambda: K.flash_fwd_reference(
+        _bhsd(q), _bhsd(k), _bhsd(v), scale, True)
+    bargs = lambda: [_bhsd(x) for x in (q, k, v, do)] + [  # noqa: E731
+        lse.reshape(B * H, S), delta.reshape(B * H, S), scale, True]
+    plain["flash_bwd_dq"] = lambda: K.flash_bwd_dq_reference(*bargs())
+    plain["flash_bwd_dkv"] = lambda: K.flash_bwd_dkv_reference(*bargs())
+    kern = {"flash_fwd": lambda: K.flash_fwd(q, k, v, scale, True),
+            "flash_bwd_dq": lambda: K.flash_bwd_dq(q, k, v, do, lse, delta,
+                                                   scale, True),
+            "flash_bwd_dkv": lambda: K.flash_bwd_dkv(q, k, v, do, lse,
+                                                     delta, scale, True)}
+    # library: F.scaled_dot_product_attention forward, and its backward
+    # for the two backward kernels together
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ot = sdpa(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    lib_fwd, _, _ = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True))
+    lib_bwd, _, _ = time_ms(lambda: torch.autograd.grad(
+        ot, (qt, kt, vt), dot, retain_graph=True))
+    library = {"flash_fwd": lib_fwd, "flash_bwd_dq": lib_bwd,
+               "flash_bwd_dkv": lib_bwd}
+    el = 2                                             # bf16
+    act = B * S * H * D * el                           # one [B,S,H,D] tensor
+    rows = B * H * S * 4                               # lse or delta, f32
+    causal_pairs = B * H * S * (S + 1) // 2            # (q, k) pairs kept
+    work = {"flash_fwd": (4 * act + rows, 4 * causal_pairs * D),
+            "flash_bwd_dq": (5 * act + 2 * rows, 6 * causal_pairs * D),
+            "flash_bwd_dkv": (6 * act + 2 * rows, 8 * causal_pairs * D)}
+    entries = []
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        ms, wall, src = time_ms(kern[name])
+        plain_ms, _, _ = time_ms(plain[name], iters=3, warmup=1)
+        nbytes, flops = work[name]
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        log(f"[train timing] {name} [{B}, {S}, {H}, {D}] bf16 causal: "
+            f"kernel {ms:.4f} ms ({src}; {wall:.4f} ms per call with "
+            f"launch) plain {plain_ms:.4f} ms library {library[name]:.4f} "
+            f"ms bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP) = {100 * b_ms / ms:.1f}% of bound")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/ops/kernels/csrc/flash_attention.cu",
+            "replaces": "paddle_tpu/ops/pallas/flash_attention.py:"
+                        + {"flash_fwd": "106", "flash_bwd_dq": "262",
+                           "flash_bwd_dkv": "285"}[name],
+            "launches": launches[name], "max_abs_err": errs[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library[name]})
+    del qt, kt, vt, ot, q, k, v, do, o, lse, delta
+    # AdamW over the model's whole parameter list, as a step runs it
+    params = list(model.parameters())
+    n_t = len(params)
+    gs = [torch.randn_like(p) * 1e-3 for p in params]
+    ms_ = [opt._get_accumulator("moment1", p) for p in params]
+    vs_ = [opt._get_accumulator("moment2", p) for p in params]
+    c1, c2 = 1 / (1 - 0.9 ** 13), 1 / (1 - 0.999 ** 13)
+    with torch.no_grad():
+        ws = [p.detach() for p in params]
+        # one launch over all the tensors against the plain update of
+        # clones taken before it: f32 within 1e-6 (as in phase 6)
+        before = [(w.clone(), m.clone(), v.clone())
+                  for w, m, v in zip(ws, ms_, vs_)]
+        K.fused_adamw(ws, gs, ms_, vs_, [1e-4] * n_t, 0.9, 0.999, 1e-8,
+                      [0.01] * n_t, [c1] * n_t, [c2] * n_t)
+        torch.cuda.synchronize()
+        adam_err = {"w": 0.0, "m": 0.0, "v": 0.0}
+        for i, ((w0, m0, v0), w, g, m, v) in enumerate(
+                zip(before, ws, gs, ms_, vs_)):
+            want = K.fused_adamw_reference(w0, g, m0, v0, 1e-4, 0.9, 0.999,
+                                           1e-8, 0.01, c1, c2)
+            for key, got, ref in zip("wmv", (w, m, v), want):
+                err = (got - ref).abs()
+                adam_err[key] = max(adam_err[key], float(err.max()))
+                if not bool((err <= 1e-6 + 1e-6 * ref.abs()).all()):
+                    fail(f"fused_adamw over the model's tensors: {key} of "
+                         f"{params[i].param_name} off by "
+                         f"{float(err.max()):.3e}")
+        del before, want
+        torch.cuda.empty_cache()
+        log(f"  fused_adamw, one launch over {n_t} tensors "
+            f"({sum(p.numel() for p in params) / 1e9:.4f} B params) vs the "
+            f"plain update of clones: max abs err w {adam_err['w']:.3e} "
+            f"m {adam_err['m']:.3e} v {adam_err['v']:.3e} (tolerance 1e-6 "
+            f"+ 1e-6 x |plain|) ok")
+        ms, wall, src = time_ms(lambda: K.fused_adamw(
+            ws, gs, ms_, vs_, [1e-4] * n_t, 0.9, 0.999, 1e-8, [0.01] * n_t,
+            [c1] * n_t, [c2] * n_t), iters=10)
+        plain_ms, _, _ = time_ms(lambda: [K.fused_adamw_reference(
+            w, g, m, v, 1e-4, 0.9, 0.999, 1e-8, 0.01, c1, c2)
+            for w, g, m, v in zip(ws, gs, ms_, vs_)], iters=2, warmup=1)
+        steps_t = [torch.tensor(13.0, device="cuda") for _ in params]
+        lib_ms, _, _ = time_ms(lambda: torch._fused_adamw_(
+            ws, gs, ms_, vs_, [], steps_t, lr=1e-4, beta1=0.9, beta2=0.999,
+            weight_decay=0.01, eps=1e-8, amsgrad=False, maximize=False),
+            iters=10)
+    n = sum(p.numel() for p in params)
+    nbytes = sum(w.numel() * (2 * w.element_size() + g.element_size() + 16)
+                 for w, g in zip(ws, gs))
+    b_ms, b_by = bound(nbytes, 12 * n, F32_FLOPS_PER_S)
+    log(f"[train timing] fused_adamw over {len(params)} tensors, "
+        f"{n / 1e9:.4f} B params: kernel {ms:.4f} ms ({src}; {wall:.4f} "
+        f"ms per call with launch) plain {plain_ms:.4f} ms "
+        f"torch._fused_adamw_ {lib_ms:.4f} ms bound {b_ms:.4f} ms "
+        f"({b_by}: {nbytes / 1e9:.2f} GB) = {100 * b_ms / ms:.1f}% of bound")
+    entries.append({
+        "name": "fused_adamw", "route": "cuda",
+        "source": "paddle_tpu_torch/ops/kernels/csrc/fused_adamw.cu",
+        "replaces": "paddle_tpu/ops/pallas/fused_adamw.py:60",
+        "launches": launches["fused_adamw"],
+        "max_abs_err": max(adam_err.values()), "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib_ms})
+    return entries
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -328,7 +818,8 @@ def main():
     prompt = np.random.RandomState(SEED).randint(1, 50304, size=37).tolist()
     new = eng.generate(prompt, max_new_tokens=8)
     ids = prompt + new
-    dense = dense_reference_logits(small, ids)
+    with torch.no_grad():
+        dense = dense_reference_logits(small, ids)
     want = dense[len(prompt) - 1:].argmax(-1).tolist()
     if new != want[:8]:
         fail(f"engine tokens {new} != dense greedy {want[:8]}")
@@ -410,8 +901,9 @@ def main():
     # every served round runs each layer's attention and its two
     # LayerNorms, plus the final LayerNorm, through the kernels
     L = cfg.num_layers
-    want = {"ragged_paged_attention": served_rounds * L,
-            "layer_norm": served_rounds * (2 * L + 1)}
+    want = {name: 0 for name in launches}      # no training kernel runs
+    want.update({"ragged_paged_attention": served_rounds * L,
+                 "layer_norm": served_rounds * (2 * L + 1)})
     if served_rounds <= 0 or launches != want:
         fail(f"serve: kernel launches {launches} != {want} expected from "
              f"{served_rounds} rounds of {L} layers")
@@ -474,7 +966,7 @@ def main():
     x = torch.randn(ln_rows, 2048, device="cuda", generator=g).to(
         torch.bfloat16)
     blk = model.gpt.h[0].ln_1
-    w, b = blk.weight, blk.bias
+    w, b = blk.weight.detach(), blk.bias.detach()
     err = check_close(f"layer_norm at [{ln_rows}, 2048] bf16",
                       K.layer_norm(x, w, b),
                       K.layer_norm_reference(x, w, b), 2e-2, 2e-2)
@@ -512,6 +1004,40 @@ def main():
             f"({100 * ms / total_ms:.1f}% of summed device time)")
     for name, ms in top:
         log(f"    {ms:.4f} ms per round  {name[:110]}")
+    del eng, model, run_round, args, blk, w, b
+    torch.cuda.empty_cache()
+
+    # ------------------------------------- phase 6: train-kernel parity
+    log("[train parity] flash forward / dQ / dK/dV vs plain at "
+        "[2, S, 16, 128] (f32 within 1e-4, bf16 within 2e-2 and a relative "
+        "norm error within 1e-2), autograd, fused AdamW multi-tensor")
+    train_kernel_parity(K)
+    torch.cuda.empty_cache()
+
+    # ------------------------------- phase 7: 2-layer train-step parity
+    log("[train parity] 2-layer f32 model at gpt_1p3b widths, one step "
+        "(B=2, S=512) vs autograd through a dense plain forward")
+    train_parity(pt, K)
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------- phase 8: train
+    t_model, t_opt, t_step, t_launches = train_slice(pt, K)
+
+    # ------------------------------- phase 9: train timing and profile
+    wall_ms, busy_ms, families, top = profile_train_step(t_step)
+    total_ms = sum(families.values())
+    log(f"[train profile] one step under torch.profiler: {wall_ms:.2f} ms "
+        f"on the host clock; device busy {busy_ms:.2f} ms (union of device "
+        f"intervals; {total_ms:.2f} ms summed) = "
+        f"{100 * busy_ms / wall_ms:.1f}% busy")
+    for fam, ms in sorted(families.items(), key=lambda kv: -kv[1]):
+        log(f"  {fam}: {ms:.3f} ms per step "
+            f"({100 * ms / total_ms:.1f}% of summed device time)")
+    for (fam, name), ms in top:
+        log(f"    {ms:.3f} ms per step  [{fam}] {name[:100]}")
+    log("[train timing] the new kernels at the slice's shapes, held "
+        "against their plain versions, then timed")
+    kernels += train_timing(K, t_model, t_opt, t_launches)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -7,8 +7,10 @@ by their structured names (``model.named_parameters()`` /
 ...) and returns the port's :class:`~.models.gpt.GPTForCausalLM` holding
 them. The port keeps the JAX package's names and layouts — ``Linear``
 weights stay ``[in, out]`` — so every array copies as it is; a missing,
-unexpected or misshapen name raises. This module needs numpy arrays only,
-never the JAX package itself.
+unexpected or misshapen name raises. The parameters stay trainable.
+``params_to_numpy(model)`` goes the other way, so trained weights can be
+compared. This module needs numpy arrays only, never the JAX package
+itself.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import torch
 
 from .models.gpt import GPTForCausalLM
 
-__all__ = ["params_from_paddle_tpu"]
+__all__ = ["params_from_paddle_tpu", "params_to_numpy"]
 
 
 def params_from_paddle_tpu(named_arrays, config, device=None,
@@ -42,3 +44,11 @@ def params_from_paddle_tpu(named_arrays, config, device=None,
                                  f"{tuple(p.shape)}")
             p.copy_(torch.from_numpy(np.array(a, dtype=np.float32)))
     return model
+
+
+def params_to_numpy(model):
+    """``{structured name: float32 numpy array}`` of ``model``'s
+    parameters: copies on the host, which later in-place updates of the
+    parameters leave alone."""
+    return {name: p.detach().float().cpu().numpy().copy()
+            for name, p in model.named_parameters()}

@@ -1,26 +1,40 @@
-"""GPT for serving — the ragged paged-KV branch of ``paddle_tpu/models/gpt.py``.
+"""GPT — the training (no-cache) and ragged serving branches of
+``paddle_tpu/models/gpt.py``.
 
 Token + position embeddings, N blocks of [LayerNorm -> fused-QKV attention
 -> LayerNorm -> tanh-GELU MLP] with residuals, a final LayerNorm and a
 weight-tied LM head: the JAX package's ``GPTForCausalLM`` with parameter
-names kept (``gpt.h.0.attn.qkv_proj.weight``, ...).
+names kept (``gpt.h.0.attn.qkv_proj.weight``, ...; each parameter also
+carries its structured name as ``.param_name``, which AdamW hands to
+``apply_decay_param_fun``; ``Tensor.name`` is read-only in PyTorch).
 
-This slice ports the **ragged cache branch** only (``gpt.py:341-360``): the
-input is one serving round's flat token stream ``[1, T]`` and every layer's
-cache dict carries the round's row metadata and its page pools::
+Two branches are ported:
+
+* **training / no cache** (``caches=None``, ``gpt.py:414-429`` and
+  ``:505-527``): positions from an arange shifted by ``pos_offset``,
+  embedding dropout, the blocks with their dropouts, ``ln_f``. Attention
+  expands the KV heads over their groups (``_expand_kv``) and calls
+  :func:`~..nn.functional.scaled_dot_product_attention` causal, which runs
+  the flash kernels (forward and backward) on the card.
+  :class:`GPTPretrainingCriterion` (``gpt.py:704-727``) is its loss.
+* **ragged serving** (``gpt.py:341-360``): the input is one serving
+  round's flat token stream ``[1, T]`` and every layer's cache dict
+  carries the round's row metadata and its page pools::
 
     {"ragged": True, "k_pool": ..., "v_pool": ...,   # [P, page, KVH, Dh]
      "block_tables": [R, max_pages] int32, "row_starts": [R] int32,
      "row_lens": [R] int32, "kv_lens": [R] int32}
 
-:class:`GPTModel` maps the flat tokens to their rows and positions once per
-round (``ragged_row_index``), embeds at those positions unless
-``pos_offset`` [1, T] is given, and hands every layer the same K/V write
-index. Each layer scatters its K/V into the pools in place, then runs
-ragged paged attention over them (write, then attend): the hand-written
-kernel on a CUDA tensor, its plain version on a CPU tensor. The static,
-paged, chunked-prefill and dense branches, ``generate`` and the
-tensor/sequence-parallel paths are not ported yet.
+  :class:`GPTModel` maps the flat tokens to their rows and positions once
+  per round (``ragged_row_index``), embeds at those positions unless
+  ``pos_offset`` [1, T] is given, and hands every layer the same K/V write
+  index. Each layer scatters its K/V into the pools in place, then runs
+  ragged paged attention over them (write, then attend).
+
+Each hand-written kernel runs on a CUDA tensor, its plain version on a CPU
+tensor. The static, paged, chunked-prefill and dense cache branches,
+``generate``, ``recompute`` and the tensor/sequence-parallel paths are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -29,12 +43,12 @@ from torch import nn
 
 from .. import nn as pnn
 from ..device import resolve_device
-from ..nn.functional import gelu
+from ..nn import functional as F
 from ..ops.kernels import ragged_paged_attention, ragged_row_index
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTBlock", "GPTModel",
-           "GPTForCausalLM", "ragged_write_index", "gpt_tiny", "gpt_small",
-           "gpt_1p3b", "gpt_13b"]
+           "GPTForCausalLM", "GPTPretrainingCriterion", "ragged_write_index",
+           "gpt_tiny", "gpt_small", "gpt_1p3b", "gpt_13b"]
 
 
 class GPTConfig:
@@ -116,6 +130,10 @@ class GPTAttention(nn.Module):
         self.num_heads = config.num_heads
         self.num_kv_heads = config.num_kv_heads
         self.head_dim = config.hidden_size // config.num_heads
+        self.dropout = config.dropout
+        # the attention-probability dropout's generator (None: the default
+        # one); GPTForCausalLM sets it with every Dropout's
+        self.dropout_generator = None
         h = config.hidden_size
         # fused QKV: [q (H*Dh) | k (KVH*Dh) | v (KVH*Dh)]
         qkv_out = h + 2 * self.num_kv_heads * self.head_dim
@@ -123,18 +141,37 @@ class GPTAttention(nn.Module):
         self.qkv_proj = pnn.Linear(h, qkv_out, **kw)
         self.out_proj = pnn.Linear(h, h, **kw)
 
-    def forward(self, x, cache, write_index):
-        """``write_index`` = (phys, slot) of every flat token's K/V, from
-        :func:`ragged_write_index` (one per round, shared by the layers)."""
+    def _expand_kv(self, t):
+        """Broadcast each KV head over its query-head group for the dense
+        attention path ([B, S, KVH, Dh] -> [B, S, H, Dh]); the ragged
+        serving path attends grouped instead."""
+        groups = self.num_heads // self.num_kv_heads
+        return t if groups == 1 else t.repeat_interleave(groups, dim=2)
+
+    def forward(self, x, cache=None, write_index=None):
+        """``cache=None``: causal attention over ``x`` [B, S, h] (training).
+        A ragged cache dict: one serving round, with ``write_index`` =
+        (phys, slot) of every flat token's K/V from
+        :func:`ragged_write_index` (one per round, shared by the
+        layers)."""
         b, s, h = x.shape
         qkv = self.qkv_proj(x)
         h_q = self.num_heads * self.head_dim
         kv_w = self.num_kv_heads * self.head_dim
-        q = qkv[..., :h_q].reshape(b * s, self.num_heads, self.head_dim)
-        k = qkv[..., h_q:h_q + kv_w].reshape(b * s, self.num_kv_heads,
+        q = qkv[..., :h_q].reshape(b, s, self.num_heads, self.head_dim)
+        k = qkv[..., h_q:h_q + kv_w].reshape(b, s, self.num_kv_heads,
                                              self.head_dim)
-        v = qkv[..., h_q + kv_w:].reshape(b * s, self.num_kv_heads,
+        v = qkv[..., h_q + kv_w:].reshape(b, s, self.num_kv_heads,
                                           self.head_dim)
+        if cache is None:
+            out = F.scaled_dot_product_attention(
+                q, self._expand_kv(k), self._expand_kv(v), is_causal=True,
+                dropout_p=self.dropout, training=self.training,
+                generator=self.dropout_generator)
+            return self.out_proj(out.reshape(b, s, h))
+        q = q.reshape(b * s, self.num_heads, self.head_dim)
+        k = k.reshape(b * s, self.num_kv_heads, self.head_dim)
+        v = v.reshape(b * s, self.num_kv_heads, self.head_dim)
         kp = _pool_write_ragged(cache["k_pool"], k, write_index)
         vp = _pool_write_ragged(cache["v_pool"], v, write_index)
         out = ragged_paged_attention(
@@ -150,9 +187,10 @@ class GPTMLP(nn.Module):
         kw = dict(device=device, dtype=dtype, generator=generator)
         self.fc1 = pnn.Linear(h, ffn, **kw)
         self.fc2 = pnn.Linear(ffn, h, **kw)
+        self.dropout = pnn.Dropout(config.dropout)
 
     def forward(self, x):
-        return self.fc2(gelu(self.fc1(x), approximate=True))
+        return self.dropout(self.fc2(F.gelu(self.fc1(x), approximate=True)))
 
 
 class GPTBlock(nn.Module):
@@ -164,9 +202,10 @@ class GPTBlock(nn.Module):
         self.attn = GPTAttention(config, **kw)
         self.ln_2 = pnn.LayerNorm(config.hidden_size, epsilon=eps, **kw)
         self.mlp = GPTMLP(config, **kw)
+        self.dropout = pnn.Dropout(config.dropout)
 
-    def forward(self, x, cache, write_index):
-        x = x + self.attn(self.ln_1(x), cache, write_index)
+    def forward(self, x, cache=None, write_index=None):
+        x = x + self.dropout(self.attn(self.ln_1(x), cache, write_index))
         return x + self.mlp(self.ln_2(x))
 
 
@@ -180,21 +219,33 @@ class GPTModel(nn.Module):
         self.wte = pnn.Embedding(config.vocab_size, config.hidden_size, **kw)
         self.wpe = pnn.Embedding(config.max_seq_len, config.hidden_size,
                                  **kw)
+        self.drop = pnn.Dropout(config.dropout)
         self.h = nn.ModuleList([GPTBlock(config, **kw)
                                 for _ in range(config.num_layers)])
         self.ln_f = pnn.LayerNorm(config.hidden_size,
                                   epsilon=config.layer_norm_epsilon, **kw)
 
-    def forward(self, input_ids, caches, pos_offset=None):
-        """``input_ids`` [1, T] flat round; ``caches`` one ragged dict per
-        layer; ``pos_offset`` [1, T] per-token absolute positions
-        (``gpt.py:497-501``), by default each token's position in its row
-        (0 for pad tokens)."""
-        if not caches or not all(c is not None and c.get("ragged")
-                                 for c in caches):
+    def forward(self, input_ids, caches=None, pos_offset=None):
+        """``caches=None`` (training): ``input_ids`` [B, S] at positions
+        ``pos_offset + arange(S)`` (``gpt.py:512-515``; ``pos_offset`` an
+        int, default 0). Ragged serving: ``input_ids`` [1, T] flat round,
+        ``caches`` one ragged dict per layer, ``pos_offset`` [1, T]
+        per-token absolute positions (``gpt.py:497-501``), by default each
+        token's position in its row (0 for pad tokens)."""
+        if caches is None:
+            s = input_ids.shape[1]
+            start = int(pos_offset or 0)
+            pos = torch.arange(start, start + s, device=input_ids.device)
+            x = self.drop(self.wte(input_ids) + self.wpe(pos[None]))
+            for block in self.h:
+                x = block(x)
+            return self.ln_f(x)
+        if len(caches) != len(self.h) or not all(
+                c is not None and c.get("ragged") for c in caches):
             raise NotImplementedError(
-                "paddle_tpu_torch ports the ragged serving branch only; "
-                "pass one cache dict with 'ragged': True per layer")
+                "paddle_tpu_torch ports the training (caches=None) and "
+                "ragged serving branches; pass one cache dict with "
+                "'ragged': True per layer")
         c0 = caches[0]
         T = input_ids.shape[0] * input_ids.shape[1]
         rid, pos, valid = ragged_row_index(c0["row_starts"], c0["row_lens"],
@@ -235,6 +286,18 @@ class GPTForCausalLM(nn.Module):
         if not config.tie_word_embeddings:
             self.lm_head = pnn.Linear(config.hidden_size, config.vocab_size,
                                       bias=False, **kw)
+        for name, p in self.named_parameters():
+            p.param_name = name
+        if seed is not None:
+            # dropout masks draw from one generator of their own, seeded
+            # from ``seed``; without a seed they draw from the default one
+            drop_gen = torch.Generator(device=dev)
+            drop_gen.manual_seed(int(seed) + 1)
+            for m in self.modules():
+                if isinstance(m, pnn.Dropout):
+                    m.generator = drop_gen
+                elif isinstance(m, GPTAttention):
+                    m.dropout_generator = drop_gen
         self.eval()
 
     @property
@@ -245,8 +308,33 @@ class GPTForCausalLM(nn.Module):
     def dtype(self):
         return self.gpt.wte.weight.dtype
 
-    def forward(self, input_ids, caches, pos_offset=None):
+    def forward(self, input_ids, caches=None, pos_offset=None):
         hidden = self.gpt(input_ids, caches=caches, pos_offset=pos_offset)
         if self.config.tie_word_embeddings:
+            # ``lm_head_tied`` is on neither AMP list: it computes in its
+            # inputs' type (f32 from ``ln_f`` under O1)
             return torch.matmul(hidden, self.gpt.wte.weight.t())
         return self.lm_head(hidden)
+
+
+class GPTPretrainingCriterion(nn.Module):
+    """Mean token cross-entropy of the LM logits (``gpt.py:704-727``):
+    ``criterion(logits [B, S, V], labels [B, S], loss_mask=None)``, the
+    mean over every token, or over the tokens ``loss_mask`` marks. Labels
+    equal to -100 contribute 0 (and still count in the plain mean, as in
+    the JAX package)."""
+
+    def __init__(self, config=None):
+        super().__init__()
+        if config is not None and config.tensor_parallel:
+            raise NotImplementedError("the tensor-parallel criterion is not "
+                                      "ported")
+
+    def forward(self, logits, labels, loss_mask=None):
+        b, s, v = logits.shape
+        losses = F.cross_entropy(logits.reshape(b * s, v),
+                                 labels.reshape(b * s), reduction="none")
+        if loss_mask is not None:
+            m = loss_mask.reshape(b * s).float()
+            return (losses * m).sum() / m.sum()
+        return losses.mean()

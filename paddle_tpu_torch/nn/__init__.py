@@ -1,5 +1,6 @@
-"""Neural-network layers of the port (the serving path's subset)."""
+"""Neural-network layers of the port (the serving and training paths'
+subset)."""
 from . import functional
-from .layer import Embedding, LayerNorm, Linear
+from .layer import Dropout, Embedding, LayerNorm, Linear
 
-__all__ = ["Linear", "Embedding", "LayerNorm", "functional"]
+__all__ = ["Linear", "Embedding", "LayerNorm", "Dropout", "functional"]

@@ -1,15 +1,22 @@
-"""Layers of the serving path: Linear, Embedding, LayerNorm.
+"""Layers of the port: Linear, Embedding, LayerNorm, Dropout.
 
 Parameters keep the JAX package's names and layouts so weights carry over
-one to one (``convert.params_from_paddle_tpu``):
+one to one (``convert.params_from_paddle_tpu``), and are trainable
+(``requires_grad=True``); the serving engine runs its rounds under
+``torch.no_grad``.
 
 * :class:`Linear` keeps Paddle's ``[in, out]`` weight layout and computes
   ``x @ W + b`` — no transpose at load time. The product is a plain
   ``torch.addmm``/``torch.matmul``: the JAX package leaves these products
-  to XLA outside any Pallas kernel.
+  to XLA outside any Pallas kernel. Under ``auto_cast`` O1 it computes in
+  the AMP dtype (``linear`` is on the white list).
 * :class:`Embedding` is a row gather of its ``[num, dim]`` table.
-* :class:`LayerNorm` calls the ``layer_norm`` kernel wrapper (Triton on the
-  card, the plain version on the CPU).
+* :class:`LayerNorm` runs :class:`~..ops.kernels.LayerNormFunction`: the
+  ``layer_norm`` kernel wrapper forward (Triton on the card, the plain
+  version on the CPU), the plain gradient backward; in f32 under
+  ``auto_cast`` (``layer_norm`` is on the black list).
+* :class:`Dropout` is upscale-in-train dropout drawing from its own
+  ``torch.Generator``.
 
 Random initialisation (normal(0, 0.02) weights, zero biases, unit norm
 scales) draws from a ``torch.Generator`` on the parameters' device; pass
@@ -20,9 +27,11 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.kernels import layer_norm
+from ..amp import amp_cast
+from ..ops.kernels import LayerNormFunction
+from . import functional as F
 
-__all__ = ["Linear", "Embedding", "LayerNorm", "INIT_STD"]
+__all__ = ["Linear", "Embedding", "LayerNorm", "Dropout", "INIT_STD"]
 
 INIT_STD = 0.02
 
@@ -34,7 +43,7 @@ def _param(shape, device, dtype, generator, fill=None):
             t.normal_(0.0, INIT_STD, generator=generator)
         else:
             t.fill_(fill)
-    return nn.Parameter(t, requires_grad=False)
+    return nn.Parameter(t)
 
 
 class Linear(nn.Module):
@@ -47,9 +56,9 @@ class Linear(nn.Module):
                            fill=0.0) if bias else None
 
     def forward(self, x):
+        x, w, b = amp_cast("linear", x, self.weight, self.bias)
         x2 = x.reshape(-1, x.shape[-1])
-        y = torch.addmm(self.bias, x2, self.weight) if self.bias is not None \
-            else torch.matmul(x2, self.weight)
+        y = torch.addmm(b, x2, w) if b is not None else torch.matmul(x2, w)
         return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
@@ -75,4 +84,18 @@ class LayerNorm(nn.Module):
                            fill=0.0)
 
     def forward(self, x):
-        return layer_norm(x, self.weight, self.bias, self.epsilon)
+        x, w, b = amp_cast("layer_norm", x, self.weight, self.bias)
+        return LayerNormFunction.apply(x, w, b, self.epsilon)
+
+
+class Dropout(nn.Module):
+    """``Dropout(p, generator=None)``: :func:`~.functional.dropout` in
+    training mode, the identity in eval mode."""
+
+    def __init__(self, p=0.5, generator=None):
+        super().__init__()
+        self.p = float(p)
+        self.generator = generator
+
+    def forward(self, x):
+        return F.dropout(x, self.p, self.training, self.generator)

@@ -1,30 +1,48 @@
 """Hand-written Hopper kernels of the port, each beside its plain version.
 
-===========================  =======  =====================================
+===========================  =======  =========================================
 wrapper                      route    replaces (TPU kernel)
-===========================  =======  =====================================
+===========================  =======  =========================================
 ``ragged_paged_attention``   CUDA C++ ``ops/pallas/ragged_attention.py:108``
 ``layer_norm``               Triton   ``ops/pallas/layer_norm.py:39``
-===========================  =======  =====================================
+``flash_fwd``                CUDA C++ ``ops/pallas/flash_attention.py:106``
+``flash_bwd_dq``             CUDA C++ ``ops/pallas/flash_attention.py:262``
+``flash_bwd_dkv``            CUDA C++ ``ops/pallas/flash_attention.py:285``
+``fused_adamw``              CUDA C++ ``ops/pallas/fused_adamw.py:60``
+===========================  =======  =========================================
 
 Each wrapper counts its kernel launches in a plain integer attribute
 (``wrapper.launches``), so a run can show that its main path went through
 the kernel; :func:`launch_counts` / :func:`reset_launch_counts` read and
 zero them all.
 """
-from .layer_norm import layer_norm, layer_norm_reference
+from .flash_attention import (flash_attention_bshd, flash_bwd_dkv,
+                              flash_bwd_dkv_reference, flash_bwd_dq,
+                              flash_bwd_dq_reference, flash_delta, flash_fwd,
+                              flash_fwd_reference)
+from .fused_adamw import fused_adamw, fused_adamw_reference
+from .layer_norm import (LayerNormFunction, layer_norm,
+                         layer_norm_bwd_reference, layer_norm_reference)
 from .ragged_attention import (paged_attention_reference,
                                ragged_paged_attention,
                                ragged_paged_attention_reference,
                                ragged_row_index)
 
-__all__ = ["layer_norm", "layer_norm_reference", "ragged_paged_attention",
+__all__ = ["layer_norm", "layer_norm_reference", "layer_norm_bwd_reference",
+           "LayerNormFunction", "ragged_paged_attention",
            "ragged_paged_attention_reference", "paged_attention_reference",
-           "ragged_row_index", "KERNELS", "launch_counts",
-           "reset_launch_counts"]
+           "ragged_row_index", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+           "flash_fwd_reference", "flash_bwd_dq_reference",
+           "flash_bwd_dkv_reference", "flash_delta", "flash_attention_bshd",
+           "fused_adamw", "fused_adamw_reference", "KERNELS",
+           "launch_counts", "reset_launch_counts"]
 
 KERNELS = {"ragged_paged_attention": ragged_paged_attention,
-           "layer_norm": layer_norm}
+           "layer_norm": layer_norm,
+           "flash_fwd": flash_fwd,
+           "flash_bwd_dq": flash_bwd_dq,
+           "flash_bwd_dkv": flash_bwd_dkv,
+           "fused_adamw": fused_adamw}
 
 
 def launch_counts():

@@ -1,4 +1,5 @@
-"""Row LayerNorm forward — a Triton kernel and its plain PyTorch version.
+"""Row LayerNorm — a Triton forward kernel, its plain PyTorch version and
+the differentiable layer over both.
 
 Replaces: ``paddle_tpu/ops/pallas/layer_norm.py:39`` (``_fwd_pallas``, body
 ``_kernel`` at :25): per row, mean and biased variance in f32,
@@ -15,12 +16,19 @@ rows per program for small H.
 
 ``triton`` is imported inside the launching function: the CPU, where the
 tests run, has no Triton, and a CPU tensor takes the plain version.
+
+:class:`LayerNormFunction` makes it differentiable, as the JAX kernel's
+``custom_vjp`` does (``ops/pallas/layer_norm.py:85-109``): the forward is
+the wrapper (the kernel on the card), the backward is
+:func:`layer_norm_bwd_reference`, the plain port of ``_bwd_math``
+(:66-82) — the JAX backward is jnp, not a Pallas kernel.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["layer_norm_reference", "layer_norm"]
+__all__ = ["layer_norm_reference", "layer_norm", "layer_norm_bwd_reference",
+           "LayerNormFunction"]
 
 _kernel_fn = None
 
@@ -109,3 +117,39 @@ def layer_norm(x, weight=None, bias=None, eps=1e-5):
 
 
 layer_norm.launches = 0
+
+
+def layer_norm_bwd_reference(x, weight, ct, eps=1e-5):
+    """The LayerNorm gradient over the last axis (``_bwd_math``): ``x`` the
+    forward input, ``ct`` the output's cotangent -> ``(dx, dw, db)``, with
+    dx in x's type and dw, db f32 sums over every leading axis (the caller
+    casts them to the parameters' types)."""
+    xf, ctf = x.float(), ct.float()
+    xc = xf - xf.mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
+    xhat = xc * inv
+    ctw = ctf * weight.float() if weight is not None else ctf
+    m1 = ctw.mean(dim=-1, keepdim=True)
+    m2 = (ctw * xhat).mean(dim=-1, keepdim=True)
+    dx = (inv * (ctw - m1 - xhat * m2)).to(x.dtype)
+    axes = tuple(range(x.dim() - 1))
+    return dx, (ctf * xhat).sum(dim=axes), ctf.sum(dim=axes)
+
+
+class LayerNormFunction(torch.autograd.Function):
+    """``LayerNormFunction.apply(x, weight, bias, eps)``: the forward is
+    :func:`layer_norm` (the Triton kernel on a CUDA tensor), the backward
+    :func:`layer_norm_bwd_reference`."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.eps = eps
+        return layer_norm(x, weight, bias, eps)
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, weight, bias = ctx.saved_tensors
+        dx, dw, db = layer_norm_bwd_reference(x, weight, ct, ctx.eps)
+        return (dx, None if weight is None else dw.to(weight.dtype),
+                None if bias is None else db.to(bias.dtype), None)

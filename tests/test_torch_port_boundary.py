@@ -65,11 +65,11 @@ def test_every_port_module_imports_without_cuda():
 def _tiny_weights():
     cfg = paddle_tpu_torch.gpt_tiny()
     m = paddle_tpu_torch.GPTForCausalLM(cfg, device="cpu")
-    return {n: p.numpy() for n, p in m.named_parameters()}, cfg
+    return paddle_tpu_torch.params_to_numpy(m), cfg
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "model", "convert",
-                                   "kv_cache"])
+                                   "kv_cache", "train_model"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry):
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device is usable")
@@ -81,6 +81,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry):
         "convert": lambda: paddle_tpu_torch.params_from_paddle_tpu(weights,
                                                                    cfg),
         "kv_cache": lambda: PagedKVCache(2, 8, 4, 4, 16),
+        # the training entry point is the same model, built for training
+        "train_model": lambda: paddle_tpu_torch.GPTForCausalLM(
+            paddle_tpu_torch.gpt_1p3b(dropout=0.0)).train(),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
@@ -111,6 +114,18 @@ def test_wrappers_on_a_non_cpu_tensor_raise_instead_of_falling_back():
         K.ragged_paged_attention(q, pool, pool, *meta, bt)
     with pytest.raises(ValueError, match="cuda"):
         K.layer_norm(torch.empty(3, 64, device="meta"))
+    x = torch.empty(1, 8, 2, 64, device="meta")
+    rows = torch.empty(1, 2, 8, device="meta")
+    with pytest.raises(ValueError, match="cuda"):
+        K.flash_fwd(x, x, x, 0.125, True)
+    with pytest.raises(ValueError, match="cuda"):
+        K.flash_bwd_dq(x, x, x, x, rows, rows, 0.125, True)
+    with pytest.raises(ValueError, match="cuda"):
+        K.flash_bwd_dkv(x, x, x, x, rows, rows, 0.125, True)
+    w = torch.empty(4, device="meta")
+    with pytest.raises(ValueError, match="cuda"):
+        K.fused_adamw([w], [w], [w], [w], [1e-3], 0.9, 0.999, 1e-8, [0.0],
+                      [1.0], [1.0])
     assert K.launch_counts() == before
 
 
@@ -125,7 +140,8 @@ def test_cuda_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all(["ragged_paged_attention"])
-    assert _build.sources() == ["ragged_paged_attention"]
+    assert _build.sources() == ["flash_attention", "fused_adamw",
+                                "ragged_paged_attention"]
 
 
 def test_triton_route_raises_without_triton():
@@ -138,12 +154,17 @@ def test_triton_route_raises_without_triton():
         ln_mod._triton_kernel()
 
 
-def test_kernel_sources_carry_their_note():
+@pytest.mark.parametrize("source,replaces,bound", [
+    ("csrc/ragged_paged_attention.cu", ["ragged_attention.py:108"], "bytes"),
+    ("layer_norm.py", ["layer_norm.py:39"], "bytes"),
+    ("csrc/flash_attention.cu", ["flash_attention.py:106",
+                                 "flash_attention.py:262",
+                                 "flash_attention.py:285"], "operations"),
+    ("csrc/fused_adamw.cu", ["fused_adamw.py:60"], "bytes"),
+])
+def test_kernel_sources_carry_their_note(source, replaces, bound):
     """Each kernel names the TPU kernel it replaces and what bounds it."""
-    cu = open(os.path.join(PKG, "ops", "kernels", "csrc",
-                           "ragged_paged_attention.cu")).read()
-    assert "paddle_tpu/ops/pallas/ragged_attention.py:108" in cu
-    assert "Bound: bytes" in cu
-    lnsrc = open(ln_mod.__file__).read()
-    assert "paddle_tpu/ops/pallas/layer_norm.py:39" in lnsrc
-    assert "Bound: bytes" in lnsrc
+    src = open(os.path.join(PKG, "ops", "kernels", source)).read()
+    for r in replaces:
+        assert f"paddle_tpu/ops/pallas/{r}" in src
+    assert f"Bound: {bound}" in src

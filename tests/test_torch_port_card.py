@@ -7,6 +7,8 @@ GPU machine without them::
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_port_card.py
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -60,3 +62,120 @@ def test_kernels_match_plain_on_card(dtype, kvh):
     torch.testing.assert_close(K.layer_norm(h, w, b).float(),
                                K.layer_norm_reference(h, w, b).float(),
                                rtol=tol, atol=tol)
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+
+
+def _bhsd(x):
+    b, s, h, d = x.shape
+    return x.transpose(1, 2).reshape(b * h, s, d)
+
+
+def _bshd(x, b, h):
+    return x.reshape(b, h, -1, x.shape[-1]).transpose(1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk,d", [(200, 200, 128), (70, 45, 64),
+                                     (33, 97, 16)])
+def test_flash_kernels_match_plain_on_card(dtype, causal, sq, sk, d):
+    """Forward, dQ and dK/dV kernels against their plain versions, S not a
+    multiple of any tile (f32: atol 1e-4; bf16: rtol/atol 2e-2)."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    tol = 1e-4 if dt == torch.float32 else 2e-2
+    g = torch.Generator(device="cuda").manual_seed(sq + sk + d)
+    b, h = 2, 3
+    q, do = (torch.randn(b, sq, h, d, device="cuda", generator=g).to(dt)
+             for _ in range(2))
+    k, v = (torch.randn(b, sk, h, d, device="cuda", generator=g).to(dt)
+            for _ in range(2))
+    scale = 1.0 / math.sqrt(d)
+    before = K.launch_counts()
+    o, lse = K.flash_fwd(q, k, v, scale, causal)
+    ro, rlse = K.flash_fwd_reference(_bhsd(q), _bhsd(k), _bhsd(v), scale,
+                                     causal)
+    delta = K.flash_delta(_bshd(ro, b, h), do)
+    rlse = rlse.reshape(b, h, sq)
+    dq = K.flash_bwd_dq(q, k, v, do, rlse, delta, scale, causal)
+    dk, dv = K.flash_bwd_dkv(q, k, v, do, rlse, delta, scale, causal)
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert after[name] == before[name] + 1
+    args = [_bhsd(x) for x in (q, k, v, do)] + [
+        rlse.reshape(b * h, sq), delta.reshape(b * h, sq), scale, causal]
+    rq = K.flash_bwd_dq_reference(*args)
+    rk, rv = K.flash_bwd_dkv_reference(*args)
+    torch.testing.assert_close(lse, rlse, rtol=1e-5, atol=1e-5)
+    for got, want in ((o, ro), (dq, rq), (dk, rk), (dv, rv)):
+        torch.testing.assert_close(got.float(), _bshd(want, b, h).float(),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bshd_gradients_on_card_through_strided_views():
+    """The autograd Function on q/k/v views of one fused [B, S, 3*H*D]
+    tensor (the GPT's layout) against autograd through the plain chain,
+    f32."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    b, s, h, d = 2, 130, 4, 32
+    qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=g,
+                      requires_grad=True)
+    ct = torch.randn(b, s, h, d, device="cuda", generator=g)
+
+    def split(t):
+        return [t[..., i * h * d:(i + 1) * h * d].reshape(b, s, h, d)
+                for i in range(3)]
+
+    got = torch.autograd.grad((K.flash_attention_bshd(*split(qkv))
+                               * ct).sum(), qkv)[0]
+    q, k, v = split(qkv)
+    sc = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(d)
+    causal = torch.ones(s, s, dtype=torch.bool, device="cuda").tril()
+    o = torch.einsum("bhqk,bkhd->bqhd", sc.masked_fill(~causal, -1e30)
+                     .softmax(-1), v)
+    want = torch.autograd.grad((o * ct).sum(), qkv)[0]
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_fused_adamw_kernel_matches_plain_on_card():
+    """One multi-tensor launch over f32 tensors of mixed size and one bf16
+    tensor, each with its own lr/wd/bias corrections, against the plain
+    version tensor by tensor (f32 w, m, v within 1e-6; bf16 w within one
+    bf16 rounding)."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    shapes = [(1000, 33), (5,), (70000,), (64, 64)]
+    ws = [torch.randn(s, device="cuda", generator=g) for s in shapes]
+    ws.append(torch.randn(300, device="cuda", generator=g).bfloat16())
+    gs = [torch.randn(w.shape, device="cuda", generator=g) for w in ws]
+    ms = [0.1 * torch.randn(w.shape, device="cuda", generator=g)
+          for w in ws]
+    vs = [torch.rand(w.shape, device="cuda", generator=g) for w in ws]
+    n = len(ws)
+    lrs = [1e-3 * (i + 1) for i in range(n)]
+    wds = [0.1 * (i % 2) for i in range(n)]
+    bc1 = [1.0 / (1 - 0.9 ** (i + 1)) for i in range(n)]
+    bc2 = [1.0 / (1 - 0.95 ** (i + 1)) for i in range(n)]
+    want = [K.fused_adamw_reference(w, gr, m, v, lr, 0.9, 0.95, 1e-8, wd,
+                                    c1, c2)
+            for w, gr, m, v, lr, wd, c1, c2 in zip(ws, gs, ms, vs, lrs, wds,
+                                                   bc1, bc2)]
+    before = K.fused_adamw.launches
+    K.fused_adamw(ws, gs, ms, vs, lrs, 0.9, 0.95, 1e-8, wds, bc1, bc2)
+    torch.cuda.synchronize()
+    assert K.fused_adamw.launches == before + 1
+    for (w2, m2, v2), w, m, v in zip(want, ws, ms, vs):
+        wtol = 1e-6 if w.dtype == torch.float32 else 8e-3
+        torch.testing.assert_close(w.float(), w2.float(), rtol=wtol,
+                                   atol=wtol)
+        torch.testing.assert_close(m, m2, rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(v, v2, rtol=1e-6, atol=1e-6)
