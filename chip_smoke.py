@@ -69,8 +69,35 @@ exit code:
    ``library_ms`` (``F.scaled_dot_product_attention`` forward,
    its backward for the two backward kernels, ``torch._fused_adamw_``;
    timed here only, never called by the port).
+10. **bucketed parity** — once the training model is freed: the paged
+    decode kernel against its plain version (H 16, D 128, page 16, MHA
+    and GQA KVH 4, f32 within 1e-4, bf16 within 2e-2; contexts crossing
+    pages and the full ``max_pages * page``, tables padded with -1, a
+    context-0 row that must be exactly zero), RMSNorm on ``[T, 2048]``
+    (f32 and bf16, with and without bias); then a 2-layer f32
+    ``gpt_1p3b(use_rms_norm=True)`` served through
+    ``ServingEngine(ragged=False)``, unchunked (a prefix hit, a prompt in
+    the 16-token seq bucket) and with ``prefill_chunk=16``, against the
+    dense plain forward (greedy tokens equal, logits within 1e-3); the
+    flash kernels at the smallest seq bucket, S = 16.
+11. **bucketed serve** — ``gpt_1p3b(use_rms_norm=True)`` bf16 (24 layers,
+    random weights from seed 0) on ``ServingEngine(ragged=False)``: 16
+    slots, page 16, 2048 pages, unchunked, so misses take the dense
+    prefill (the flash forward kernel) and prefix hits the chunk step. A
+    short ``generate`` warms the shapes, the counters are zeroed, then
+    phase 3's 36-request Poisson load runs; launches must equal exactly 24
+    paged attention per decode step, 49 RMSNorm per forward (decode steps,
+    dense prefills and chunk steps) and 24 flash forward per dense
+    prefill. Prints tokens/s, TTFT/ITL p50/p99, rounds and peak KV
+    occupancy, and a steady decode step under ``torch.profiler``.
+12. **bucketed timing** — paged attention at the serve's widest decode
+    step on the served layer-0 pools (f32-upcast within 1e-4, bf16 within
+    4e-3 against plain) and RMSNorm at [rows of the largest dense prefill,
+    2048] bf16, each beside its bound, its plain version and, for
+    RMSNorm, ``torch.nn.functional.rms_norm`` as ``library_ms``.
 
-The lines before the last carry the ``{"kernels": [...]}`` JSON and the
+The lines before the last carry the ``{"kernels": [...]}`` JSON (all eight
+kernels) and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the repository beside it, the script exits
 non-zero and prints no result.
@@ -189,9 +216,17 @@ def mixed_launch(H, KVH, D, dtype, page=16, num_pages=96, max_pages=64,
 def dense_reference_logits(model, ids):
     """Plain causal forward of the port's GPT over ``ids`` (a list of S
     tokens, or a [B, S] tensor; no cache, no kernels, differentiable in
-    the model's parameters): -> f32 logits [S, V] or [B, S, V]."""
-    from paddle_tpu_torch.ops.kernels import layer_norm_reference as ln
+    the model's parameters; LayerNorm or RMSNorm as the config says): ->
+    f32 logits [S, V] or [B, S, V]."""
+    from paddle_tpu_torch.ops.kernels import (layer_norm_reference,
+                                              rms_norm_reference)
     cfg, g = model.config, model.gpt
+
+    def ln(x, w, b, eps):
+        if cfg.use_rms_norm:
+            return rms_norm_reference(x, w, None, eps)
+        return layer_norm_reference(x, w, b, eps)
+
     H, KVH = cfg.num_heads, cfg.num_kv_heads
     D = cfg.hidden_size // H
     eps = cfg.layer_norm_epsilon
@@ -204,7 +239,7 @@ def dense_reference_logits(model, ids):
     causal = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
     for blk in g.h:
         a = blk.attn
-        h = ln(x, blk.ln_1.weight, blk.ln_1.bias, eps)
+        h = ln(x, blk.ln_1.weight, getattr(blk.ln_1, "bias", None), eps)
         qkv = h @ a.qkv_proj.weight + a.qkv_proj.bias
         q = qkv[..., :H * D].reshape(B, S, H, D)
         k = qkv[..., H * D:(H + KVH) * D].reshape(B, S, KVH, D)
@@ -215,11 +250,11 @@ def dense_reference_logits(model, ids):
         p = torch.softmax(s.masked_fill(~causal, -1e30), dim=-1)
         o = torch.einsum("bhst,bthd->bshd", p, v).reshape(B, S, H * D)
         x = x + o @ a.out_proj.weight + a.out_proj.bias
-        h = ln(x, blk.ln_2.weight, blk.ln_2.bias, eps)
+        h = ln(x, blk.ln_2.weight, getattr(blk.ln_2, "bias", None), eps)
         f = torch.nn.functional.gelu(h @ blk.mlp.fc1.weight
                                      + blk.mlp.fc1.bias, approximate="tanh")
         x = x + f @ blk.mlp.fc2.weight + blk.mlp.fc2.bias
-    x = ln(x, g.ln_f.weight, g.ln_f.bias, eps)
+    x = ln(x, g.ln_f.weight, getattr(g.ln_f, "bias", None), eps)
     logits = (x @ g.wte.weight.t()).float()
     return logits[0] if one_row else logits
 
@@ -250,8 +285,9 @@ def bound(nbytes, flops, flops_per_s):
 
 
 def profile_decode_rounds(eng, vocab, n_rounds=20):
-    """Where a steady decode round's time goes: 16 requests with 200-token
-    prompts are prefilled, then ``n_rounds`` rounds in which every slot
+    """Where a steady decode round's time goes (either engine path): 16
+    requests with 200-token prompts are prefilled, then ``n_rounds``
+    rounds in which every slot
     decodes are timed on the host clock (no profiler), and again under
     ``torch.profiler``. -> per-round host ms, device busy ms (union of the
     device intervals), device time by kernel family and the top kernels."""
@@ -279,7 +315,9 @@ def profile_decode_rounds(eng, vocab, n_rounds=20):
         spans.append((e.time_range.start, e.time_range.end))
         name = e.name.lower()
         fam = ("ragged_paged_attention" if "ragged_paged" in name else
+               "paged_attention" if "paged_attention" in name else
                "layer_norm (triton)" if "layer_norm_fwd" in name else
+               "rms_norm (triton)" if "rms_norm_fwd" in name else
                "matmul (cuBLAS)" if any(k in name for k in (
                    "gemm", "gemv", "nvjet", "cutlass", "xmma")) else
                "copies" if "memcpy" in name or "memset" in name else
@@ -547,9 +585,10 @@ def train_slice(pt, K, steps=10, warmup=2, B=8, S=1024):
     # layer, one AdamW launch (the multi-tensor kernel over all tensors),
     # two LayerNorms per layer plus ln_f (forward kernels; the backward
     # is plain torch); no ragged attention
-    want = {"ragged_paged_attention": 0, "layer_norm": steps * (2 * L + 1),
-            "flash_fwd": steps * L, "flash_bwd_dq": steps * L,
-            "flash_bwd_dkv": steps * L, "fused_adamw": steps}
+    want = {name: 0 for name in launches}
+    want.update({"layer_norm": steps * (2 * L + 1), "flash_fwd": steps * L,
+                 "flash_bwd_dq": steps * L, "flash_bwd_dkv": steps * L,
+                 "fused_adamw": steps})
     log(f"  launches over {steps} timed steps: {launches}")
     if launches != want:
         fail(f"train: kernel launches {launches} != {want}")
@@ -738,6 +777,310 @@ def train_timing(K, model, opt, launches):
         "replaces": "paddle_tpu/ops/pallas/fused_adamw.py:60",
         "launches": launches["fused_adamw"],
         "max_abs_err": max(adam_err.values()), "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib_ms})
+    return entries
+
+
+# --------------------------------------------------------- bucketed phases
+def paged_decode_inputs(H, KVH, D, dtype, page=16, num_pages=96,
+                        max_pages=64, seed=0):
+    """Six decode rows: contexts 300 (crosses 19 pages), 32 (ends on a
+    page edge), the full ``max_pages * page``, 0 (must come out exactly
+    zero), 1 and 17; every table padded with -1 past its context."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ctx = [300, 32, max_pages * page, 0, 1, 17]
+    B = len(ctx)
+    q = torch.randn(B, H, D, device="cuda", generator=g).to(dtype)
+    k, v = (torch.randn(num_pages, page, KVH, D, device="cuda",
+                        generator=g).to(dtype) for _ in range(2))
+    bt = torch.full((B, max_pages), -1, dtype=torch.int32, device="cuda")
+    for r, c in enumerate(ctx):
+        n = -(-c // page)
+        bt[r, :n] = (torch.randperm(num_pages - 1, device="cuda",
+                                    generator=g) + 1)[:n]
+    return (q, k, v, bt, torch.tensor(ctx, dtype=torch.int32,
+                                      device="cuda"))
+
+
+def bucketed_kernel_parity(K):
+    """The paged decode kernel and the RMSNorm kernel against their plain
+    versions: paged attention at H 16, D 128, page 16, MHA and GQA KVH 4,
+    f32 within 1e-4 and bf16 within 2e-2; RMSNorm on [T, 2048], f32 within
+    1e-4 and bf16 within 2e-2, with and without bias. Then the flash
+    kernels at the dense prefill's smallest seq bucket, S = 16, on views
+    of one fused projection, with phase 6's limits."""
+    log("[bucketed parity] paged_attention vs plain (H=16, D=128, page 16)")
+    for kvh in (16, 4):
+        for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            args = paged_decode_inputs(16, kvh, 128, dt, seed=kvh)
+            got = K.paged_attention(*args)
+            torch.cuda.synchronize()
+            check_close(f"paged KVH={kvh} {str(dt)[6:]}", got,
+                        K.paged_attention_reference(*args), tol, tol)
+            if not bool((got[3] == 0).all()):
+                fail("paged_attention: the context-0 row is not zero")
+    log("[bucketed parity] rms_norm vs plain ([T, 2048])")
+    t0 = time.perf_counter()
+    for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        g = torch.Generator(device="cuda").manual_seed(4)
+        x = (torch.randn(300, 2048, device="cuda", generator=g) * 2
+             + 1).to(dt)
+        w = (1 + 0.1 * torch.randn(2048, device="cuda", generator=g)).to(dt)
+        b = (0.1 * torch.randn(2048, device="cuda", generator=g)).to(dt)
+        for bias in (None, b):
+            got = K.rms_norm(x, w, bias, 1e-5)
+            torch.cuda.synchronize()
+            check_close(f"rms_norm {str(dt)[6:]} "
+                        f"{'with' if bias is not None else 'without'} bias",
+                        got, K.rms_norm_reference(x, w, bias, 1e-5), tol,
+                        tol)
+    log(f"  (Triton compile + first launches {time.perf_counter() - t0:.2f}"
+        " s)")
+    log("[bucketed parity] flash kernels at the smallest seq bucket "
+        "[4, 16, 16, 128] causal")
+    for dt, tol, norm_tol in ((torch.float32, 1e-4, None),
+                              (torch.bfloat16, FLASH_BF16_TOL,
+                               FLASH_BF16_NORM_TOL)):
+        _, q, k, v, do = flash_inputs(4, 16, 16, 128, dt, seed=16)
+        check_flash(K, f"{str(dt)[6:]} S=16 causal", q, k, v, do,
+                    1.0 / math.sqrt(128), True, tol, norm_tol)
+
+
+def bucketed_model_parity(pt):
+    """A 2-layer f32 ``gpt_1p3b(use_rms_norm=True)`` served through the
+    bucketed fallback, unchunked (a dense prefill, then a prefix hit whose
+    tail takes the chunk step, then an 11-token prompt in the 16-token
+    seq bucket) and with ``prefill_chunk=16``, held against
+    :func:`dense_reference_logits`: greedy tokens equal, every decode
+    step's logits within 1e-3."""
+    cfg = pt.gpt_1p3b(use_rms_norm=True, dropout=0.0)
+    cfg.num_layers = 2
+    small = pt.GPTForCausalLM(cfg, dtype=torch.float32, seed=SEED + 3)
+    rng = np.random.RandomState(SEED + 3)
+    head = rng.randint(1, cfg.vocab_size, size=37).tolist()
+    prompts = [head, head[:32] + rng.randint(1, cfg.vocab_size,
+                                             size=9).tolist(),
+               rng.randint(1, cfg.vocab_size, size=11).tolist()]
+    for chunk in (None, 16):
+        eng = pt.ServingEngine(small, page_size=16, num_pages=64,
+                               max_slots=4, prefill_chunk=chunk,
+                               ragged=False)
+        worst = 0.0
+        for prompt in prompts:
+            eng.capture_logits = []
+            new = eng.generate(prompt, max_new_tokens=8)
+            with torch.no_grad():
+                dense = dense_reference_logits(small, prompt + new)
+            want = dense[len(prompt) - 1:].argmax(-1).tolist()
+            if new != want[:8]:
+                fail(f"bucketed engine (chunk {chunk}) tokens {new} != "
+                     f"dense greedy {want[:8]}")
+            for i, (slot_map, cap) in enumerate(eng.capture_logits):
+                slot = next(iter(slot_map))
+                err = (torch.from_numpy(cap[slot])
+                       - dense[len(prompt) + i].cpu()).abs()
+                worst = max(worst, float(err.max()))
+                if not bool((err <= 1e-3 + 1e-3 * dense[len(prompt) + i]
+                             .cpu().abs()).all()):
+                    fail(f"bucketed engine (chunk {chunk}) decode step {i} "
+                         f"logits off by {float(err.max()):.3e}")
+        st = eng.stats()
+        launched = st["bucketed_launches"]
+        if st["prefix_hits"] < 1 or launched["chunk"] < 1 or (
+                chunk is None and launched["prefill"] < 1):
+            fail(f"bucketed parity (chunk {chunk}): the paths did not run "
+                 f"({launched}, {st['prefix_hits']} prefix hits)")
+        log(f"  prefill_chunk={chunk}: greedy tokens equal for the three "
+            f"prompts (prefix hits {st['prefix_hits']}, prefill shapes "
+            f"{st['prefill_shapes']}, launches "
+            f"{launched}); max decode logit err {worst:.3e} (tolerance "
+            f"1e-3 + 1e-3 x |plain|)")
+    del eng, small
+
+
+def bucketed_serve(pt, K):
+    """``gpt_1p3b(use_rms_norm=True)`` bf16 (24 layers, hidden 2048, random
+    weights from seed 0) on ``ServingEngine(ragged=False)``: 16 slots,
+    page 16, 2048 pages, unchunked. A short ``generate`` warms the launch
+    shapes, the counters are zeroed, then the phase-3 load runs. -> the
+    engine, the model, the widest decode round's and the largest dense
+    prefill's inputs, and the counts."""
+    from paddle_tpu_torch.serving import (make_mixed_length_prompts,
+                                          make_shared_prefix_prompts,
+                                          run_poisson_load)
+    cfg = pt.gpt_1p3b(use_rms_norm=True, dropout=0.0)
+    t0 = time.perf_counter()
+    model = pt.GPTForCausalLM(cfg, dtype=torch.bfloat16, seed=SEED)
+    torch.cuda.synchronize()
+    log(f"[bucketed serve] gpt_1p3b(use_rms_norm=True) bf16 built in "
+        f"{time.perf_counter() - t0:.2f} s "
+        f"({sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params)")
+    eng = pt.ServingEngine(model, page_size=16, num_pages=2048,
+                           max_slots=16, prefill_chunk=None, ragged=False)
+    rec = {"decode": None, "prefill": None,
+           "n": {"decode": 0, "prefill": 0, "chunk": 0}}
+    fns = {name: getattr(eng, f"_{name}_fn")
+           for name in ("decode", "prefill", "chunk")}
+
+    def recording(name):
+        def run(*args):
+            rec["n"][name] += 1
+            if name == "decode":
+                rows = int((args[2][:, 0] > 0).sum())
+                if rec["decode"] is None or rows > rec["decode"][0]:
+                    rec["decode"] = (rows, args)
+            elif name == "prefill":
+                cells = args[0].size
+                if rec["prefill"] is None or cells > rec["prefill"][0]:
+                    rec["prefill"] = (cells, args[0].shape)
+            return fns[name](*args)
+        return run
+
+    for name in fns:
+        setattr(eng, f"_{name}_fn", recording(name))
+    mixed, news = make_mixed_length_prompts(
+        32, (16, 512), cfg.vocab_size, decode_heavy=0.5,
+        max_new_tokens=(32, 32), seed=SEED)
+    shared = make_shared_prefix_prompts(4, (16, 64), cfg.vocab_size, 128,
+                                        seed=SEED + 1)
+    prompts = [shared[0]] + mixed + shared[1:]
+    news = [32] + news + [32] * 3
+    t0 = time.perf_counter()
+    eng.generate(mixed[0][:20], max_new_tokens=2)
+    torch.cuda.synchronize()
+    log(f"  warm-up generate (Triton compile, first launches) "
+        f"{time.perf_counter() - t0:.2f} s")
+    rec["n"] = {"decode": 0, "prefill": 0, "chunk": 0}
+    before = eng.stats()
+    K.reset_launch_counts()
+    eng.start()
+    try:
+        res = run_poisson_load(eng, qps=16.0, prompts=prompts,
+                               max_new_tokens=news, seed=SEED, timeout=600.0)
+    finally:
+        eng.stop()
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    st = eng.stats()
+    n = rec["n"]
+    log(f"  {json.dumps(res)}")
+    log(f"  rounds={st['steps'] - before['steps']} decode_steps="
+        f"{n['decode']} dense_prefills={n['prefill']} chunk_steps="
+        f"{n['chunk']} prefill_shapes={st['prefill_shapes']} chunk_shapes="
+        f"{st['chunk_shapes']} kv_occupancy_peak_pct="
+        f"{st['kv_occupancy_peak_pct']} prefix_hits="
+        f"{st['prefix_hits'] - before['prefix_hits']} prefix_hit_tokens="
+        f"{st['prefix_hit_tokens'] - before['prefix_hit_tokens']} "
+        f"evictions={st['evictions']}")
+    log(f"  launches during the bucketed serve: {launches}")
+    if res["requests_ok"] != len(prompts) or res["requests_failed"]:
+        fail(f"bucketed serve: {res['requests_failed']} request(s) failed")
+    if res["tokens"] != sum(news):
+        fail(f"bucketed serve: {res['tokens']} tokens generated, "
+             f"{sum(news)} asked")
+    if st["prefix_hits"] - before["prefix_hits"] < 1:
+        fail("bucketed serve: no prefix-cache hit ran")
+    counted = {k: st["bucketed_launches"][k] - before["bucketed_launches"][k]
+               for k in n}
+    if counted != n:
+        fail(f"bucketed serve: engine counted {counted}, the recorder {n}")
+    # every decode step runs each layer's paged attention once; every
+    # forward (decode, dense prefill, chunk) runs two RMSNorms per layer
+    # plus ln_f; every dense prefill runs each layer's flash forward
+    L = cfg.num_layers
+    want = {name: 0 for name in launches}
+    want.update({"paged_attention": n["decode"] * L,
+                 "rms_norm": (n["decode"] + n["prefill"] + n["chunk"])
+                 * (2 * L + 1),
+                 "flash_fwd": n["prefill"] * L})
+    if n["decode"] <= 0 or n["prefill"] <= 0 or n["chunk"] <= 0 \
+            or launches != want:
+        fail(f"bucketed serve: kernel launches {launches} != {want} "
+             f"expected from {n}")
+    eng.capture_logits = []
+    check = eng.generate(prompts[1][:64], max_new_tokens=4)
+    cap = eng.capture_logits[-1][1]
+    if cap.shape != (16, cfg.vocab_size) or not np.isfinite(cap).all() \
+            or not all(0 <= t < cfg.vocab_size for t in check):
+        fail("bucketed serve: decode logits not finite / of the wrong shape")
+    log(f"  decode logits finite, shape {cap.shape}")
+    for name in fns:
+        setattr(eng, f"_{name}_fn", fns[name])
+    return eng, model, rec, launches
+
+
+def bucketed_timing(K, eng, model, rec, launches):
+    """Both new kernels at the bucketed serve's shapes: paged attention at
+    its widest decode step on the served layer-0 pools (f32-upcast within
+    1e-4, bf16 within 4e-3 against plain), RMSNorm at [rows of the largest
+    dense prefill, 2048] bf16 with the served ln_1 weight; each timed
+    beside its bound, its plain version and, for RMSNorm,
+    ``torch.nn.functional.rms_norm`` (timed here only). -> the kernels'
+    JSON entries."""
+    cfg = model.config
+    H, KVH, D, page = cfg.num_heads, cfg.num_kv_heads, 128, 16
+    rows, (tokens, positions, bt) = rec["decode"]
+    B = tokens.shape[0]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q = torch.randn(B, H, D, device="cuda", generator=g).to(torch.bfloat16)
+    bt_d = torch.from_numpy(bt.astype(np.int32)).cuda()
+    ctx = torch.from_numpy((positions + 1).astype(np.int32)).cuda()
+    args = (q, eng.kv.k[0], eng.kv.v[0], bt_d, ctx)
+    args32 = (q.float(), eng.kv.k[0].float(), eng.kv.v[0].float(), bt_d,
+              ctx)
+    check_close(f"paged f32 at the widest decode step ({rows} rows)",
+                K.paged_attention(*args32),
+                K.paged_attention_reference(*args32), 1e-4, 1e-4)
+    del args32
+    err = check_close(f"paged bf16 at the widest decode step ({rows} rows)",
+                      K.paged_attention(*args),
+                      K.paged_attention_reference(*args), 4e-3, 4e-3)
+    ms, wall, src = time_ms(lambda: K.paged_attention(*args))
+    plain_ms, _, _ = time_ms(lambda: K.paged_attention_reference(*args),
+                             iters=5)
+    ctx_np = positions + 1
+    nbytes, flops, _ = attention_work(np.arange(B), np.ones(B, np.int64),
+                                      ctx_np, bt, H, KVH, D, page, 2)
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+    log(f"[bucketed timing] paged_attention widest decode step: B={B} "
+        f"rows={rows} contexts {int(ctx_np.min())}-{int(ctx_np.max())} "
+        f"kernel {ms:.4f} ms ({src}; {wall:.4f} ms per call with launch) "
+        f"plain {plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}: "
+        f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP)")
+    entries = [{
+        "name": "paged_attention", "route": "cuda",
+        "source": "paddle_tpu_torch/ops/kernels/csrc/paged_attention.cu",
+        "replaces": "paddle_tpu/ops/pallas/paged_attention.py:175",
+        "launches": launches["paged_attention"], "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None}]
+    del args, q
+    _, (nb, sb) = rec["prefill"]
+    R = nb * sb
+    eps = cfg.layer_norm_epsilon
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn(R, 2048, device="cuda", generator=g).to(torch.bfloat16)
+    w = model.gpt.h[0].ln_1.weight.detach()
+    err = check_close(f"rms_norm at [{R}, 2048] bf16", K.rms_norm(x, w, None,
+                                                                  eps),
+                      K.rms_norm_reference(x, w, None, eps), 2e-2, 2e-2)
+    ms, wall, src = time_ms(lambda: K.rms_norm(x, w, None, eps))
+    plain_ms, _, _ = time_ms(lambda: K.rms_norm_reference(x, w, None, eps))
+    lib_ms, lib_wall, _ = time_ms(lambda: torch.nn.functional.rms_norm(
+        x, (2048,), w, eps))
+    b_ms, b_by = bound(2 * x.numel() * 2 + 2048 * 2, 4 * x.numel(),
+                       F32_FLOPS_PER_S)
+    log(f"[bucketed timing] rms_norm [{R}, 2048] bf16 (the largest dense "
+        f"prefill, [{nb}, {sb}]): kernel {ms:.4f} ms ({src}; {wall:.4f} ms "
+        f"per call with launch) plain {plain_ms:.4f} ms F.rms_norm "
+        f"{lib_ms:.4f} ms ({lib_wall:.4f} ms per call) bound {b_ms:.4f} ms "
+        f"({b_by})")
+    entries.append({
+        "name": "rms_norm", "route": "triton",
+        "source": "paddle_tpu_torch/ops/kernels/rms_norm.py",
+        "replaces": "paddle_tpu/ops/pallas/rms_norm.py:39",
+        "launches": launches["rms_norm"], "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": lib_ms})
     return entries
@@ -1038,6 +1381,36 @@ def main():
     log("[train timing] the new kernels at the slice's shapes, held "
         "against their plain versions, then timed")
     kernels += train_timing(K, t_model, t_opt, t_launches)
+    del t_model, t_opt, t_step
+    torch.cuda.empty_cache()
+
+    # ---------------------------------------- phase 10: bucketed parity
+    bucketed_kernel_parity(K)
+    log("[bucketed parity] 2-layer f32 gpt_1p3b(use_rms_norm=True) through "
+        "ServingEngine(ragged=False) vs dense plain forward")
+    bucketed_model_parity(pt)
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------ phase 11: bucketed serve
+    b_eng, b_model, rec, b_launches = bucketed_serve(pt, K)
+    round_ms, busy_ms, families, top = profile_decode_rounds(
+        b_eng, b_model.config.vocab_size)
+    if busy_ms <= 0:
+        fail("bucketed profile: the torch.profiler trace held no device "
+             "events")
+    total_ms = sum(families.values())
+    log(f"[bucketed profile] steady decode step, 16 rows: {round_ms:.3f} ms "
+        f"on the host clock; device busy {busy_ms:.3f} ms per step (union "
+        f"of device intervals; {total_ms:.3f} ms summed) = "
+        f"{100 * busy_ms / round_ms:.1f}% busy")
+    for fam, ms in sorted(families.items(), key=lambda kv: -kv[1]):
+        log(f"  {fam}: {ms:.4f} ms per step "
+            f"({100 * ms / total_ms:.1f}% of summed device time)")
+    for name, ms in top:
+        log(f"    {ms:.4f} ms per step  {name[:110]}")
+
+    # ----------------------------------------- phase 12: bucketed timing
+    kernels += bucketed_timing(K, b_eng, b_model, rec, b_launches)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,14 +1,16 @@
-"""GPT — the training (no-cache) and ragged serving branches of
+"""GPT — the training, serving and dense-prefill branches of
 ``paddle_tpu/models/gpt.py``.
 
-Token + position embeddings, N blocks of [LayerNorm -> fused-QKV attention
--> LayerNorm -> tanh-GELU MLP] with residuals, a final LayerNorm and a
-weight-tied LM head: the JAX package's ``GPTForCausalLM`` with parameter
-names kept (``gpt.h.0.attn.qkv_proj.weight``, ...; each parameter also
-carries its structured name as ``.param_name``, which AdamW hands to
-``apply_decay_param_fun``; ``Tensor.name`` is read-only in PyTorch).
+Token + position embeddings, N blocks of [norm -> fused-QKV attention ->
+norm -> tanh-GELU MLP] with residuals, a final norm and a weight-tied LM
+head: the JAX package's ``GPTForCausalLM`` with parameter names kept
+(``gpt.h.0.attn.qkv_proj.weight``, ...; each parameter also carries its
+structured name as ``.param_name``, which AdamW hands to
+``apply_decay_param_fun``; ``Tensor.name`` is read-only in PyTorch). The
+norms are LayerNorm, or RMSNorm with ``use_rms_norm=True``
+(``gpt.py:457-462, 490-492``; weight only, names unchanged).
 
-Two branches are ported:
+The ported branches of ``GPTAttention.forward``:
 
 * **training / no cache** (``caches=None``, ``gpt.py:414-429`` and
   ``:505-527``): positions from an arange shifted by ``pos_offset``,
@@ -30,11 +32,28 @@ Two branches are ported:
   ``pos_offset`` [1, T] is given, and hands every layer the same K/V write
   index. Each layer scatters its K/V into the pools in place, then runs
   ragged paged attention over them (write, then attend).
+* **paged serving** (``gpt.py:361-399``), the bucketed engine's decode
+  step and chunk step: ``input_ids`` [B, S] at per-row offsets
+  ``pos_offset`` [B], and every layer's dict::
+
+    {"paged": True, "k_pool": ..., "v_pool": ...,
+     "block_tables": [B, max_pages] int32, "positions": [B] int32,
+     "chunk_lens": [B] int32}          # chunk step only (S > 1)
+
+  The K/V write index is computed once per forward
+  (:func:`paged_write_index`). A decode step (S = 1) writes each row's
+  token and runs the paged decode kernel with context ``positions + 1``;
+  a chunk step writes ``chunk_lens[b]`` tokens per row (padding to the
+  scrap page) and runs :func:`~..ops.kernels.paged_prefill_reference`.
+* **dense prefill** (``gpt.py:400-413``, a dict whose ``"k"`` is None):
+  causal attention over the prompt (the flash forward kernel on the card),
+  leaving the un-expanded KVH-head K and V in the dict for the engine to
+  write into its pages.
 
 Each hand-written kernel runs on a CUDA tensor, its plain version on a CPU
-tensor. The static, paged, chunked-prefill and dense cache branches,
-``generate``, ``recompute`` and the tensor/sequence-parallel paths are not
-ported yet.
+tensor. The static cache branch, the one-token dense-cache concat arm,
+``generate``, ``recompute`` and the tensor/sequence-parallel paths are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -44,11 +63,13 @@ from torch import nn
 from .. import nn as pnn
 from ..device import resolve_device
 from ..nn import functional as F
-from ..ops.kernels import ragged_paged_attention, ragged_row_index
+from ..ops.kernels import (paged_attention, paged_prefill_reference,
+                           ragged_paged_attention, ragged_row_index)
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTBlock", "GPTModel",
            "GPTForCausalLM", "GPTPretrainingCriterion", "ragged_write_index",
-           "gpt_tiny", "gpt_small", "gpt_1p3b", "gpt_13b"]
+           "paged_write_index", "gpt_tiny", "gpt_small", "gpt_1p3b",
+           "gpt_13b"]
 
 
 class GPTConfig:
@@ -114,11 +135,39 @@ def ragged_write_index(block_tables, row_ids, positions, valid, page_size):
     return phys.long(), slot.long()
 
 
-def _pool_write_ragged(pool, new, index):
-    """Scatter the flat stream's K or V (``new`` [T, KVH, Dh]) into the
-    page pool at ``index`` = (phys, slot). In place: the pool tensor is
+def paged_write_index(cache, seq_len):
+    """Physical ``(page, slot)`` of the K/V writes of a paged forward of
+    ``seq_len`` tokens per row, flattened row-major to ``[B * seq_len]``:
+    token ``i`` of row ``b`` sits at ``positions[b] + i`` in
+    ``block_tables[b, pos // page]`` at ``pos % page``. A chunk step's
+    tokens past ``chunk_lens[b]`` are redirected to the reserved scrap page
+    0 (``_pool_write_seq``, ``gpt.py:122-140``); a decode step writes every
+    row (``_pool_write``, :106-119): inactive slots carry position 0 and an
+    all-zero table, so theirs lands on the scrap page, never read."""
+    if seq_len > 1 and "chunk_lens" not in cache:
+        raise ValueError(
+            "multi-token paged forward is chunked prefill and needs "
+            "cache['chunk_lens'] ([B] valid tokens per row); single-token "
+            "decode omits it")
+    bt = cache["block_tables"]
+    page_size = cache["k_pool"].shape[1]
+    i = torch.arange(seq_len, device=bt.device)
+    pos = cache["positions"].long()[:, None] + i[None, :]        # [B, S]
+    logical = (pos // page_size).clamp(0, bt.shape[1] - 1)
+    phys = bt.long().gather(1, logical)
+    if seq_len > 1:
+        valid = i[None, :] < cache["chunk_lens"].long()[:, None]
+        phys = torch.where(valid, phys, torch.zeros_like(phys))
+    return phys.reshape(-1), (pos % page_size).reshape(-1)
+
+
+def _pool_write(pool, new, index):
+    """Scatter K or V (``new`` [N, KVH, Dh]) into the page pool at
+    ``index`` = (phys, slot), N entries each. In place: the pool tensor is
     updated where it lies, which takes the place of the JAX package's
-    functional ``.at[].set`` on donated pools."""
+    functional ``.at[].set`` on donated pools. Entries redirected to the
+    scrap page may share an index; which value lands there is left
+    undefined, as the page is never read."""
     phys, slot = index
     pool[phys, slot] = new.to(pool.dtype)
     return pool
@@ -150,33 +199,56 @@ class GPTAttention(nn.Module):
 
     def forward(self, x, cache=None, write_index=None):
         """``cache=None``: causal attention over ``x`` [B, S, h] (training).
-        A ragged cache dict: one serving round, with ``write_index`` =
-        (phys, slot) of every flat token's K/V from
-        :func:`ragged_write_index` (one per round, shared by the
-        layers)."""
+        A ragged or paged cache dict: one serving forward, with
+        ``write_index`` = (phys, slot) of every token's K/V from
+        :func:`ragged_write_index` / :func:`paged_write_index` (one per
+        forward, shared by the layers). A dense dict with ``"k"`` None:
+        the prefill, which stores this layer's K and V in it."""
         b, s, h = x.shape
+        H, KVH, Dh = self.num_heads, self.num_kv_heads, self.head_dim
         qkv = self.qkv_proj(x)
-        h_q = self.num_heads * self.head_dim
-        kv_w = self.num_kv_heads * self.head_dim
-        q = qkv[..., :h_q].reshape(b, s, self.num_heads, self.head_dim)
-        k = qkv[..., h_q:h_q + kv_w].reshape(b, s, self.num_kv_heads,
-                                             self.head_dim)
-        v = qkv[..., h_q + kv_w:].reshape(b, s, self.num_kv_heads,
-                                          self.head_dim)
+        q = qkv[..., :H * Dh].reshape(b, s, H, Dh)
+        k = qkv[..., H * Dh:(H + KVH) * Dh].reshape(b, s, KVH, Dh)
+        v = qkv[..., (H + KVH) * Dh:].reshape(b, s, KVH, Dh)
         if cache is None:
             out = F.scaled_dot_product_attention(
                 q, self._expand_kv(k), self._expand_kv(v), is_causal=True,
                 dropout_p=self.dropout, training=self.training,
                 generator=self.dropout_generator)
-            return self.out_proj(out.reshape(b, s, h))
-        q = q.reshape(b * s, self.num_heads, self.head_dim)
-        k = k.reshape(b * s, self.num_kv_heads, self.head_dim)
-        v = v.reshape(b * s, self.num_kv_heads, self.head_dim)
-        kp = _pool_write_ragged(cache["k_pool"], k, write_index)
-        vp = _pool_write_ragged(cache["v_pool"], v, write_index)
-        out = ragged_paged_attention(
-            q.contiguous(), kp, vp, cache["row_starts"], cache["row_lens"],
-            cache["kv_lens"], cache["block_tables"])
+        elif cache.get("ragged"):
+            kp = _pool_write(cache["k_pool"], k.reshape(b * s, KVH, Dh),
+                             write_index)
+            vp = _pool_write(cache["v_pool"], v.reshape(b * s, KVH, Dh),
+                             write_index)
+            out = ragged_paged_attention(
+                q.reshape(b * s, H, Dh).contiguous(), kp, vp,
+                cache["row_starts"], cache["row_lens"], cache["kv_lens"],
+                cache["block_tables"])
+        elif cache.get("paged"):
+            kp = _pool_write(cache["k_pool"], k.reshape(b * s, KVH, Dh),
+                             write_index)
+            vp = _pool_write(cache["v_pool"], v.reshape(b * s, KVH, Dh),
+                             write_index)
+            pos, bt = cache["positions"], cache["block_tables"]
+            if s == 1:
+                # the row's own K/V is written: context = positions + 1
+                out = paged_attention(q[:, 0].contiguous(), kp, vp, bt,
+                                      pos + 1)
+            else:
+                out = paged_prefill_reference(q, kp, vp, bt, pos,
+                                              cache["chunk_lens"])
+        elif cache.get("static") or cache.get("k") is not None:
+            raise NotImplementedError(
+                "the static cache and the one-token dense-cache append "
+                "belong to generate(), which is not ported; the port's "
+                "dense cache arm is the prefill (a dict whose 'k' is None)")
+        else:
+            # dense prefill: the pools hold KVH heads, so the cache keeps K
+            # and V before they are expanded over their groups
+            cache["k"], cache["v"] = k, v
+            out = F.scaled_dot_product_attention(
+                q, self._expand_kv(k), self._expand_kv(v), is_causal=s > 1,
+                dropout_p=0.0, training=False)
         return self.out_proj(out.reshape(b, s, h))
 
 
@@ -198,9 +270,10 @@ class GPTBlock(nn.Module):
         super().__init__()
         kw = dict(device=device, dtype=dtype, generator=generator)
         eps = config.layer_norm_epsilon
-        self.ln_1 = pnn.LayerNorm(config.hidden_size, epsilon=eps, **kw)
+        norm = pnn.RMSNorm if config.use_rms_norm else pnn.LayerNorm
+        self.ln_1 = norm(config.hidden_size, epsilon=eps, **kw)
         self.attn = GPTAttention(config, **kw)
-        self.ln_2 = pnn.LayerNorm(config.hidden_size, epsilon=eps, **kw)
+        self.ln_2 = norm(config.hidden_size, epsilon=eps, **kw)
         self.mlp = GPTMLP(config, **kw)
         self.dropout = pnn.Dropout(config.dropout)
 
@@ -222,41 +295,47 @@ class GPTModel(nn.Module):
         self.drop = pnn.Dropout(config.dropout)
         self.h = nn.ModuleList([GPTBlock(config, **kw)
                                 for _ in range(config.num_layers)])
-        self.ln_f = pnn.LayerNorm(config.hidden_size,
-                                  epsilon=config.layer_norm_epsilon, **kw)
+        norm = pnn.RMSNorm if config.use_rms_norm else pnn.LayerNorm
+        self.ln_f = norm(config.hidden_size,
+                         epsilon=config.layer_norm_epsilon, **kw)
 
     def forward(self, input_ids, caches=None, pos_offset=None):
-        """``caches=None`` (training): ``input_ids`` [B, S] at positions
-        ``pos_offset + arange(S)`` (``gpt.py:512-515``; ``pos_offset`` an
-        int, default 0). Ragged serving: ``input_ids`` [1, T] flat round,
-        ``caches`` one ragged dict per layer, ``pos_offset`` [1, T]
-        per-token absolute positions (``gpt.py:497-501``), by default each
-        token's position in its row (0 for pad tokens)."""
-        if caches is None:
-            s = input_ids.shape[1]
+        """``input_ids`` [B, S] at positions given by ``pos_offset``
+        (``gpt.py:494-515``): None or an int shifts an arange (training and
+        dense prefill), a [B] tensor gives each row's offset (paged
+        serving), a [B, S] tensor each token's position. ``caches``: None,
+        or one dict per layer (ragged, paged or dense prefill; see the
+        module docstring). A ragged round (``input_ids`` [1, T]) embeds
+        each token at its position in its row unless ``pos_offset`` is
+        given (0 for pad tokens)."""
+        b, s = input_ids.shape
+        dev = input_ids.device
+        if caches is not None and len(caches) != len(self.h):
+            raise ValueError(f"{len(caches)} cache dicts for "
+                             f"{len(self.h)} layers")
+        c0 = caches[0] if caches is not None else None
+        index = None
+        if c0 is not None and c0.get("ragged"):
+            rid, pos, valid = ragged_row_index(
+                c0["row_starts"], c0["row_lens"], c0["kv_lens"], b * s)
+            index = ragged_write_index(c0["block_tables"], rid, pos, valid,
+                                       c0["k_pool"].shape[1])
+            if pos_offset is None:
+                pos_offset = pos.view(b, s)
+        elif c0 is not None and c0.get("paged"):
+            index = paged_write_index(c0, s)
+        if pos_offset is None or not torch.is_tensor(pos_offset) \
+                or pos_offset.dim() == 0:
             start = int(pos_offset or 0)
-            pos = torch.arange(start, start + s, device=input_ids.device)
-            x = self.drop(self.wte(input_ids) + self.wpe(pos[None]))
-            for block in self.h:
-                x = block(x)
-            return self.ln_f(x)
-        if len(caches) != len(self.h) or not all(
-                c is not None and c.get("ragged") for c in caches):
-            raise NotImplementedError(
-                "paddle_tpu_torch ports the training (caches=None) and "
-                "ragged serving branches; pass one cache dict with "
-                "'ragged': True per layer")
-        c0 = caches[0]
-        T = input_ids.shape[0] * input_ids.shape[1]
-        rid, pos, valid = ragged_row_index(c0["row_starts"], c0["row_lens"],
-                                           c0["kv_lens"], T)
-        index = ragged_write_index(c0["block_tables"], rid, pos, valid,
-                                   c0["k_pool"].shape[1])
-        if pos_offset is None:
-            pos_offset = pos.view(input_ids.shape)
-        x = self.wte(input_ids) + self.wpe(pos_offset)
-        for block, cache in zip(self.h, caches):
-            x = block(x, cache, index)
+            pos = torch.arange(start, start + s, device=dev)[None]
+        elif pos_offset.dim() == 1:
+            pos = pos_offset.long()[:, None] + torch.arange(s,
+                                                            device=dev)[None]
+        else:
+            pos = pos_offset
+        x = self.drop(self.wte(input_ids) + self.wpe(pos))
+        for i, block in enumerate(self.h):
+            x = block(x, None if caches is None else caches[i], index)
         return self.ln_f(x)
 
 
@@ -271,10 +350,9 @@ class GPTForCausalLM(nn.Module):
 
     def __init__(self, config, device=None, dtype=torch.float32, seed=0):
         super().__init__()
-        if config.use_rms_norm or config.tensor_parallel \
-                or config.sequence_parallel:
+        if config.tensor_parallel or config.sequence_parallel:
             raise NotImplementedError(
-                "RMSNorm and tensor/sequence-parallel GPT are not ported yet")
+                "tensor/sequence-parallel GPT is not ported yet")
         dev = resolve_device(device)
         gen = None
         if seed is not None:

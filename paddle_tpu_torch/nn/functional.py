@@ -6,10 +6,10 @@ import math
 import torch
 
 from ..amp import amp_cast
-from ..ops.kernels import flash_attention_bshd
+from ..ops.kernels import RMSNormFunction, flash_attention_bshd
 
 __all__ = ["gelu", "dropout", "scaled_dot_product_attention",
-           "cross_entropy"]
+           "cross_entropy", "rms_norm"]
 
 NEG_INF = -1e30
 
@@ -97,3 +97,13 @@ def cross_entropy(input, label, ignore_index=-100, reduction="mean"):
     if reduction == "none":
         return loss
     raise ValueError(f"reduction {reduction!r}: mean, sum or none")
+
+
+def rms_norm(x, weight=None, epsilon=1e-6):
+    """RMSNorm over the last axis (``nn/functional/norm.py:42``): f32
+    statistics, output in x's type, in f32 under ``auto_cast``
+    (``rms_norm`` is on the black list). Runs
+    :class:`~..ops.kernels.RMSNormFunction`: the ``rms_norm`` kernel on a
+    CUDA tensor, its plain version on a CPU tensor."""
+    x, weight = amp_cast("rms_norm", x, weight)
+    return RMSNormFunction.apply(x, weight, None, float(epsilon))

@@ -1,4 +1,4 @@
-"""Layers of the port: Linear, Embedding, LayerNorm, Dropout.
+"""Layers of the port: Linear, Embedding, LayerNorm, RMSNorm, Dropout.
 
 Parameters keep the JAX package's names and layouts so weights carry over
 one to one (``convert.params_from_paddle_tpu``), and are trainable
@@ -15,6 +15,8 @@ one to one (``convert.params_from_paddle_tpu``), and are trainable
   ``layer_norm`` kernel wrapper forward (Triton on the card, the plain
   version on the CPU), the plain gradient backward; in f32 under
   ``auto_cast`` (``layer_norm`` is on the black list).
+* :class:`RMSNorm` (weight only) runs :func:`~.functional.rms_norm`, the
+  ``rms_norm`` kernel wrapper forward in the same way.
 * :class:`Dropout` is upscale-in-train dropout drawing from its own
   ``torch.Generator``.
 
@@ -31,7 +33,8 @@ from ..amp import amp_cast
 from ..ops.kernels import LayerNormFunction
 from . import functional as F
 
-__all__ = ["Linear", "Embedding", "LayerNorm", "Dropout", "INIT_STD"]
+__all__ = ["Linear", "Embedding", "LayerNorm", "RMSNorm", "Dropout",
+           "INIT_STD"]
 
 INIT_STD = 0.02
 
@@ -86,6 +89,21 @@ class LayerNorm(nn.Module):
     def forward(self, x):
         x, w, b = amp_cast("layer_norm", x, self.weight, self.bias)
         return LayerNormFunction.apply(x, w, b, self.epsilon)
+
+
+class RMSNorm(nn.Module):
+    """RMS normalisation over the last axis with a unit-initialised weight
+    (``nn/layer/norm.py:45``; default epsilon 1e-6)."""
+
+    def __init__(self, hidden_size, epsilon=1e-6, device=None, dtype=None,
+                 generator=None):
+        super().__init__()
+        self.epsilon = float(epsilon)
+        self.weight = _param((hidden_size,), device, dtype, generator,
+                             fill=1.0)
+
+    def forward(self, x):
+        return F.rms_norm(x, self.weight, self.epsilon)
 
 
 class Dropout(nn.Module):

@@ -9,7 +9,12 @@ wrapper                      route    replaces (TPU kernel)
 ``flash_bwd_dq``             CUDA C++ ``ops/pallas/flash_attention.py:262``
 ``flash_bwd_dkv``            CUDA C++ ``ops/pallas/flash_attention.py:285``
 ``fused_adamw``              CUDA C++ ``ops/pallas/fused_adamw.py:60``
+``paged_attention``          CUDA C++ ``ops/pallas/paged_attention.py:175``
+``rms_norm``                 Triton   ``ops/pallas/rms_norm.py:39``
 ===========================  =======  =========================================
+
+``paged_attention`` and ``ragged_paged_attention`` share their page loop
+(``csrc/paged_attend.cuh``) but are kernels and launches of their own.
 
 Each wrapper counts its kernel launches in a plain integer attribute
 (``wrapper.launches``), so a run can show that its main path went through
@@ -23,10 +28,13 @@ from .flash_attention import (flash_attention_bshd, flash_bwd_dkv,
 from .fused_adamw import fused_adamw, fused_adamw_reference
 from .layer_norm import (LayerNormFunction, layer_norm,
                          layer_norm_bwd_reference, layer_norm_reference)
-from .ragged_attention import (paged_attention_reference,
-                               ragged_paged_attention,
+from .paged_attention import (paged_attention, paged_attention_reference,
+                              paged_prefill_reference)
+from .ragged_attention import (ragged_paged_attention,
                                ragged_paged_attention_reference,
                                ragged_row_index)
+from .rms_norm import (RMSNormFunction, rms_norm, rms_norm_bwd_reference,
+                       rms_norm_reference)
 
 __all__ = ["layer_norm", "layer_norm_reference", "layer_norm_bwd_reference",
            "LayerNormFunction", "ragged_paged_attention",
@@ -34,7 +42,9 @@ __all__ = ["layer_norm", "layer_norm_reference", "layer_norm_bwd_reference",
            "ragged_row_index", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
            "flash_fwd_reference", "flash_bwd_dq_reference",
            "flash_bwd_dkv_reference", "flash_delta", "flash_attention_bshd",
-           "fused_adamw", "fused_adamw_reference", "KERNELS",
+           "fused_adamw", "fused_adamw_reference", "paged_attention",
+           "paged_prefill_reference", "rms_norm", "rms_norm_reference",
+           "rms_norm_bwd_reference", "RMSNormFunction", "KERNELS",
            "launch_counts", "reset_launch_counts"]
 
 KERNELS = {"ragged_paged_attention": ragged_paged_attention,
@@ -42,7 +52,9 @@ KERNELS = {"ragged_paged_attention": ragged_paged_attention,
            "flash_fwd": flash_fwd,
            "flash_bwd_dq": flash_bwd_dq,
            "flash_bwd_dkv": flash_bwd_dkv,
-           "fused_adamw": fused_adamw}
+           "fused_adamw": fused_adamw,
+           "paged_attention": paged_attention,
+           "rms_norm": rms_norm}
 
 
 def launch_counts():

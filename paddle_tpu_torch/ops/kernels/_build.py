@@ -8,7 +8,8 @@ PyTorch's headers in seconds::
          -Xcompiler -fPIC -o build/lib<name>-<hash>.so csrc/<name>.cu
 
 The library lands under ``build/`` (listed in ``.gitignore``), named by a
-hash of its source and flags, and is built at first use. ``-Xptxas -v``
+hash of its source, the shared headers of ``csrc/`` (``*.cuh``) and the
+flags, and is built at first use. ``-Xptxas -v``
 output (registers, shared memory, spills) is kept in ``build/<name>.log``.
 A failed build raises; nothing falls back to the plain versions.
 """
@@ -58,8 +59,11 @@ def find_nvcc():
 
 def _lib_path(name):
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC_DIR, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return src, os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

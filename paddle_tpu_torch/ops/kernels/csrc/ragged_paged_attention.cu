@@ -18,17 +18,11 @@
 //   out          [T, H, D]                     same type as q
 //
 // Design. The Pallas grid (T, max_pages) walks pages in order on one core;
-// here one thread block takes one (flat token, KV head) pair and a loop
-// inside the block takes the place of the sequential page axis. Thread 0
+// here one thread block takes one (flat token, KV head) pair. Thread 0
 // finds the token's row by a binary search of row_starts (the
-// searchsorted(side="right") of ragged_row_index). Per page, the block
-// stages the K and V rows of its KV head in shared memory (f32), one warp
-// per (query head, key) pair computes a score, one thread per query head
-// runs the online-softmax update in f32 with an explicit context mask (a
-// masked key contributes exactly 0 -- see paged_attention.py:154-158),
-// and every thread rescales and accumulates its own slice of the
-// [G, D] output in shared memory. Only the pages the context needs are
-// visited.
+// searchsorted(side="right") of ragged_row_index) and its context; the
+// page loop is attend_pages in paged_attend.cuh, shared with the paged
+// decode kernel (paged_attention.cu).
 //
 // Bound: bytes. A decode token does ~2 flops per byte of KV it reads,
 // far below the H100's ~295 flop/byte ridge, so the floor is the KV pages
@@ -36,22 +30,11 @@
 // query token of the row; a later version tiles several query tokens of
 // one row per block so a prefill segment reads each page once, and moves
 // the page loads to cp.async/TMA so they overlap the math.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "paged_attend.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 128;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store_val(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_val(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
+using paged_kv::kThreads;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) ragged_paged_attention_kernel(
@@ -66,15 +49,6 @@ __global__ void __launch_bounds__(kThreads) ragged_paged_attention_kernel(
   const int t = blockIdx.x;
   const int kvh = blockIdx.y;
   const int G = H / KVH;
-  float* q_s = smem;                     // [G, D] scaled query
-  float* acc_s = q_s + G * D;            // [G, D] unnormalized output
-  float* k_s = acc_s + G * D;            // [page_size, D]
-  float* v_s = k_s + page_size * D;      // [page_size, D]
-  float* p_s = v_s + page_size * D;      // [G, page_size] scores, then probs
-  float* m_s = p_s + G * page_size;      // [G] running max
-  float* l_s = m_s + G;                  // [G] running sum
-  float* corr_s = l_s + G;               // [G] this page's rescale
-
   if (threadIdx.x == 0) {
     // first row whose start is > t, minus one, clipped to [0, R)
     int lo = 0, hi = num_rows;
@@ -88,79 +62,12 @@ __global__ void __launch_bounds__(kThreads) ragged_paged_attention_kernel(
     row_sh = rid;
     ctx_sh = (off >= 0 && off < rl) ? kv_lens[rid] - rl + off + 1 : 0;
   }
-  const size_t q_base = ((size_t)t * H + (size_t)kvh * G) * D;
-  for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
-    q_s[i] = to_f32(q[q_base + i]) * scale;
-    acc_s[i] = 0.f;
-  }
-  for (int g = threadIdx.x; g < G; g += blockDim.x) {
-    m_s[g] = kNegInf;
-    l_s[g] = 0.f;
-  }
   __syncthreads();
-
-  const int rid = row_sh;
-  const int ctx = ctx_sh;
-  const int n_pages = min((ctx + page_size - 1) / page_size, max_pages);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-
-  for (int pg = 0; pg < n_pages; ++pg) {
-    int page = block_tables[(size_t)rid * max_pages + pg];
-    page = min(max(page, 0), num_pages - 1);
-    for (int i = threadIdx.x; i < page_size * D; i += blockDim.x) {
-      const int j = i / D;
-      const int d = i - j * D;
-      const size_t src =
-          ((size_t)((size_t)page * page_size + j) * KVH + kvh) * D + d;
-      k_s[i] = to_f32(k_cache[src]);
-      v_s[i] = to_f32(v_cache[src]);
-    }
-    __syncthreads();
-    const int key0 = pg * page_size;
-    for (int pr = warp; pr < G * page_size; pr += n_warps) {
-      const int g = pr / page_size;
-      const int j = pr - g * page_size;
-      float s = 0.f;
-      for (int d = lane; d < D; d += 32) s += q_s[g * D + d] * k_s[j * D + d];
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (lane == 0) p_s[pr] = (key0 + j < ctx) ? s : kNegInf;
-    }
-    __syncthreads();
-    for (int g = threadIdx.x; g < G; g += blockDim.x) {
-      float* pg_row = p_s + g * page_size;
-      const float m_prev = m_s[g];
-      float m_new = m_prev;
-      for (int j = 0; j < page_size; ++j) m_new = fmaxf(m_new, pg_row[j]);
-      float sum = 0.f;
-      for (int j = 0; j < page_size; ++j) {
-        // explicit mask: a masked key adds exactly nothing
-        const float p = (key0 + j < ctx) ? expf(pg_row[j] - m_new) : 0.f;
-        pg_row[j] = p;
-        sum += p;
-      }
-      const float corr = expf(m_prev - m_new);
-      l_s[g] = corr * l_s[g] + sum;
-      m_s[g] = m_new;
-      corr_s[g] = corr;
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
-      const int g = i / D;
-      const int d = i - g * D;
-      const float* pg_row = p_s + g * page_size;
-      float a = corr_s[g] * acc_s[i];
-      for (int j = 0; j < page_size; ++j) a += pg_row[j] * v_s[j * D + d];
-      acc_s[i] = a;
-    }
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
-    const float l = fmaxf(l_s[i / D], 1e-30f);
-    store_val(&out[q_base + i], acc_s[i] / l);
-  }
+  const size_t q_base = ((size_t)t * H + (size_t)kvh * G) * D;
+  paged_kv::attend_pages<T>(q + q_base, k_cache, v_cache,
+                            block_tables + (size_t)row_sh * max_pages, ctx_sh,
+                            kvh, KVH, G, D, num_pages, page_size, max_pages,
+                            scale, out + q_base, smem);
 }
 
 template <typename T>
@@ -169,10 +76,8 @@ int launch(const void* q, const void* k_cache, const void* v_cache,
            const int* block_tables, void* out, int T_tokens, int H, int KVH,
            int D, int num_pages, int page_size, int num_rows, int max_pages,
            float scale, cudaStream_t stream) {
-  const int G = H / KVH;
   const size_t smem =
-      (size_t)(2 * G * D + 2 * page_size * D + G * page_size + 3 * G) *
-      sizeof(float);
+      paged_kv::smem_floats(H / KVH, D, page_size) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         ragged_paged_attention_kernel<T>,

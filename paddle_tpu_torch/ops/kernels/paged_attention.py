@@ -1,0 +1,189 @@
+"""Paged decode attention — one query token per row over its KV pages.
+
+The port of ``paddle_tpu/ops/pallas/paged_attention.py``::
+
+    q            [B, H, D]          one decode token per row
+    k/v_cache    [num_pages, page_size, KVH, D]   (GQA pools, KVH <= H:
+                 query heads grouped G = H // KVH over shared KV heads)
+    block_tables [B, max_pages]     physical page id per logical page
+    context_lens [B]                valid KV length per row
+
+Three things live here:
+
+* :func:`paged_attention_reference` — the plain PyTorch version (the
+  gather formulation of ``paged_attention.py:46``).
+* :func:`paged_prefill_reference` — the chunked-prefill sibling
+  (``paged_attention.py:78``): S query tokens per row with a ragged causal
+  mask. It has no Pallas kernel and stays torch code.
+* :func:`paged_attention` — the wrapper of the hand-written CUDA kernel
+  ``csrc/paged_attention.cu`` (replaces
+  ``paddle_tpu/ops/pallas/paged_attention.py:175``). It is bound by the
+  bytes of KV pages it reads; see the source for its design. On a CPU
+  tensor the wrapper runs the plain version; on a CUDA tensor it launches
+  the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+__all__ = ["paged_attention_reference", "paged_prefill_reference",
+           "paged_attention"]
+
+NEG_INF = -1e30
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def grouped(H, KVH):
+    """Query heads per KV head (``_grouped``); raises unless KVH divides H."""
+    if H % KVH:
+        raise ValueError(f"{H} query heads not divisible by {KVH} KV heads")
+    return H // KVH
+
+
+def _gather_pages(cache, block_tables):
+    """A row's pages as one dense run: [B, max_pages * page, KVH, D] f32.
+    Ids are clamped, so a sentinel -1 reads a page the mask then hides."""
+    bt = block_tables.long().clamp(0, cache.shape[0] - 1)
+    B = bt.shape[0]
+    return cache[bt].reshape(B, -1, *cache.shape[2:]).float()
+
+
+def paged_attention_reference(q, k_cache, v_cache, block_tables,
+                              context_lens, scale=None):
+    """One query token per row over its paged context: ``q`` [B, H, D],
+    tables [B, max_pages], ``context_lens`` [B]. Keys past the context are
+    masked to -1e30, rows with context 0 come out zeroed. GQA-grouped.
+    Computes in f32, returns q's type."""
+    B, H, D = q.shape
+    KVH = k_cache.shape[2]
+    G = grouped(H, KVH)
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    k = _gather_pages(k_cache, block_tables)
+    v = _gather_pages(v_cache, block_tables)
+    S = k.shape[1]
+    qg = q.reshape(B, KVH, G, D).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k) * scale
+    valid = torch.arange(S, device=q.device)[None, :] < context_lens[:, None]
+    s = torch.where(valid[:, None, None, :], s,
+                    torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v).reshape(B, H, D)
+    o = torch.where((context_lens > 0)[:, None, None], o,
+                    torch.zeros_like(o))
+    return o.to(q.dtype)
+
+
+def paged_prefill_reference(q, k_cache, v_cache, block_tables, q_start,
+                            q_lens, scale=None):
+    """Partial-prefix attention for chunked prefill: a chunk of S query
+    tokens per row (``q`` [B, S, H, D]; rows past ``q_lens[b]`` are
+    padding) starts at absolute position ``q_start[b]`` and attends over
+    the row's pages, which already hold the prefix and this chunk's own
+    K/V. Query token ``i`` of row ``b`` sees pool positions
+    ``<= q_start[b] + i``. Returns ``[B, S, H, D]``; padded query rows give
+    values the caller discards."""
+    B, S, H, D = q.shape
+    KVH = k_cache.shape[2]
+    G = grouped(H, KVH)
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    k = _gather_pages(k_cache, block_tables)
+    v = _gather_pages(v_cache, block_tables)
+    T = k.shape[1]
+    qg = q.reshape(B, S, KVH, G, D).float()
+    s = torch.einsum("bskgd,btkd->bskgt", qg, k) * scale
+    key_pos = torch.arange(T, device=q.device)[None, None, :]
+    q_pos = (q_start.long()[:, None]
+             + torch.arange(S, device=q.device)[None, :])[:, :, None]
+    visible = key_pos <= q_pos                                  # [B, S, T]
+    s = torch.where(visible[:, :, None, None, :], s,
+                    torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bskgt,btkd->bskgd", p, v)
+    return o.reshape(B, S, H, D).to(q.dtype)
+
+
+_lib = None
+
+
+def _kernel():
+    global _lib
+    if _lib is None:
+        from . import _build
+        fn = _build.load("paged_attention").paged_attention
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _lib = fn
+    return _lib
+
+
+def check_kernel_inputs(name, q, k_cache, v_cache, meta):
+    """What the paged kernels take: f32 or bf16 q and pools of one type,
+    D in {64, 128}, pools ``[P, page, KVH, D]`` with KVH dividing H, every
+    tensor contiguous on q's device, int32 metadata."""
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{name} takes float32 or bfloat16, got {q.dtype}")
+    for tname, x in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if x.dtype != q.dtype:
+            raise TypeError(f"{tname} is {x.dtype}, q is {q.dtype}")
+    H, D = q.shape[-2:]
+    if D not in (64, 128):
+        raise ValueError(f"head dim {D} not supported (64 or 128)")
+    if k_cache.dim() != 4 or k_cache.shape != v_cache.shape \
+            or k_cache.shape[3] != D:
+        raise ValueError(f"pools {tuple(k_cache.shape)} / "
+                         f"{tuple(v_cache.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    grouped(H, k_cache.shape[2])
+    for tname, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+                     *meta.items()):
+        if x.device != q.device:
+            raise ValueError(f"{tname} is on {x.device}, q on {q.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{tname} must be contiguous")
+    for tname, x in meta.items():
+        if x.dtype != torch.int32:
+            raise TypeError(f"{tname} must be int32, got {x.dtype}")
+
+
+def paged_attention(q, k_cache, v_cache, block_tables, context_lens,
+                    scale=None):
+    """One decode step -> ``[B, H, D]`` (rows with context 0 zeroed). CPU
+    tensors take the plain version; CUDA tensors launch the kernel (f32 or
+    bf16, D in {64, 128}) and every launch adds one to
+    ``paged_attention.launches``; anything else raises."""
+    if q.device.type == "cpu":
+        return paged_attention_reference(q, k_cache, v_cache, block_tables,
+                                         context_lens, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention runs on cuda (kernel) or cpu "
+                         f"(plain version), not {q.device}")
+    check_kernel_inputs("paged_attention", q, k_cache, v_cache,
+                        {"block_tables": block_tables,
+                         "context_lens": context_lens})
+    if q.dim() != 3 or block_tables.dim() != 2 \
+            or block_tables.shape[0] != q.shape[0] \
+            or context_lens.shape != (q.shape[0],):
+        raise ValueError(f"block_tables {tuple(block_tables.shape)} / "
+                         f"context_lens {tuple(context_lens.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    B, H, D = q.shape
+    out = torch.empty_like(q)
+    scale = float(scale if scale is not None else 1.0 / math.sqrt(D))
+    rc = _kernel()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                   block_tables.data_ptr(), context_lens.data_ptr(),
+                   out.data_ptr(), B, H, k_cache.shape[2], D,
+                   k_cache.shape[0], k_cache.shape[1], block_tables.shape[1],
+                   scale, _DTYPES[q.dtype],
+                   torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_attention kernel launch failed: "
+                           f"cudaError {rc}")
+    paged_attention.launches += 1
+    return out
+
+
+paged_attention.launches = 0

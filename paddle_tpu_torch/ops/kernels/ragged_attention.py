@@ -37,19 +37,15 @@ import math
 
 import torch
 
-__all__ = ["ragged_row_index", "paged_attention_reference",
-           "ragged_paged_attention_reference", "ragged_paged_attention"]
+from .paged_attention import (_DTYPES, check_kernel_inputs,
+                              paged_attention_reference)
 
-NEG_INF = -1e30
+__all__ = ["ragged_row_index", "ragged_paged_attention_reference",
+           "ragged_paged_attention"]
+
 # tokens per chunk of the plain version's page gather: bounds its memory
 # at the serving shapes (a [chunk, max_pages * page, KVH, D] f32 copy)
 _REF_CHUNK = 64
-
-
-def _grouped(H, KVH):
-    if H % KVH:
-        raise ValueError(f"{H} query heads not divisible by {KVH} KV heads")
-    return H // KVH
 
 
 def ragged_row_index(row_starts, row_lens, kv_lens, total_tokens):
@@ -70,34 +66,6 @@ def ragged_row_index(row_starts, row_lens, kv_lens, total_tokens):
     return rid, pos, valid
 
 
-def paged_attention_reference(q, k_cache, v_cache, block_tables,
-                              context_lens, scale=None):
-    """One query token per row over its paged context (the gather
-    formulation of ``paged_attention.py:46``): ``q`` [B, H, D], tables
-    [B, max_pages], ``context_lens`` [B]. Block-table ids are clamped,
-    keys past the context are masked to -1e30, rows with context 0 come
-    out zeroed. GQA-grouped. Computes in f32, returns q's type."""
-    B, H, D = q.shape
-    KVH = k_cache.shape[2]
-    G = _grouped(H, KVH)
-    page_size = k_cache.shape[1]
-    scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    bt = block_tables.long().clamp(0, k_cache.shape[0] - 1)
-    S = bt.shape[1] * page_size
-    k = k_cache[bt].reshape(B, S, KVH, D).float()
-    v = v_cache[bt].reshape(B, S, KVH, D).float()
-    qg = q.reshape(B, KVH, G, D).float()
-    s = torch.einsum("bkgd,bskd->bkgs", qg, k) * scale
-    valid = torch.arange(S, device=q.device)[None, :] < context_lens[:, None]
-    s = torch.where(valid[:, None, None, :], s,
-                    torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgs,bskd->bkgd", p, v).reshape(B, H, D)
-    o = torch.where((context_lens > 0)[:, None, None], o,
-                    torch.zeros_like(o))
-    return o.to(q.dtype)
-
-
 def ragged_paged_attention_reference(q, k_cache, v_cache, row_starts,
                                      row_lens, kv_lens, block_tables,
                                      scale=None):
@@ -116,7 +84,6 @@ def ragged_paged_attention_reference(q, k_cache, v_cache, row_starts,
     return torch.cat(outs) if outs else torch.empty_like(q)
 
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
 
 
@@ -131,33 +98,6 @@ def _kernel():
         fn.restype = ctypes.c_int
         _lib = fn
     return _lib
-
-
-def _check_cuda(q, k_cache, v_cache, meta):
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"ragged_paged_attention takes float32 or bfloat16, "
-                        f"got {q.dtype}")
-    for name, x in (("k_cache", k_cache), ("v_cache", v_cache)):
-        if x.dtype != q.dtype:
-            raise TypeError(f"{name} is {x.dtype}, q is {q.dtype}")
-    T, H, D = q.shape
-    if D not in (64, 128):
-        raise ValueError(f"head dim {D} not supported (64 or 128)")
-    if k_cache.dim() != 4 or k_cache.shape != v_cache.shape \
-            or k_cache.shape[3] != D:
-        raise ValueError(f"pools {tuple(k_cache.shape)} / "
-                         f"{tuple(v_cache.shape)} do not match q "
-                         f"{tuple(q.shape)}")
-    _grouped(H, k_cache.shape[2])
-    for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
-                    *meta.items()):
-        if x.device != q.device:
-            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    for name, x in meta.items():
-        if x.dtype != torch.int32:
-            raise TypeError(f"{name} must be int32, got {x.dtype}")
 
 
 def ragged_paged_attention(q, k_cache, v_cache, row_starts, row_lens,
@@ -175,7 +115,7 @@ def ragged_paged_attention(q, k_cache, v_cache, row_starts, row_lens,
                          f"cpu (plain version), not {q.device}")
     meta = {"row_starts": row_starts, "row_lens": row_lens,
             "kv_lens": kv_lens, "block_tables": block_tables}
-    _check_cuda(q, k_cache, v_cache, meta)
+    check_kernel_inputs("ragged_paged_attention", q, k_cache, v_cache, meta)
     T, H, D = q.shape
     R = row_starts.shape[0]
     if row_lens.shape != (R,) or kv_lens.shape != (R,) \

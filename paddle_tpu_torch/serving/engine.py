@@ -1,19 +1,28 @@
-"""Continuous-batching serving engine: one ragged launch per round.
+"""Continuous-batching serving engine over a paged KV cache.
 
-The port of the ragged path of ``paddle_tpu/serving/engine.py``. A
-:class:`ServingEngine` wraps the port's ``GPTForCausalLM`` and runs it as a
-concurrent serving loop over a paged KV cache on the model's device:
+The port of ``paddle_tpu/serving/engine.py``. A :class:`ServingEngine`
+wraps the port's ``GPTForCausalLM`` and runs it as a concurrent serving
+loop over a paged KV cache on the model's device:
 
-* every scheduler round is ONE flat-token forward: single-token decode
-  rows, budgeted prefill chunks (``prefill_chunk`` tokens, at most
-  ``prefill_token_budget`` per round) and prefix-hit prompt tails flatten
-  into a ``[total_tokens]`` stream with per-row metadata
-  (``row_starts``/``row_lens``/``kv_lens``/block tables); the model
-  scatters each token's K/V into its page and runs ragged paged attention
-  (the hand-written CUDA kernel on the card) in the same forward. Only
-  ``total_tokens`` is padded, up the power-of-two schedule of
-  :func:`~.ragged_attention.pad_total_tokens`, with the same flat layout
-  as the JAX engine token for token;
+* **ragged serving (default)** — every scheduler round is ONE flat-token
+  forward: single-token decode rows, budgeted prefill chunks
+  (``prefill_chunk`` tokens, at most ``prefill_token_budget`` per round)
+  and prefix-hit prompt tails flatten into a ``[total_tokens]`` stream
+  with per-row metadata (``row_starts``/``row_lens``/``kv_lens``/block
+  tables); the model scatters each token's K/V into its page and runs
+  ragged paged attention (the hand-written CUDA kernel on the card) in
+  the same forward. Only ``total_tokens`` is padded, up the power-of-two
+  schedule of :func:`~.ragged_attention.pad_total_tokens`, with the same
+  flat layout as the JAX engine token for token.
+* **the bucketed fallback** (``ragged=False``) keeps the JAX engine's
+  pre-ragged shape: newly admitted misses run the dense causal forward at
+  a (batch, seq) bucket (:func:`~..inference.pick_bucket`; the flash
+  forward kernel on the card) and their K/V is written into their pages;
+  prefix-hit tails and chunked prefill (``prefill_chunk``) run the chunk
+  step (pool scatter, then partial-prefix attention over the pages); then
+  ONE fixed-shape decode step over all ``max_slots`` slots runs the paged
+  decode kernel. There is no compile cache to bound: the bucket sets only
+  fix the launch shapes, which ``stats()`` lists.
 * **prefix caching** (on by default): full prompt pages are indexed in a
   page-granular trie; a hit takes the shared head by refcounted reference
   and only the tail runs;
@@ -21,9 +30,12 @@ concurrent serving loop over a paged KV cache on the model's device:
   finishes / evicts / admits, so a request arriving mid-stream joins the
   next round without stalling in-flight rows.
 
-The host fetches the round's next tokens once per round. The bucketed
-fallback, the A/B backend gate, mesh sharding, graceful SIGTERM shutdown,
-request tracing and the fleet hooks of the JAX engine are not ported yet.
+Each launch's results reach the host in one copy: the next tokens, or the
+logit rows when a request samples or ``capture_logits`` is set. The A/B
+backend gate (the kernels always run on the card), the
+``PADDLE_TPU_SERVING_RAGGED`` switch, mesh sharding, graceful SIGTERM
+shutdown, request tracing and the fleet hooks of the JAX engine are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -34,6 +46,7 @@ import time
 import numpy as np
 import torch
 
+from ..inference import pick_bucket
 from .kv_cache import PagedKVCache, pages_for
 from .metrics import ServingMetrics
 from .prefix_cache import PrefixCache
@@ -59,6 +72,17 @@ def _select_token(logits_row, req):
     return int(req.rng().choice(len(p), p=p))
 
 
+def _fetch(nxt, rows, need_rows):
+    """A launch's one host copy -> ``(next tokens, logit rows or None)``:
+    the f32 logit rows when a request samples or logits are captured (the
+    greedy tokens are then their argmax on the host), else only the
+    device's argmax tokens."""
+    if need_rows:
+        logits_np = rows.float().cpu().numpy()
+        return logits_np.argmax(axis=-1).tolist(), logits_np
+    return nxt.tolist(), None
+
+
 class ServingEngine:
     """Continuous-batching inference over a paged KV cache.
 
@@ -74,13 +98,15 @@ class ServingEngine:
             req = eng.submit(prompt, on_token=lambda r, t, fin: push(t))
             req.result(timeout=30)
 
-    The engine runs where the model lives (``model.device``).
+    The engine runs where the model lives (``model.device``);
+    ``ragged=False`` selects the bucketed fallback.
     """
 
     def __init__(self, model, page_size=16, num_pages=64, max_slots=4,
-                 max_queue=256, registry=None, prefill_chunk=None,
-                 prefill_token_budget=None, prefix_cache=True,
-                 engine_id=None):
+                 max_queue=256, prefill_seq_buckets=None,
+                 prefill_batch_buckets=None, registry=None,
+                 prefill_chunk=None, prefill_token_budget=None,
+                 prefix_cache=True, ragged=True, engine_id=None):
         cfg = model.config
         self.model = model
         self.model.eval()
@@ -120,7 +146,35 @@ class ServingEngine:
         self._prefill_budget = int(prefill_token_budget) \
             if prefill_token_budget else (self.prefill_chunk or 0)
         self._prefilling: list = []     # FIFO of mid-prefill requests
+        # bucketed fallback: seq buckets cap padding waste at ~2x, batch
+        # buckets keep the set of prefill launch shapes small
+        if prefill_seq_buckets is None:
+            prefill_seq_buckets, b = [], 16
+            while b < cfg.max_seq_len:
+                prefill_seq_buckets.append(b)
+                b *= 2
+            prefill_seq_buckets.append(cfg.max_seq_len)
+        self.prefill_seq_buckets = sorted(set(prefill_seq_buckets))
+        self.prefill_batch_buckets = sorted(set(
+            prefill_batch_buckets or [1, 2, 4, self.max_slots]))
+        # chunk-step shapes: partial tail chunks bucket to powers of two
+        # below the chunk size (or the prefill seq buckets when chunking
+        # is off and only prefix-hit tails take the chunk step)
+        if self.prefill_chunk:
+            cb, b = {self.prefill_chunk}, 8
+            while b < self.prefill_chunk:
+                cb.add(b)
+                b *= 2
+            self._chunk_buckets = sorted(cb)
+        else:
+            self._chunk_buckets = list(self.prefill_seq_buckets)
+        self.ragged = bool(ragged)
         self._ragged_shapes: set = set()  # token pads this engine has run
+        # (batch, seq) buckets the dense prefill and the chunk step ran at,
+        # and the launches of each bucketed forward
+        self._prefill_shapes: set = set()
+        self._chunk_shapes: set = set()
+        self._bucketed_launches = {"prefill": 0, "chunk": 0, "decode": 0}
         self._steps = 0
         self._decode_tokens = 0
         self._chunk_tokens = 0
@@ -172,7 +226,9 @@ class ServingEngine:
         every slot carrying a whole max-length prompt when it is off. The
         warm launches carry zero valid rows: every token is padding, so the
         writes land on the scrap page and no request state is touched.
-        -> the list of pads run."""
+        -> the list of pads run ([] for the bucketed fallback)."""
+        if not self.ragged:
+            return []
         if max_tokens is None:
             if self.prefill_chunk is not None:
                 rows = max(1, self._prefill_budget // self.prefill_chunk)
@@ -261,11 +317,8 @@ class ServingEngine:
                       >= len(prompts[req.request_id])]
         any_sampling = any(r.temperature > 0.0
                            for r in decode_rows + completing)
-        # the ONE host fetch of the round: next tokens (plus the logit
-        # rows only when sampling or capturing)
-        nxt = nxt.tolist()
-        logits_np = row_logits.float().cpu().numpy() \
-            if (any_sampling or self.capture_logits is not None) else None
+        nxt, logits_np = _fetch(nxt, row_logits, any_sampling or
+                                self.capture_logits is not None)
         if self.capture_logits is not None and decode_rows:
             cap = np.zeros((self.max_slots,) + logits_np.shape[1:],
                            logits_np.dtype)
@@ -328,11 +381,247 @@ class ServingEngine:
             self.scheduler.finish(req)
             self.metrics.on_finish(req)
 
+    # ------------------------------------------------- bucketed fallback
+    def _prefill_admitted(self, admitted):
+        """Route newly admitted requests to a prefill path: chunked mode
+        queues everything on ``_prefilling`` (the chunk step advances it
+        ``prefill_token_budget`` tokens per round); unchunked, a prefix hit
+        or a prompt longer than the largest seq bucket runs the chunk step
+        over its whole tail this round, and a miss runs the dense bucketed
+        prefill."""
+        dense = []
+        for req in admitted:
+            self.metrics.on_admit(req)
+            if (self.prefill_chunk is not None or req.num_cached > 0
+                    or len(req.effective_prompt())
+                    > self.prefill_seq_buckets[-1]):
+                req.state = "prefilling"
+                self._prefilling.append(req)
+            else:
+                dense.append(req)
+        groups = {}
+        for req in dense:
+            sb = pick_bucket(len(req.effective_prompt()),
+                             self.prefill_seq_buckets)
+            groups.setdefault(sb, []).append(req)
+        step_rows = min(self.max_slots, self.prefill_batch_buckets[-1])
+        for sb, reqs in sorted(groups.items()):
+            for i in range(0, len(reqs), step_rows):
+                self._prefill_batch(reqs[i:i + step_rows], sb)
+        if self.prefill_chunk is None:
+            # prefix-hit tails finish within the admission round
+            while self._prefilling:
+                self._run_chunk_batch()
+
+    def _prefill_fn(self, ids, lens):
+        """The dense causal forward of one (batch, seq) bucket ``ids``
+        [nb, sb] whose first ``len(lens)`` rows hold prompts of ``lens``
+        tokens -> (next tokens [n], logit rows [n, V] at each prompt's
+        last token, per-layer K and V [nb, sb, KVH, Dh]). The rows are
+        gathered on the device: the full logits never reach the host."""
+        nb, sb = ids.shape
+        n = len(lens)
+        flat = np.concatenate([ids.reshape(-1), lens]).astype(np.int64)
+        with torch.no_grad():
+            dev = torch.from_numpy(flat).to(self.device)
+            caches = [{"k": None, "v": None}
+                      for _ in range(self.cfg.num_layers)]
+            logits = self.model(dev[:nb * sb].view(nb, sb), caches=caches)
+            rows = logits[torch.arange(n, device=self.device),
+                          dev[nb * sb:] - 1]
+        return (rows.argmax(dim=-1), rows, [c["k"] for c in caches],
+                [c["v"] for c in caches])
+
+    def _prefill_batch(self, reqs, seq_bucket):
+        """Dense causal forward at [batch bucket, seq bucket]; right
+        padding is causal-safe (position i never attends j > i), so each
+        row's first ``len`` K/V rows are exact and go into its pages."""
+        nb = pick_bucket(len(reqs), self.prefill_batch_buckets, strict=True)
+        ids = np.zeros((nb, seq_bucket), np.int64)
+        prompts = [req.effective_prompt() for req in reqs]
+        lens = np.array([len(p) for p in prompts], np.int64)
+        for i, p in enumerate(prompts):
+            ids[i, :len(p)] = p
+        self._prefill_shapes.add((nb, seq_bucket))
+        self._bucketed_launches["prefill"] += 1
+        nxt, rows, ks, vs = self._prefill_fn(ids, lens)
+        toks, logits_np = _fetch(nxt, rows, any(r.temperature > 0.0
+                                                for r in reqs))
+        for i, req in enumerate(reqs):
+            ln = int(lens[i])
+            pages = torch.as_tensor(req.pages, dtype=torch.long,
+                                    device=self.device)
+            for layer in range(self.cfg.num_layers):
+                self.kv.write_prefill(layer, ks[layer][i], vs[layer][i],
+                                      pages, ln)
+            req.num_cached = ln
+            tok = _select_token(logits_np[i], req) \
+                if req.temperature > 0.0 else toks[i]
+            self._finish_prompt(req, prompts[i], tok)
+
+    def _paged_caches(self, bt, positions, chunk_lens=None):
+        caches = []
+        for i in range(self.cfg.num_layers):
+            c = {"paged": True, "k_pool": self.kv.k[i],
+                 "v_pool": self.kv.v[i], "block_tables": bt,
+                 "positions": positions}
+            if chunk_lens is not None:
+                c["chunk_lens"] = chunk_lens
+            caches.append(c)
+        return caches
+
+    def _chunk_fn(self, tokens, positions, lens, bt):
+        """The chunk step at one (batch, chunk) bucket: write each row's
+        ``lens[b]`` tokens into its pages at ``positions[b]`` onward, then
+        partial-prefix attention over the pages -> (next tokens [nb], logit
+        rows [nb, V] at each row's last chunk token)."""
+        nb, sb = tokens.shape
+        flat = np.concatenate([tokens.reshape(-1), positions, lens,
+                               bt.reshape(-1)]).astype(np.int32)
+        with torch.no_grad():
+            dev = torch.from_numpy(flat).to(self.device)
+            o = nb * sb
+            pos, ln = dev[o:o + nb], dev[o + nb:o + 2 * nb]
+            caches = self._paged_caches(dev[o + 2 * nb:].view(nb, -1), pos,
+                                        ln)
+            logits = self.model(dev[:o].view(nb, sb), caches=caches,
+                                pos_offset=pos)
+            rows = logits[torch.arange(nb, device=self.device),
+                          (ln.long() - 1).clamp_min(0)]
+        return rows.argmax(dim=-1), rows
+
+    def _run_chunk_batch(self):
+        """Advance pending prefills by ONE batched chunk launch: up to
+        ``budget // chunk`` requests (FIFO) each contribute their next
+        chunk. Requests whose prompt completes emit their first token and
+        decode from this round on."""
+        self._prefilling = [r for r in self._prefilling
+                            if r.state == "prefilling"]
+        pending = self._prefilling
+        if not pending:
+            return 0
+        cap = self.prefill_chunk
+        max_rows = min(self.max_slots, self.prefill_batch_buckets[-1])
+        if cap is not None:
+            rows = max(1, self._prefill_budget // cap)
+            batch = pending[:min(rows, max_rows)]
+        else:
+            batch = pending[:max_rows]
+        longest = max(len(r.effective_prompt()) - r.num_cached
+                      for r in batch)
+        want = min(cap, longest) if cap is not None else longest
+        sb = pick_bucket(want, self._chunk_buckets)
+        nb = pick_bucket(len(batch), self.prefill_batch_buckets,
+                         strict=True)
+        tokens = np.zeros((nb, sb), np.int32)
+        positions = np.zeros(nb, np.int32)
+        lens = np.zeros(nb, np.int32)
+        bt = np.zeros((nb, self.max_pages), np.int32)
+        prompts = []
+        for i, req in enumerate(batch):
+            p = req.effective_prompt()
+            prompts.append(p)
+            take = len(p) - req.num_cached
+            if cap is not None:
+                take = min(take, cap)
+            take = min(take, sb)
+            tokens[i, :take] = p[req.num_cached:req.num_cached + take]
+            positions[i] = req.num_cached
+            lens[i] = take
+            bt[i, :len(req.pages)] = req.pages
+        self._chunk_shapes.add((nb, sb))
+        self._bucketed_launches["chunk"] += 1
+        nxt, rows = self._chunk_fn(tokens, positions, lens, bt)
+        toks, logits_np = _fetch(nxt, rows, any(r.temperature > 0.0
+                                                for r in batch))
+        spent = 0
+        for i, req in enumerate(batch):
+            take = int(lens[i])
+            req.num_cached += take
+            spent += take
+            if req.num_cached < len(prompts[i]):
+                continue
+            tok = _select_token(logits_np[i], req) \
+                if req.temperature > 0.0 else toks[i]
+            self._finish_prompt(req, prompts[i], tok)
+        self._chunk_tokens += spent
+        self.metrics.on_prefill_chunk(spent)
+        return spent
+
+    def _decode_fn(self, tokens, positions, bt):
+        """ONE fixed-slot decode step over all ``max_slots`` slots: embed
+        each slot's last token at its position, scatter its K/V into its
+        page, paged attention over its block table (the paged decode
+        kernel on the card) -> (next tokens [S], logits [S, V]). Inactive
+        slots carry position 0 and an all-zero table: their write lands on
+        the scrap page and they attend one scrap token."""
+        S = tokens.shape[0]
+        flat = np.concatenate([tokens, positions,
+                               bt.reshape(-1)]).astype(np.int32)
+        with torch.no_grad():
+            dev = torch.from_numpy(flat).to(self.device)
+            pos = dev[S:2 * S]
+            caches = self._paged_caches(dev[2 * S:].view(S, -1), pos)
+            last = self.model(dev[:S, None], caches=caches,
+                              pos_offset=pos)[:, -1]
+        return last.argmax(dim=-1), last
+
+    def _decode_once(self, active):
+        S, maxp = self.max_slots, self.max_pages
+        tokens = np.zeros(S, np.int32)
+        positions = np.zeros(S, np.int32)
+        bt = np.zeros((S, maxp), np.int32)
+        for slot, req in active.items():
+            tokens[slot] = req.generated[-1]
+            positions[slot] = req.num_cached
+            bt[slot, :len(req.pages)] = req.pages
+        any_sampling = any(r.temperature > 0.0 for r in active.values())
+        self._bucketed_launches["decode"] += 1
+        nxt, last = self._decode_fn(tokens, positions, bt)
+        nxt, logits_np = _fetch(nxt, last, any_sampling or
+                                self.capture_logits is not None)
+        if self.capture_logits is not None:
+            self.capture_logits.append(
+                (dict((s, r.request_id) for s, r in active.items()),
+                 logits_np))
+        by_slot = {}
+        for slot, req in active.items():
+            if req.temperature > 0.0:
+                by_slot[slot] = _select_token(logits_np[slot], req)
+            else:
+                by_slot[slot] = int(nxt[slot])
+        finished = self.scheduler.complete_step(by_slot)
+        for slot, req in active.items():
+            tt = req.token_times
+            self.metrics.on_token(
+                req, tt[-1] - tt[-2] if len(tt) >= 2 else None)
+        for req in finished:
+            self.metrics.on_finish(req)
+        self._decode_tokens += len(by_slot)
+        return len(by_slot)
+
+    def _step_bucketed(self):
+        """The bucketed fallback round: dense/chunk prefill launches, then
+        ONE fixed-slot decode step."""
+        admitted = self.scheduler.schedule()
+        if admitted:
+            self._prefill_admitted(admitted)
+        if self.prefill_chunk is not None and self._prefilling:
+            # budgeted interleave: one bounded chunk launch per round
+            self._run_chunk_batch()
+        _, evicted = self.scheduler.ensure_decode_capacity()
+        for req in evicted:
+            self.metrics.on_evict(req)
+        active = {slot: r for slot, r in self.scheduler.active.items()
+                  if r.state == "active"}
+        return self._decode_once(active) if active else 0
+
     # ------------------------------------------------------------ stepping
     def step(self):
-        """One scheduler round -> decode tokens emitted (0 when idle):
-        admission, budgeted prefill chunks and every active row's decode
-        token ride ONE flat launch."""
+        """One scheduler round -> decode tokens emitted (0 when idle).
+        Ragged (default): admission, budgeted prefill chunks and every
+        active row's decode token ride ONE flat launch. Bucketed fallback:
+        dense/chunk prefill launches, then the fixed-slot decode step."""
         if self._loop_error is not None:
             raise EngineClosed(
                 f"engine unhealthy: serve loop crashed with "
@@ -341,7 +630,8 @@ class ServingEngine:
         if self._closed:
             raise EngineClosed("engine is closed")
         with self._step_lock:
-            emitted = self._step_ragged()
+            emitted = self._step_ragged() if self.ragged \
+                else self._step_bucketed()
             occ = self.kv.occupancy_pct()
             self._peak_occupancy = max(self._peak_occupancy, occ)
             alloc = self.kv.allocator
@@ -454,7 +744,11 @@ class ServingEngine:
             "num_kv_heads": self.num_kv_heads,
             "prefill_chunk": self.prefill_chunk,
             "prefill_chunk_tokens": self._chunk_tokens,
+            "ragged": self.ragged,
             "ragged_token_pads": sorted(self._ragged_shapes),
+            "prefill_shapes": sorted(self._prefill_shapes),
+            "chunk_shapes": sorted(self._chunk_shapes),
+            "bucketed_launches": dict(self._bucketed_launches),
         }
         if self.prefix is not None:
             out.update({

@@ -152,7 +152,8 @@ class PagedKVCache:
     """Per-layer K/V page pools on the device + the allocator that parcels
     them out. ``k[l]`` / ``v[l]`` are tensors ``[num_pages, page_size, KVH,
     Dh]`` (``KVH`` is the model's KV head count, so GQA pools are H/KVH
-    smaller). The model's ragged branch writes them in place."""
+    smaller). The model's ragged and paged branches write them in place;
+    this class writes a dense prefill's K/V (:meth:`write_prefill`)."""
 
     def __init__(self, num_layers, num_pages, page_size, num_heads,
                  head_dim, dtype=torch.float32, reserved=1, device=None):
@@ -177,3 +178,29 @@ class PagedKVCache:
 
     def occupancy_pct(self):
         return self.allocator.occupancy_pct()
+
+    def write_prefill(self, layer, k_new, v_new, pages, length):
+        """Write one request's prefill K/V (``[S, KVH, Dh]`` with
+        ``S >= length``; rows past ``length`` are padding and dropped) into
+        its ``pages`` (a list of page ids, or a long tensor of them on the
+        pools' device). The tail of the last page is written with zeros,
+        as the JAX package pads it; reads are masked by the context
+        anyway."""
+        n = len(pages)
+        cap = n * self.page_size
+        if length > cap:
+            raise ValueError(f"{length} tokens > {n} page capacity {cap}")
+        idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
+        for pools, new in ((self.k, k_new), (self.v, v_new)):
+            arr = torch.zeros((cap, self.num_heads, self.head_dim),
+                              dtype=self.dtype, device=self.device)
+            arr[:length] = new[:length]
+            pools[layer][idx] = arr.view(n, self.page_size, self.num_heads,
+                                         self.head_dim)
+
+    def gather(self, layer, pages, length, which="k"):
+        """Debug/test readback: the first ``length`` tokens of a request's
+        pages as one dense ``[length, KVH, Dh]`` tensor."""
+        pool = (self.k if which == "k" else self.v)[layer]
+        idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
+        return pool[idx].reshape(-1, self.num_heads, self.head_dim)[:length]

@@ -69,7 +69,8 @@ def _tiny_weights():
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "model", "convert",
-                                   "kv_cache", "train_model"])
+                                   "kv_cache", "train_model",
+                                   "rms_norm_model"])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry):
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device is usable")
@@ -84,6 +85,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry):
         # the training entry point is the same model, built for training
         "train_model": lambda: paddle_tpu_torch.GPTForCausalLM(
             paddle_tpu_torch.gpt_1p3b(dropout=0.0)).train(),
+        # the bucketed serving slice's model
+        "rms_norm_model": lambda: paddle_tpu_torch.GPTForCausalLM(
+            paddle_tpu_torch.gpt_1p3b(use_rms_norm=True, dropout=0.0)),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
@@ -129,6 +133,31 @@ def test_wrappers_on_a_non_cpu_tensor_raise_instead_of_falling_back():
     assert K.launch_counts() == before
 
 
+@pytest.mark.parametrize("wrapper", ["paged_attention", "rms_norm",
+                                     "incubate.paged_attention",
+                                     "incubate.fused_rms_norm"])
+def test_slice3_wrappers_on_a_non_cpu_tensor_raise(wrapper):
+    """The paged decode and RMSNorm wrappers, and the incubate entry points
+    over them, refuse a tensor that is neither on the CPU nor on CUDA."""
+    from paddle_tpu_torch import incubate
+    q = torch.empty(2, 4, 64, device="meta")
+    pool = torch.empty(4, 4, 4, 64, device="meta")
+    bt = torch.zeros(2, 4, dtype=torch.int32, device="meta")
+    ctx = torch.zeros(2, dtype=torch.int32, device="meta")
+    x, w = torch.empty(3, 64, device="meta"), torch.empty(64, device="meta")
+    calls = {
+        "paged_attention": lambda: K.paged_attention(q, pool, pool, bt, ctx),
+        "rms_norm": lambda: K.rms_norm(x, w),
+        "incubate.paged_attention": lambda: incubate.paged_attention(
+            q, pool, pool, bt, ctx),
+        "incubate.fused_rms_norm": lambda: incubate.fused_rms_norm(x, w),
+    }
+    before = K.launch_counts()
+    with pytest.raises(ValueError, match="cuda"):
+        calls[wrapper]()
+    assert K.launch_counts() == before
+
+
 def test_cuda_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     """The CUDA route builds from source with nvcc and raises when it is
     missing; there is no prebuilt or plain fallback."""
@@ -141,7 +170,7 @@ def test_cuda_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all(["ragged_paged_attention"])
     assert _build.sources() == ["flash_attention", "fused_adamw",
-                                "ragged_paged_attention"]
+                                "paged_attention", "ragged_paged_attention"]
 
 
 def test_triton_route_raises_without_triton():
@@ -161,6 +190,8 @@ def test_triton_route_raises_without_triton():
                                  "flash_attention.py:262",
                                  "flash_attention.py:285"], "operations"),
     ("csrc/fused_adamw.cu", ["fused_adamw.py:60"], "bytes"),
+    ("csrc/paged_attention.cu", ["paged_attention.py:175"], "bytes"),
+    ("rms_norm.py", ["rms_norm.py:39"], "bytes"),
 ])
 def test_kernel_sources_carry_their_note(source, replaces, bound):
     """Each kernel names the TPU kernel it replaces and what bounds it."""

@@ -82,7 +82,7 @@ def _bshd(x, b, h):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("sq,sk,d", [(200, 200, 128), (70, 45, 64),
-                                     (33, 97, 16)])
+                                     (33, 97, 16), (16, 16, 128)])
 def test_flash_kernels_match_plain_on_card(dtype, causal, sq, sk, d):
     """Forward, dQ and dK/dV kernels against their plain versions, S not a
     multiple of any tile (f32: atol 1e-4; bf16: rtol/atol 2e-2)."""
@@ -179,3 +179,61 @@ def test_fused_adamw_kernel_matches_plain_on_card():
                                    atol=wtol)
         torch.testing.assert_close(m, m2, rtol=1e-6, atol=1e-6)
         torch.testing.assert_close(v, v2, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kvh,d", [(16, 128), (4, 128), (2, 64)])
+def test_paged_attention_kernel_matches_plain_on_card(dtype, kvh, d):
+    """The paged decode kernel against its plain version: contexts that
+    end mid-page, on a page edge and at the full ``max_pages * page``, a
+    row with context 0 (exact zeros), tables padded with -1 (f32: atol
+    1e-4; bf16: rtol/atol 2e-2)."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    tol = 1e-4 if dt == torch.float32 else 2e-2
+    g = torch.Generator(device="cuda").manual_seed(kvh + d)
+    page, num_pages, max_pages, H = 16, 40, 6, 16
+    ctx = torch.tensor([37, 32, max_pages * page, 0, 1, 95], device="cuda",
+                       dtype=torch.int32)
+    B = ctx.shape[0]
+    bt = torch.full((B, max_pages), -1, dtype=torch.int32, device="cuda")
+    perm = torch.randperm(num_pages - 1, device="cuda", generator=g) + 1
+    used = 0
+    for r in range(B):
+        n = -(-int(ctx[r]) // page)
+        bt[r, :n] = perm[used:used + n]
+        used += n
+    q = torch.randn(B, H, d, device="cuda", generator=g).to(dt)
+    k, v = (torch.randn(num_pages, page, kvh, d, device="cuda",
+                        generator=g).to(dt) for _ in range(2))
+    before = K.paged_attention.launches
+    out = K.paged_attention(q, k, v, bt, ctx)
+    torch.cuda.synchronize()
+    assert K.paged_attention.launches == before + 1
+    assert bool((out[3] == 0).all())
+    torch.testing.assert_close(out.float(), K.paged_attention_reference(
+        q, k, v, bt, ctx).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("rows,h", [(300, 2048), (7, 96)])
+def test_rms_norm_kernel_matches_plain_on_card(dtype, with_bias, rows, h):
+    """The Triton RMSNorm against its plain version, H a power of two and
+    not (f32: atol 1e-4; bf16: rtol/atol 2e-2)."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    tol = 1e-4 if dt == torch.float32 else 2e-2
+    g = torch.Generator(device="cuda").manual_seed(rows + h)
+    x = (torch.randn(rows, h, device="cuda", generator=g) * 2 + 1).to(dt)
+    w = (1 + 0.1 * torch.randn(h, device="cuda", generator=g)).to(dt)
+    b = (0.1 * torch.randn(h, device="cuda", generator=g)).to(dt) \
+        if with_bias else None
+    before = K.rms_norm.launches
+    out = K.rms_norm(x, w, b, 1e-6)
+    torch.cuda.synchronize()
+    assert K.rms_norm.launches == before + 1
+    torch.testing.assert_close(out.float(), K.rms_norm_reference(
+        x, w, b, 1e-6).float(), rtol=tol, atol=tol)
