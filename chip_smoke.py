@@ -40,7 +40,9 @@ exit code:
    family.
 6. **train-kernel parity** — the flash forward, dQ and dK/dV kernels
    against their plain versions at ``[2, S, 16, 128]`` (S = 1024 and the
-   unaligned 1000, causal and not; f32 within 1e-4, bf16 within 2e-2
+   unaligned 1000, and in bf16 also 1 and 129, causal and not; the bf16
+   forward and dK/dV are the Hopper kernels of
+   ``csrc/flash_attention_sm90.cu``; f32 within 1e-4, bf16 within 2e-2
    elementwise, a few bf16 ulps at these magnitudes, and within 1e-2 in
    ``||got - plain|| / ||plain||``), q/k/v read as strided views of one
    fused projection; the autograd gradients of ``flash_attention_bshd``
@@ -60,7 +62,8 @@ exit code:
    (``bench.py:435`` FLOPs over step time over 989 TFLOP/s) and peak
    memory.
 9. **train timing and profile** — one step under ``torch.profiler``
-   (device time by family, busy share); each new kernel held against its
+   (device time by family, the flash backward split into dQ and dK/dV;
+   busy share); each new kernel held against its
    plain version at the slice's shapes (flash at ``[8, 1024, 16, 128]``
    bf16 causal with phase 6's limits; AdamW in one launch over the
    model's 292 tensors against the plain update of clones, within 1e-6),
@@ -68,7 +71,9 @@ exit code:
    call of each beside its bound, its plain version's time and
    ``library_ms`` (``F.scaled_dot_product_attention`` forward,
    its backward for the two backward kernels, ``torch._fused_adamw_``;
-   timed here only, never called by the port).
+   timed here only, never called by the port). The entries of the bf16
+   forward and dK/dV kernels add their registers and spill bytes from the
+   ``ptxas -v`` build log and their shared memory per block.
 10. **bucketed parity** — once the training model is freed: the paged
     decode kernel against its plain version (H 16, D 128, page 16, MHA
     and GQA KVH 4, f32 within 1e-4, bf16 within 2e-2; contexts crossing
@@ -79,7 +84,8 @@ exit code:
     ``ServingEngine(ragged=False)``, unchunked (a prefix hit, a prompt in
     the 16-token seq bucket) and with ``prefill_chunk=16``, against the
     dense plain forward (greedy tokens equal, logits within 1e-3); the
-    flash kernels at the smallest seq bucket, S = 16.
+    flash kernels at the smallest seq bucket, S = 16, and in bf16 at S = 1
+    and 129.
 11. **bucketed serve** — ``gpt_1p3b(use_rms_norm=True)`` bf16 (24 layers,
     random weights from seed 0) on ``ServingEngine(ragged=False)``: 16
     slots, page 16, 2048 pages, unchunked, so misses take the dense
@@ -94,7 +100,9 @@ exit code:
     step on the served layer-0 pools (f32-upcast within 1e-4, bf16 within
     4e-3 against plain) and RMSNorm at [rows of the largest dense prefill,
     2048] bf16, each beside its bound, its plain version and, for
-    RMSNorm, ``torch.nn.functional.rms_norm`` as ``library_ms``.
+    RMSNorm, ``torch.nn.functional.rms_norm`` as ``library_ms``; the
+    flash forward at the largest dense prefill's shape beside
+    ``F.scaled_dot_product_attention``.
 
 The lines before the last carry the ``{"kernels": [...]}`` JSON (all eight
 kernels) and the
@@ -105,6 +113,7 @@ non-zero and prints no result.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -170,14 +179,17 @@ def check_close(name, got, want, rtol, atol, norm_tol=None):
     ``norm_tol`` also ``||got - want|| / ||want|| <= norm_tol``, which
     catches a fault that moves every output by a few percent where an
     elementwise bound wide enough for bf16's worst element would not.
-    -> the max abs error."""
+    ``||want||`` is floored at ``atol * sqrt(n)``: an output whose every
+    element lies below ``atol`` (dK at S = 1, where dS is rounding noise
+    around 0) is held by the elementwise bound. -> the max abs error."""
     err = (got.float() - want.float()).abs()
     max_abs = float(err.max()) if err.numel() else 0.0
     ok = bool(torch.all(err <= atol + rtol * want.float().abs()))
     finite = bool(torch.isfinite(got.float()).all())
     norm = ""
     if norm_tol is not None:
-        rel = float(err.norm() / want.float().norm().clamp_min(1e-30))
+        floor = atol * math.sqrt(max(err.numel(), 1))
+        rel = float(err.norm() / want.float().norm().clamp_min(floor))
         ok = ok and rel <= norm_tol
         norm = f" rel_norm_err={rel:.3e} (tolerance {norm_tol:g})"
     log(f"  {name}: max_abs_err={max_abs:.3e} (tolerance atol={atol:g} "
@@ -403,14 +415,16 @@ def check_flash(K, tag, q, k, v, do, scale, causal, tol, norm_tol):
 
 def train_kernel_parity(K):
     """Flash forward, dQ and dK/dV against their plain versions at
-    [2, S, 16, 128], S in (1024, 1000), causal and not, f32 and bf16; the
+    [2, S, 16, 128], S in (1024, 1000), and in bf16 also 1 and 129 (one
+    row; one past the new kernels' 128-row tiles), causal and not, f32 and
+    bf16; the
     autograd gradients of ``flash_attention_bshd`` against autograd
     through the plain chain; fused AdamW multi-tensor against its plain
     version over mixed sizes."""
     for dt, tol, norm_tol in ((torch.float32, 1e-4, None),
                               (torch.bfloat16, FLASH_BF16_TOL,
                                FLASH_BF16_NORM_TOL)):
-        for S in (1024, 1000):
+        for S in (1024, 1000) + ((1, 129) if dt == torch.bfloat16 else ()):
             for causal in (True, False):
                 _, q, k, v, do = flash_inputs(2, S, 16, 128, dt, seed=S)
                 tag = f"{str(dt)[6:]} S={S} {'causal' if causal else 'full'}"
@@ -630,7 +644,8 @@ def profile_train_step(step):
         spans.append((e.time_range.start, e.time_range.end))
         name = e.name.lower()
         fam = ("flash forward" if "flash_fwd" in name else
-               "flash backward" if "flash_bwd" in name else
+               "flash backward dQ" if "flash_bwd_dq" in name else
+               "flash backward dK/dV" if "flash_bwd_dkv" in name else
                "fused_adamw" if "fused_adamw" in name else
                "layer_norm (triton)" if "layer_norm_fwd" in name else
                "matmul (cuBLAS)" if any(k in name for k in (
@@ -647,6 +662,30 @@ def profile_train_step(step):
     return wall_ms, _busy_ms(spans), families, top
 
 
+# the bf16 kernels of csrc/flash_attention_sm90.cu: mangled-name part of
+# their D = 128 instantiation, and their index for the shared-memory query
+SM90_KERNELS = {"flash_fwd": ("flash_fwd_sm90_kernelILi128E", 0),
+                "flash_bwd_dkv": ("flash_bwd_dkv_sm90_kernelILi128E", 1)}
+
+
+def ptxas_stats(lib, entry):
+    """-> (registers, spill bytes stored and loaded) that ``ptxas -v``
+    reported for the kernel whose mangled name holds ``entry``, from the
+    build log ``build/<lib>.log``."""
+    from paddle_tpu_torch.ops.kernels import _build
+    with open(os.path.join(_build.BUILD_DIR, f"{lib}.log")) as f:
+        lines = f.read().splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and entry in line:
+            text = "\n".join(lines[i + 1:i + 6])
+            regs = re.search(r"Used (\d+) registers", text)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                              r"spill loads", text)
+            if regs and spill:
+                return (int(regs[1]), int(spill[1]) + int(spill[2]))
+    fail(f"ptxas statistics of {entry} not found in {lib}.log")
+
+
 def train_timing(K, model, opt, launches):
     """Each new kernel at the slice's shapes: held against its plain
     version on the same inputs (the flash kernels at [8, 1024, 16, 128]
@@ -655,6 +694,7 @@ def train_timing(K, model, opt, launches):
     bound, its plain version's time and one PyTorch call's
     (``library_ms``, timed here only). -> the kernels' JSON entries, with
     these comparisons' errors as ``max_abs_err``."""
+    from paddle_tpu_torch.ops.kernels import _build
     B, S, H, D = 8, 1024, 16, 128
     scale = 1.0 / math.sqrt(D)
     _, q, k, v, do = flash_inputs(B, S, H, D, torch.bfloat16, seed=9)
@@ -706,7 +746,7 @@ def train_timing(K, model, opt, launches):
             f"launch) plain {plain_ms:.4f} ms library {library[name]:.4f} "
             f"ms bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, "
             f"{flops / 1e9:.2f} GFLOP) = {100 * b_ms / ms:.1f}% of bound")
-        entries.append({
+        entry = {
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/ops/kernels/csrc/flash_attention.cu",
             "replaces": "paddle_tpu/ops/pallas/flash_attention.py:"
@@ -714,7 +754,22 @@ def train_timing(K, model, opt, launches):
                            "flash_bwd_dkv": "285"}[name],
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": library[name]})
+            "bound_by": b_by, "library_ms": library[name]}
+        if name in SM90_KERNELS:
+            # the bf16 kernels of the main path: their build's registers
+            # and spills, and the shared memory a block launches with
+            entry["source"] = ("paddle_tpu_torch/ops/kernels/csrc/"
+                               "flash_attention_sm90.cu")
+            regs, spill = ptxas_stats("flash_attention_sm90",
+                                      SM90_KERNELS[name][0])
+            smem = _build.load("flash_attention_sm90") \
+                .flash_attention_sm90_smem_bytes(SM90_KERNELS[name][1], D)
+            entry.update({"registers": regs, "spill_bytes": spill,
+                          "smem_bytes": smem})
+            log(f"  {name}: {regs} registers at launch (setmaxnreg 240 "
+                f"consumer / 24 producer), {spill} spill bytes, {smem} "
+                f"bytes of shared memory a block")
+        entries.append(entry)
     del qt, kt, vt, ot, q, k, v, do, o, lse, delta
     # AdamW over the model's whole parameter list, as a step runs it
     params = list(model.parameters())
@@ -809,7 +864,8 @@ def bucketed_kernel_parity(K):
     f32 within 1e-4 and bf16 within 2e-2; RMSNorm on [T, 2048], f32 within
     1e-4 and bf16 within 2e-2, with and without bias. Then the flash
     kernels at the dense prefill's smallest seq bucket, S = 16, on views
-    of one fused projection, with phase 6's limits."""
+    of one fused projection, with phase 6's limits, and in bf16 at S = 1
+    and 129."""
     log("[bucketed parity] paged_attention vs plain (H=16, D=128, page 16)")
     for kvh in (16, 4):
         for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
@@ -838,12 +894,14 @@ def bucketed_kernel_parity(K):
     log(f"  (Triton compile + first launches {time.perf_counter() - t0:.2f}"
         " s)")
     log("[bucketed parity] flash kernels at the smallest seq bucket "
-        "[4, 16, 16, 128] causal")
-    for dt, tol, norm_tol in ((torch.float32, 1e-4, None),
-                              (torch.bfloat16, FLASH_BF16_TOL,
-                               FLASH_BF16_NORM_TOL)):
-        _, q, k, v, do = flash_inputs(4, 16, 16, 128, dt, seed=16)
-        check_flash(K, f"{str(dt)[6:]} S=16 causal", q, k, v, do,
+        "[4, 16, 16, 128] causal, and bf16 at S = 1 and 129")
+    for dt, tol, norm_tol, S in (
+            (torch.float32, 1e-4, None, 16),
+            (torch.bfloat16, FLASH_BF16_TOL, FLASH_BF16_NORM_TOL, 16),
+            (torch.bfloat16, FLASH_BF16_TOL, FLASH_BF16_NORM_TOL, 1),
+            (torch.bfloat16, FLASH_BF16_TOL, FLASH_BF16_NORM_TOL, 129)):
+        _, q, k, v, do = flash_inputs(4, S, 16, 128, dt, seed=16 + S)
+        check_flash(K, f"{str(dt)[6:]} S={S} causal", q, k, v, do,
                     1.0 / math.sqrt(128), True, tol, norm_tol)
 
 
@@ -1016,8 +1074,10 @@ def bucketed_timing(K, eng, model, rec, launches):
     1e-4, bf16 within 4e-3 against plain), RMSNorm at [rows of the largest
     dense prefill, 2048] bf16 with the served ln_1 weight; each timed
     beside its bound, its plain version and, for RMSNorm,
-    ``torch.nn.functional.rms_norm`` (timed here only). -> the kernels'
-    JSON entries."""
+    ``torch.nn.functional.rms_norm`` (timed here only). Then the flash
+    forward at the largest dense prefill's shape, held against its plain
+    version and timed beside ``F.scaled_dot_product_attention``. -> the
+    kernels' JSON entries."""
     cfg = model.config
     H, KVH, D, page = cfg.num_heads, cfg.num_kv_heads, 128, 16
     rows, (tokens, positions, bt) = rec["decode"]
@@ -1076,6 +1136,28 @@ def bucketed_timing(K, eng, model, rec, launches):
         f"per call with launch) plain {plain_ms:.4f} ms F.rms_norm "
         f"{lib_ms:.4f} ms ({lib_wall:.4f} ms per call) bound {b_ms:.4f} ms "
         f"({b_by})")
+    # the flash forward as the bucketed serve runs it: one dense prefill
+    # at the largest shape it launched (bf16 causal, q/k/v views of one
+    # fused projection), beside F.scaled_dot_product_attention
+    H, D = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+    scale = 1.0 / math.sqrt(D)
+    _, q, k, v, _ = flash_inputs(nb, sb, H, D, torch.bfloat16, seed=7)
+    o, lse = K.flash_fwd(q, k, v, scale, True)
+    ro, rl = K.flash_fwd_reference(_bhsd(q), _bhsd(k), _bhsd(v), scale, True)
+    check_close(f"flash_fwd O at the largest dense prefill [{nb}, {sb}]", o,
+                _bshd(ro, nb, H), FLASH_BF16_TOL, FLASH_BF16_TOL,
+                FLASH_BF16_NORM_TOL)
+    check_close(f"flash_fwd lse at the largest dense prefill [{nb}, {sb}]",
+                lse, rl.reshape(nb, H, sb), 1e-4, 1e-4)
+    fl_ms, fl_wall, src = time_ms(lambda: K.flash_fwd(q, k, v, scale, True))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa_ms, _, _ = time_ms(lambda: torch.nn.functional
+                            .scaled_dot_product_attention(qt, kt, vt,
+                                                          is_causal=True))
+    log(f"[bucketed timing] flash_fwd at the largest dense prefill [{nb}, "
+        f"{sb}, {H}, {D}] bf16 causal: kernel {fl_ms:.4f} ms ({src}; "
+        f"{fl_wall:.4f} ms per call with launch) "
+        f"F.scaled_dot_product_attention {sdpa_ms:.4f} ms")
     entries.append({
         "name": "rms_norm", "route": "triton",
         "source": "paddle_tpu_torch/ops/kernels/rms_norm.py",

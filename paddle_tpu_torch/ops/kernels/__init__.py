@@ -15,6 +15,10 @@ wrapper                      route    replaces (TPU kernel)
 
 ``paged_attention`` and ``ragged_paged_attention`` share their page loop
 (``csrc/paged_attend.cuh``) but are kernels and launches of their own.
+``flash_fwd`` and ``flash_bwd_dkv`` launch the Hopper kernels of
+``csrc/flash_attention_sm90.cu`` (wgmma, TMA, warp specialisation; its
+primitives in ``csrc/sm90.cuh``) on bf16 and ``csrc/flash_attention.cu``
+on f32, where ``flash_bwd_dq`` runs for both.
 
 Each wrapper counts its kernel launches in a plain integer attribute
 (``wrapper.launches``), so a run can show that its main path went through

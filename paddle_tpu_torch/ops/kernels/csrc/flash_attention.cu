@@ -1,5 +1,6 @@
 // Flash attention forward and backward (FlashAttention-2), for Hopper
-// (sm_90a).
+// (sm_90a): the f32 forward and dK/dV, and the dQ kernel in f32 and bf16.
+// The bf16 forward and dK/dV are flash_attention_sm90.cu's.
 //
 // Replaces three Pallas kernels of paddle_tpu/ops/pallas/flash_attention.py:
 //   * paddle_tpu/ops/pallas/flash_attention.py:106 (_flash_fwd, body
@@ -36,9 +37,9 @@
 // query tiles on or below the diagonal (:236-240) and owns its tile's dK
 // and dV, so no atomics are needed. Every product C (+)= A.B runs on tiles
 // staged in shared memory with an f32 result in shared memory: for bf16
-// through nvcuda::wmma 16x16x16 bf16 tensor-core tiles with f32
+// (dQ) through nvcuda::wmma 16x16x16 bf16 tensor-core tiles with f32
 // accumulation, for f32 in scalar f32 FMAs (full f32, no TF32: the f32
-// instantiation is the tight check of the masks, the causal skip and the
+// instantiations are the tight check of the masks, the causal skip and the
 // S tail). bf16 tiles are 64 x 64; f32 tiles are 64 query x 32 key rows,
 // so the f32 check also covers a causal skip boundary with
 // block_q != block_k. P and dS are rounded to the input type before their
@@ -50,11 +51,11 @@
 // of tensor-core time, 0.040 ms of bytes), dQ 51.6 GFLOP against 168.8 MB
 // (0.052 vs 0.050 ms) and dK/dV 68.8 GFLOP against 202.4 MB (0.070 vs
 // 0.060 ms): all three sit near the H100's ~295 flop/byte ridge, so both
-// the tensor cores and the loads have to be kept busy. This first version
-// keeps accumulators in shared memory (a round trip per tile), uses wmma
-// rather than wgmma and loads tiles with plain 16-byte loads rather than
-// TMA, with no overlap of loads and math; wgmma with register
-// accumulators, a TMA ring and warp specialisation are for later.
+// the tensor cores and the loads have to be kept busy. The bf16 dQ kernel
+// keeps its accumulators in shared memory (a round trip per tile), uses
+// wmma rather than wgmma and loads tiles with plain 16-byte loads with no
+// overlap of loads and math; its redesign on flash_attention_sm90.cu's
+// building blocks (sm90.cuh) is the next step.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -505,30 +506,18 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
 
 enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
-template <typename T>
-int launch(Which which, const Params& p, cudaStream_t stream) {
-  constexpr int BQ = Tiles<T>::BQ, BK = Tiles<T>::BK;
-  void (*kernel)(Params);
-  size_t smem;
-  dim3 grid;
-  if (which == kFwd) {
-    kernel = flash_fwd_kernel<T>;
-    smem = fwd_smem<T>(p.D);
-    grid = dim3((p.Sq + BQ - 1) / BQ, p.B * p.H);
-  } else if (which == kDq) {
-    kernel = flash_bwd_dq_kernel<T>;
-    smem = dq_smem<T>(p.D);
-    grid = dim3((p.Sq + BQ - 1) / BQ, p.B * p.H);
-  } else {
-    kernel = flash_bwd_dkv_kernel<T>;
-    smem = dkv_smem<T>(p.D);
-    grid = dim3((p.Sk + BK - 1) / BK, p.B * p.H);
-  }
+int launch(void (*kernel)(Params), size_t smem, dim3 grid, const Params& p,
+           cudaStream_t stream) {
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   kernel<<<grid, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+dim3 query_grid(const Params& p) {
+  return dim3((p.Sq + Tiles<T>::BQ - 1) / Tiles<T>::BQ, p.B * p.H);
 }
 
 // meta (host): B, H, Sq, Sk, D, then (batch, seq, head) element strides of
@@ -571,16 +560,31 @@ int run(Which which, const void* q, const void* k, const void* v,
       p.Sq <= 0 || p.Sk <= 0 || (long long)p.B * p.H > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(which, p, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(which, p, s);
+  using bf16 = __nv_bfloat16;
+  if (dtype == 0 && which == kFwd)
+    return launch(flash_fwd_kernel<float>, fwd_smem<float>(p.D),
+                  query_grid<float>(p), p, s);
+  if (dtype == 0 && which == kDq)
+    return launch(flash_bwd_dq_kernel<float>, dq_smem<float>(p.D),
+                  query_grid<float>(p), p, s);
+  if (dtype == 0 && which == kDkv)
+    return launch(flash_bwd_dkv_kernel<float>, dkv_smem<float>(p.D),
+                  dim3((p.Sk + Tiles<float>::BK - 1) / Tiles<float>::BK,
+                       p.B * p.H),
+                  p, s);
+  // bf16 forward and dK/dV run in flash_attention_sm90.cu
+  if (dtype == 1 && which == kDq)
+    return launch(flash_bwd_dq_kernel<bf16>, dq_smem<bf16>(p.D),
+                  query_grid<bf16>(p), p, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Each returns cudaGetLastError() after
-// its launch (0 on success), or cudaErrorInvalidValue for a shape the
-// kernels do not take.
+// dtype: 0 = float32, 1 = bfloat16 (dQ only: the bf16 forward and dK/dV
+// are flash_attention_sm90.cu's). Each returns cudaGetLastError() after
+// its launch (0 on success), or cudaErrorInvalidValue for a shape or type
+// the kernels do not take.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, void* lse,
                                    const long long* meta, float scale,

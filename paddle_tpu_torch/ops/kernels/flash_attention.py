@@ -10,12 +10,14 @@ The port of ``paddle_tpu/ops/pallas/flash_attention.py``:
   (``_bwd_dkv_kernel``, :193). Keys count where ``kpos < kv_len`` and, when
   causal, ``kpos <= qpos``; masked scores are ``-1e30`` (:69-77) and add
   exactly nothing; all three compute in f32 and return the input's type.
-* the wrappers of ``csrc/flash_attention.cu`` on ``[B, S, H, D]`` tensors
-  read through their strides (lse and delta ``[B, H, S]`` f32):
-  :func:`flash_fwd`, :func:`flash_bwd_dq`, :func:`flash_bwd_dkv`. On a CPU
-  tensor each runs its plain version; on a CUDA tensor it launches its
-  kernel or raises, and counts the launch. The kernels are bound by
-  operations at the GPT's shapes; see the source for their design.
+* the wrappers of the CUDA kernels on ``[B, S, H, D]`` tensors read
+  through their strides (lse and delta ``[B, H, S]`` f32):
+  :func:`flash_fwd`, :func:`flash_bwd_dq`, :func:`flash_bwd_dkv`. bf16
+  forward and dK/dV launch ``csrc/flash_attention_sm90.cu`` (wgmma, TMA,
+  warp specialisation); dQ and the f32 instantiations
+  ``csrc/flash_attention.cu``. On a CPU tensor each runs its plain
+  version; on a CUDA tensor it launches its kernel or raises, and counts
+  the launch. See the sources for their designs and bounds.
 * :func:`flash_attention_bshd` — the differentiable entry point with the
   semantics of ``flash_attention.py:368-393``: forward kernel, then the
   backward computes ``delta = rowsum(dO * O)`` (:256) and runs the dQ and
@@ -110,33 +112,47 @@ def flash_delta(o, do):
 
 # -------------------------------------------------------------- kernels
 _fns = {}
+# C entry point -> (library, pointer arguments); the sm90 library's take
+# no dtype argument (bf16 only)
+_ENTRIES = {"flash_attention_fwd": ("flash_attention", 5),
+            "flash_attention_bwd_dq": ("flash_attention", 7),
+            "flash_attention_bwd_dkv": ("flash_attention", 8),
+            "flash_attention_sm90_fwd": ("flash_attention_sm90", 5),
+            "flash_attention_sm90_bwd_dkv": ("flash_attention_sm90", 8)}
 
 
 def _kernel(name):
     fn = _fns.get(name)
     if fn is None:
         from . import _build
-        fn = getattr(_build.load("flash_attention"), name)
-        n_ptr = {"flash_attention_fwd": 5, "flash_attention_bwd_dq": 7,
-                 "flash_attention_bwd_dkv": 8}[name]
+        lib, n_ptr = _ENTRIES[name]
+        fn = getattr(_build.load(lib), name)
+        dtype_arg = [] if lib == "flash_attention_sm90" else [ctypes.c_int]
         fn.argtypes = ([ctypes.c_void_p] * n_ptr
-                       + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int]
+                       + dtype_arg + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
 
 
-def _aligned(x):
-    """16-byte rows: the kernels load tiles with 16-byte vectors."""
+def _readable(x):
+    """Whether the kernels can read ``x`` [B, S, H, D] in place: 16-byte
+    rows (base and strides; the f32 kernels load 16-byte vectors, the bf16
+    kernels' TMA maps require them) and head, sequence and batch strides
+    that grow in that order, dimensions of extent 1 aside (the order of the
+    TMA map's dimensions)."""
     v = 16 // x.element_size()
-    return (x.stride(3) == 1 and x.data_ptr() % 16 == 0
-            and all(x.stride(i) % v == 0 for i in range(3)))
+    if not (x.stride(3) == 1 and x.data_ptr() % 16 == 0
+            and all(x.stride(i) % v == 0 for i in range(3))):
+        return False
+    grow = [x.stride(i) for i in (2, 1, 0) if x.shape[i] > 1]
+    return grow == sorted(grow)
 
 
 def _prepare(name, q, k, v, do=None):
     """Check what the kernels take -> the four [B, S, H, D] operands
-    (re-laid out contiguous only where a row is not 16-byte aligned) and
+    (re-laid out contiguous only where :func:`_readable` refuses them) and
     the host meta array (B, H, Sq, Sk, D and their strides)."""
     if q.dtype not in _DTYPES:
         raise TypeError(f"{name} takes float32 or bfloat16, got {q.dtype}")
@@ -162,7 +178,7 @@ def _prepare(name, q, k, v, do=None):
         raise ValueError(f"do {tuple(do.shape)} does not match q")
     if B * H > 65535:
         raise ValueError(f"B*H = {B * H} exceeds the grid's 65535")
-    ts = [x if _aligned(x) else x.contiguous() for _, x in ops]
+    ts = [x if _readable(x) else x.contiguous() for _, x in ops]
     strides = [s for x in ts + [ts[0]] * (4 - len(ts))
                for s in (x.stride(0), x.stride(1), x.stride(2))]
     meta = (ctypes.c_longlong * 17)(B, H, Sq, Sk, D, *strides)
@@ -190,6 +206,8 @@ def _stream():
 
 
 def _raise_if(rc, name):
+    if rc == -1:
+        raise RuntimeError(f"{name}: the driver refused a TMA tensor map")
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
 
@@ -206,10 +224,12 @@ def flash_fwd(q, k, v, scale, causal):
     (q, k, v), meta = _prepare("flash_fwd", q, k, v)
     o = torch.empty(B, Sq, H, D, dtype=q.dtype, device=q.device)
     lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
-    rc = _kernel("flash_attention_fwd")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), meta, float(scale), int(bool(causal)),
-        _DTYPES[q.dtype], _stream())
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), meta, float(scale), int(bool(causal)))
+    if q.dtype == torch.bfloat16:
+        rc = _kernel("flash_attention_sm90_fwd")(*args, _stream())
+    else:
+        rc = _kernel("flash_attention_fwd")(*args, 0, _stream())
     _raise_if(rc, "flash_fwd")
     flash_fwd.launches += 1
     return o, lse
@@ -252,10 +272,13 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal):
     _check_rows("delta", delta, B, H, Sq, q)
     dk = torch.empty(B, Sk, H, D, dtype=k.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    rc = _kernel("flash_attention_bwd_dkv")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        meta, float(scale), int(bool(causal)), _DTYPES[q.dtype], _stream())
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            meta, float(scale), int(bool(causal)))
+    if q.dtype == torch.bfloat16:
+        rc = _kernel("flash_attention_sm90_bwd_dkv")(*args, _stream())
+    else:
+        rc = _kernel("flash_attention_bwd_dkv")(*args, 0, _stream())
     _raise_if(rc, "flash_bwd_dkv")
     flash_bwd_dkv.launches += 1
     return dk, dv

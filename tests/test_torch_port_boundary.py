@@ -11,6 +11,7 @@
 """
 import ast
 import importlib
+import importlib.util
 import os
 import pkgutil
 
@@ -29,7 +30,8 @@ PKG = os.path.join(REPO, "paddle_tpu_torch")
 
 
 def _port_sources():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, "chip_smoke.py"),
+           os.path.join(REPO, "flash_variants.py")]
     for root, _, files in os.walk(PKG):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -169,8 +171,9 @@ def test_cuda_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all(["ragged_paged_attention"])
-    assert _build.sources() == ["flash_attention", "fused_adamw",
-                                "paged_attention", "ragged_paged_attention"]
+    assert _build.sources() == ["flash_attention", "flash_attention_sm90",
+                                "fused_adamw", "paged_attention",
+                                "ragged_paged_attention"]
 
 
 def test_triton_route_raises_without_triton():
@@ -189,6 +192,8 @@ def test_triton_route_raises_without_triton():
     ("csrc/flash_attention.cu", ["flash_attention.py:106",
                                  "flash_attention.py:262",
                                  "flash_attention.py:285"], "operations"),
+    ("csrc/flash_attention_sm90.cu", ["flash_attention.py:106",
+                                      "flash_attention.py:285"], "bytes"),
     ("csrc/fused_adamw.cu", ["fused_adamw.py:60"], "bytes"),
     ("csrc/paged_attention.cu", ["paged_attention.py:175"], "bytes"),
     ("rms_norm.py", ["rms_norm.py:39"], "bytes"),
@@ -199,3 +204,86 @@ def test_kernel_sources_carry_their_note(source, replaces, bound):
     for r in replaces:
         assert f"paddle_tpu/ops/pallas/{r}" in src
     assert f"Bound: {bound}" in src
+
+
+def _fused_qkv(b, s, h, d, dtype, offset=0):
+    """q, k, v as views of one [B, S, 3*H*D (+ offset)] projection (the
+    GPT's layout), starting ``offset`` elements into each row."""
+    qkv = torch.randn(b, s, 3 * h * d + offset).to(dtype)
+    return [qkv[..., offset + i * h * d:offset + (i + 1) * h * d]
+            .reshape(b, s, h, d) for i in range(3)]
+
+
+@pytest.mark.parametrize("case", ["fused_views", "unaligned_view",
+                                  "head_major_view", "extent_one"])
+def test_flash_host_preparation(case):
+    """What the flash wrappers hand the kernels, on the host: fused-QKV
+    views go as they are (no copy; their own batch, seq and head strides in
+    the meta array), a view whose rows are not 16-byte aligned or whose
+    strides do not grow head < seq < batch (the TMA map's dimension order)
+    is re-laid out contiguous, and a dimension of extent 1 does not count
+    against the order."""
+    fa = importlib.import_module("paddle_tpu_torch.ops.kernels."
+                                 "flash_attention")
+    b, s, h, d = 2, 5, 3, 16
+    if case == "fused_views":
+        q, k, v = _fused_qkv(b, s, h, d, torch.bfloat16)
+    elif case == "unaligned_view":
+        q, k, v = _fused_qkv(b, s, h, d, torch.bfloat16, offset=1)
+    elif case == "head_major_view":
+        q, k, v = (torch.randn(b, h, s, d).to(torch.bfloat16).transpose(1, 2)
+                   for _ in range(3))
+    else:
+        # B = H = 1: a [1, S, 1, D] slice whose batch and head strides are
+        # whatever the parent had
+        q, k, v = (x[:1, :, 1:2] for x in _fused_qkv(b, s, h, d,
+                                                      torch.float32))
+    do = torch.randn(q.shape).to(q.dtype)
+    (tq, tk, tv, tdo), meta = fa._prepare("flash_bwd_dkv", q, k, v, do)
+    B, S, H, D = q.shape
+    assert list(meta[:5]) == [B, H, S, S, D]
+    in_place = case in ("fused_views", "extent_one")
+    for x, t in ((q, tq), (k, tk), (v, tv)):
+        assert (t.data_ptr() == x.data_ptr()) == in_place
+        assert torch.equal(t, x)
+        if not in_place:
+            assert t.is_contiguous()
+    assert tdo.data_ptr() == do.data_ptr()       # contiguous: as it is
+    got = [tuple(meta[5 + 3 * i:8 + 3 * i]) for i in range(4)]
+    want = [(t.stride(0), t.stride(1), t.stride(2))
+            for t in (tq, tk, tv, tdo)]
+    assert got == want
+    if case == "fused_views":
+        assert got[0] == (s * 3 * h * d, 3 * h * d, d)
+    # on the CPU the wrappers run the plain versions and count nothing
+    before = K.launch_counts()
+    o, lse = K.flash_fwd(q, k, v, 0.25, True)
+    delta = K.flash_delta(o, do)
+    dk, dv = K.flash_bwd_dkv(q, k, v, do, lse, delta, 0.25, True)
+    assert K.launch_counts() == before
+    ro, rl = K.flash_fwd_reference(*(x.transpose(1, 2).reshape(B * H, S, D)
+                                     for x in (q, k, v)), 0.25, True)
+    torch.testing.assert_close(o, ro.reshape(B, H, S, D).transpose(1, 2),
+                               rtol=0, atol=0)
+    assert dk.shape == dv.shape == k.shape
+
+
+def _flash_variants():
+    path = os.path.join(REPO, "flash_variants.py")
+    spec = importlib.util.spec_from_file_location("flash_variants", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.VARIANTS
+
+
+@pytest.mark.parametrize("name", ["as-committed", "tile-major-order",
+                                  "no-kv-reloads", "no-exp",
+                                  "no-ping-pong", "dkv-no-ping-pong"])
+def test_flash_variant_edits_match_the_source(name):
+    """Every variant ``flash_variants.py`` times on the card is a set of
+    literal edits of the committed sources; each must match exactly once,
+    so the variants stay the designs they are named for."""
+    for fname, old, new in _flash_variants()[name]:
+        src = open(os.path.join(PKG, "ops", "kernels", "csrc", fname)).read()
+        assert src.count(old) == 1, (name, fname)
+        assert old != new

@@ -81,11 +81,18 @@ def _bshd(x, b, h):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("sq,sk,d", [(200, 200, 128), (70, 45, 64),
-                                     (33, 97, 16), (16, 16, 128)])
+@pytest.mark.parametrize("sq,sk,d", [
+    (200, 200, 128), (70, 45, 64), (33, 97, 16), (16, 16, 128),
+    # every side of the bf16 kernels' 64- and 128-row tiles, D below,
+    # at and between the 64-element TMA boxes, Sq != Sk both ways
+    (1, 1, 128), (63, 63, 64), (64, 64, 16), (65, 65, 128), (127, 127, 64),
+    (128, 128, 128), (129, 129, 16), (1000, 1000, 128), (129, 65, 64),
+    (65, 129, 128), (1, 129, 16), (257, 1, 128), (63, 1000, 96),
+    (1000, 127, 128)])
 def test_flash_kernels_match_plain_on_card(dtype, causal, sq, sk, d):
     """Forward, dQ and dK/dV kernels against their plain versions, S not a
-    multiple of any tile (f32: atol 1e-4; bf16: rtol/atol 2e-2)."""
+    multiple of any tile and at every side of the tiles (f32: atol 1e-4;
+    bf16: rtol/atol 2e-2)."""
     _need_cuda()
     dt = getattr(torch, dtype)
     tol = 1e-4 if dt == torch.float32 else 2e-2
@@ -119,30 +126,39 @@ def test_flash_kernels_match_plain_on_card(dtype, causal, sq, sk, d):
 
 
 @pytest.mark.cuda
-def test_flash_attention_bshd_gradients_on_card_through_strided_views():
+@pytest.mark.parametrize("dtype,d", [("float32", 32), ("bfloat16", 128)])
+def test_flash_attention_bshd_gradients_on_card_through_strided_views(
+        dtype, d):
     """The autograd Function on q/k/v views of one fused [B, S, 3*H*D]
-    tensor (the GPT's layout) against autograd through the plain chain,
-    f32."""
+    tensor (the GPT's layout) against autograd through the plain chain in
+    f32 on the same values (f32: rtol/atol 1e-4; bf16: rtol/atol 2e-2
+    elementwise, a few bf16 roundings, and 1e-2 on the error's norm)."""
     _need_cuda()
+    dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(5)
-    b, s, h, d = 2, 130, 4, 32
-    qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=g,
-                      requires_grad=True)
-    ct = torch.randn(b, s, h, d, device="cuda", generator=g)
+    b, s, h = 2, 130, 4
+    qkv = torch.randn(b, s, 3 * h * d, device="cuda", generator=g).to(dt)
+    qkv.requires_grad_(True)
+    ct = torch.randn(b, s, h, d, device="cuda", generator=g).to(dt)
 
     def split(t):
         return [t[..., i * h * d:(i + 1) * h * d].reshape(b, s, h, d)
                 for i in range(3)]
 
-    got = torch.autograd.grad((K.flash_attention_bshd(*split(qkv))
-                               * ct).sum(), qkv)[0]
-    q, k, v = split(qkv)
+    got = torch.autograd.grad((K.flash_attention_bshd(*split(qkv)).float()
+                               * ct.float()).sum(), qkv)[0]
+    ref = qkv.detach().float().requires_grad_(True)
+    q, k, v = split(ref)
     sc = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(d)
     causal = torch.ones(s, s, dtype=torch.bool, device="cuda").tril()
     o = torch.einsum("bhqk,bkhd->bqhd", sc.masked_fill(~causal, -1e30)
                      .softmax(-1), v)
-    want = torch.autograd.grad((o * ct).sum(), qkv)[0]
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    want = torch.autograd.grad((o * ct.float()).sum(), ref)[0]
+    tol = 1e-4 if dt == torch.float32 else 2e-2
+    assert got.dtype == dt
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+    if dt == torch.bfloat16:
+        assert float((got.float() - want).norm() / want.norm()) <= 1e-2
 
 
 @pytest.mark.cuda
