@@ -35,13 +35,17 @@ exit code:
    for LayerNorm, ``torch.nn.functional.layer_norm``'s time as
    ``library_ms`` (the port never calls it). Kernel times are device
    time from ``torch.profiler`` (CUDA events when the trace is empty).
+   The ragged kernel's entry adds the widest decode round's time and
+   bound as ``decode_ms`` and ``decode_bound_ms`` beside the mixed
+   round's ``ms`` and ``bound_ms``; its ``max_abs_err`` is the larger of
+   the two rounds' bf16 errors.
 5. **profile** — a steady decode round of 16 rows on the host clock and
    under ``torch.profiler``: device busy share and device time by kernel
    family.
 6. **train-kernel parity** — the flash forward, dQ and dK/dV kernels
    against their plain versions at ``[2, S, 16, 128]`` (S = 1024 and the
    unaligned 1000, and in bf16 also 1 and 129, causal and not; the bf16
-   forward and dK/dV are the Hopper kernels of
+   forward, dQ and dK/dV are the Hopper kernels of
    ``csrc/flash_attention_sm90.cu``; f32 within 1e-4, bf16 within 2e-2
    elementwise, a few bf16 ulps at these magnitudes, and within 1e-2 in
    ``||got - plain|| / ||plain||``), q/k/v read as strided views of one
@@ -72,7 +76,7 @@ exit code:
    ``library_ms`` (``F.scaled_dot_product_attention`` forward,
    its backward for the two backward kernels, ``torch._fused_adamw_``;
    timed here only, never called by the port). The entries of the bf16
-   forward and dK/dV kernels add their registers and spill bytes from the
+   forward, dQ and dK/dV kernels add their registers and spill bytes from the
    ``ptxas -v`` build log and their shared memory per block.
 10. **bucketed parity** — once the training model is freed: the paged
     decode kernel against its plain version (H 16, D 128, page 16, MHA
@@ -665,7 +669,8 @@ def profile_train_step(step):
 # the bf16 kernels of csrc/flash_attention_sm90.cu: mangled-name part of
 # their D = 128 instantiation, and their index for the shared-memory query
 SM90_KERNELS = {"flash_fwd": ("flash_fwd_sm90_kernelILi128E", 0),
-                "flash_bwd_dkv": ("flash_bwd_dkv_sm90_kernelILi128E", 1)}
+                "flash_bwd_dkv": ("flash_bwd_dkv_sm90_kernelILi128E", 1),
+                "flash_bwd_dq": ("flash_bwd_dq_sm90_kernelILi128E", 2)}
 
 
 def ptxas_stats(lib, entry):
@@ -1378,15 +1383,20 @@ def main():
             f"{plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}: "
             f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
         if key == "mixed":
-            kernels.append({
+            ragged = {
                 "name": "ragged_paged_attention", "route": "cuda",
                 "source": "paddle_tpu_torch/ops/kernels/csrc/"
                           "ragged_paged_attention.cu",
                 "replaces": "paddle_tpu/ops/pallas/ragged_attention.py:108",
                 "launches": launches["ragged_paged_attention"],
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            kernels.append(ragged)
             ln_rows = T
+        else:
+            # the widest decode round beside the mixed one
+            ragged.update({"decode_ms": ms, "decode_bound_ms": b_ms,
+                           "max_abs_err": max(ragged["max_abs_err"], err)})
     g = torch.Generator(device="cuda").manual_seed(3)
     x = torch.randn(ln_rows, 2048, device="cuda", generator=g).to(
         torch.bfloat16)

@@ -9,7 +9,7 @@ below: the source as it is, and the designs and diagnostics it was
 measured against). All are built with the repository's nvcc flags into
 ``build/variants/<name>/``, then run in turns on the same inputs, the
 GPT's ``[8, 1024, 16, 128]`` bf16 q/k/v views of one fused projection,
-causal and not: the forward and dK/dV device time per call (``torch.
+causal and not: the forward, dQ and dK/dV device time per call (``torch.
 profiler``, as ``chip_smoke.py`` times kernels) and the forward's error
 against its plain version. Diagnostic variants compute wrong results on
 purpose: they tell which part of the kernel holds the time. A variant
@@ -63,6 +63,14 @@ VARIANTS = {
         "flash_attention_sm90.cu",
         "    // 1 and 2), so one's elementwise work runs under the other's "
         "wgmma.\n"
+        "    auto my_turn = [&] { bar_sync(1 + wg, 256); };\n"
+        "    auto your_turn = [&] { bar_arrive(2 - wg, 256); };\n",
+        "    auto my_turn = [] {};\n    auto your_turn = [] {};\n")],
+    # the same for dQ's products
+    "dq-no-ping-pong": [(
+        "flash_attention_sm90.cu",
+        "    // 1 and 2), so one's dS arithmetic overlaps the other's "
+        "products.\n"
         "    auto my_turn = [&] { bar_sync(1 + wg, 256); };\n"
         "    auto your_turn = [&] { bar_arrive(2 - wg, 256); };\n",
         "    auto my_turn = [] {};\n    auto your_turn = [] {};\n")],
@@ -132,12 +140,14 @@ def main():
                 err = float((o.float() - want).norm() / want.norm())
                 fwd, _, _ = cs.time_ms(lambda: K.flash_fwd(q, k, v, scale,
                                                            causal))
+                dq, _, _ = cs.time_ms(lambda: K.flash_bwd_dq(
+                    q, k, v, do, lse, delta, scale, causal))
                 dkv, _, _ = cs.time_ms(lambda: K.flash_bwd_dkv(
                     q, k, v, do, lse, delta, scale, causal))
                 tag = "causal" if causal else "full"
                 print(f"turn {turn} {name:>16} {tag:>6}: forward {fwd:.4f} "
-                      f"ms dK/dV {dkv:.4f} ms (forward relative norm error "
-                      f"{err:.2e})", flush=True)
+                      f"ms dQ {dq:.4f} ms dK/dV {dkv:.4f} ms (forward "
+                      f"relative norm error {err:.2e})", flush=True)
     _build.load = load
     fa._fns.clear()
     return 0

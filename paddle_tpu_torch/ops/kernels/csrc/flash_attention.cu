@@ -1,8 +1,9 @@
-// Flash attention forward and backward (FlashAttention-2), for Hopper
-// (sm_90a): the f32 forward and dK/dV, and the dQ kernel in f32 and bf16.
-// The bf16 forward and dK/dV are flash_attention_sm90.cu's.
+// Flash attention forward and backward (FlashAttention-2) in float32, for
+// Hopper (sm_90a). The bf16 forward, dQ and dK/dV are
+// flash_attention_sm90.cu's.
 //
-// Replaces three Pallas kernels of paddle_tpu/ops/pallas/flash_attention.py:
+// Replaces, for float32 inputs, three Pallas kernels of
+// paddle_tpu/ops/pallas/flash_attention.py:
 //   * paddle_tpu/ops/pallas/flash_attention.py:106 (_flash_fwd, body
 //     _fwd_kernel :51): O and the per-row logsumexp, online softmax over key
 //     tiles;
@@ -36,35 +37,20 @@
 // the dK/dV kernel takes one block per (b*h, key tile), loops over the
 // query tiles on or below the diagonal (:236-240) and owns its tile's dK
 // and dV, so no atomics are needed. Every product C (+)= A.B runs on tiles
-// staged in shared memory with an f32 result in shared memory: for bf16
-// (dQ) through nvcuda::wmma 16x16x16 bf16 tensor-core tiles with f32
-// accumulation, for f32 in scalar f32 FMAs (full f32, no TF32: the f32
-// instantiations are the tight check of the masks, the causal skip and the
-// S tail). bf16 tiles are 64 x 64; f32 tiles are 64 query x 32 key rows,
-// so the f32 check also covers a causal skip boundary with
-// block_q != block_k. P and dS are rounded to the input type before their
-// products, as FA-2 does.
+// staged in shared memory in scalar f32 FMAs with an f32 result in shared
+// memory (full f32, no TF32: these kernels are the tight check of the
+// masks, the causal skip and the S tail). Tiles are 64 query x 32 key
+// rows, so the check also covers a causal skip boundary with
+// block_q != block_k.
 //
 // Bound: operations for the two backward kernels, bytes (just) for the
-// forward. At the GPT's shapes (B 8, S 1024, H 16, D 128, bf16, causal)
-// the forward does 34.4 GFLOP against 134.7 MB read and written (0.035 ms
-// of tensor-core time, 0.040 ms of bytes), dQ 51.6 GFLOP against 168.8 MB
-// (0.052 vs 0.050 ms) and dK/dV 68.8 GFLOP against 202.4 MB (0.070 vs
-// 0.060 ms): all three sit near the H100's ~295 flop/byte ridge, so both
-// the tensor cores and the loads have to be kept busy. The bf16 dQ kernel
-// keeps its accumulators in shared memory (a round trip per tile), uses
-// wmma rather than wgmma and loads tiles with plain 16-byte loads with no
-// overlap of loads and math; its redesign on flash_attention_sm90.cu's
-// building blocks (sm90.cuh) is the next step.
-#include <cuda_bf16.h>
+// forward, on the tensor cores the bf16 kernels use (see
+// flash_attention_sm90.cu). These f32 kernels run on the CUDA cores at a
+// small fraction of either bound: they serve f32 callers and the checks,
+// not the bf16 training step.
 #include <cuda_runtime.h>
-#include <mma.h>
-
-#include <type_traits>
 
 namespace {
-
-using namespace nvcuda;
 
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 256;
@@ -73,10 +59,6 @@ constexpr int kPad = 8;  // elements added to every shared-memory row
 
 template <typename T>
 struct Tiles;
-template <>
-struct Tiles<__nv_bfloat16> {
-  static constexpr int BQ = 64, BK = 64;
-};
 template <>
 struct Tiles<float> {
   static constexpr int BQ = 64, BK = 32;
@@ -106,13 +88,8 @@ template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
-// Carves 128-byte-aligned regions out of dynamic shared memory (wmma wants
-// 32-byte-aligned tile pointers).
+// Carves 128-byte-aligned regions out of dynamic shared memory.
 struct Carver {
   unsigned char* p;
   template <typename U>
@@ -147,42 +124,7 @@ __device__ void load_tile(T* dst, int ld, const T* src, long long stride,
 
 // C[M, N] (f32, shared, row stride ldc) = or += A[M, K] . B[K, N], the whole
 // block cooperating. A is row-major a[m*lda + k], or with AT a[k*lda + m];
-// B is row-major b[k*ldb + n], or with BT b[n*ldb + k]. M, N, K are
-// multiples of 16.
-template <bool AT, bool BT>
-__device__ void block_mma(float* c, int ldc, const __nv_bfloat16* a, int lda,
-                          const __nv_bfloat16* b, int ldb, int M, int N,
-                          int K, bool accumulate) {
-  using LA = typename std::conditional<AT, wmma::col_major,
-                                       wmma::row_major>::type;
-  using LB = typename std::conditional<BT, wmma::col_major,
-                                       wmma::row_major>::type;
-  const int warp = threadIdx.x >> 5;
-  const int tiles_n = N / 16;
-  const int tiles = (M / 16) * tiles_n;
-  for (int t = warp; t < tiles; t += kWarps) {
-    const int tm = (t / tiles_n) * 16;
-    const int tn = (t % tiles_n) * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    if (accumulate)
-      wmma::load_matrix_sync(acc, c + tm * ldc + tn, ldc,
-                             wmma::mem_row_major);
-    else
-      wmma::fill_fragment(acc, 0.f);
-    for (int kk = 0; kk < K; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, LA> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, LB> fb;
-      wmma::load_matrix_sync(fa, AT ? a + kk * lda + tm : a + tm * lda + kk,
-                             lda);
-      wmma::load_matrix_sync(fb, BT ? b + tn * ldb + kk : b + kk * ldb + tn,
-                             ldb);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(c + tm * ldc + tn, acc, ldc,
-                            wmma::mem_row_major);
-  }
-}
-
+// B is row-major b[k*ldb + n], or with BT b[n*ldb + k].
 template <bool AT, bool BT>
 __device__ void block_mma(float* c, int ldc, const float* a, int lda,
                           const float* b, int ldb, int M, int N, int K,
@@ -560,7 +502,6 @@ int run(Which which, const void* q, const void* k, const void* v,
       p.Sq <= 0 || p.Sk <= 0 || (long long)p.B * p.H > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  using bf16 = __nv_bfloat16;
   if (dtype == 0 && which == kFwd)
     return launch(flash_fwd_kernel<float>, fwd_smem<float>(p.D),
                   query_grid<float>(p), p, s);
@@ -572,19 +513,15 @@ int run(Which which, const void* q, const void* k, const void* v,
                   dim3((p.Sk + Tiles<float>::BK - 1) / Tiles<float>::BK,
                        p.B * p.H),
                   p, s);
-  // bf16 forward and dK/dV run in flash_attention_sm90.cu
-  if (dtype == 1 && which == kDq)
-    return launch(flash_bwd_dq_kernel<bf16>, dq_smem<bf16>(p.D),
-                  query_grid<bf16>(p), p, s);
+  // bf16 runs in flash_attention_sm90.cu
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (dQ only: the bf16 forward and dK/dV
-// are flash_attention_sm90.cu's). Each returns cudaGetLastError() after
-// its launch (0 on success), or cudaErrorInvalidValue for a shape or type
-// the kernels do not take.
+// dtype: 0 = float32 (bfloat16 is flash_attention_sm90.cu's). Each
+// returns cudaGetLastError() after its launch (0 on success), or
+// cudaErrorInvalidValue for a shape or type the kernels do not take.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, void* lse,
                                    const long long* meta, float scale,

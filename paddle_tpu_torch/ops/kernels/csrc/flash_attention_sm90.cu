@@ -1,30 +1,35 @@
-// bf16 flash attention forward and dK/dV backward for Hopper (sm_90a):
-// wgmma with register accumulators, a TMA ring fed by a producer warp,
-// two consumer warpgroups.
+// bf16 flash attention forward and backward (dQ, dK/dV) for Hopper
+// (sm_90a): wgmma with register accumulators, a TMA ring fed by a producer
+// warp, two consumer warpgroups.
 //
-// Replaces, for bfloat16 inputs, two Pallas kernels of
+// Replaces, for bfloat16 inputs, the three Pallas kernels of
 // paddle_tpu/ops/pallas/flash_attention.py:
 //   * paddle_tpu/ops/pallas/flash_attention.py:106 (_flash_fwd, body
 //     _fwd_kernel :51): O and the per-row logsumexp, online softmax over
 //     key tiles;
+//   * paddle_tpu/ops/pallas/flash_attention.py:262 (the dQ call of
+//     _flash_bwd, body _bwd_dq_kernel :143): P recomputed from lse,
+//     dS = P (dP - delta) scale, dQ = sum dS K;
 //   * paddle_tpu/ops/pallas/flash_attention.py:285 (the dK/dV call of
 //     _flash_bwd, body _bwd_dkv_kernel :193): dV = sum P^T dO and
 //     dK = sum dS^T Q per key tile.
-// The function is flash_attention.cu's (which keeps the f32 instantiations
-// and the dQ kernel): s = (q . k) * scale; a key counts for a query row when
+// The function is flash_attention.cu's (which keeps the f32
+// instantiations): s = (q . k) * scale; a key counts for a query row when
 // kpos < Sk and, if causal, kpos <= qpos; a masked key adds exactly 0; l is
 // floored at 1e-30; lse = m + log(l) (natural log, f32 [B, H, Sq]); P and
 // dS are rounded to bf16 before their products; delta comes from the
 // caller. q, k, v and dO are [B, S, H, D] read through their strides (the
 // GPT's views of its fused QKV projection, no copy); O, dK and dV are
-// written contiguous [B, S, H, D]. D is a multiple of 16 up to 128.
+// written contiguous [B, S, H, D]; so is dQ. D is a multiple of 16 up to
+// 128.
 //
-// Bound: bytes (just) for the forward, operations (just) for dK/dV. At
-// the GPT's shapes (B 8, S 1024, H 16, D 128, causal) the forward does
+// Bound: bytes (just) for the forward, operations (just) for dQ and dK/dV.
+// At the GPT's shapes (B 8, S 1024, H 16, D 128, causal) the forward does
 // 34.4 GFLOP against 134.7 MB (0.035 ms of tensor-core time at 989
-// TFLOP/s, 0.040 ms of bytes at 3.35 TB/s) and dK/dV 68.8 GFLOP against
-// 202.4 MB (0.070 vs 0.060 ms): both sit at the ridge, so the tensor cores
-// and the loads have to be kept busy at once.
+// TFLOP/s, 0.040 ms of bytes at 3.35 TB/s), dQ 51.6 GFLOP against 168.8 MB
+// (0.052 vs 0.050 ms) and dK/dV 68.8 GFLOP against 202.4 MB (0.070 vs
+// 0.060 ms): all three sit at the ridge, so the tensor cores and the loads
+// have to be kept busy at once.
 //
 // Design (sm90.cuh holds the primitives). A block is 384 threads: two
 // consumer warpgroups (setmaxnreg 240) and a producer warpgroup (24) of
@@ -60,6 +65,18 @@
 //     so no atomics. The warpgroups take turns to issue S^T and dP^T, as
 //     the forward's do. Blocks run in sections of 16 heads that share their Q
 //     and dO through L2, the first key tiles (the heaviest) first.
+//   * dQ: the forward's shape, one block per (b*h, 128 query rows), 64 rows
+//     a consumer warpgroup; Q, dO and the block's lse and delta rows
+//     (written by the producer warp's lanes) are loaded once, K and V
+//     stream in 64-key tiles (S, dP and dQ take 32 + 32 + 64 f32 registers
+//     a thread, which 128-key tiles would spill). Per tile: S = Q.K^T and
+//     dP = dO.V^T (K-major), P = exp2(S*scale*log2e - lse*log2e) masked,
+//     dS = P (dP - delta) scale in registers, converted to bf16 in place,
+//     then dQ += dS.K (register A, the same K tile read MN-major). dQ stays
+//     in registers and is stored once. Software-pipelined as the forward:
+//     tile j's S and dP run while tile j-1's dQ product does, the
+//     warpgroups take turns to issue, and blocks run in 16-head sections,
+//     the last query tiles first.
 #include "sm90.cuh"
 
 namespace {
@@ -482,6 +499,189 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// --------------------------------------------------------------------- dQ
+template <int DP>
+struct Dq {
+  static constexpr int BQ = 64 * kConsumers, BK = 64;
+  static constexpr uint32_t kQBox = BQ * 128, kKBox = BK * 128;
+  static constexpr uint32_t kQBytes = BQ * DP * 2, kKBytes = BK * DP * 2;
+  // one ring stage: a K tile, then a V tile
+  static constexpr uint32_t kStage = 2 * kKBytes;
+  // Q, dO, the ring, then the block's lse (times log2 e) and delta rows
+  static constexpr size_t kSmem = 1024 + 2 * kQBytes + kStages * kStage +
+                                  2 * BQ * 4 + 8 * (1 + 2 * kStages);
+};
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const __grid_constant__ CUtensorMap tdo,
+                             const float* lse, const float* delta,
+                             bf16* dq_out, Shape p) {
+  using L = Dq<DP>;
+  constexpr int BQ = L::BQ, BK = L::BK, NB = DP / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* q_s = aligned_base(smem_raw);
+  unsigned char* do_s = q_s + L::kQBytes;
+  unsigned char* ring = do_s + L::kQBytes;
+  float* rows = reinterpret_cast<float*>(ring + kStages * L::kStage);
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(rows + 2 * BQ);
+  uint64_t* full = q_bar + 1;
+  uint64_t* empty = full + kStages;
+
+  const int BH = p.B * p.H;
+  const int nqt = (p.Sq + BQ - 1) / BQ;
+  const int2 tile = block_tile(BH, nqt);  // rank 0: the last query tile
+  const int bh = tile.x, b = bh / p.H, h = bh % p.H;
+  const int q0 = (nqt - 1 - tile.y) * BQ;
+  int nk = (p.Sk + BK - 1) / BK;
+  if (p.causal) nk = min(nk, (q0 + BQ - 1) / BK + 1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1 + 32);  // the TMA bytes, then the 32 lanes' rows
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128 * kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    // ------------------------------------------------------ producer
+    regs_dealloc<24>();
+    if (threadIdx.x < 128 * kConsumers + 32) {
+      const int lane = threadIdx.x & 31;
+      if (lane == 0) {
+        tma_prefetch_map(&tk);
+        tma_prefetch_map(&tv);
+        mbar_arrive_expect_tx(q_bar, 2 * L::kQBytes);
+        for (int j = 0; j < NB; ++j) {
+          tma_load_4d(q_s + j * L::kQBox, &tq, q_bar, 64 * j, h, q0, b);
+          tma_load_4d(do_s + j * L::kQBox, &tdo, q_bar, 64 * j, h, q0, b);
+        }
+      }
+      for (int i = lane; i < BQ; i += 32) {
+        const bool in = q0 + i < p.Sq;
+        const long long r = (long long)bh * p.Sq + q0 + i;
+        rows[i] = in ? lse[r] * kLog2e : 0.f;
+        rows[BQ + i] = in ? delta[r] : 0.f;
+      }
+      mbar_arrive(q_bar);
+      if (lane == 0) {
+        for (int kt = 0; kt < nk; ++kt) {
+          const int s = kt % kStages;
+          unsigned char* st = ring + s * L::kStage;
+          mbar_wait(&empty[s], ((kt / kStages) & 1) ^ 1);
+          mbar_arrive_expect_tx(&full[s], L::kStage);
+          for (int j = 0; j < NB; ++j) {
+            tma_load_4d(st + j * L::kKBox, &tk, &full[s], 64 * j, h, kt * BK,
+                        b);
+            tma_load_4d(st + L::kKBytes + j * L::kKBox, &tv, &full[s],
+                        64 * j, h, kt * BK, b);
+          }
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------------------ consumers
+    regs_alloc<240>();
+    const int t = threadIdx.x % 128, lane = t & 31;
+    const int rl0 = wg * 64 + (t / 32) * 16 + lane / 4;  // rows rl0, rl0 + 8
+    const int row0 = q0 + rl0;
+    const unsigned char* qw = q_s + wg * 64 * 128;
+    const unsigned char* dow = do_s + wg * 64 * 128;
+    const float sl2 = p.scale * kLog2e;
+    float dq[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
+    float sc[BK / 2], dp[BK / 2];
+    uint32_t df[BK / 16][4];
+    mbar_wait(q_bar, 0);
+    const float ls[2] = {rows[rl0], rows[rl0 + 8]};
+    const float dl[2] = {rows[BQ + rl0], rows[BQ + rl0 + 8]};
+    // S = Q.K^T and dP = dO.V^T of key tile kt (issued, not waited for)
+    auto products = [&](int kt) {
+      const unsigned char* k_t = ring + (kt % kStages) * L::kStage;
+      mbar_wait(&full[kt % kStages], (kt / kStages) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        mma_ss<0, 0>(sc, desc_kmajor(qw, kk, L::kQBox),
+                     desc_kmajor(k_t, kk, L::kKBox), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk)
+        mma_ss<0, 0>(dp, desc_kmajor(dow, kk, L::kQBox),
+                     desc_kmajor(k_t + L::kKBytes, kk, L::kKBox), kk > 0);
+      wgmma_commit();
+    };
+    // dQ += dS.K of key tile kt, dS in df (issued, not waited for)
+    auto accumulate = [&](int kt) {
+      const unsigned char* k_t = ring + (kt % kStages) * L::kStage;
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        mma_rs<1>(dq, df[kk], desc_mnmajor(k_t, kk, L::kKBox));
+      wgmma_commit();
+    };
+    // dS = P (dP - delta) scale into dp, P recomputed from lse and masked
+    // where a key does not count
+    auto grads = [&](int kt) {
+      const int k0 = kt * BK;
+      const bool mask =
+          k0 + BK > p.Sk || (p.causal && k0 + BK - 1 > q0 + wg * 64);
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const int hh = (i / 2) & 1;
+        const int kpos = k0 + 8 * (i / 4) + 2 * (lane & 3) + (i & 1);
+        float pr = ex2(fmaf(sc[i], sl2, -ls[hh]));
+        if (mask && !counts(p, row0 + 8 * hh, kpos)) pr = 0.f;
+        dp[i] = pr * (dp[i] - dl[hh]) * p.scale;
+      }
+    };
+    // Software pipeline: tile kt's S and dP run while tile kt-1's dQ
+    // product does. The warpgroups alternate in issuing (named barriers
+    // 1 and 2), so one's dS arithmetic overlaps the other's products.
+    auto my_turn = [&] { bar_sync(1 + wg, 256); };
+    auto your_turn = [&] { bar_arrive(2 - wg, 256); };
+    if (wg == 1) your_turn();
+    my_turn();
+    products(0);
+    your_turn();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+    grads(0);
+    frag_from_acc(dp, df);
+    for (int kt = 1; kt < nk; ++kt) {
+      my_turn();
+      products(kt);
+      accumulate(kt - 1);
+      your_turn();
+      wgmma_wait<1>();
+      fence_regs(sc);
+      fence_regs(dp);
+      grads(kt);
+      wgmma_wait<0>();
+      fence_regs(dq);
+      fence_regs(dp);  // df is rewritten only once its product is done
+      mbar_arrive(&empty[(kt - 1) % kStages]);
+      frag_from_acc(dp, df);
+    }
+    my_turn();
+    wgmma_fence();
+    accumulate(nk - 1);
+    if (wg == 0) your_turn();  // the last turn: nobody waits after it
+    wgmma_wait<0>();
+    fence_regs(dq);
+    mbar_arrive(&empty[(nk - 1) % kStages]);
+    const float one[2] = {1.f, 1.f};
+    store_rows(dq, dq_out, p, p.Sq, b, h, row0, one);
+  }
+}
+
 // ------------------------------------------------------------------- host
 struct View {
   const void* ptr;
@@ -551,12 +751,34 @@ int launch_dkv(const Shape& p, const View* v, const void* lse,
   return (int)cudaGetLastError();
 }
 
+template <int DP>
+int launch_dq(const Shape& p, const View* v, const void* lse,
+              const void* delta, void* dq, cudaStream_t stream) {
+  using L = Dq<DP>;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!encode(&tq, p, v[0], p.Sq, L::BQ) ||
+      !encode(&tk, p, v[1], p.Sk, L::BK) ||
+      !encode(&tv, p, v[2], p.Sk, L::BK) ||
+      !encode(&tdo, p, v[3], p.Sq, L::BQ))
+    return kMapRefused;
+  auto kernel = flash_bwd_dq_sm90_kernel<DP>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kSmem);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned grid = (unsigned)((p.Sq + L::BQ - 1) / L::BQ) * p.B * p.H;
+  kernel<<<grid, kThreads, L::kSmem, stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Dynamic shared memory a block of kernel `which` (0 forward, 1 dK/dV)
-// launches with at head dim `d`.
+// Dynamic shared memory a block of kernel `which` (0 forward, 1 dK/dV,
+// 2 dQ) launches with at head dim `d`.
 extern "C" int flash_attention_sm90_smem_bytes(int which, int d) {
   if (which == 0) return (int)(d <= 64 ? Fwd<64>::kSmem : Fwd<128>::kSmem);
+  if (which == 2) return (int)(d <= 64 ? Dq<64>::kSmem : Dq<128>::kSmem);
   return (int)(d <= 64 ? Dkv<64>::kSmem : Dkv<128>::kSmem);
 }
 
@@ -590,4 +812,20 @@ extern "C" int flash_attention_sm90_bwd_dkv(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return p.D <= 64 ? launch_dkv<64>(p, views, lse, delta, dk, dv, s)
                    : launch_dkv<128>(p, views, lse, delta, dk, dv, s);
+}
+
+extern "C" int flash_attention_sm90_bwd_dq(const void* q, const void* k,
+                                           const void* v, const void* dout,
+                                           const void* lse, const void* delta,
+                                           void* dq, const long long* meta,
+                                           float scale, int causal,
+                                           void* stream) {
+  Shape p;
+  View views[4];
+  const void* ptrs[4] = {q, k, v, dout};
+  if (!parse(meta, scale, causal, &p, views, ptrs, 4))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return p.D <= 64 ? launch_dq<64>(p, views, lse, delta, dq, s)
+                   : launch_dq<128>(p, views, lse, delta, dq, s);
 }

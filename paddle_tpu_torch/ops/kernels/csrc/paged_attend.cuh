@@ -1,12 +1,12 @@
 // One query token's grouped attention over a row's KV pages: the page loop
-// shared by paged_attention.cu (one decode token per row) and
-// ragged_paged_attention.cu (one flat token of a ragged launch).
+// of paged_attention.cu (one decode token per row), and of that kernel
+// alone: ragged_paged_attention.cu tiles several tokens of a row per block
+// and streams pages through its own cp.async ring.
 //
-// Both Pallas kernels it stands for (paged_attention.py:122 _kernel, and
-// ragged_attention.py's _ragged_body, which runs the same body per flat
-// token) walk a row's pages as the sequential axis of their grid and carry
-// m, l and the accumulator in VMEM scratch. Here one thread block takes
-// one (token, KV head) pair and this loop takes the place of that axis:
+// The Pallas kernel it stands for (paged_attention.py:122 _kernel) walks a
+// row's pages as the sequential axis of its grid and carries m, l and the
+// accumulator in VMEM scratch. Here one thread block takes
+// one (row, KV head) pair and this loop takes the place of that axis:
 // per page the block stages the K and V rows of its KV head in shared
 // memory (f32), one warp per (query head, key) pair computes a score, one
 // thread per query head runs the online-softmax update in f32 with an

@@ -19,9 +19,10 @@
 // one (row, KV head) pair with the G query heads of that KV head, so each
 // page of K/V is read from device memory once per group, not once per
 // query head; a loop inside the block walks the row's pages with the
-// context mask (attend_pages in paged_attend.cuh, shared with the ragged
-// kernel). The grid is B x KVH blocks: 256 at the serving engine's 16
-// slots of gpt_1p3b (KVH 16), about two per SM.
+// context mask (attend_pages in paged_attend.cuh; the ragged kernel has
+// its own tiled page walk since its Hopper redesign). The grid is B x KVH
+// blocks: 256 at the serving engine's 16 slots of gpt_1p3b (KVH 16), about
+// two per SM.
 //
 // Bound: bytes. A decode token does ~2 flops per byte of KV it reads, far
 // below the H100's ~295 flop/byte ridge, so the floor is the KV pages the

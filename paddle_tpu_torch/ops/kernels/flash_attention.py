@@ -13,11 +13,10 @@ The port of ``paddle_tpu/ops/pallas/flash_attention.py``:
 * the wrappers of the CUDA kernels on ``[B, S, H, D]`` tensors read
   through their strides (lse and delta ``[B, H, S]`` f32):
   :func:`flash_fwd`, :func:`flash_bwd_dq`, :func:`flash_bwd_dkv`. bf16
-  forward and dK/dV launch ``csrc/flash_attention_sm90.cu`` (wgmma, TMA,
-  warp specialisation); dQ and the f32 instantiations
-  ``csrc/flash_attention.cu``. On a CPU tensor each runs its plain
-  version; on a CUDA tensor it launches its kernel or raises, and counts
-  the launch. See the sources for their designs and bounds.
+  launches ``csrc/flash_attention_sm90.cu`` (wgmma, TMA, warp
+  specialisation), f32 ``csrc/flash_attention.cu``. On a CPU tensor each
+  runs its plain version; on a CUDA tensor it launches its kernel or
+  raises, and counts the launch. See the sources for their designs and bounds.
 * :func:`flash_attention_bshd` — the differentiable entry point with the
   semantics of ``flash_attention.py:368-393``: forward kernel, then the
   backward computes ``delta = rowsum(dO * O)`` (:256) and runs the dQ and
@@ -118,6 +117,7 @@ _ENTRIES = {"flash_attention_fwd": ("flash_attention", 5),
             "flash_attention_bwd_dq": ("flash_attention", 7),
             "flash_attention_bwd_dkv": ("flash_attention", 8),
             "flash_attention_sm90_fwd": ("flash_attention_sm90", 5),
+            "flash_attention_sm90_bwd_dq": ("flash_attention_sm90", 7),
             "flash_attention_sm90_bwd_dkv": ("flash_attention_sm90", 8)}
 
 
@@ -248,10 +248,13 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale, causal):
     _check_rows("lse", lse, B, H, Sq, q)
     _check_rows("delta", delta, B, H, Sq, q)
     dq = torch.empty(B, Sq, H, D, dtype=q.dtype, device=q.device)
-    rc = _kernel("flash_attention_bwd_dq")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), meta, float(scale),
-        int(bool(causal)), _DTYPES[q.dtype], _stream())
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), meta,
+            float(scale), int(bool(causal)))
+    if q.dtype == torch.bfloat16:
+        rc = _kernel("flash_attention_sm90_bwd_dq")(*args, _stream())
+    else:
+        rc = _kernel("flash_attention_bwd_dq")(*args, 0, _stream())
     _raise_if(rc, "flash_bwd_dq")
     flash_bwd_dq.launches += 1
     return dq

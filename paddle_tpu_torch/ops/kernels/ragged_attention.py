@@ -28,7 +28,10 @@ Query token ``i`` of row ``r`` sits at absolute position
   ``paddle_tpu/ops/pallas/ragged_attention.py:108``). It is bound by the
   bytes of KV pages it reads; see the source for its design. On a CPU
   tensor the wrapper runs the plain version; on a CUDA tensor it launches
-  the kernel or raises.
+  the kernel or raises. :func:`launch_plan` sizes the launch from host
+  integers alone (the engine's metadata stays on the device): tiles of
+  ``64 // G`` tokens, and splits of the key range that fill the card on
+  small rounds; the wrapper keeps the splits' scratch per device.
 """
 from __future__ import annotations
 
@@ -41,7 +44,7 @@ from .paged_attention import (_DTYPES, check_kernel_inputs,
                               paged_attention_reference)
 
 __all__ = ["ragged_row_index", "ragged_paged_attention_reference",
-           "ragged_paged_attention"]
+           "ragged_paged_attention", "launch_plan"]
 
 # tokens per chunk of the plain version's page gather: bounds its memory
 # at the serving shapes (a [chunk, max_pages * page, KVH, D] f32 copy)
@@ -84,7 +87,39 @@ def ragged_paged_attention_reference(q, k_cache, v_cache, row_starts,
     return torch.cat(outs) if outs else torch.empty_like(q)
 
 
+# the kernel's tiling (csrc/ragged_paged_attention.cu): query rows a block,
+# keys a tile
+TILE_ROWS, KEY_TILE = 64, 64
+# splits hold at least this many keys, and tokens x splits stay below
+# SPLIT_TOKENS, which bounds the scratch at T * H * n_split * D f32
+SPLIT_MIN_KEYS, SPLIT_TOKENS = 128, 4096
+
+
+def launch_plan(T, H, KVH, R, max_pages, page_size):
+    """The launch's shape from host integers -> dict: ``bq`` tokens a tile
+    (``64 // G``), ``n_slots`` tile slots (``ceil(T / bq) + R``, enough
+    for the (row, tile) pairs of any layout of T tokens over R rows), and
+    ``n_split`` splits of ``split_keys`` keys (a multiple of 64) covering
+    the ``max_pages * page_size`` keys a row can have. A tile uses
+    ``ceil(its keys / split_keys)`` of them."""
+    G = H // KVH
+    if G > TILE_ROWS:
+        raise ValueError(f"{G} query heads per KV head exceed the kernel's "
+                         f"{TILE_ROWS} rows a block")
+    bq = TILE_ROWS // G
+    max_keys = max_pages * page_size
+    n_split = max(1, min(-(-max_keys // SPLIT_MIN_KEYS),
+                         SPLIT_TOKENS // max(T, 1)))
+    split_keys = -(-max_keys // n_split)
+    split_keys = -(-split_keys // KEY_TILE) * KEY_TILE
+    return {"bq": bq, "n_slots": -(-T // bq) + R,
+            "n_split": -(-max_keys // split_keys), "split_keys": split_keys}
+
+
 _lib = None
+# device -> [part_acc, part_ml, tickets]: the splits' scratch, grown to the
+# largest launch seen; the kernel leaves the tickets at zero
+_scratch: dict = {}
 
 
 def _kernel():
@@ -93,11 +128,24 @@ def _kernel():
         from . import _build
         lib = _build.load("ragged_paged_attention")
         fn = lib.ragged_paged_attention
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib = fn
     return _lib
+
+
+def _split_scratch(device, n_acc, n_ml, n_tickets):
+    """-> pointers to at least ``n_acc`` and ``n_ml`` f32 elements of
+    partials and ``n_tickets`` tickets (zeroed when allocated) on
+    ``device``."""
+    buf = _scratch.setdefault(device, [None, None, None])
+    for i, (n, make) in enumerate(((n_acc, torch.empty), (n_ml, torch.empty),
+                                   (n_tickets, torch.zeros))):
+        if buf[i] is None or buf[i].numel() < n:
+            buf[i] = make(n, device=device,
+                          dtype=torch.int32 if i == 2 else torch.float32)
+    return [t.data_ptr() for t in buf]
 
 
 def ragged_paged_attention(q, k_cache, v_cache, row_starts, row_lens,
@@ -121,14 +169,22 @@ def ragged_paged_attention(q, k_cache, v_cache, row_starts, row_lens,
     if row_lens.shape != (R,) or kv_lens.shape != (R,) \
             or block_tables.dim() != 2 or block_tables.shape[0] != R:
         raise ValueError("row metadata shapes disagree")
+    P, page, KVH = k_cache.shape[:3]
+    max_pages = block_tables.shape[1]
+    plan = launch_plan(T, H, KVH, R, max_pages, page)
+    scratch = [None] * 3
+    if plan["n_split"] > 1 and T > 0:
+        n = T * H * plan["n_split"]
+        scratch = _split_scratch(q.device, n * D, n * 2,
+                                 plan["n_slots"] * KVH)
     out = torch.empty_like(q)
     scale = float(scale if scale is not None else 1.0 / math.sqrt(D))
-    fn = _kernel()
-    rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            row_starts.data_ptr(), row_lens.data_ptr(), kv_lens.data_ptr(),
-            block_tables.data_ptr(), out.data_ptr(), T, H, k_cache.shape[2],
-            D, k_cache.shape[0], k_cache.shape[1], R, block_tables.shape[1],
-            scale, _DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
+    rc = _kernel()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                   row_starts.data_ptr(), row_lens.data_ptr(),
+                   kv_lens.data_ptr(), block_tables.data_ptr(),
+                   out.data_ptr(), *scratch, T, H, KVH, D, P, page, R,
+                   max_pages, plan["n_split"], plan["split_keys"], scale,
+                   _DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ragged_paged_attention kernel launch failed: "
                            f"cudaError {rc}")

@@ -193,6 +193,7 @@ def test_triton_route_raises_without_triton():
                                  "flash_attention.py:262",
                                  "flash_attention.py:285"], "operations"),
     ("csrc/flash_attention_sm90.cu", ["flash_attention.py:106",
+                                      "flash_attention.py:262",
                                       "flash_attention.py:285"], "bytes"),
     ("csrc/fused_adamw.cu", ["fused_adamw.py:60"], "bytes"),
     ("csrc/paged_attention.cu", ["paged_attention.py:175"], "bytes"),
@@ -278,7 +279,8 @@ def _flash_variants():
 
 @pytest.mark.parametrize("name", ["as-committed", "tile-major-order",
                                   "no-kv-reloads", "no-exp",
-                                  "no-ping-pong", "dkv-no-ping-pong"])
+                                  "no-ping-pong", "dkv-no-ping-pong",
+                                  "dq-no-ping-pong"])
 def test_flash_variant_edits_match_the_source(name):
     """Every variant ``flash_variants.py`` times on the card is a set of
     literal edits of the committed sources; each must match exactly once,

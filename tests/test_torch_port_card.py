@@ -253,3 +253,86 @@ def test_rms_norm_kernel_matches_plain_on_card(dtype, with_bias, rows, h):
     assert K.rms_norm.launches == before + 1
     torch.testing.assert_close(out.float(), K.rms_norm_reference(
         x, w, b, 1e-6).float(), rtol=tol, atol=tol)
+
+
+def _ragged_rows(rows, G, D, dtype, seed, pad=0, unused=1, page=16,
+                 max_pages=64, KVH=2):
+    """A ragged launch from ``rows`` = [(row_len, kv_len), ...] laid back
+    to back from token 0, then ``pad`` pad tokens and ``unused`` unused
+    rows (row_starts = T). Every table is padded with -1 past its row's
+    pages; pages are a random permutation of the pool's."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    H = KVH * G
+    T = sum(rl for rl, _ in rows) + pad
+    need = [-(-kl // page) for _, kl in rows]
+    num_pages = sum(need) + 2
+    perm = (torch.randperm(num_pages - 1, device="cuda", generator=g)
+            + 1).int()
+    R = len(rows) + unused
+    bt = torch.full((R, max_pages), -1, dtype=torch.int32, device="cuda")
+    rs, rl, kl, used, cur = [], [], [], 0, 0
+    for i, (n, c) in enumerate(rows):
+        bt[i, :need[i]] = perm[used:used + need[i]]
+        used += need[i]
+        rs.append(cur)
+        rl.append(n)
+        kl.append(c)
+        cur += n
+    rs += [T] * unused
+    rl += [0] * unused
+    kl += [0] * unused
+    meta = [torch.tensor(x, dtype=torch.int32, device="cuda")
+            for x in (rs, rl, kl)]
+    q = torch.randn(T, H, D, device="cuda", generator=g).to(dtype)
+    k, v = (torch.randn(num_pages, page, KVH, D, device="cuda",
+                        generator=g).to(dtype) for _ in range(2))
+    return (q, k, v, *meta, bt), cur
+
+
+# decode contexts 1..1024 over 64 pages of 16: every split count of the
+# 128-key splits, contexts ending on a page and on a split boundary
+_DECODE16 = [(1, c) for c in (1, 15, 16, 17, 127, 128, 129, 255, 256, 257,
+                              500, 511, 512, 768, 1000, 1024)]
+_RAGGED_CASES = {
+    "decode16": (_DECODE16, 0),
+    # a 150-token segment (more than one tile at every G) starting
+    # mid-page behind a 37-token prefix, and a pad tail
+    "prefill_mid_page": ([(150, 187)], 10),
+    # decode rows, a whole prompt, a mid-page chunk, a longer chunk, a row
+    # whose token has context 0, and a pad tail
+    "mixed": ([(1, 300), (1, 17), (40, 40), (29, 66), (200, 456), (1, 0)],
+              23),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("case", sorted(_RAGGED_CASES))
+def test_ragged_kernel_layouts_match_plain_on_card(dtype, d, G, case):
+    """The ragged kernel against its plain version over decode rounds at
+    every split count, a prefill segment longer than a tile starting
+    mid-page, and decode rows and chunks mixed in one launch, at G 1, 4
+    and 8, D 64 and 128 (f32: atol/rtol 1e-4; bf16: 2e-2). Pad tokens,
+    the unused row's and the context-0 token come out exactly 0. Two
+    calls in a row reuse the cached split scratch."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    tol = 1e-4 if dt == torch.float32 else 2e-2
+    rows, pad = _RAGGED_CASES[case]
+    args, n_valid = _ragged_rows(rows, G, d, dt, seed=G * d + len(case),
+                                 pad=pad)
+    before = K.ragged_paged_attention.launches
+    for call in range(2):
+        if call:
+            args = (torch.randn_like(args[0].float()).to(dt),) + args[1:]
+        out = K.ragged_paged_attention(*args)
+        torch.cuda.synchronize()
+        want = K.ragged_paged_attention_reference(*args)
+        torch.testing.assert_close(out.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        assert bool((out[n_valid:] == 0).all())
+        if case == "mixed":
+            assert bool((out[n_valid - 1] == 0).all())  # context 0
+    assert K.ragged_paged_attention.launches == before + 2
