@@ -81,8 +81,9 @@ exit code:
 10. **bucketed parity** — once the training model is freed: the paged
     decode kernel against its plain version (H 16, D 128, page 16, MHA
     and GQA KVH 4, f32 within 1e-4, bf16 within 2e-2; contexts crossing
-    pages and the full ``max_pages * page``, tables padded with -1, a
-    context-0 row that must be exactly zero), RMSNorm on ``[T, 2048]``
+    pages and the full ``max_pages * page``, contexts one key either side
+    of the split edges of the kernel's launch plan, tables padded with
+    -1, a context-0 row that must be exactly zero), RMSNorm on ``[T, 2048]``
     (f32 and bf16, with and without bias); then a 2-layer f32
     ``gpt_1p3b(use_rms_norm=True)`` served through
     ``ServingEngine(ragged=False)``, unchunked (a prefix hit, a prompt in
@@ -99,14 +100,19 @@ exit code:
     paged attention per decode step, 49 RMSNorm per forward (decode steps,
     dense prefills and chunk steps) and 24 flash forward per dense
     prefill. Prints tokens/s, TTFT/ITL p50/p99, rounds and peak KV
-    occupancy, and a steady decode step under ``torch.profiler``.
+    occupancy, and a steady decode step under ``torch.profiler`` (the
+    paged decode kernel must show as its own family).
 12. **bucketed timing** — paged attention at the serve's widest decode
     step on the served layer-0 pools (f32-upcast within 1e-4, bf16 within
     4e-3 against plain) and RMSNorm at [rows of the largest dense prefill,
     2048] bf16, each beside its bound, its plain version and, for
     RMSNorm, ``torch.nn.functional.rms_norm`` as ``library_ms``; the
-    flash forward at the largest dense prefill's shape beside
-    ``F.scaled_dot_product_attention``.
+    paged entry adds its build's registers and spills, its shared memory
+    a block and split count, and a sweep at the engine's widths (16 rows
+    x 128, 512 and 1024 keys, 1 row x 1024; each checked, timed, beside
+    its bound and GB/s); the flash forward at the largest dense prefill's
+    shape beside ``F.scaled_dot_product_attention``. (``paged_splits.py``
+    times the paged kernel at other split counts.)
 
 The lines before the last carry the ``{"kernels": [...]}`` JSON (all eight
 kernels) and the
@@ -114,6 +120,7 @@ kernels) and the
 Without CUDA, or without the repository beside it, the script exits
 non-zero and prints no result.
 """
+import ctypes
 import json
 import math
 import os
@@ -276,22 +283,27 @@ def dense_reference_logits(model, ids):
 
 
 # ---------------------------------------------------------------- bounds
-def attention_work(rs, rl, kl, bt, H, KVH, D, page, itemsize):
-    """Bytes the launch must move (q read, out written, each distinct KV
-    page of every row's context read once, metadata) and the flops its
-    data needs (QK and PV over each valid token's causal context)."""
+def attention_work(rs, rl, kl, bt, H, KVH, D, page, itemsize, row_meta=3):
+    """Bytes the launch must move (q read, out written, the K and V of
+    every key some row's context covers read once, ``row_meta`` int32 a
+    row and the table entries the contexts cover) and the flops its data
+    needs (QK and PV over each valid token's causal context)."""
     rs, rl, kl, bt = (np.asarray(a) for a in (rs, rl, kl, bt))
     T_valid = int(rl.sum())
-    pages, flops = set(), 0
+    keys, entries, flops = {}, 0, 0   # page id -> keys of it read
     for r in range(len(rs)):
         if rl[r] <= 0:
             continue
-        pages.update(int(p) for p in bt[r, :-(-int(kl[r]) // page)])
+        kv = int(kl[r])
+        n = -(-kv // page)
+        for i, p in enumerate(bt[r, :n].tolist()):
+            keys[p] = max(keys.get(p, 0), min(page, kv - i * page))
+        entries += n
         ctx = np.arange(kl[r] - rl[r], kl[r]) + 1
         flops += 4 * H * D * int(ctx.sum())
-    kv_bytes = 2 * len(pages) * page * KVH * D * itemsize
+    kv_bytes = 2 * sum(keys.values()) * KVH * D * itemsize
     nbytes = 2 * T_valid * H * D * itemsize + kv_bytes \
-        + 4 * (3 * len(rs) + bt.size)
+        + 4 * (row_meta * len(rs) + entries)
     return nbytes, flops, T_valid
 
 
@@ -843,13 +855,31 @@ def train_timing(K, model, opt, launches):
 
 
 # --------------------------------------------------------- bucketed phases
+def paged_split_edges(B, H, KVH, D, max_pages, page=16):
+    """Contexts one key either side of the 16-key tile edges where a row's
+    used splits change under the launch plan for B rows on this card (16 u
+    - 1, 16 u, 16 u + 1 for u = n_split - 1, n_split, n_split + 1)."""
+    import importlib
+    pa = importlib.import_module(
+        "paddle_tpu_torch.ops.kernels.paged_attention")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n = pa.launch_plan(B, H, KVH, D, max_pages, page, sms)["n_split"]
+    return [c for u in (n - 1, n, n + 1) for c in (16 * u - 1, 16 * u,
+                                                   16 * u + 1)
+            if 0 <= c <= max_pages * page]
+
+
 def paged_decode_inputs(H, KVH, D, dtype, page=16, num_pages=96,
                         max_pages=64, seed=0):
-    """Six decode rows: contexts 300 (crosses 19 pages), 32 (ends on a
+    """Fifteen decode rows: contexts 300 (crosses 19 pages), 32 (ends on a
     page edge), the full ``max_pages * page``, 0 (must come out exactly
-    zero), 1 and 17; every table padded with -1 past its context."""
+    zero), 1 and 17, then contexts either side of the split edges of the
+    launch plan for 15 rows (padded with 1023 where the plan gives
+    fewer); every table padded with -1 past its context."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     ctx = [300, 32, max_pages * page, 0, 1, 17]
+    ctx += (paged_split_edges(15, H, KVH, D, max_pages, page)
+            + [1023] * 9)[:9]
     B = len(ctx)
     q = torch.randn(B, H, D, device="cuda", generator=g).to(dtype)
     k, v = (torch.randn(num_pages, page, KVH, D, device="cuda",
@@ -875,6 +905,7 @@ def bucketed_kernel_parity(K):
     for kvh in (16, 4):
         for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
             args = paged_decode_inputs(16, kvh, 128, dt, seed=kvh)
+            log(f"  contexts {args[4].tolist()}")
             got = K.paged_attention(*args)
             torch.cuda.synchronize()
             check_close(f"paged KVH={kvh} {str(dt)[6:]}", got,
@@ -1073,6 +1104,52 @@ def bucketed_serve(pt, K):
     return eng, model, rec, launches
 
 
+# the paged decode kernel's main-path instantiation (bf16, D 128, one
+# query head a block): mangled-name part for ptxas_stats
+PAGED_MAIN = "paged_attention_kernelI13__nv_bfloat16Li128ELi1E"
+
+
+def paged_sweep(K, H, KVH, D, page, max_pages, num_pages=2048):
+    """The paged decode kernel at the engine's widths in bf16 over fresh
+    random pools: 16 rows at contexts 128, 512 and 1024, and one row of
+    1024 keys (where split-K matters most); each held against its plain
+    version (within 4e-3) and timed beside its byte bound. -> a list of
+    points."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    k, v = (torch.randn(num_pages, page, KVH, D, device="cuda",
+                        generator=g).to(torch.bfloat16) for _ in range(2))
+    points = []
+    for rows, c in ((16, 128), (16, 512), (16, 1024), (1, 1024)):
+        q = torch.randn(rows, H, D, device="cuda", generator=g).to(
+            torch.bfloat16)
+        n = -(-c // page)
+        perm = (torch.randperm(num_pages - 1, device="cuda", generator=g)
+                + 1).int()
+        bt = perm[:rows * n].reshape(rows, n)
+        bt = torch.cat([bt, torch.full((rows, max_pages - n), -1,
+                                       dtype=torch.int32, device="cuda")],
+                       1).contiguous()
+        ctx = torch.full((rows,), c, dtype=torch.int32, device="cuda")
+        args = (q, k, v, bt, ctx)
+        check_close(f"paged bf16 sweep {rows} rows x {c} keys",
+                    K.paged_attention(*args),
+                    K.paged_attention_reference(*args), 4e-3, 4e-3)
+        ms, wall, src = time_ms(lambda: K.paged_attention(*args))
+        nbytes, flops, _ = attention_work(
+            np.arange(rows), np.ones(rows, np.int64), np.full(rows, c),
+            bt.cpu().numpy(), H, KVH, D, page, 2, row_meta=1)
+        b_ms, _ = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        pt = {"rows": rows, "context": c, "ms": ms, "bound_ms": b_ms,
+              "pct_of_bound": 100 * b_ms / ms,
+              "gb_per_s": nbytes / ms / 1e6}
+        log(f"[bucketed timing] paged_attention sweep {rows} rows x {c} "
+            f"keys: {ms:.4f} ms ({src}; {wall:.4f} ms per call with launch)"
+            f" bound {b_ms:.4f} ms ({nbytes / 1e6:.2f} MB) = "
+            f"{pt['pct_of_bound']:.1f}% of bound, {pt['gb_per_s']:.1f} GB/s")
+        points.append(pt)
+    return points
+
+
 def bucketed_timing(K, eng, model, rec, launches):
     """Both new kernels at the bucketed serve's shapes: paged attention at
     its widest decode step on the served layer-0 pools (f32-upcast within
@@ -1106,20 +1183,42 @@ def bucketed_timing(K, eng, model, rec, launches):
                              iters=5)
     ctx_np = positions + 1
     nbytes, flops, _ = attention_work(np.arange(B), np.ones(B, np.int64),
-                                      ctx_np, bt, H, KVH, D, page, 2)
+                                      ctx_np, bt, H, KVH, D, page, 2,
+                                      row_meta=1)
     b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
     log(f"[bucketed timing] paged_attention widest decode step: B={B} "
         f"rows={rows} contexts {int(ctx_np.min())}-{int(ctx_np.max())} "
         f"kernel {ms:.4f} ms ({src}; {wall:.4f} ms per call with launch) "
         f"plain {plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}: "
         f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP)")
+    # the build's registers and spills of the main path's instantiation
+    # (bf16, D 128, one query head a block) and the shared memory a block
+    # of this launch takes
+    import importlib
+    pa = importlib.import_module(
+        "paddle_tpu_torch.ops.kernels.paged_attention")
+    from paddle_tpu_torch.ops.kernels import _build
+    regs, spill = ptxas_stats("paged_attention", PAGED_MAIN)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    max_pages = bt.shape[1]
+    n_split = pa.launch_plan(B, H, KVH, D, max_pages, page, sms)["n_split"]
+    smem_fn = _build.load("paged_attention").paged_attention_smem_bytes
+    smem_fn.argtypes = [ctypes.c_int] * 7
+    smem_fn.restype = ctypes.c_longlong
+    smem = smem_fn(H, KVH, D, max_pages, page, n_split, 1)
+    log(f"  paged_attention: {regs} registers, {spill} spill bytes, {smem} "
+        f"bytes of dynamic shared memory a block, {n_split} splits a (row, "
+        f"KV head) = {100 * b_ms / ms:.1f}% of bound, "
+        f"{nbytes / ms / 1e6:.1f} GB/s")
     entries = [{
         "name": "paged_attention", "route": "cuda",
         "source": "paddle_tpu_torch/ops/kernels/csrc/paged_attention.cu",
         "replaces": "paddle_tpu/ops/pallas/paged_attention.py:175",
         "launches": launches["paged_attention"], "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None}]
+        "library_ms": None, "registers": regs, "spill_bytes": spill,
+        "smem_bytes": smem, "n_split": n_split,
+        "sweep": paged_sweep(K, H, KVH, D, page, max_pages)}]
     del args, q
     _, (nb, sb) = rec["prefill"]
     R = nb * sb
@@ -1490,6 +1589,10 @@ def main():
     if busy_ms <= 0:
         fail("bucketed profile: the torch.profiler trace held no device "
              "events")
+    if families.get("paged_attention", 0) <= 0 \
+            or "ragged_paged_attention" in families:
+        fail(f"bucketed profile: the paged decode kernel's symbol is not "
+             f"in the paged_attention family ({sorted(families)})")
     total_ms = sum(families.values())
     log(f"[bucketed profile] steady decode step, 16 rows: {round_ms:.3f} ms "
         f"on the host clock; device busy {busy_ms:.3f} ms per step (union "

@@ -13,8 +13,10 @@ wrapper                      route    replaces (TPU kernel)
 ``rms_norm``                 Triton   ``ops/pallas/rms_norm.py:39``
 ===========================  =======  =========================================
 
-``paged_attention`` and ``ragged_paged_attention`` share their page loop
-(``csrc/paged_attend.cuh``) but are kernels and launches of their own.
+``paged_attention`` (one decode token a row, split-K over the row's own
+keys) and ``ragged_paged_attention`` (tiles of a row's tokens) are kernels
+and launches of their own; each sizes its launch on the host
+(``launch_plan``) and keeps its split scratch per device.
 ``flash_fwd`` and ``flash_bwd_dkv`` launch the Hopper kernels of
 ``csrc/flash_attention_sm90.cu`` (wgmma, TMA, warp specialisation; its
 primitives in ``csrc/sm90.cuh``) on bf16 and ``csrc/flash_attention.cu``

@@ -20,17 +20,23 @@ Three things live here:
   ``paddle_tpu/ops/pallas/paged_attention.py:175``). It is bound by the
   bytes of KV pages it reads; see the source for its design. On a CPU
   tensor the wrapper runs the plain version; on a CUDA tensor it launches
-  the kernel or raises.
+  the kernel or raises. :func:`launch_plan` picks the split count from
+  host integers alone (``context_lens`` stays on the device): each (row,
+  KV head) pair takes ``n_split`` blocks that cut the row's own keys
+  between them, and the wrapper keeps the splits' scratch per device.
+  :func:`launch_kernel` launches with a split count the caller names
+  (``paged_splits.py`` times them).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
 
 __all__ = ["paged_attention_reference", "paged_prefill_reference",
-           "paged_attention"]
+           "paged_attention", "launch_kernel", "launch_plan"]
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -105,7 +111,46 @@ def paged_prefill_reference(q, k_cache, v_cache, block_tables, q_start,
     return o.reshape(B, S, H, D).to(q.dtype)
 
 
+# csrc/paged_attention.cu's keys a ring stage and query heads a block (a
+# G > MAX_HEADS takes ceil(G / MAX_HEADS) head groups), and its largest
+# split count; the kernel owns the rest of its geometry
+KEY_TILE, MAX_HEADS, MAX_SPLIT = 16, 8, 1024
+# the plan aims at SPLIT_BLOCKS_PER_SM blocks a streaming multiprocessor,
+# with splits of at least SPLIT_MIN_TILES key tiles of the longest context
+SPLIT_BLOCKS_PER_SM, SPLIT_MIN_TILES = 4, 4
+
+
+def _scratch_sizes(B, H, KVH, D, n_split):
+    """-> (partials f32, tickets int32) that ``n_split`` splits take."""
+    if n_split == 1:
+        return 0, 0
+    return (B * H * n_split * (D + 2),
+            B * KVH * -(-grouped(H, KVH) // MAX_HEADS))
+
+
+@functools.lru_cache(maxsize=64)
+def launch_plan(B, H, KVH, D, max_pages, page_size, sms):
+    """The launch's split count and scratch from host integers -> dict:
+    ``n_split`` blocks a (row, KV head, head group), aiming at
+    ``SPLIT_BLOCKS_PER_SM * sms`` blocks in all with at least
+    ``SPLIT_MIN_TILES`` key tiles a split at the full ``max_pages *
+    page_size`` keys; ``partials`` f32 and ``tickets`` int32 of scratch
+    (none with one split). A row uses ``min(n_split, ceil(context /
+    KEY_TILE))`` of its splits."""
+    n_hg = -(-grouped(H, KVH) // MAX_HEADS)
+    max_tiles = -(-max_pages * page_size // KEY_TILE)
+    pairs = max(B * KVH * n_hg, 1)
+    n_split = max(1, min(-(-SPLIT_BLOCKS_PER_SM * sms // pairs),
+                         max_tiles // SPLIT_MIN_TILES, MAX_SPLIT))
+    partials, tickets = _scratch_sizes(B, H, KVH, D, n_split)
+    return {"n_split": n_split, "partials": partials, "tickets": tickets}
+
+
 _lib = None
+# device -> [partials, tickets]: the splits' scratch, grown to the largest
+# plan seen; the kernel leaves the tickets at zero
+_scratch: dict = {}
+_sms: dict = {}
 
 
 def _kernel():
@@ -113,11 +158,30 @@ def _kernel():
     if _lib is None:
         from . import _build
         fn = _build.load("paged_attention").paged_attention
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _lib = fn
     return _lib
+
+
+def _split_scratch(device, n_part, n_tickets):
+    """-> pointers to at least ``n_part`` f32 partials and ``n_tickets``
+    int32 tickets (zeroed when allocated) on ``device``; a plan no bigger
+    than one seen before gets the same pointers."""
+    buf = _scratch.setdefault(device, [None, None])
+    for i, (n, dt) in enumerate(((n_part, torch.float32),
+                                 (n_tickets, torch.int32))):
+        if buf[i] is None or buf[i].numel() < n:
+            buf[i] = torch.zeros(n, device=device, dtype=dt)
+    return [t.data_ptr() for t in buf]
+
+
+def _sm_count(device):
+    if device not in _sms:
+        _sms[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _sms[device]
 
 
 def check_kernel_inputs(name, q, k_cache, v_cache, meta):
@@ -153,14 +217,24 @@ def paged_attention(q, k_cache, v_cache, block_tables, context_lens,
                     scale=None):
     """One decode step -> ``[B, H, D]`` (rows with context 0 zeroed). CPU
     tensors take the plain version; CUDA tensors launch the kernel (f32 or
-    bf16, D in {64, 128}) and every launch adds one to
-    ``paged_attention.launches``; anything else raises."""
+    bf16, D in {64, 128}) with :func:`launch_plan`'s split count;
+    anything else raises."""
     if q.device.type == "cpu":
         return paged_attention_reference(q, k_cache, v_cache, block_tables,
                                          context_lens, scale=scale)
+    return launch_kernel(q, k_cache, v_cache, block_tables, context_lens,
+                         scale)
+
+
+def launch_kernel(q, k_cache, v_cache, block_tables, context_lens,
+                  scale=None, n_split=None):
+    """The kernel on CUDA tensors with ``n_split`` blocks a (row, KV head,
+    head group), by default :func:`launch_plan`'s; raises for anything it
+    does not take. Every launch adds one to ``paged_attention.launches``."""
     if q.device.type != "cuda":
-        raise ValueError(f"paged_attention runs on cuda (kernel) or cpu "
-                         f"(plain version), not {q.device}")
+        raise ValueError(f"the paged_attention kernel runs on cuda "
+                         f"tensors (cpu ones take the plain version), not "
+                         f"{q.device}")
     check_kernel_inputs("paged_attention", q, k_cache, v_cache,
                         {"block_tables": block_tables,
                          "context_lens": context_lens})
@@ -171,13 +245,26 @@ def paged_attention(q, k_cache, v_cache, block_tables, context_lens,
                          f"context_lens {tuple(context_lens.shape)} do not "
                          f"match q {tuple(q.shape)}")
     B, H, D = q.shape
+    P, page, KVH = k_cache.shape[:3]
+    max_pages = block_tables.shape[1]
+    for tname, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{tname} must start on a 16-byte boundary")
+    if n_split is None:
+        n_split = launch_plan(B, H, KVH, D, max_pages, page,
+                              _sm_count(q.device))["n_split"]
+    elif not 1 <= n_split <= MAX_SPLIT:
+        raise ValueError(f"n_split {n_split} not in [1, {MAX_SPLIT}]")
+    scratch = [None, None]
+    if n_split > 1 and B > 0:
+        scratch = _split_scratch(q.device,
+                                 *_scratch_sizes(B, H, KVH, D, n_split))
     out = torch.empty_like(q)
     scale = float(scale if scale is not None else 1.0 / math.sqrt(D))
     rc = _kernel()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                    block_tables.data_ptr(), context_lens.data_ptr(),
-                   out.data_ptr(), B, H, k_cache.shape[2], D,
-                   k_cache.shape[0], k_cache.shape[1], block_tables.shape[1],
-                   scale, _DTYPES[q.dtype],
+                   out.data_ptr(), *scratch, B, H, KVH, D, P, page,
+                   max_pages, n_split, scale, _DTYPES[q.dtype],
                    torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: "

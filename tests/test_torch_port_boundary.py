@@ -30,8 +30,9 @@ PKG = os.path.join(REPO, "paddle_tpu_torch")
 
 
 def _port_sources():
-    out = [os.path.join(REPO, "chip_smoke.py"),
-           os.path.join(REPO, "flash_variants.py")]
+    out = [os.path.join(REPO, f) for f in ("chip_smoke.py",
+                                           "flash_variants.py",
+                                           "paged_splits.py")]
     for root, _, files in os.walk(PKG):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)

@@ -7,6 +7,7 @@ GPU machine without them::
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_port_card.py
 """
+import importlib
 import math
 
 import numpy as np
@@ -14,6 +15,8 @@ import pytest
 import torch
 
 from paddle_tpu_torch.ops import kernels as K
+
+PA = importlib.import_module("paddle_tpu_torch.ops.kernels.paged_attention")
 
 
 def _mixed_launch(H, KVH, D, seed, page_size, num_pages, max_pages, T):
@@ -230,6 +233,95 @@ def test_paged_attention_kernel_matches_plain_on_card(dtype, kvh, d):
     assert bool((out[3] == 0).all())
     torch.testing.assert_close(out.float(), K.paged_attention_reference(
         q, k, v, bt, ctx).float(), rtol=tol, atol=tol)
+
+
+def _paged_rows(ctx, H, KVH, D, dtype, seed, page=16, max_pages=64):
+    """A decode launch over contexts ``ctx``: each row's pages a slice of
+    a random permutation of the pool's, tables padded with -1."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    need = [-(-c // page) for c in ctx]
+    num_pages = sum(need) + 2
+    perm = (torch.randperm(num_pages - 1, device="cuda", generator=g)
+            + 1).int()
+    bt = torch.full((len(ctx), max_pages), -1, dtype=torch.int32,
+                    device="cuda")
+    used = 0
+    for r, n in enumerate(need):
+        bt[r, :n] = perm[used:used + n]
+        used += n
+    q = torch.randn(len(ctx), H, D, device="cuda", generator=g).to(dtype)
+    k, v = (torch.randn(num_pages, page, KVH, D, device="cuda",
+                        generator=g).to(dtype) for _ in range(2))
+    return q, k, v, bt, torch.tensor(ctx, dtype=torch.int32, device="cuda")
+
+
+def _check_paged_twice(args, tol):
+    """Two launches in a row on the cached split scratch (the second with a
+    new q): both match the plain version, the context-0 rows are exactly
+    zero, and the scratch keeps its pointers (the tickets were reset)."""
+    q, rest, ctx = args[0], args[1:], args[4]
+    before = K.paged_attention.launches
+    ptrs = None
+    for call in range(2):
+        if call:
+            q = torch.randn_like(q.float()).to(q.dtype)
+        out = K.paged_attention(q, *rest)
+        torch.cuda.synchronize()
+        want = K.paged_attention_reference(q, *rest)
+        torch.testing.assert_close(out.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        assert bool((out[ctx == 0] == 0).all())
+        now = [t.data_ptr() for t in PA._scratch.get(q.device, [])
+               if t is not None]
+        assert ptrs is None or now == ptrs
+        ptrs = now
+    assert K.paged_attention.launches == before + 2
+
+
+# rows a launch at gpt_1p3b's widths (H = KVH = 16, D 128): B 1 is the
+# widest split (16 of 4 tiles at 1024 keys), B 16 the serving engine's
+# decode step, B 33 a single split; the plan's split count falls with B
+_SPLIT_ROWS = [1, 2, 3, 4, 6, 9, 16, 33]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B", _SPLIT_ROWS)
+def test_paged_attention_split_boundaries_match_plain_on_card(dtype, B):
+    """The split-K paged kernel at gpt_1p3b's widths over every split
+    count the plan gives as B grows (row 0 the full 1024 keys), with
+    contexts one key either side of the tile edges where a row's used
+    splits change (16 u - 1, 16 u, 16 u + 1 for u = 1, n_split - 1,
+    n_split, n_split + 1, 2 n_split) and a context-0 row; two calls in a
+    row on the cached scratch (f32: atol/rtol 1e-4; bf16: 2e-2)."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    tol = 1e-4 if dt == torch.float32 else 2e-2
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n_split = PA.launch_plan(B, 16, 16, 128, 64, 16, sms)["n_split"]
+    edges = [c for u in (1, n_split - 1, n_split, n_split + 1, 2 * n_split)
+             for c in (16 * u - 1, 16 * u, 16 * u + 1) if 0 <= c <= 1024]
+    pool = [1024, 0] + edges + [1023, 500]
+    ctx = [pool[i % len(pool)] for i in range(B)]
+    _check_paged_twice(_paged_rows(ctx, 16, 16, 128, dt, seed=B), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("G", [1, 3, 4, 8, 16])
+def test_paged_attention_groups_match_plain_on_card(dtype, d, G):
+    """The paged kernel at G 1, 4 and 8 query heads a KV head (one block
+    each), G 3 (a block of 4 with one head idle) and G 16 (two head
+    groups), D 64 and 128, over contexts that cross pages, end on a page
+    edge, fill the table, are 0 (exactly zero out) and 1; two calls in a
+    row on the cached scratch (f32: atol/rtol 1e-4; bf16: 2e-2)."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    tol = 1e-4 if dt == torch.float32 else 2e-2
+    args = _paged_rows([300, 32, 1024, 0, 1, 17], 2 * G, 2, d, dt,
+                       seed=G * d)
+    _check_paged_twice(args, tol)
 
 
 @pytest.mark.cuda
