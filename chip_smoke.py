@@ -18,14 +18,20 @@ exit code:
    dense causal forward written here in plain torch (greedy tokens equal,
    logits within 1e-3).
 3. **serve** — ``gpt_1p3b`` in bf16 with random weights from a seed on
-   ``ServingEngine`` (16 slots, page 16, 2048 pages, chunked prefill 256):
-   ``warm_ragged()``, then 36 requests under Poisson arrivals — 32 of
-   mixed length (16-512 prompt tokens) and 4 sharing a 128-token head so
-   prefix hits run — 32 new tokens each. Launch counters are zeroed
-   after ``warm_ragged()``, just before the load, and read just after;
-   each served round must have launched the attention kernel once per
-   layer and the LayerNorm kernel 2 x layers + 1 times. Prints tokens/s,
-   TTFT/ITL p50/p99, rounds, distinct pads and peak KV occupancy.
+   ``ServingEngine(jit=True)`` (16 slots, page 16, 2048 pages, chunked
+   prefill 256): ``warm_ragged()`` captures one CUDA graph per token pad
+   (prints the graph count, the capture seconds and the device memory
+   the captures reserved), then 36 requests under Poisson arrivals — 32
+   of mixed length (16-512 prompt tokens) and 4 sharing a 128-token head
+   so prefix hits run — 32 new tokens each, every round a replay.
+   Launch counters are zeroed after ``warm_ragged()``, just before the
+   load, and read just after; each served round must have launched the
+   attention kernel once per layer and the LayerNorm kernel 2 x layers +
+   1 times (a replay adds the launches its capture recorded). Prints
+   tokens/s, TTFT/ITL p50/p99, rounds, distinct pads and peak KV
+   occupancy. Then the largest mixed round and the widest decode round
+   run again on the engine, replayed and eager, on the same inputs: the
+   greedy tokens must be equal and the logits bit-equal.
 4. **timing** — ragged attention held against its plain version at the
    serve phase's largest mixed and widest decode rounds on the served
    layer-0 pools (f32 within 1e-4, bf16 within 4e-3); then device time per
@@ -41,7 +47,11 @@ exit code:
    the two rounds' bf16 errors.
 5. **profile** — a steady decode round of 16 rows on the host clock and
    under ``torch.profiler``: device busy share and device time by kernel
-   family.
+   family, for eager rounds (``jit=False``) and replays (``jit=True``) in
+   turns (eager, replay, replay, eager), the host ms split into the
+   scheduler and assembly, the program call (staging copy and replay, or
+   the eager forward) and the wait on the fetch. A replayed round's trace
+   must show the ragged attention and LayerNorm kernels.
 6. **train-kernel parity** — the flash forward, dQ and dK/dV kernels
    against their plain versions at ``[2, S, 16, 128]`` (S = 1024 and the
    unaligned 1000, and in bf16 also 1 and 129, causal and not; the bf16
@@ -94,14 +104,18 @@ exit code:
 11. **bucketed serve** — ``gpt_1p3b(use_rms_norm=True)`` bf16 (24 layers,
     random weights from seed 0) on ``ServingEngine(ragged=False)``: 16
     slots, page 16, 2048 pages, unchunked, so misses take the dense
-    prefill (the flash forward kernel) and prefix hits the chunk step. A
-    short ``generate`` warms the shapes, the counters are zeroed, then
-    phase 3's 36-request Poisson load runs; launches must equal exactly 24
-    paged attention per decode step, 49 RMSNorm per forward (decode steps,
+    prefill (the flash forward kernel) and prefix hits the chunk step,
+    both eager; the decode step is one CUDA graph (``jit=True``). A short
+    ``generate`` warms the shapes and captures the graph (count, seconds
+    and memory printed), the counters are zeroed, then phase 3's
+    36-request Poisson load runs; launches must equal exactly 24 paged
+    attention per decode step, 49 RMSNorm per forward (decode steps,
     dense prefills and chunk steps) and 24 flash forward per dense
     prefill. Prints tokens/s, TTFT/ITL p50/p99, rounds and peak KV
-    occupancy, and a steady decode step under ``torch.profiler`` (the
-    paged decode kernel must show as its own family).
+    occupancy; the widest decode step replayed and eager (tokens equal,
+    logits bit-equal); and a steady decode step profiled as in phase 5
+    (the paged decode kernel must show as its own family, and RMSNorm,
+    in the replayed steps).
 12. **bucketed timing** — paged attention at the serve's widest decode
     step on the served layer-0 pools (f32-upcast within 1e-4, bf16 within
     4e-3 against plain) and RMSNorm at [rows of the largest dense prefill,
@@ -121,6 +135,7 @@ Without CUDA, or without the repository beside it, the script exits
 non-zero and prints no result.
 """
 import ctypes
+import gc
 import json
 import math
 import os
@@ -312,27 +327,71 @@ def bound(nbytes, flops, flops_per_s):
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
+def kernel_family(name):
+    """The family a device event's name belongs to in the profiles."""
+    name = name.lower()
+    return ("ragged_paged_attention" if "ragged_paged" in name else
+            "paged_attention" if "paged_attention" in name else
+            "layer_norm (triton)" if "layer_norm_fwd" in name else
+            "rms_norm (triton)" if "rms_norm_fwd" in name else
+            "matmul (cuBLAS)" if any(k in name for k in (
+                "gemm", "gemv", "nvjet", "cutlass", "xmma")) else
+            "copies" if "memcpy" in name or "memset" in name else
+            "other elementwise/index")
+
+
+def host_functions(eng, n_rounds, top=8):
+    """``n_rounds`` more steps under ``cProfile`` -> the host functions
+    with the most own time: ``(ms per round, calls per round, name)``
+    (``cProfile`` slows Python, so read shares, not times)."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(n_rounds):
+        eng.step()
+    torch.cuda.synchronize()
+    prof.disable()
+    rows = sorted(pstats.Stats(prof).stats.items(),
+                  key=lambda kv: -kv[1][2])[:top]
+    return [(tt * 1e3 / n_rounds, nc / n_rounds,
+             f"{func} ({os.path.basename(path)}:{line})")
+            for (path, line, func), (_, nc, tt, _, _) in rows]
+
+
 def profile_decode_rounds(eng, vocab, n_rounds=20):
-    """Where a steady decode round's time goes (either engine path): 16
-    requests with 200-token prompts are prefilled, then ``n_rounds``
-    rounds in which every slot
-    decodes are timed on the host clock (no profiler), and again under
-    ``torch.profiler``. -> per-round host ms, device busy ms (union of the
-    device intervals), device time by kernel family and the top kernels."""
+    """Where a steady decode round's time goes (either engine path, eager
+    or replayed as ``eng``'s ``jit`` says): 16 requests with 200-token
+    prompts are prefilled (no logit capture, as served), then
+    ``n_rounds`` rounds in which every slot
+    decodes are timed on the host clock (no profiler), again under
+    ``torch.profiler``, and again under ``cProfile``. -> per-round host
+    ms, device busy ms (union of the device intervals), device time by
+    kernel family, the top kernels and copies, the host ms split into the
+    program call and the wait on the fetch (the engine's
+    ``round_host_s``) and the rest, and the top host functions."""
     from torch.profiler import ProfilerActivity, profile
+    # as served: no test capture of every round's f32 logit rows (the
+    # serve phases' checks turn it on), so each round fetches its tokens
+    eng.capture_logits = None
     rng = np.random.RandomState(SEED + 10)
     reqs = [eng.submit(rng.randint(1, vocab, size=200).tolist(),
-                       max_new_tokens=64) for _ in range(eng.max_slots)]
+                       max_new_tokens=96) for _ in range(eng.max_slots)]
     while any(r.state != "active" or not r.generated for r in reqs):
         eng.step()
     for _ in range(3):
         eng.step()
     torch.cuda.synchronize()
+    host0 = dict(eng.stats()["round_host_s"])
     t0 = time.perf_counter()
     for _ in range(n_rounds):
         eng.step()
     torch.cuda.synchronize()
     round_ms = (time.perf_counter() - t0) * 1e3 / n_rounds
+    host1 = eng.stats()["round_host_s"]
+    split = {k: (host1[k] - host0[k]) * 1e3 / n_rounds for k in host0}
+    split["scheduler and assembly"] = round_ms - split["call"] \
+        - split["wait"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n_rounds):
@@ -341,18 +400,11 @@ def profile_decode_rounds(eng, vocab, n_rounds=20):
     families, names, spans = {}, {}, []
     for e in _device_events(prof):
         spans.append((e.time_range.start, e.time_range.end))
-        name = e.name.lower()
-        fam = ("ragged_paged_attention" if "ragged_paged" in name else
-               "paged_attention" if "paged_attention" in name else
-               "layer_norm (triton)" if "layer_norm_fwd" in name else
-               "rms_norm (triton)" if "rms_norm_fwd" in name else
-               "matmul (cuBLAS)" if any(k in name for k in (
-                   "gemm", "gemv", "nvjet", "cutlass", "xmma")) else
-               "copies" if "memcpy" in name or "memset" in name else
-               "other elementwise/index")
+        fam = kernel_family(e.name)
         ms = e.time_range.elapsed_us() / 1e3 / n_rounds
         families[fam] = families.get(fam, 0.0) + ms
         names[e.name] = names.get(e.name, 0.0) + ms
+    host = host_functions(eng, n_rounds)
     eng.run_until_idle()
     # busy = the union of device intervals: a synchronous copy's interval
     # can span the kernels it waits behind, so the sum double-counts
@@ -362,7 +414,78 @@ def profile_decode_rounds(eng, vocab, n_rounds=20):
             busy_us += b - max(a, end)
             end = b
     top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
-    return round_ms, busy_us / 1e3 / n_rounds, families, top
+    top += sorted((kv for kv in names.items() if kv not in top
+                   and kernel_family(kv[0]) == "copies"),
+                  key=lambda kv: -kv[1])
+    return round_ms, busy_us / 1e3 / n_rounds, families, top, split, host
+
+
+def report_round_profiles(tag, eng, vocab, families_needed, absent=(),
+                          unit="round"):
+    """Phase 5 / 11: :func:`profile_decode_rounds` for eager rounds and
+    replays in turns (eager, replay, replay, eager) on ``eng``; fails if
+    a trace holds no device events, lacks any of ``families_needed`` (for
+    a replay: the trace cannot see the kernels inside the graph) or holds
+    one of ``absent``."""
+    for jit in (False, True, True, False):
+        eng._jit = jit
+        round_ms, busy_ms, families, top, split, host = \
+            profile_decode_rounds(eng, vocab)
+        mode = "replay (jit=True)" if jit else "eager (jit=False)"
+        if busy_ms <= 0:
+            fail(f"{tag}: the torch.profiler trace of the {mode} {unit}s "
+                 f"held no device events")
+        missing = [f for f in families_needed if families.get(f, 0) <= 0]
+        if missing:
+            fail(f"{tag}: " + ("the trace cannot see the kernels inside a "
+                               "replay" if jit else "the eager trace lacks "
+                               "the kernels") +
+                 f": no {missing} among {sorted(families)}")
+        if any(f in families for f in absent):
+            fail(f"{tag}: {absent} in the trace ({sorted(families)}): a "
+                 f"kernel's symbol is not in its own family")
+        total_ms = sum(families.values())
+        log(f"[{tag}] steady decode {unit}, 16 rows, {mode}: {round_ms:.3f} "
+            f"ms on the host clock (scheduler and assembly "
+            f"{split['scheduler and assembly']:.3f}, program call "
+            f"{split['call']:.3f}, fetch wait {split['wait']:.3f}); device "
+            f"busy {busy_ms:.3f} ms per {unit} (union of device intervals; "
+            f"{total_ms:.3f} ms summed) = {100 * busy_ms / round_ms:.1f}% "
+            f"busy, {100 - 100 * busy_ms / round_ms:.1f}% idle")
+        for fam, ms in sorted(families.items(), key=lambda kv: -kv[1]):
+            log(f"  {fam}: {ms:.4f} ms per {unit} "
+                f"({100 * ms / total_ms:.1f}% of summed device time)")
+        for name, ms in top:
+            log(f"    {ms:.4f} ms per {unit}  {name[:110]}")
+        log(f"  host functions by own time under cProfile, per {unit}:")
+        for ms, calls, name in host:
+            log(f"    {ms:.3f} ms ({calls:g} calls)  {name[:110]}")
+    eng._jit = True
+
+
+def reserved_bytes():
+    """Device memory the caching allocator holds once its free cached
+    blocks are released (graph pools stay reserved while their graphs
+    live)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_stats()["reserved_bytes.all.current"]
+
+
+def check_replay_matches_eager(tag, label, run, args):
+    """One recorded round run again on its engine, replayed (``jit=True``)
+    and eager (``jit=False``) on the same inputs: greedy tokens equal and
+    logits bit-equal (the same kernels at the same shapes; the round's
+    K/V writes are the same values, so the pools do not diverge)."""
+    tok_r, rows_r = run(*args, need_rows=True, jit=True)
+    tok_e, rows_e = run(*args, need_rows=True, jit=False)
+    diff = float(np.abs(rows_r - rows_e).max())
+    log(f"  {label} replayed vs eager: tokens "
+        f"{'equal' if tok_r == tok_e else 'DIFFER'}, logits {rows_r.shape} "
+        f"largest absolute difference {diff}")
+    if tok_r != tok_e or diff != 0.0:
+        fail(f"{tag}: the replayed {label} differs from the eager round "
+             f"(tokens equal: {tok_r == tok_e}, logits by {diff})")
 
 
 # ------------------------------------------------------------ train phases
@@ -1011,14 +1134,15 @@ def bucketed_serve(pt, K):
         f"{time.perf_counter() - t0:.2f} s "
         f"({sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params)")
     eng = pt.ServingEngine(model, page_size=16, num_pages=2048,
-                           max_slots=16, prefill_chunk=None, ragged=False)
+                           max_slots=16, prefill_chunk=None, ragged=False,
+                           jit=True)
     rec = {"decode": None, "prefill": None,
            "n": {"decode": 0, "prefill": 0, "chunk": 0}}
     fns = {name: getattr(eng, f"_{name}_fn")
            for name in ("decode", "prefill", "chunk")}
 
     def recording(name):
-        def run(*args):
+        def run(*args, **kw):
             rec["n"][name] += 1
             if name == "decode":
                 rows = int((args[2][:, 0] > 0).sum())
@@ -1028,7 +1152,7 @@ def bucketed_serve(pt, K):
                 cells = args[0].size
                 if rec["prefill"] is None or cells > rec["prefill"][0]:
                     rec["prefill"] = (cells, args[0].shape)
-            return fns[name](*args)
+            return fns[name](*args, **kw)
         return run
 
     for name in fns:
@@ -1040,11 +1164,20 @@ def bucketed_serve(pt, K):
                                         seed=SEED + 1)
     prompts = [shared[0]] + mixed + shared[1:]
     news = [32] + news + [32] * 3
+    mem0 = reserved_bytes()
     t0 = time.perf_counter()
     eng.generate(mixed[0][:20], max_new_tokens=2)
     torch.cuda.synchronize()
-    log(f"  warm-up generate (Triton compile, first launches) "
-        f"{time.perf_counter() - t0:.2f} s")
+    warm = eng.stats()
+    log(f"  warm-up generate (Triton compile, first launches, the decode "
+        f"step's capture) {time.perf_counter() - t0:.2f} s: "
+        f"{warm['graphs']} graph(s), captured in "
+        f"{warm['graph_capture_s']:.3f} s, {reserved_bytes() - mem0} bytes "
+        f"of device memory reserved by the warm-up (graph pool and static "
+        f"buffers)")
+    if warm["graphs"] != 1:
+        fail(f"bucketed serve: {warm['graphs']} graphs after the warm-up, "
+             f"1 (the decode step) expected")
     rec["n"] = {"decode": 0, "prefill": 0, "chunk": 0}
     before = eng.stats()
     K.reset_launch_counts()
@@ -1101,6 +1234,8 @@ def bucketed_serve(pt, K):
     log(f"  decode logits finite, shape {cap.shape}")
     for name in fns:
         setattr(eng, f"_{name}_fn", fns[name])
+    check_replay_matches_eager("bucketed serve", "widest decode step",
+                               eng._decode_fn, rec["decode"][1])
     return eng, model, rec, launches
 
 
@@ -1371,13 +1506,13 @@ def main():
     log(f"[serve] gpt_1p3b bf16 built in {time.perf_counter() - t0:.2f} s "
         f"({sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params)")
     eng = pt.ServingEngine(model, page_size=16, num_pages=2048,
-                           max_slots=16, prefill_chunk=256)
+                           max_slots=16, prefill_chunk=256, jit=True)
     log(f"  KV pools {eng.kv.nbytes() / 1e9:.2f} GB "
         f"({eng.kv.num_pages} pages of 16 tokens)")
     rounds = {"mixed": None, "decode": None, "launched": 0}
     run_round = eng._ragged_fn
 
-    def recording_round(tokens, rs, rl, kl, bt):
+    def recording_round(tokens, rs, rl, kl, bt, **kw):
         rounds["launched"] += 1
         n_valid, n_rows = int(rl.sum()), int((rl > 0).sum())
         if rounds["mixed"] is None or n_valid > rounds["mixed"][0]:
@@ -1385,7 +1520,7 @@ def main():
         if bool((rl <= 1).all()) and (rounds["decode"] is None
                                      or n_rows > rounds["decode"][0]):
             rounds["decode"] = (n_rows, (tokens, rs, rl, kl, bt))
-        return run_round(tokens, rs, rl, kl, bt)
+        return run_round(tokens, rs, rl, kl, bt, **kw)
 
     eng._ragged_fn = recording_round
     mixed, news = make_mixed_length_prompts(
@@ -1395,10 +1530,19 @@ def main():
                                         seed=SEED + 1)
     prompts = [shared[0]] + mixed + shared[1:]
     news = [32] + news + [32] * 3
+    mem0 = reserved_bytes()
     t0 = time.perf_counter()
     pads = eng.warm_ragged()
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
+    warm = eng.stats()
+    log(f"  warm_ragged: {warm['graphs']} graphs (one per token pad "
+        f"{pads}) captured in {warm['graph_capture_s']:.3f} s of "
+        f"{warm_s:.3f} s; {reserved_bytes() - mem0} bytes of device memory "
+        f"reserved by the captures (their shared graph pool and static "
+        f"buffers)")
+    if warm["graphs"] != len(pads):
+        fail(f"serve: {warm['graphs']} graphs for {len(pads)} token pads")
     rounds["launched"] = 0
     K.reset_launch_counts()
     eng.start()
@@ -1443,6 +1587,12 @@ def main():
             or not all(0 <= t < cfg.vocab_size for t in check):
         fail("serve: decode logits not finite / of the wrong shape")
     log(f"  decode logits finite, shape {cap.shape}")
+    if eng.stats()["graphs"] != len(pads):
+        fail("serve: a token pad outside warm_ragged's was captured mid-run")
+    for label, key in (("largest mixed round", "mixed"),
+                       ("widest decode round", "decode")):
+        check_replay_matches_eager("serve", label, run_round,
+                                   rounds[key][1])
 
     # --------------------------------------------------- phase 4: timing
     H, KVH, D, page = cfg.num_heads, cfg.num_kv_heads, 128, 16
@@ -1523,22 +1673,11 @@ def main():
         "library_ms": lib_ms})
 
     # ------------------------------------- phase 5: where the time goes
-    round_ms, busy_ms, families, top = profile_decode_rounds(
-        eng, cfg.vocab_size)
-    if busy_ms <= 0:
-        fail("profile: the torch.profiler trace held no device events")
-    total_ms = sum(families.values())
-    log(f"[profile] steady decode round, 16 rows: {round_ms:.3f} ms on the "
-        f"host clock; device busy {busy_ms:.3f} ms per round (union of "
-        f"device intervals; {total_ms:.3f} ms summed) = "
-        f"{100 * busy_ms / round_ms:.1f}% busy, "
-        f"{100 - 100 * busy_ms / round_ms:.1f}% idle")
-    for fam, ms in sorted(families.items(), key=lambda kv: -kv[1]):
-        log(f"  {fam}: {ms:.4f} ms per round "
-            f"({100 * ms / total_ms:.1f}% of summed device time)")
-    for name, ms in top:
-        log(f"    {ms:.4f} ms per round  {name[:110]}")
+    report_round_profiles("profile", eng, cfg.vocab_size,
+                          ("ragged_paged_attention", "layer_norm (triton)"))
+    eng.close()
     del eng, model, run_round, args, blk, w, b
+    gc.collect()
     torch.cuda.empty_cache()
 
     # ------------------------------------- phase 6: train-kernel parity
@@ -1584,25 +1723,10 @@ def main():
 
     # ------------------------------------------ phase 11: bucketed serve
     b_eng, b_model, rec, b_launches = bucketed_serve(pt, K)
-    round_ms, busy_ms, families, top = profile_decode_rounds(
-        b_eng, b_model.config.vocab_size)
-    if busy_ms <= 0:
-        fail("bucketed profile: the torch.profiler trace held no device "
-             "events")
-    if families.get("paged_attention", 0) <= 0 \
-            or "ragged_paged_attention" in families:
-        fail(f"bucketed profile: the paged decode kernel's symbol is not "
-             f"in the paged_attention family ({sorted(families)})")
-    total_ms = sum(families.values())
-    log(f"[bucketed profile] steady decode step, 16 rows: {round_ms:.3f} ms "
-        f"on the host clock; device busy {busy_ms:.3f} ms per step (union "
-        f"of device intervals; {total_ms:.3f} ms summed) = "
-        f"{100 * busy_ms / round_ms:.1f}% busy")
-    for fam, ms in sorted(families.items(), key=lambda kv: -kv[1]):
-        log(f"  {fam}: {ms:.4f} ms per step "
-            f"({100 * ms / total_ms:.1f}% of summed device time)")
-    for name, ms in top:
-        log(f"    {ms:.4f} ms per step  {name[:110]}")
+    report_round_profiles("bucketed profile", b_eng,
+                          b_model.config.vocab_size,
+                          ("paged_attention", "rms_norm (triton)"),
+                          absent=("ragged_paged_attention",), unit="step")
 
     # ----------------------------------------- phase 12: bucketed timing
     kernels += bucketed_timing(K, b_eng, b_model, rec, b_launches)

@@ -25,20 +25,24 @@ The ported branches of ``GPTAttention.forward``:
 
     {"ragged": True, "k_pool": ..., "v_pool": ...,   # [P, page, KVH, Dh]
      "block_tables": [R, max_pages] int32, "row_starts": [R] int32,
-     "row_lens": [R] int32, "kv_lens": [R] int32}
+     "row_lens": [R] int32, "kv_lens": [R] int32,
+     "split_scratch": None}        # optional: the engine's own scratch
 
   :class:`GPTModel` maps the flat tokens to their rows and positions once
   per round (``ragged_row_index``), embeds at those positions unless
   ``pos_offset`` [1, T] is given, and hands every layer the same K/V write
   index. Each layer scatters its K/V into the pools in place, then runs
-  ragged paged attention over them (write, then attend).
+  ragged paged attention over them (write, then attend). A dict's
+  ``"split_scratch"`` is handed to the attention kernel: scratch that the
+  caller owns, which a captured CUDA graph of the round needs.
 * **paged serving** (``gpt.py:361-399``), the bucketed engine's decode
   step and chunk step: ``input_ids`` [B, S] at per-row offsets
   ``pos_offset`` [B], and every layer's dict::
 
     {"paged": True, "k_pool": ..., "v_pool": ...,
      "block_tables": [B, max_pages] int32, "positions": [B] int32,
-     "chunk_lens": [B] int32}          # chunk step only (S > 1)
+     "chunk_lens": [B] int32,          # chunk step only (S > 1)
+     "split_scratch": None}            # optional, the decode kernel's
 
   The K/V write index is computed once per forward
   (:func:`paged_write_index`). A decode step (S = 1) writes each row's
@@ -223,7 +227,7 @@ class GPTAttention(nn.Module):
             out = ragged_paged_attention(
                 q.reshape(b * s, H, Dh).contiguous(), kp, vp,
                 cache["row_starts"], cache["row_lens"], cache["kv_lens"],
-                cache["block_tables"])
+                cache["block_tables"], scratch=cache.get("split_scratch"))
         elif cache.get("paged"):
             kp = _pool_write(cache["k_pool"], k.reshape(b * s, KVH, Dh),
                              write_index)
@@ -233,7 +237,8 @@ class GPTAttention(nn.Module):
             if s == 1:
                 # the row's own K/V is written: context = positions + 1
                 out = paged_attention(q[:, 0].contiguous(), kp, vp, bt,
-                                      pos + 1)
+                                      pos + 1,
+                                      scratch=cache.get("split_scratch"))
             else:
                 out = paged_prefill_reference(q, kp, vp, bt, pos,
                                               cache["chunk_lens"])
@@ -385,6 +390,14 @@ class GPTForCausalLM(nn.Module):
     @property
     def dtype(self):
         return self.gpt.wte.weight.dtype
+
+    def _head(self, hidden):
+        """The LM head alone over ``hidden`` [..., h] (``ln_f``'s output),
+        as :meth:`forward` applies it: the serving round takes it over
+        only the rows whose logits it reads."""
+        if self.config.tie_word_embeddings:
+            return torch.matmul(hidden, self.gpt.wte.weight.t())
+        return self.lm_head(hidden)
 
     def forward(self, input_ids, caches=None, pos_offset=None):
         hidden = self.gpt(input_ids, caches=caches, pos_offset=pos_offset)

@@ -16,7 +16,8 @@ wrapper                      route    replaces (TPU kernel)
 ``paged_attention`` (one decode token a row, split-K over the row's own
 keys) and ``ragged_paged_attention`` (tiles of a row's tokens) are kernels
 and launches of their own; each sizes its launch on the host
-(``launch_plan``) and keeps its split scratch per device.
+(``launch_plan``) and takes its split scratch from the caller
+(``scratch=``, which a captured graph needs) or a per-device cache.
 ``flash_fwd`` and ``flash_bwd_dkv`` launch the Hopper kernels of
 ``csrc/flash_attention_sm90.cu`` (wgmma, TMA, warp specialisation; its
 primitives in ``csrc/sm90.cuh``) on bf16 and ``csrc/flash_attention.cu``
@@ -25,7 +26,10 @@ on f32, where ``flash_bwd_dq`` runs for both.
 Each wrapper counts its kernel launches in a plain integer attribute
 (``wrapper.launches``), so a run can show that its main path went through
 the kernel; :func:`launch_counts` / :func:`reset_launch_counts` read and
-zero them all.
+zero them all. A CUDA graph replays kernels without running their
+wrappers, so whoever replays one adds the launches its capture recorded
+(:func:`add_launch_counts`): the counts stay the launches issued on the
+card.
 """
 from .flash_attention import (flash_attention_bshd, flash_bwd_dkv,
                               flash_bwd_dkv_reference, flash_bwd_dq,
@@ -51,7 +55,7 @@ __all__ = ["layer_norm", "layer_norm_reference", "layer_norm_bwd_reference",
            "fused_adamw", "fused_adamw_reference", "paged_attention",
            "paged_prefill_reference", "rms_norm", "rms_norm_reference",
            "rms_norm_bwd_reference", "RMSNormFunction", "KERNELS",
-           "launch_counts", "reset_launch_counts"]
+           "launch_counts", "reset_launch_counts", "add_launch_counts"]
 
 KERNELS = {"ragged_paged_attention": ragged_paged_attention,
            "layer_norm": layer_norm,
@@ -70,3 +74,10 @@ def launch_counts():
 def reset_launch_counts():
     for fn in KERNELS.values():
         fn.launches = 0
+
+
+def add_launch_counts(counts):
+    """Add ``{name: launches}`` to the wrappers' counts (a graph replay's
+    launches, or minus a capture's, which launched nothing)."""
+    for name, n in counts.items():
+        KERNELS[name].launches += n

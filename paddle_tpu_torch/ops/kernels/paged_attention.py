@@ -23,7 +23,9 @@ Three things live here:
   the kernel or raises. :func:`launch_plan` picks the split count from
   host integers alone (``context_lens`` stays on the device): each (row,
   KV head) pair takes ``n_split`` blocks that cut the row's own keys
-  between them, and the wrapper keeps the splits' scratch per device.
+  between them. The splits' scratch is the caller's where it passes one
+  (:func:`reserve_scratch`; a serving engine owns one for its captured
+  decode step), else a per-device cache.
   :func:`launch_kernel` launches with a split count the caller names
   (``paged_splits.py`` times them).
 """
@@ -36,7 +38,8 @@ import math
 import torch
 
 __all__ = ["paged_attention_reference", "paged_prefill_reference",
-           "paged_attention", "launch_kernel", "launch_plan"]
+           "paged_attention", "launch_kernel", "launch_plan",
+           "reserve_scratch", "owned_scratch"]
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -146,9 +149,41 @@ def launch_plan(B, H, KVH, D, max_pages, page_size, sms):
     return {"n_split": n_split, "partials": partials, "tickets": tickets}
 
 
+def reserve_scratch(B, H, KVH, D, max_pages, page_size, device):
+    """Split scratch that the caller owns for decode steps of this shape
+    -> ``[partials, tickets]`` on ``device`` (tickets zeroed), sized by
+    :func:`launch_plan`. The kernel leaves every ticket at zero when it
+    ends, so a captured CUDA graph can replay over it with no reset as
+    long as its owner keeps it."""
+    plan = launch_plan(B, H, KVH, D, max_pages, page_size,
+                       _sm_count(device))
+    return [torch.zeros(max(plan["partials"], 1), device=device,
+                        dtype=torch.float32),
+            torch.zeros(max(plan["tickets"], 1), device=device,
+                        dtype=torch.int32)]
+
+
+def owned_scratch(scratch, need, dtypes, device):
+    """Pointers of a caller's scratch tensors after checking that each
+    holds its ``need`` elements of its type on ``device``; raises
+    otherwise (a caller's scratch is never replaced or grown)."""
+    ptrs = []
+    for t, n, dt in zip(scratch, need, dtypes):
+        if t.device != device or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"split scratch must be contiguous {dt} on "
+                             f"{device}, got {t.dtype} on {t.device}")
+        if t.numel() < n:
+            raise ValueError(f"split scratch holds {t.numel()} elements, "
+                             f"the launch needs {n}")
+        ptrs.append(t.data_ptr())
+    return ptrs
+
+
 _lib = None
-# device -> [partials, tickets]: the splits' scratch, grown to the largest
-# plan seen; the kernel leaves the tickets at zero
+# device -> [partials, tickets]: the shared splits' scratch, grown
+# (reallocated) to the largest plan seen; the kernel leaves the tickets at
+# zero. A captured graph must not point into it: a later, larger plan
+# frees it under the graph
 _scratch: dict = {}
 _sms: dict = {}
 
@@ -214,23 +249,26 @@ def check_kernel_inputs(name, q, k_cache, v_cache, meta):
 
 
 def paged_attention(q, k_cache, v_cache, block_tables, context_lens,
-                    scale=None):
+                    scale=None, scratch=None):
     """One decode step -> ``[B, H, D]`` (rows with context 0 zeroed). CPU
     tensors take the plain version; CUDA tensors launch the kernel (f32 or
     bf16, D in {64, 128}) with :func:`launch_plan`'s split count;
-    anything else raises."""
+    anything else raises. ``scratch``: the caller's split scratch
+    (:func:`reserve_scratch`), else the per-device cache."""
     if q.device.type == "cpu":
         return paged_attention_reference(q, k_cache, v_cache, block_tables,
                                          context_lens, scale=scale)
     return launch_kernel(q, k_cache, v_cache, block_tables, context_lens,
-                         scale)
+                         scale, scratch=scratch)
 
 
 def launch_kernel(q, k_cache, v_cache, block_tables, context_lens,
-                  scale=None, n_split=None):
+                  scale=None, n_split=None, scratch=None):
     """The kernel on CUDA tensors with ``n_split`` blocks a (row, KV head,
-    head group), by default :func:`launch_plan`'s; raises for anything it
-    does not take. Every launch adds one to ``paged_attention.launches``."""
+    head group), by default :func:`launch_plan`'s, over the caller's
+    ``scratch`` if given (checked, never grown) or the per-device cache;
+    raises for anything it does not take. Every launch adds one to
+    ``paged_attention.launches``."""
     if q.device.type != "cuda":
         raise ValueError(f"the paged_attention kernel runs on cuda "
                          f"tensors (cpu ones take the plain version), not "
@@ -255,15 +293,17 @@ def launch_kernel(q, k_cache, v_cache, block_tables, context_lens,
                               _sm_count(q.device))["n_split"]
     elif not 1 <= n_split <= MAX_SPLIT:
         raise ValueError(f"n_split {n_split} not in [1, {MAX_SPLIT}]")
-    scratch = [None, None]
+    ptrs = [None, None]
     if n_split > 1 and B > 0:
-        scratch = _split_scratch(q.device,
-                                 *_scratch_sizes(B, H, KVH, D, n_split))
+        need = _scratch_sizes(B, H, KVH, D, n_split)
+        ptrs = _split_scratch(q.device, *need) if scratch is None \
+            else owned_scratch(scratch, need, (torch.float32, torch.int32),
+                               q.device)
     out = torch.empty_like(q)
     scale = float(scale if scale is not None else 1.0 / math.sqrt(D))
     rc = _kernel()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                    block_tables.data_ptr(), context_lens.data_ptr(),
-                   out.data_ptr(), *scratch, B, H, KVH, D, P, page,
+                   out.data_ptr(), *ptrs, B, H, KVH, D, P, page,
                    max_pages, n_split, scale, _DTYPES[q.dtype],
                    torch.cuda.current_stream().cuda_stream)
     if rc != 0:

@@ -31,7 +31,9 @@ Query token ``i`` of row ``r`` sits at absolute position
   the kernel or raises. :func:`launch_plan` sizes the launch from host
   integers alone (the engine's metadata stays on the device): tiles of
   ``64 // G`` tokens, and splits of the key range that fill the card on
-  small rounds; the wrapper keeps the splits' scratch per device.
+  small rounds. The splits' scratch is the caller's where it passes one
+  (:func:`reserve_scratch`, sized by :func:`scratch_sizes`; a serving
+  engine owns one for its captured rounds), else a per-device cache.
 """
 from __future__ import annotations
 
@@ -41,10 +43,11 @@ import math
 import torch
 
 from .paged_attention import (_DTYPES, check_kernel_inputs,
-                              paged_attention_reference)
+                              owned_scratch, paged_attention_reference)
 
 __all__ = ["ragged_row_index", "ragged_paged_attention_reference",
-           "ragged_paged_attention", "launch_plan"]
+           "ragged_paged_attention", "launch_plan", "scratch_sizes",
+           "reserve_scratch"]
 
 # tokens per chunk of the plain version's page gather: bounds its memory
 # at the serving shapes (a [chunk, max_pages * page, KVH, D] f32 copy)
@@ -116,9 +119,36 @@ def launch_plan(T, H, KVH, R, max_pages, page_size):
             "n_split": -(-max_keys // split_keys), "split_keys": split_keys}
 
 
+def scratch_sizes(T, H, KVH, D, R, max_pages, page_size):
+    """Elements of split scratch a launch of ``T`` tokens takes -> ``(f32
+    partial accumulators, f32 partial max/sum pairs, int32 tickets)``,
+    all 0 when the plan has one split."""
+    plan = launch_plan(T, H, KVH, R, max_pages, page_size)
+    if plan["n_split"] == 1 or T == 0:
+        return (0, 0, 0)
+    n = T * H * plan["n_split"]
+    return (n * D, n * 2, plan["n_slots"] * KVH)
+
+
+def reserve_scratch(sizes, device):
+    """Split scratch that the caller owns, ``sizes`` as
+    :func:`scratch_sizes` gives them -> ``[part_acc, part_ml, tickets]``
+    on ``device``, tickets zeroed. The kernel leaves every ticket at zero
+    when it ends, so the scratch needs no reset between launches, and a
+    captured CUDA graph can replay over it as long as its owner keeps it."""
+    return [torch.empty(max(int(sizes[0]), 1), device=device,
+                        dtype=torch.float32),
+            torch.empty(max(int(sizes[1]), 1), device=device,
+                        dtype=torch.float32),
+            torch.zeros(max(int(sizes[2]), 1), device=device,
+                        dtype=torch.int32)]
+
+
 _lib = None
-# device -> [part_acc, part_ml, tickets]: the splits' scratch, grown to the
-# largest launch seen; the kernel leaves the tickets at zero
+# device -> [part_acc, part_ml, tickets]: the shared splits' scratch, grown
+# (reallocated) to the largest launch seen; the kernel leaves the tickets
+# at zero. A captured graph must not point into it: a later, larger launch
+# frees it under the graph
 _scratch: dict = {}
 
 
@@ -149,11 +179,14 @@ def _split_scratch(device, n_acc, n_ml, n_tickets):
 
 
 def ragged_paged_attention(q, k_cache, v_cache, row_starts, row_lens,
-                           kv_lens, block_tables, scale=None):
+                           kv_lens, block_tables, scale=None, scratch=None):
     """One ragged launch -> ``[T, H, D]`` (pad tokens zeroed). CPU tensors
     take the plain version; CUDA tensors launch the kernel (f32 or bf16,
     D in {64, 128}) and every launch adds one to
-    ``ragged_paged_attention.launches``; anything else raises."""
+    ``ragged_paged_attention.launches``; anything else raises.
+    ``scratch``: the caller's split scratch (:func:`reserve_scratch`),
+    checked against the launch's need and never reallocated; None takes
+    the per-device cache."""
     if q.device.type == "cpu":
         return ragged_paged_attention_reference(
             q, k_cache, v_cache, row_starts, row_lens, kv_lens, block_tables,
@@ -172,17 +205,19 @@ def ragged_paged_attention(q, k_cache, v_cache, row_starts, row_lens,
     P, page, KVH = k_cache.shape[:3]
     max_pages = block_tables.shape[1]
     plan = launch_plan(T, H, KVH, R, max_pages, page)
-    scratch = [None] * 3
+    ptrs = [None] * 3
     if plan["n_split"] > 1 and T > 0:
-        n = T * H * plan["n_split"]
-        scratch = _split_scratch(q.device, n * D, n * 2,
-                                 plan["n_slots"] * KVH)
+        need = scratch_sizes(T, H, KVH, D, R, max_pages, page)
+        ptrs = _split_scratch(q.device, *need) if scratch is None \
+            else owned_scratch(scratch, need, (torch.float32,
+                                               torch.float32, torch.int32),
+                               q.device)
     out = torch.empty_like(q)
     scale = float(scale if scale is not None else 1.0 / math.sqrt(D))
     rc = _kernel()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                    row_starts.data_ptr(), row_lens.data_ptr(),
                    kv_lens.data_ptr(), block_tables.data_ptr(),
-                   out.data_ptr(), *scratch, T, H, KVH, D, P, page, R,
+                   out.data_ptr(), *ptrs, T, H, KVH, D, P, page, R,
                    max_pages, plan["n_split"], plan["split_keys"], scale,
                    _DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
     if rc != 0:

@@ -21,8 +21,20 @@ loop over a paged KV cache on the model's device:
   prefix-hit tails and chunked prefill (``prefill_chunk``) run the chunk
   step (pool scatter, then partial-prefix attention over the pages); then
   ONE fixed-shape decode step over all ``max_slots`` slots runs the paged
-  decode kernel. There is no compile cache to bound: the bucket sets only
-  fix the launch shapes, which ``stats()`` lists.
+  decode kernel.
+* **one program per shape** (``jit=True``, the default, as in JAX): the
+  ragged round at each token pad and the bucketed engine's decode step
+  each run as a program of their own (:mod:`.compiled`). On the card that
+  program is a CUDA graph, captured at the shape's first round (or by
+  :meth:`ServingEngine.warm_ragged`) and replayed on every later round of
+  that shape: one copy of the round's metadata from pinned memory, one
+  replay of the hand kernels, one asynchronous copy of the results back.
+  On the CPU the same static-buffer round runs eagerly. ``jit=False``
+  runs every round eagerly from Python. The bucketed dense prefill and
+  chunk step stay eager; like every shape-specialised program they are
+  noted once in ``stats()["distinct_programs"]`` and the
+  ``serving_compiles_total`` / ``serving_distinct_programs`` metrics,
+  with the JAX engine's keys.
 * **prefix caching** (on by default): full prompt pages are indexed in a
   page-granular trie; a hit takes the shared head by refcounted reference
   and only the tail runs;
@@ -30,7 +42,7 @@ loop over a paged KV cache on the model's device:
   finishes / evicts / admits, so a request arriving mid-stream joins the
   next round without stalling in-flight rows.
 
-Each launch's results reach the host in one copy: the next tokens, or the
+Each round's results reach the host in one copy: the next tokens, or the
 logit rows when a request samples or ``capture_logits`` is set. The A/B
 backend gate (the kernels always run on the card), the
 ``PADDLE_TPU_SERVING_RAGGED`` switch, mesh sharding, graceful SIGTERM
@@ -47,6 +59,13 @@ import numpy as np
 import torch
 
 from ..inference import pick_bucket
+from ..ops.kernels.paged_attention import \
+    reserve_scratch as _reserve_paged_scratch
+from ..ops.kernels.ragged_attention import \
+    reserve_scratch as _reserve_ragged_scratch
+from ..ops.kernels.ragged_attention import \
+    scratch_sizes as _ragged_scratch_sizes
+from .compiled import RoundPrograms
 from .kv_cache import PagedKVCache, pages_for
 from .metrics import ServingMetrics
 from .prefix_cache import PrefixCache
@@ -99,12 +118,13 @@ class ServingEngine:
             req.result(timeout=30)
 
     The engine runs where the model lives (``model.device``);
-    ``ragged=False`` selects the bucketed fallback.
+    ``ragged=False`` selects the bucketed fallback, ``jit=False`` eager
+    rounds instead of one program (a CUDA graph on the card) per shape.
     """
 
     def __init__(self, model, page_size=16, num_pages=64, max_slots=4,
                  max_queue=256, prefill_seq_buckets=None,
-                 prefill_batch_buckets=None, registry=None,
+                 prefill_batch_buckets=None, jit=True, registry=None,
                  prefill_chunk=None, prefill_token_budget=None,
                  prefix_cache=True, ragged=True, engine_id=None):
         cfg = model.config
@@ -170,6 +190,22 @@ class ServingEngine:
             self._chunk_buckets = list(self.prefill_seq_buckets)
         self.ragged = bool(ragged)
         self._ragged_shapes: set = set()  # token pads this engine has run
+        # every shape-specialised program installed (ragged pad,
+        # prefill/chunk bucket pair, the decode step), under the JAX
+        # engine's keys; the round programs and their graphs
+        self._jit = bool(jit)
+        self._programs: set = set()
+        self._rounds = RoundPrograms(self.device)
+        # split scratch the attention kernel's graphs point into: owned
+        # here, reserved once at the largest plan of any round this
+        # engine can run, never reallocated
+        self._split_scratch = None
+        if self.device.type == "cuda":
+            self._split_scratch = _reserve_ragged_scratch(
+                self.ragged_scratch_sizes(), self.device) if self.ragged \
+                else _reserve_paged_scratch(self.max_slots, H, KVH, Dh,
+                                            self.max_pages, self.page_size,
+                                            self.device)
         # (batch, seq) buckets the dense prefill and the chunk step ran at,
         # and the launches of each bucketed forward
         self._prefill_shapes: set = set()
@@ -190,43 +226,102 @@ class ServingEngine:
         # thread; re-entrant so the serve loop's own step nests freely
         self._step_lock = threading.RLock()
 
+    def _note_program(self, key):
+        """Record the installation of a new shape-specialised program
+        (ragged pad, prefill/chunk bucket pair, decode step)."""
+        if key in self._programs:
+            return
+        self._programs.add(key)
+        self.metrics.on_compile(len(self._programs))
+
+    def _run_round(self, key, fn, parts, need_rows, jit):
+        """One round of ``fn`` (flat int32 metadata on the device -> next
+        tokens [R], f32 logit rows [R, V]) over the metadata ``parts`` ->
+        ``(next tokens, logit rows or None)`` on the host. With ``jit``
+        (default: the engine's) ``key``'s program runs it; else it runs
+        eagerly, its metadata copied to the device and its results back
+        from pageable memory."""
+        if self._jit if jit is None else jit:
+            return self._rounds.run(key, fn, parts, need_rows)
+        t0 = time.perf_counter()
+        flat = np.concatenate([np.ravel(p) for p in parts]).astype(np.int32)
+        with torch.no_grad():
+            nxt, rows = fn(torch.from_numpy(flat).to(self.device))
+        t1 = time.perf_counter()
+        out = _fetch(nxt, rows, need_rows)
+        host_s = self._rounds.host_s
+        host_s["call"] += t1 - t0
+        host_s["wait"] += time.perf_counter() - t1
+        return out
+
     # -------------------------------------------------------- ragged round
-    def _ragged_fn(self, tokens, row_starts, row_lens, kv_lens, bt):
-        """ONE forward for the whole round: embed the flat token stream
-        at per-token positions, scatter every row's K/V into its pages, run
-        ragged paged attention, and -> ``(next_tokens [R], row_logits
+    def _ragged_forward(self, flat, T):
+        """ONE forward for the whole round over its flat metadata ``flat``
+        ([T tokens | R row_starts | R row_lens | R kv_lens | R x max_pages
+        block table] int32 on the device): embed the flat token stream at
+        per-token positions, scatter every row's K/V into its pages, run
+        ragged paged attention, and -> ``(next tokens [R], f32 logit rows
         [R, V])`` for each row's LAST token (a decode row's next token, a
         completing prefill row's first token; unused rows clip to garbage
-        the host ignores). The host metadata moves to the device in one
-        copy."""
-        T, R = tokens.shape[0], row_starts.shape[0]
-        flat = np.concatenate([tokens, row_starts, row_lens, kv_lens,
-                               bt.reshape(-1)]).astype(np.int32)
-        with torch.no_grad():
-            dev = torch.from_numpy(flat).to(self.device)
-            tok = dev[:T]
-            rs, rl, kl = (dev[T + i * R:T + (i + 1) * R] for i in range(3))
-            bt_d = dev[T + 3 * R:].view(R, -1)
-            caches = [{"ragged": True, "k_pool": self.kv.k[i],
-                       "v_pool": self.kv.v[i], "block_tables": bt_d,
-                       "row_starts": rs, "row_lens": rl, "kv_lens": kl}
-                      for i in range(self.cfg.num_layers)]
-            logits = self.model(tok[None], caches=caches)
-            last = (rs + rl - 1).clamp(0, T - 1).long()
-            row_logits = logits[0, last]
-            nxt = row_logits.argmax(dim=-1)
-        return nxt, row_logits
+        the host ignores). The head runs on those R rows only."""
+        R = self.max_slots
+        rs, rl, kl = (flat[T + i * R:T + (i + 1) * R] for i in range(3))
+        bt = flat[T + 3 * R:].view(R, -1)
+        caches = [{"ragged": True, "k_pool": self.kv.k[i],
+                   "v_pool": self.kv.v[i], "block_tables": bt,
+                   "row_starts": rs, "row_lens": rl, "kv_lens": kl,
+                   "split_scratch": self._split_scratch}
+                  for i in range(self.cfg.num_layers)]
+        hidden = self.model.gpt(flat[None, :T], caches=caches)
+        last = (rs + rl - 1).clamp(0, T - 1).long()
+        rows = self.model._head(hidden[0, last])
+        return rows.argmax(dim=-1), rows.float()
+
+    def _ragged_fn(self, tokens, row_starts, row_lens, kv_lens, bt,
+                   need_rows=False, jit=None):
+        """One ragged round over host metadata -> ``(next tokens, f32
+        logit rows [R, V] when need_rows else None)``: the token pad's
+        program (``jit``, default the engine's) or the eager round."""
+        T = tokens.shape[0]
+        return self._run_round(
+            ("ragged", T), lambda flat: self._ragged_forward(flat, T),
+            (tokens, row_starts, row_lens, kv_lens, bt), need_rows, jit)
+
+    def _ragged_pads(self, max_tokens):
+        """The token pads of rounds up to ``max_tokens`` tokens."""
+        pads, t = [], 1
+        while True:
+            p = _pad_total_tokens(t)
+            pads.append(p)
+            if p >= max_tokens:
+                return pads
+            t = p + 1
+
+    def ragged_scratch_sizes(self):
+        """The ragged kernel's split scratch that covers every round this
+        engine can run: the largest need (f32 partials, f32 max/sum pairs,
+        int32 tickets) over every token pad up to ``max_slots`` whole
+        ``max_seq_len`` rows, the most :meth:`warm_ragged` can reach."""
+        cfg = self.cfg
+        H = cfg.num_heads
+        sizes = [_ragged_scratch_sizes(p, H, cfg.num_kv_heads,
+                                       cfg.hidden_size // H, self.max_slots,
+                                       self.max_pages, self.page_size)
+                 for p in self._ragged_pads(self.max_slots
+                                            * cfg.max_seq_len)]
+        return tuple(max(col) for col in zip(*sizes))
 
     def warm_ragged(self, max_tokens=None):
-        """Run the round once at every token pad up to ``max_tokens``, so
-        the first real round of each pad pays no first-launch cost (Triton
-        compiles its kernel and the CUDA library loads at first use). The
-        default covers the engine's worst-case round: every slot decoding
-        plus one prefill budget of chunk tokens when chunking is on, or
-        every slot carrying a whole max-length prompt when it is off. The
-        warm launches carry zero valid rows: every token is padding, so the
-        writes land on the scrap page and no request state is touched.
-        -> the list of pads run ([] for the bucketed fallback)."""
+        """Install the round's program at every token pad up to
+        ``max_tokens`` (on the card: capture its graph and replay it once,
+        largest pad first), so the first real round of each pad pays no
+        first-launch or capture cost. The default covers the engine's
+        worst-case round: every slot decoding plus one prefill budget of
+        chunk tokens when chunking is on, or every slot carrying a whole
+        max-length prompt when it is off. The warm rounds carry zero valid
+        rows: every token is padding, so the writes land on the scrap page
+        and no request state is touched. -> the list of pads ([] for the
+        bucketed fallback)."""
         if not self.ragged:
             return []
         if max_tokens is None:
@@ -237,19 +332,14 @@ class ServingEngine:
                 max_tokens = self.max_slots * self.cfg.max_seq_len
         max_tokens = min(int(max_tokens),
                          self.max_slots * self.cfg.max_seq_len)
-        pads, t = [], 1
-        while True:
-            p = _pad_total_tokens(t)
-            pads.append(p)
-            if p >= max_tokens:
-                break
-            t = p + 1
+        pads = self._ragged_pads(max_tokens)
         R = self.max_slots
         with self._step_lock:
-            for p in pads:
+            for p in reversed(pads):
                 if p in self._ragged_shapes:
                     continue
                 self._ragged_shapes.add(p)
+                self._note_program(("ragged", p))
                 self._ragged_fn(np.zeros(p, np.int32),
                                 np.full(R, p, np.int32),
                                 np.zeros(R, np.int32), np.zeros(R, np.int32),
@@ -309,16 +399,17 @@ class ServingEngine:
             kv_lens[i] = req.num_cached + take
             bt[i, :len(req.pages)] = req.pages
             cursor += take
-        self._ragged_shapes.add(T)
-        nxt, row_logits = self._ragged_fn(tokens, row_starts, row_lens,
-                                          kv_lens, bt)
+        if T not in self._ragged_shapes:
+            self._ragged_shapes.add(T)
+            self._note_program(("ragged", T))
         completing = [req for req, take, _ in plan[len(decode_rows):]
                       if req.num_cached + take
                       >= len(prompts[req.request_id])]
         any_sampling = any(r.temperature > 0.0
                            for r in decode_rows + completing)
-        nxt, logits_np = _fetch(nxt, row_logits, any_sampling or
-                                self.capture_logits is not None)
+        nxt, logits_np = self._ragged_fn(
+            tokens, row_starts, row_lens, kv_lens, bt,
+            need_rows=any_sampling or self.capture_logits is not None)
         if self.capture_logits is not None and decode_rows:
             cap = np.zeros((self.max_slots,) + logits_np.shape[1:],
                            logits_np.dtype)
@@ -443,6 +534,7 @@ class ServingEngine:
         for i, p in enumerate(prompts):
             ids[i, :len(p)] = p
         self._prefill_shapes.add((nb, seq_bucket))
+        self._note_program(("prefill", nb, seq_bucket))
         self._bucketed_launches["prefill"] += 1
         nxt, rows, ks, vs = self._prefill_fn(ids, lens)
         toks, logits_np = _fetch(nxt, rows, any(r.temperature > 0.0
@@ -464,7 +556,8 @@ class ServingEngine:
         for i in range(self.cfg.num_layers):
             c = {"paged": True, "k_pool": self.kv.k[i],
                  "v_pool": self.kv.v[i], "block_tables": bt,
-                 "positions": positions}
+                 "positions": positions,
+                 "split_scratch": self._split_scratch}
             if chunk_lens is not None:
                 c["chunk_lens"] = chunk_lens
             caches.append(c)
@@ -530,6 +623,7 @@ class ServingEngine:
             lens[i] = take
             bt[i, :len(req.pages)] = req.pages
         self._chunk_shapes.add((nb, sb))
+        self._note_program(("chunk", nb, sb))
         self._bucketed_launches["chunk"] += 1
         nxt, rows = self._chunk_fn(tokens, positions, lens, bt)
         toks, logits_np = _fetch(nxt, rows, any(r.temperature > 0.0
@@ -548,25 +642,31 @@ class ServingEngine:
         self.metrics.on_prefill_chunk(spent)
         return spent
 
-    def _decode_fn(self, tokens, positions, bt):
-        """ONE fixed-slot decode step over all ``max_slots`` slots: embed
-        each slot's last token at its position, scatter its K/V into its
-        page, paged attention over its block table (the paged decode
-        kernel on the card) -> (next tokens [S], logits [S, V]). Inactive
-        slots carry position 0 and an all-zero table: their write lands on
-        the scrap page and they attend one scrap token."""
-        S = tokens.shape[0]
-        flat = np.concatenate([tokens, positions,
-                               bt.reshape(-1)]).astype(np.int32)
-        with torch.no_grad():
-            dev = torch.from_numpy(flat).to(self.device)
-            pos = dev[S:2 * S]
-            caches = self._paged_caches(dev[2 * S:].view(S, -1), pos)
-            last = self.model(dev[:S, None], caches=caches,
-                              pos_offset=pos)[:, -1]
-        return last.argmax(dim=-1), last
+    def _decode_forward(self, flat):
+        """ONE fixed-slot decode step over all ``max_slots`` slots from its
+        flat metadata ([S tokens | S positions | S x max_pages block table]
+        int32 on the device): embed each slot's last token at its
+        position, scatter its K/V into its page, paged attention over its
+        block table (the paged decode kernel on the card) -> (next tokens
+        [S], f32 logits [S, V]). Inactive slots carry position 0 and an
+        all-zero table: their write lands on the scrap page and they
+        attend one scrap token."""
+        S = self.max_slots
+        pos = flat[S:2 * S]
+        caches = self._paged_caches(flat[2 * S:].view(S, -1), pos)
+        last = self.model(flat[:S, None], caches=caches,
+                          pos_offset=pos)[:, -1]
+        return last.argmax(dim=-1), last.float()
+
+    def _decode_fn(self, tokens, positions, bt, need_rows=False, jit=None):
+        """One decode step over host metadata -> ``(next tokens, f32
+        logits [S, V] when need_rows else None)``: the decode program
+        (``jit``, default the engine's) or the eager step."""
+        return self._run_round(("decode",), self._decode_forward,
+                               (tokens, positions, bt), need_rows, jit)
 
     def _decode_once(self, active):
+        self._note_program(("decode",))
         S, maxp = self.max_slots, self.max_pages
         tokens = np.zeros(S, np.int32)
         positions = np.zeros(S, np.int32)
@@ -577,9 +677,9 @@ class ServingEngine:
             bt[slot, :len(req.pages)] = req.pages
         any_sampling = any(r.temperature > 0.0 for r in active.values())
         self._bucketed_launches["decode"] += 1
-        nxt, last = self._decode_fn(tokens, positions, bt)
-        nxt, logits_np = _fetch(nxt, last, any_sampling or
-                                self.capture_logits is not None)
+        nxt, logits_np = self._decode_fn(
+            tokens, positions, bt,
+            need_rows=any_sampling or self.capture_logits is not None)
         if self.capture_logits is not None:
             self.capture_logits.append(
                 (dict((s, r.request_id) for s, r in active.items()),
@@ -715,12 +815,15 @@ class ServingEngine:
             t.join(timeout)
 
     def close(self):
-        """Stop the loop and fail everything still queued or in flight."""
+        """Stop the loop, fail everything still queued or in flight and
+        drop the round programs (their graphs free their memory)."""
         if self._closed:
             return
         self._closed = True
         self.stop()
         self.scheduler.close()
+        with self._step_lock:
+            self._rounds.clear()
 
     def __enter__(self):
         return self
@@ -746,6 +849,11 @@ class ServingEngine:
             "prefill_chunk_tokens": self._chunk_tokens,
             "ragged": self.ragged,
             "ragged_token_pads": sorted(self._ragged_shapes),
+            "distinct_programs": len(self._programs),
+            "jit": self._jit,
+            "graphs": self._rounds.graphs,
+            "graph_capture_s": self._rounds.capture_s,
+            "round_host_s": dict(self._rounds.host_s),
             "prefill_shapes": sorted(self._prefill_shapes),
             "chunk_shapes": sorted(self._chunk_shapes),
             "bucketed_launches": dict(self._bucketed_launches),

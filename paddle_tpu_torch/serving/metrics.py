@@ -19,6 +19,10 @@ lands in the registry of :mod:`paddle_tpu_torch.observability.metrics`
   admission counters; ``serving_prefix_shared_pages`` /
   ``serving_prefix_cached_pages`` — page gauges
 * ``serving_prefill_chunk_tokens_total`` — prefill tokens processed
+* ``serving_compiles_total`` / ``serving_distinct_programs`` — the
+  shape-specialised programs the engine installed (ragged token pads,
+  prefill/chunk bucket pairs, the decode step), as the JAX engine counts
+  its compiles
 
 ``engine="e0"`` labels every row. Every hook is a no-op when the registry
 is off (one ``None`` check).
@@ -152,3 +156,12 @@ class ServingMetrics:
         if self._reg is None:
             return
         self._counter("serving_prefill_chunk_tokens_total").inc(n_tokens)
+
+    def on_compile(self, distinct_programs):
+        """The engine installed a NEW shape-specialised program (a ragged
+        token pad, a prefill/chunk bucket pair or the decode step): the
+        bounded program surface as a measured number."""
+        if self._reg is None:
+            return
+        self._counter("serving_compiles_total").inc()
+        self._gauge("serving_distinct_programs").set(distinct_programs)

@@ -428,3 +428,161 @@ def test_ragged_kernel_layouts_match_plain_on_card(dtype, d, G, case):
         if case == "mixed":
             assert bool((out[n_valid - 1] == 0).all())  # context 0
     assert K.ragged_paged_attention.launches == before + 2
+
+
+# ------------------------------------------------ the serving round's graphs
+def _two_layer_1p3b(dtype, use_rms_norm=False):
+    """A 2-layer GPT at ``gpt_1p3b`` widths (hidden 2048, 16 heads, vocab
+    50304) with random weights from a seed."""
+    import paddle_tpu_torch as pt
+    cfg = pt.gpt_1p3b(dropout=0.0, use_rms_norm=use_rms_norm)
+    cfg.num_layers = 2
+    return pt.GPTForCausalLM(cfg, dtype=dtype, seed=1)
+
+
+def _engine_kw(ragged):
+    kw = dict(page_size=16, num_pages=96, max_slots=4, ragged=ragged)
+    if ragged:
+        kw["prefill_chunk"] = 32
+    return kw
+
+
+_PROMPT_LENS = (37, 100, 5, 64)
+
+
+def _serve(eng, vocab, seed=0):
+    """The same prompts, submitted in two waves so rounds mix prefill
+    chunks with decode rows -> (tokens per request, captured logits)."""
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(1, vocab, size=n).tolist() for n in _PROMPT_LENS]
+    eng.capture_logits = []
+    reqs = [eng.submit(p, max_new_tokens=6) for p in prompts[:2]]
+    eng.step()
+    reqs += [eng.submit(p, max_new_tokens=6) for p in prompts[2:]]
+    eng.run_until_idle()
+    return [r.result(60) for r in reqs], eng.capture_logits
+
+
+def _assert_same_run(got, want):
+    """Tokens equal and every captured logit row equal -> the largest
+    absolute logit difference (0 when equal)."""
+    assert got[0] == want[0]
+    assert len(got[1]) == len(want[1]) > 0
+    worst = 0.0
+    for (gmap, gl), (wmap, wl) in zip(got[1], want[1]):
+        assert sorted(gmap) == sorted(wmap)        # slots (ids differ)
+        for slot in gmap:
+            worst = max(worst, float(np.abs(gl[slot] - wl[slot]).max()))
+    print(f"largest logit difference, replay vs eager: {worst}")
+    assert worst == 0.0, f"replayed logits differ from eager by {worst}"
+    return worst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ragged", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_graph_replay_serves_as_the_eager_round_on_card(dtype, ragged):
+    """``jit=True`` (a CUDA graph per token pad, or of the decode step,
+    captured at its first round and replayed after) and ``jit=False``
+    (eager rounds) serve the same prompts on one model: the same greedy
+    tokens and bit-equal logits (the same kernels at the same shapes)."""
+    _need_cuda()
+    from paddle_tpu_torch import ServingEngine
+    model = _two_layer_1p3b(getattr(torch, dtype))
+    vocab = model.config.vocab_size
+    runs = {}
+    for jit in (True, False):
+        eng = ServingEngine(model, jit=jit, **_engine_kw(ragged))
+        runs[jit] = _serve(eng, vocab)
+        st = eng.stats()
+        assert st["graphs"] == (len(st["ragged_token_pads"]) if ragged
+                                else 1) * jit
+        eng.close()
+    _assert_same_run(runs[True], runs[False])
+
+
+@pytest.mark.cuda
+def test_graphs_survive_larger_plans_between_replays_on_card():
+    """The graphs point into the engines' own split scratch: larger
+    ragged and paged plans launched elsewhere after the captures grow
+    (reallocate) the kernels' shared caches, the freed memory is
+    overwritten, and the replays still equal the eager rounds."""
+    _need_cuda()
+    from paddle_tpu_torch import ServingEngine
+    dt = torch.bfloat16
+    model = _two_layer_1p3b(dt)
+    vocab = model.config.vocab_size
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def ragged_launch(T, R):
+        pools = [torch.randn(64, 16, 16, 128, device="cuda",
+                             generator=g).to(dt) for _ in range(2)]
+        q = torch.randn(T, 16, 128, device="cuda", generator=g).to(dt)
+        rs = torch.arange(R, dtype=torch.int32, device="cuda")
+        rs[-1] = T                                     # pad tail
+        ones = torch.ones(R, dtype=torch.int32, device="cuda")
+        bt = torch.randint(1, 64, (R, 64), dtype=torch.int32, device="cuda",
+                           generator=g)
+        K.ragged_paged_attention(q, *pools, rs, ones, ones * 900, bt)
+
+    def paged_launch(B):
+        q, k, v, bt, ctx = _paged_rows([700] * B, 16, 16, 128, dt, seed=B)
+        K.paged_attention(q, k, v, bt, ctx)
+
+    ragged_launch(8, 4)              # the shared caches hold small plans
+    paged_launch(1)
+    engines = {}
+    for ragged in (True, False):
+        eng = ServingEngine(model, jit=True, **_engine_kw(ragged))
+        eng.warm_ragged()
+        _serve(eng, vocab, seed=5)                     # captures the graphs
+        engines[ragged] = eng
+    ragged_launch(512, 16)             # larger plans regrow both caches
+    paged_launch(32)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    junk = torch.full((1 << 28,), float("nan"), device="cuda")
+    del junk
+    for ragged, eng in engines.items():
+        eager = ServingEngine(model, jit=False, **_engine_kw(ragged))
+        _serve(eager, vocab, seed=5)           # the same history of slots
+        _assert_same_run(_serve(eng, vocab), _serve(eager, vocab))
+        eng.close()
+        eager.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ragged", [True, False])
+def test_replays_add_their_captured_launches_on_card(ragged):
+    """``launch_counts()`` stays the launches issued on the card: a
+    capture takes back what its wrappers counted, and N replays add N
+    times what it recorded (attention once a layer, the norm 2L + 1
+    times a round)."""
+    _need_cuda()
+    from paddle_tpu_torch import ServingEngine
+    model = _two_layer_1p3b(torch.bfloat16, use_rms_norm=not ragged)
+    eng = ServingEngine(model, jit=True, **_engine_kw(ragged))
+    R, maxp, L = eng.max_slots, eng.max_pages, 2
+    zeros = np.zeros(R, np.int32)
+    bt = np.zeros((R, maxp), np.int32)
+    if ragged:
+        T = 16
+        run = lambda: eng._ragged_fn(np.zeros(T, np.int32),  # noqa: E731
+                                     np.full(R, T, np.int32), zeros, zeros,
+                                     bt)
+        want = {"ragged_paged_attention": L, "layer_norm": 2 * L + 1}
+        key = ("ragged", T)
+    else:
+        run = lambda: eng._decode_fn(zeros, zeros, bt)  # noqa: E731
+        want = {"paged_attention": L, "rms_norm": 2 * L + 1}
+        key = ("decode",)
+    run()                         # warm-up and capture, then one replay
+    assert eng._rounds._progs[key].launches == want
+    K.reset_launch_counts()
+    n = 5
+    for _ in range(n):
+        run()
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in K.launch_counts().items() if v}
+    assert counts == {k: n * v for k, v in want.items()}
+    eng.close()
