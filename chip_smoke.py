@@ -128,14 +128,47 @@ exit code:
     shape beside ``F.scaled_dot_product_attention``. (``paged_splits.py``
     times the paged kernel at other split counts.)
 
+13. **O2 train** — ``gpt_1p3b`` (24 layers) built in f32 from seed 0 and
+    decorated ``amp.decorate(level="O2", dtype="bfloat16")``: bf16
+    parameters, ``AdamW(multi_precision=True)`` with f32 masters (the
+    fused AdamW kernel's master mode), ``ClipGradByGlobalNorm(1.0)`` and
+    ``LinearWarmup(CosineAnnealingDecay(1e-4, T_max=100), 4, 0, 1e-4)``
+    stepped every step, under ``auto_cast`` O2 (the tied head a bf16
+    product); phase 8's batch, 2 warm-up and 10 timed steps. The losses
+    must be finite and fall, and the launches exact: per step the flash
+    forward, dQ and dK/dV 24 times each, LayerNorm 49 and AdamW once.
+    Prints step ms, tokens/s, ``gpt_train_step_mfu``, peak memory, one
+    profiled step (families, busy share) and the losses. Then the same
+    with ``recompute=True``: the flash forward 48 and LayerNorm 97 times
+    a step, a lower peak, and losses within 1e-3 of the run without
+    recompute.
+14. **master mode and resume** — the fused AdamW kernel's master mode
+    (f32 masters and moments, the bf16 parameters written in the same
+    pass) and bf16-moment mode, each one launch over the O2 model's 292
+    tensors, against the plain version (f32 within 1e-6, bf16 within one
+    rounding, each parameter exactly its master rounded); both timed as
+    one launch over a prebuilt table (CUDA events over back-to-back
+    launches, the wrapper's host work and synchronous table copy left
+    out) beside their bounds (28 and 14 bytes a parameter) and the f32
+    mode on the same tensors, master mode also beside
+    ``torch._fused_adamw_`` on the masters with upcast gradients plus
+    ``torch._foreach_copy_`` into the parameters (each part printed);
+    a resume at full width and 2 layers (2 steps, model, optimizer and
+    scheduler saved to the host, 2 more, against a restore plus the same
+    2: bit-equal); a ``GradScaler`` whose injected inf skips the step,
+    leaves weights and masters alone and halves the scale.
+
 The lines before the last carry the ``{"kernels": [...]}`` JSON (all eight
-kernels) and the
+kernels; the ``fused_adamw`` entry adds the master and bf16-moment modes'
+numbers and phase 13's launches, and its ``max_abs_err`` is the largest of
+its three modes') and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the repository beside it, the script exits
 non-zero and prints no result.
 """
 import ctypes
 import gc
+import importlib
 import json
 import math
 import os
@@ -1407,6 +1440,393 @@ def bucketed_timing(K, eng, model, rec, launches):
     return entries
 
 
+# ------------------------------------------------------------ O2 phases
+def o2_model(pt, cfg, seed=SEED):
+    """``cfg`` built in f32 from ``seed``, with the O2 pretraining run's
+    optimizer: AdamW with master weights, a global-norm clip at 1.0 and
+    ``LinearWarmup(CosineAnnealingDecay(1e-4, T_max=100), 4, 0, 1e-4)``,
+    decorated O2 bf16 (``bench.py:690-720`` plus the schedule and clip).
+    -> (model, optimizer, scheduler)"""
+    lr = pt.optimizer.lr
+    model = pt.GPTForCausalLM(cfg, dtype=torch.float32, seed=seed).train()
+    sched = lr.LinearWarmup(lr.CosineAnnealingDecay(1e-4, T_max=100), 4,
+                            0.0, 1e-4)
+    opt = pt.AdamW(learning_rate=sched, parameters=model.parameters(),
+                   multi_precision=True,
+                   grad_clip=pt.nn.ClipGradByGlobalNorm(1.0))
+    model, opt = pt.amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    return model, opt, sched
+
+
+def o2_step_fn(pt, model, opt, sched, ids, labels):
+    crit = pt.GPTPretrainingCriterion(model.config)
+
+    def step():
+        with pt.auto_cast(level="O2", dtype="bfloat16"):
+            loss = crit(model(ids), labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+        return loss.item()
+    return step
+
+
+def o2_train_slice(pt, K, recompute, steps=10, warmup=2, B=8, S=1024):
+    """gpt_1p3b trained O2 (:func:`o2_model`) on phase 8's fixed batch:
+    ``warmup`` steps, then ``steps`` timed ones. Fails unless the losses
+    are finite and fall and the kernels launched exactly as the step
+    prescribes. -> (model, optimizer, scheduler, losses, summary, the
+    timed steps' launch counts)"""
+    cfg = pt.gpt_1p3b(dropout=0.0, recompute=recompute)
+    t0 = time.perf_counter()
+    model, opt, sched = o2_model(pt, cfg)
+    dev = model.device
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.RandomState(SEED)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, S))).to(dev)
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                          (B, S))).to(dev)
+    step = o2_step_fn(pt, model, opt, sched, ids, labels)
+    torch.cuda.synchronize()
+    tag = "recompute" if recompute else "no recompute"
+    log(f"[o2 train] gpt_1p3b {tag}: {n_params / 1e9:.4f} B params in "
+        f"bf16 ({len(list(model.parameters()))} tensors) with f32 masters,"
+        f" built and decorated in {time.perf_counter() - t0:.2f} s; B={B} "
+        f"S={S}; auto_cast O2 bf16, AdamW(multi_precision) with "
+        f"ClipGradByGlobalNorm(1.0), LinearWarmup(CosineAnnealingDecay)")
+    losses, times, lrs = [], [], []
+    for _ in range(warmup):
+        losses.append(step())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    for _ in range(steps):
+        lrs.append(opt.get_lr())
+        t0 = time.perf_counter()
+        losses.append(step())
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log("  losses: " + " ".join(f"{x:.4f}" for x in losses)
+        + f" (first {warmup} are warm-up)")
+    log("  lr: " + " ".join(f"{x:.3e}" for x in lrs))
+    log("  step ms: " + " ".join(f"{x:.2f}" for x in times))
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        fail(f"o2 train ({tag}): losses not finite or not falling: "
+             f"{losses}")
+    L = cfg.num_layers
+    # per step: the flash forward once a layer (twice with recompute: the
+    # replay runs it again), dQ and dK/dV once a layer, LayerNorm twice a
+    # layer plus ln_f (again twice a layer in the replay), AdamW once
+    fwd = 2 * L if recompute else L
+    want = {name: 0 for name in launches}
+    want.update({"layer_norm": steps * (2 * fwd + 1),
+                 "flash_fwd": steps * fwd, "flash_bwd_dq": steps * L,
+                 "flash_bwd_dkv": steps * L, "fused_adamw": steps})
+    log(f"  launches over {steps} timed steps: {launches}")
+    if launches != want:
+        fail(f"o2 train ({tag}): kernel launches {launches} != {want}")
+    wall_ms, busy_ms, families, top = profile_train_step(step)
+    total_ms = sum(families.values())
+    log(f"  one step under torch.profiler: {wall_ms:.2f} ms host, device "
+        f"busy {busy_ms:.2f} ms = {100 * busy_ms / wall_ms:.1f}% busy")
+    for fam, fam_ms in sorted(families.items(), key=lambda kv: -kv[1]):
+        log(f"    {fam}: {fam_ms:.3f} ms ({100 * fam_ms / total_ms:.1f}%)")
+    for (fam, name), k_ms in top[:8]:
+        log(f"      {k_ms:.3f} ms  [{fam}] {name[:90]}")
+    med = float(np.median(times))
+    flops = train_flops(n_params, B, S, L, cfg.hidden_size)
+    summary = {"recompute": recompute, "step_ms_median": med,
+               "step_ms_min": min(times), "step_ms_max": max(times),
+               "tokens_per_s": B * S / med * 1e3,
+               "gpt_train_step_mfu": flops / (med / 1e3) / BF16_FLOPS_PER_S,
+               "max_memory_allocated_gb": peak / 1e9,
+               "device_busy_pct": 100 * busy_ms / wall_ms,
+               "first_loss": losses[0], "last_loss": losses[-1]}
+    log(f"  {json.dumps(summary)}")
+    return model, opt, sched, losses, summary, launches
+
+
+def o2_train(pt, K):
+    """Phase 13: the O2 run without recompute, then with it (the first
+    model freed before the second is built). The recompute run must show
+    a lower peak and the same losses within 1e-3 (the kernels are the
+    same; only the summation order of a nondeterministic reduction could
+    move them). -> (the recompute run's model, optimizer, the two
+    summaries, the recompute run's launches)"""
+    model, opt, sched, plain, s_plain, _ = o2_train_slice(pt, K, False)
+    del model, opt, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, opt, sched, remat, s_remat, launches = o2_train_slice(pt, K,
+                                                                 True)
+    diff = max(abs(a - b) for a, b in zip(plain, remat))
+    log(f"[o2 train] recompute vs not: losses differ by at most "
+        f"{diff:.3e} (tolerance 1e-3); peak "
+        f"{s_remat['max_memory_allocated_gb']:.2f} GB against "
+        f"{s_plain['max_memory_allocated_gb']:.2f} GB; step "
+        f"{s_remat['step_ms_median']:.2f} ms against "
+        f"{s_plain['step_ms_median']:.2f} ms")
+    if diff > 1e-3:
+        fail(f"o2 train: recompute's losses {remat} differ from {plain}")
+    if s_remat["max_memory_allocated_gb"] >= \
+            s_plain["max_memory_allocated_gb"]:
+        fail("o2 train: recompute did not lower the peak memory")
+    return model, opt, (s_plain, s_remat), launches
+
+
+def check_update(K, before, gs, after, c1, c2, rtol, what):
+    """Each tensor's ``(w, m, v)`` in ``after`` against the plain update
+    of its clones in ``before`` (one tensor at a time, so the plain
+    results never all live at once), within ``1e-6 + rtol |plain|``.
+    -> the max abs error"""
+    worst = 0.0
+    for i, ((w0, m0, v0), gr) in enumerate(zip(before, gs)):
+        want = K.fused_adamw_reference(w0, gr, m0, v0, 1e-4, 0.9, 0.999,
+                                       1e-8, 0.01, c1, c2)
+        for key, got, ref in zip("wmv", [x[i] for x in after], want):
+            err = (got.float() - ref.float()).abs()
+            worst = max(worst, float(err.max()))
+            if got.dtype != ref.dtype or not bool(
+                    (err <= 1e-6 + rtol * ref.float().abs()).all()):
+                fail(f"{what}: {key} of tensor {i} off by "
+                     f"{float(err.max()):.3e}")
+    return worst
+
+
+def launch_ms(args, iters=10, warmup=2):
+    """Device ms of one fused AdamW launch over ``args`` (the wrapper's
+    arguments, ``params`` last): the table is built once, then CUDA
+    events bracket ``iters`` launches issued back to back, so the
+    wrapper's host work and its synchronous table copy, which hold the
+    card idle between calls, are left out."""
+    FA = importlib.import_module("paddle_tpu_torch.ops.kernels.fused_adamw")
+    ws, gs, ms, vs, lr, b1, b2, eps, wd, bc1, bc2, params = args
+    fn, chunk = FA._kernel()
+    n = len(ws)
+    plan = FA._table(ws, gs, ms, vs, params or [None] * n, lr, wd, bc1,
+                     bc2, chunk)
+    for _ in range(warmup):
+        FA._launch(fn, plan, b1, b2, eps)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(iters):
+        FA._launch(fn, plan, b1, b2, eps)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def master_mode_timing(K, model, opt):
+    """Phase 14 (kernel): master mode and bf16-moment mode over the
+    model's tensors, each one launch, against the plain version on clones
+    (f32 within 1e-6 + 1e-6 |plain|, bf16 within one rounding, the bf16
+    parameter exactly its new master rounded); then both timed beside
+    their bounds (28 and 14 bytes a parameter over 3.35 TB/s) and master
+    mode beside ``torch._fused_adamw_`` on the f32 masters with the
+    gradients upcast plus ``torch._foreach_copy_`` into the bf16
+    parameters (timed here only). -> a dict of the numbers for the
+    ``fused_adamw`` entry"""
+    params = list(model.parameters())
+    n_t, n = len(params), sum(p.numel() for p in params)
+    g = torch.Generator(device=params[0].device).manual_seed(11)
+    gs = [(1e-3 * torch.randn(p.shape, device=p.device, generator=g))
+          .bfloat16() for p in params]
+    ws = [opt._master_of(p) for p in params]
+    ms_ = [opt._get_accumulator("moment1", p) for p in params]
+    vs_ = [opt._get_accumulator("moment2", p) for p in params]
+    c1, c2 = 1 / (1 - 0.9 ** 23), 1 / (1 - 0.999 ** 23)
+    args = lambda w, m, v, ps: (  # noqa: E731
+        w, gs, m, v, [1e-4] * n_t, 0.9, 0.999, 1e-8, [0.01] * n_t,
+        [c1] * n_t, [c2] * n_t, ps)
+    out = {}
+    with torch.no_grad():
+        before = [(w.clone(), m.clone(), v.clone())
+                  for w, m, v in zip(ws, ms_, vs_)]
+        K.fused_adamw(*args(ws, ms_, vs_, params))
+        torch.cuda.synchronize()
+        err = check_update(K, before, gs, (ws, ms_, vs_), c1, c2, 1e-6,
+                           "fused_adamw master mode")
+        del before
+        for p, w in zip(params, ws):
+            if not torch.equal(p, w.bfloat16()):
+                fail(f"fused_adamw master mode: {p.param_name} is not its "
+                     f"master rounded to bf16")
+        out["master_max_abs_err"] = err
+        log(f"  master mode, one launch over {n_t} tensors ({n / 1e9:.4f} "
+            f"B params): w, m, v within 1e-6 + 1e-6 |plain| (max abs err "
+            f"{err:.3e}); every bf16 parameter equals its new master "
+            f"rounded to nearest even")
+        # bf16 moments: bf16 w, g, m, v (O2 without master weights)
+        wb = [p.detach().clone() for p in params]
+        mb = [m.bfloat16() for m in ms_]
+        vb = [v.bfloat16() for v in vs_]
+        before = [(w.clone(), m.clone(), v.clone())
+                  for w, m, v in zip(wb, mb, vb)]
+        K.fused_adamw(*args(wb, mb, vb, None))
+        torch.cuda.synchronize()
+        # one bf16 rounding of values the kernel and the plain version may
+        # round from f32 results that differ in the last bit (FMA)
+        err_b = check_update(K, before, gs, (wb, mb, vb), c1, c2, 8e-3,
+                             "fused_adamw bf16 moments")
+        del before
+        out["bf16_moment_max_abs_err"] = err_b
+        log(f"  bf16-moment mode, one launch over {n_t} tensors: w, m, v "
+            f"within one bf16 rounding (8e-3 |plain|; max abs err "
+            f"{err_b:.3e})")
+        torch.cuda.empty_cache()
+        ms, wall, src = time_ms(lambda: K.fused_adamw(
+            *args(ws, ms_, vs_, params)), iters=10)
+        plain_ms, _, _ = time_ms(lambda: [K.fused_adamw_reference(
+            w, gr, m, v, 1e-4, 0.9, 0.999, 1e-8, 0.01, c1, c2)
+            for w, gr, m, v in zip(ws, gs, ms_, vs_)], iters=2, warmup=1)
+        ms_b, _, _ = time_ms(lambda: K.fused_adamw(*args(wb, mb, vb, None)),
+                             iters=10)
+        g32 = [x.float() for x in gs]
+        # the same launches with the table built once (device time alone),
+        # and the O1 mode (f32 w and g) on the same tensors beside them
+        ev = {"master": launch_ms(args(ws, ms_, vs_, params)),
+              "bf16_moment": launch_ms(args(wb, mb, vb, None)),
+              "f32": launch_ms((ws, g32) + args(ws, ms_, vs_, None)[2:])}
+        del wb, mb, vb
+        steps_t = [torch.tensor(23.0, device=p.device) for p in params]
+        lib_adam, _, _ = time_ms(lambda: torch._fused_adamw_(
+            ws, g32, ms_, vs_, [], steps_t, lr=1e-4, beta1=0.9,
+            beta2=0.999, weight_decay=0.01, eps=1e-8, amsgrad=False,
+            maximize=False), iters=10)
+        pdata = [p.detach() for p in params]
+        lib_copy, _, _ = time_ms(lambda: torch._foreach_copy_(pdata, ws),
+                                 iters=10)
+        del g32
+    b_ms, b_by = bound(28 * n, 12 * n, F32_FLOPS_PER_S)
+    bb_ms, bb_by = bound(14 * n, 12 * n, F32_FLOPS_PER_S)
+    # the kernel's time is the launch over a prebuilt table: the
+    # profiler's sum over the wrapper's calls (``ms``, ``ms_b``) read 20%
+    # low in these modes (two of ten launches missing from its trace)
+    log(f"[o2 timing] fused_adamw master mode over {n_t} tensors: kernel "
+        f"{ev['master']:.4f} ms (one launch over a prebuilt table, CUDA "
+        f"events over back-to-back launches) = "
+        f"{100 * b_ms / ev['master']:.1f}% of bound {b_ms:.4f} ms ({b_by}: "
+        f"28 B/param, {28 * n / 1e9:.2f} GB); the wrapper {wall:.4f} ms a "
+        f"call with its host work (profiler device sum {ms:.4f} ms, {src});"
+        f" plain {plain_ms:.4f} ms; library torch._fused_adamw_ "
+        f"{lib_adam:.4f} ms + torch._foreach_copy_ {lib_copy:.4f} ms = "
+        f"{lib_adam + lib_copy:.4f} ms")
+    log(f"[o2 timing] fused_adamw bf16-moment mode: kernel "
+        f"{ev['bf16_moment']:.4f} ms (prebuilt table) = "
+        f"{100 * bb_ms / ev['bf16_moment']:.1f}% of bound {bb_ms:.4f} ms "
+        f"({bb_by}: 14 B/param; profiler device sum {ms_b:.4f} ms); f32 w "
+        f"and g, phase 9's mode, on the same tensors: {ev['f32']:.4f} ms "
+        f"(prebuilt table) = {100 * b_ms / ev['f32']:.1f}% of bound")
+    out.update({"master_ms": ev["master"], "master_wrapper_ms": wall,
+                "master_plain_ms": plain_ms, "master_bound_ms": b_ms,
+                "master_library_ms": lib_adam + lib_copy,
+                "master_library_fused_adamw_ms": lib_adam,
+                "master_library_foreach_copy_ms": lib_copy,
+                "bf16_moment_ms": ev["bf16_moment"],
+                "bf16_moment_bound_ms": bb_ms, "f32_launch_ms": ev["f32"]})
+    return out
+
+
+def resume_and_scaler_check(pt, K, layers=2, B=2, S=512):
+    """Phase 14 (state): at full width and ``layers`` layers, train 2 O2
+    steps, save model, optimizer and scheduler to the host, train 2 more;
+    a fresh model and optimizer restored from the saved state and trained
+    the same 2 steps must hold bit-equal weights, masters and moments.
+    Then ``GradScaler``: an inf injected into one gradient must skip the
+    step (weights, masters and step counts untouched) and halve the
+    scale, and the next step must update."""
+    cfg = pt.gpt_1p3b(dropout=0.0)
+    cfg.num_layers = layers
+    rng = np.random.RandomState(SEED + 3)
+    batches = [tuple(torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                                  (B, S))) for _ in range(2))
+               for _ in range(4)]
+
+    def run(model, opt, sched, bs):
+        dev = model.device
+        for ids, labels in bs:
+            o2_step_fn(pt, model, opt, sched, ids.to(dev),
+                       labels.to(dev))()
+
+    model, opt, sched = o2_model(pt, cfg, seed=SEED + 3)
+    run(model, opt, sched, batches[:2])
+    saved_w = {n: p.detach().cpu().clone()
+               for n, p in model.named_parameters()}
+    saved_opt = pt.opt_state_to_numpy(opt.state_dict())
+    run(model, opt, sched, batches[2:])
+    model2, opt2, sched2 = o2_model(pt, cfg, seed=SEED + 4)
+    with torch.no_grad():
+        for n, p in model2.named_parameters():
+            p.copy_(saved_w[n])
+    opt2.set_state_dict(saved_opt)
+    run(model2, opt2, sched2, batches[2:])
+    torch.cuda.synchronize()
+    worst = {"weights": 0.0, "masters": 0.0, "moments": 0.0}
+    for (n, p), p2 in zip(model.named_parameters(), model2.parameters()):
+        pairs = [("weights", p, p2),
+                 ("masters", opt._master_weights[p],
+                  opt2._master_weights[p2])]
+        pairs += [("moments", opt._accumulators[a][p],
+                   opt2._accumulators[a][p2])
+                  for a in ("moment1", "moment2")]
+        for key, a, b in pairs:
+            worst[key] = max(worst[key], float((a.float() - b.float())
+                                               .abs().max().detach()))
+        if opt._accumulators["beta_pow"][p] != \
+                opt2._accumulators["beta_pow"][p2]:
+            fail(f"resume: step count of {n} differs")
+    if sched.last_epoch != sched2.last_epoch or \
+            opt._global_step != opt2._global_step:
+        fail("resume: scheduler or global step differs")
+    log(f"[resume] 2 + 2 O2 steps against a host save after 2, restored "
+        f"and stepped 2 ({layers} layers at gpt_1p3b widths, B={B} S={S}): "
+        f"max abs difference {worst}")
+    if any(worst.values()):
+        fail(f"resume: the restored run differs from the continuous one "
+             f"{worst}")
+    log("  bit-equal: weights, f32 masters, moments, step counts, "
+        "schedule")
+    del model2, opt2, sched2, saved_w, saved_opt
+    # GradScaler: an inf skips the step and halves the scale
+    scaler = pt.amp.GradScaler(init_loss_scaling=2.0 ** 10)
+    crit = pt.GPTPretrainingCriterion(cfg)
+    dev = model.device
+    ids, labels = (x.to(dev) for x in batches[0])
+    params = list(model.parameters())
+    for inject in (True, False):
+        with pt.auto_cast(level="O2", dtype="bfloat16"):
+            loss = crit(model(ids), labels)
+        scaler.scale(loss).backward()
+        if inject:
+            params[4].grad.view(-1)[7] = float("inf")
+        snap = [(p.detach().clone(), opt._master_weights[p].clone())
+                for p in params]
+        steps_before = opt._global_step
+        scale_before = scaler._scale
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        same = all(torch.equal(p, w) and torch.equal(opt._master_weights[p],
+                                                     mw)
+                   for p, (w, mw) in zip(params, snap))
+        if inject and not (same and opt._global_step == steps_before
+                           and scaler._scale == scale_before / 2):
+            fail(f"GradScaler: an inf gradient did not skip the step "
+                 f"(weights untouched {same}, scale {scaler._scale})")
+        if not inject and same:
+            fail("GradScaler: a finite step left the weights unchanged")
+        log(f"[scaler] {'inf injected' if inject else 'finite'}: step "
+            f"{'skipped' if same else 'taken'}, scale {scale_before:g} -> "
+            f"{scaler._scale:g}")
+    del model, opt, sched, snap
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -1730,6 +2150,28 @@ def main():
 
     # ----------------------------------------- phase 12: bucketed timing
     kernels += bucketed_timing(K, b_eng, b_model, rec, b_launches)
+    b_eng.close()
+    del b_eng, b_model, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ phase 13: O2 train
+    o_model, o_opt, _, o_launches = o2_train(pt, K)
+
+    # --------------------------- phase 14: master-mode kernel and resume
+    log("[o2 timing] fused_adamw master and bf16-moment modes over the "
+        "model's tensors, held against the plain version, then timed")
+    adam_o2 = master_mode_timing(K, o_model, o_opt)
+    del o_model, o_opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    resume_and_scaler_check(pt, K)
+    adam = next(e for e in kernels if e["name"] == "fused_adamw")
+    adam.update(adam_o2)
+    adam["o2_launches"] = o_launches["fused_adamw"]
+    adam["max_abs_err"] = max(adam["max_abs_err"],
+                              adam_o2["master_max_abs_err"],
+                              adam_o2["bf16_moment_max_abs_err"])
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -15,23 +15,36 @@ It serves a GPT through the continuous-batching ragged paged-KV engine::
                            max_slots=16, prefill_chunk=256)
     tokens = eng.generate(prompt_ids, max_new_tokens=32)
 
-and trains one (flash attention forward and backward, fused AdamW)::
+and pretrains one (flash attention forward and backward, fused AdamW
+with f32 master weights) in O2 bf16, with a warm-up and cosine schedule,
+a global-norm clip and, optionally, per-block recompute::
 
-    cfg = pt.gpt_1p3b(dropout=0.0)
+    cfg = pt.gpt_1p3b(dropout=0.0)                       # recompute=True
     model = pt.GPTForCausalLM(cfg)                       # f32, on cuda
     crit = pt.GPTPretrainingCriterion(cfg)
-    opt = pt.AdamW(learning_rate=1e-4, parameters=model.parameters())
+    sched = pt.optimizer.lr.LinearWarmup(
+        pt.optimizer.lr.CosineAnnealingDecay(1e-4, T_max=100), 4, 0.0, 1e-4)
+    opt = pt.AdamW(learning_rate=sched, parameters=model.parameters(),
+                   multi_precision=True,
+                   grad_clip=pt.nn.ClipGradByGlobalNorm(1.0))
+    model, opt = pt.amp.decorate(model, opt, level="O2", dtype="bfloat16")
     model.train()
-    with pt.auto_cast(level="O1", dtype="bfloat16"):
+    with pt.auto_cast(level="O2", dtype="bfloat16"):
         loss = crit(model(ids), labels)
-    loss.backward(); opt.step(); opt.clear_grad()
+    loss.backward(); opt.step(); opt.clear_grad(); sched.step()
+
+``opt.state_dict()`` and ``opt.set_state_dict(...)`` save and resume the
+moments, masters and schedule; ``pt.amp.GradScaler`` scales the loss;
+O1 (f32 weights, ``auto_cast(level="O1")``) trains without ``decorate``.
 
 Entry points run on ``cuda`` unless given ``device="cpu"`` and raise when
 CUDA is absent (:mod:`.device`). The package imports neither ``jax`` nor
 ``paddle_tpu``.
 """
+from . import amp, distributed, nn, optimizer, regularizer
 from .amp import auto_cast
-from .convert import params_from_paddle_tpu, params_to_numpy
+from .convert import (opt_state_from_paddle_tpu, opt_state_to_numpy,
+                      params_from_paddle_tpu, params_to_numpy)
 from .device import resolve_device
 from .models.gpt import (GPTConfig, GPTForCausalLM, GPTPretrainingCriterion,
                          gpt_13b, gpt_1p3b, gpt_small, gpt_tiny)
@@ -42,5 +55,7 @@ from .serving.engine import ServingEngine
 __all__ = ["GPTConfig", "GPTForCausalLM", "GPTPretrainingCriterion",
            "ServingEngine", "Adam", "AdamW", "auto_cast",
            "flash_attention_bshd", "params_from_paddle_tpu",
-           "params_to_numpy", "resolve_device", "gpt_tiny", "gpt_small",
+           "params_to_numpy", "opt_state_from_paddle_tpu",
+           "opt_state_to_numpy", "resolve_device", "amp", "distributed",
+           "nn", "optimizer", "regularizer", "gpt_tiny", "gpt_small",
            "gpt_1p3b", "gpt_13b"]

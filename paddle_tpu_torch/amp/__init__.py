@@ -1,4 +1,7 @@
-"""Automatic mixed precision of the port (O1 over the JAX package's lists)."""
-from .auto_cast import amp_cast, amp_dtype_for, auto_cast
+"""Automatic mixed precision of the port: O1 and O2 over the JAX package's
+lists, ``decorate`` and ``GradScaler``."""
+from .auto_cast import amp_cast, amp_dtype_for, amp_guard, auto_cast, decorate
+from .grad_scaler import AmpScaler, GradScaler
 
-__all__ = ["auto_cast", "amp_dtype_for", "amp_cast"]
+__all__ = ["auto_cast", "amp_guard", "decorate", "amp_dtype_for",
+           "amp_cast", "GradScaler", "AmpScaler"]

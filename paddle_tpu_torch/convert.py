@@ -9,8 +9,17 @@ them. The port keeps the JAX package's names and layouts — ``Linear``
 weights stay ``[in, out]`` — so every array copies as it is; a missing,
 unexpected or misshapen name raises. The parameters stay trainable.
 ``params_to_numpy(model)`` goes the other way, so trained weights can be
-compared. This module needs numpy arrays only, never the JAX package
-itself.
+compared.
+
+An optimizer's state crosses the same way.
+``opt_state_from_paddle_tpu(state, name_map)`` turns a JAX optimizer's
+``state_dict`` (``paddle_tpu/optimizer/optimizer.py:181-204``: numpy
+arrays keyed ``f"{p.name}_{accumulator}"`` by the JAX parameters'
+``name``, ``master_weights`` by name, ``LR_Scheduler``, ``global_step``)
+into the port's, given the JAX model's ``{p.name: structured name}``
+map; the port's ``Optimizer.set_state_dict`` loads it.
+``opt_state_to_numpy(state, name_map)`` goes the other way. This module
+needs numpy arrays only, never the JAX package itself.
 """
 from __future__ import annotations
 
@@ -19,7 +28,8 @@ import torch
 
 from .models.gpt import GPTForCausalLM
 
-__all__ = ["params_from_paddle_tpu", "params_to_numpy"]
+__all__ = ["params_from_paddle_tpu", "params_to_numpy",
+           "opt_state_from_paddle_tpu", "opt_state_to_numpy"]
 
 
 def params_from_paddle_tpu(named_arrays, config, device=None,
@@ -52,3 +62,51 @@ def params_to_numpy(model):
     parameters leave alone."""
     return {name: p.detach().float().cpu().numpy().copy()
             for name, p in model.named_parameters()}
+
+
+def _rename(state, name_map, convert):
+    """``state`` with every parameter name ``name_map`` holds renamed (the
+    accumulator keys by their longest matching name) and every array
+    value passed through ``convert``."""
+    out = {}
+    for key, value in state.items():
+        if key in ("LR_Scheduler", "global_step"):
+            out[key] = value
+        elif key == "master_weights":
+            out[key] = {name_map[n]: convert(w) for n, w in value.items()
+                        if n in name_map}
+        else:
+            names = [n for n in name_map if key.startswith(n + "_")]
+            if names:
+                name = max(names, key=len)
+                acc = key[len(name) + 1:]
+                out[f"{name_map[name]}_{acc}"] = (
+                    float(np.asarray(value)) if acc == "beta_pow"
+                    else convert(value))
+    return out
+
+
+def opt_state_from_paddle_tpu(state, name_map):
+    """-> the port's optimizer ``state_dict`` from the JAX package's
+    (numpy arrays), renamed by ``name_map`` (JAX ``p.name`` -> structured
+    name); step counts become floats, arrays f32 CPU tensors."""
+    return _rename(state, name_map, lambda a: torch.from_numpy(
+        np.array(a, dtype=np.float32)))
+
+
+def _to_numpy(t):
+    return t.detach().float().cpu().numpy().copy()
+
+
+def opt_state_to_numpy(state, name_map=None):
+    """-> the port's optimizer ``state_dict`` with float32 numpy arrays in
+    place of tensors, renamed to the JAX names when ``name_map`` (JAX
+    ``p.name`` -> structured name, as for
+    :func:`opt_state_from_paddle_tpu`) is given."""
+    if name_map is not None:
+        return _rename(state, {v: k for k, v in name_map.items()},
+                       _to_numpy)
+    return {k: {n: _to_numpy(w) for n, w in v.items()}
+            if k == "master_weights" else
+            _to_numpy(v) if torch.is_tensor(v) else v
+            for k, v in state.items()}

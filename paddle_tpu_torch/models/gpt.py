@@ -54,10 +54,21 @@ The ported branches of ``GPTAttention.forward``:
   leaving the un-expanded KVH-head K and V in the dict for the engine to
   write into its pages.
 
+With ``GPTConfig(recompute=True)`` a training forward (``caches=None``)
+wraps every block in :func:`~..distributed.fleet.recompute`
+(``gpt.py:517-524``): the backward runs each block again instead of
+keeping its activations, with the same dropout masks.
+
+Under ``auto_cast`` each op the JAX GPT dispatches by name casts its
+inputs as that name says (:mod:`..amp.auto_cast`): the embeddings
+(``embedding``), the residual adds (``add``) and the tied head
+(``lm_head_tied``, ``gpt.py:545``), besides the layers' own ops. The
+tied head is a plain ``torch.matmul`` (no Pallas kernel in the JAX
+package either): f32 under O1, a bf16 product under O2.
+
 Each hand-written kernel runs on a CUDA tensor, its plain version on a CPU
 tensor. The static cache branch, the one-token dense-cache concat arm,
-``generate``, ``recompute`` and the tensor/sequence-parallel paths are
-not ported yet.
+``generate`` and the tensor/sequence-parallel paths are not ported yet.
 """
 from __future__ import annotations
 
@@ -65,7 +76,9 @@ import torch
 from torch import nn
 
 from .. import nn as pnn
+from ..amp import amp_cast
 from ..device import resolve_device
+from ..distributed.fleet.recompute import recompute
 from ..nn import functional as F
 from ..ops.kernels import (paged_attention, paged_prefill_reference,
                            ragged_paged_attention, ragged_row_index)
@@ -163,6 +176,13 @@ def paged_write_index(cache, seq_len):
         valid = i[None, :] < cache["chunk_lens"].long()[:, None]
         phys = torch.where(valid, phys, torch.zeros_like(phys))
     return phys.reshape(-1), (pos % page_size).reshape(-1)
+
+
+def _add(a, b):
+    """``a + b`` as the JAX package's ``add`` op: cast under ``auto_cast``
+    (bf16 under O2)."""
+    a, b = amp_cast("add", a, b)
+    return a + b
 
 
 def _pool_write(pool, new, index):
@@ -283,8 +303,8 @@ class GPTBlock(nn.Module):
         self.dropout = pnn.Dropout(config.dropout)
 
     def forward(self, x, cache=None, write_index=None):
-        x = x + self.dropout(self.attn(self.ln_1(x), cache, write_index))
-        return x + self.mlp(self.ln_2(x))
+        x = _add(x, self.dropout(self.attn(self.ln_1(x), cache, write_index)))
+        return _add(x, self.mlp(self.ln_2(x)))
 
 
 class GPTModel(nn.Module):
@@ -338,9 +358,13 @@ class GPTModel(nn.Module):
                                                             device=dev)[None]
         else:
             pos = pos_offset
-        x = self.drop(self.wte(input_ids) + self.wpe(pos))
+        x = self.drop(_add(self.wte(input_ids), self.wpe(pos)))
+        remat = self.config.recompute and self.training and caches is None
         for i, block in enumerate(self.h):
-            x = block(x, None if caches is None else caches[i], index)
+            if remat:
+                x = recompute(block, x)
+            else:
+                x = block(x, None if caches is None else caches[i], index)
         return self.ln_f(x)
 
 
@@ -396,16 +420,17 @@ class GPTForCausalLM(nn.Module):
         as :meth:`forward` applies it: the serving round takes it over
         only the rows whose logits it reads."""
         if self.config.tie_word_embeddings:
-            return torch.matmul(hidden, self.gpt.wte.weight.t())
+            # ``lm_head_tied`` is on neither AMP list: under O1 it computes
+            # in its inputs' promoted type (f32 from ``ln_f``), as the JAX
+            # einsum does; under O2 in bf16
+            hidden, w = amp_cast("lm_head_tied", hidden, self.gpt.wte.weight)
+            dtype = torch.promote_types(hidden.dtype, w.dtype)
+            return torch.matmul(hidden.to(dtype), w.to(dtype).t())
         return self.lm_head(hidden)
 
     def forward(self, input_ids, caches=None, pos_offset=None):
-        hidden = self.gpt(input_ids, caches=caches, pos_offset=pos_offset)
-        if self.config.tie_word_embeddings:
-            # ``lm_head_tied`` is on neither AMP list: it computes in its
-            # inputs' type (f32 from ``ln_f`` under O1)
-            return torch.matmul(hidden, self.gpt.wte.weight.t())
-        return self.lm_head(hidden)
+        return self._head(self.gpt(input_ids, caches=caches,
+                                   pos_offset=pos_offset))
 
 
 class GPTPretrainingCriterion(nn.Module):

@@ -16,7 +16,9 @@ NEG_INF = -1e30
 
 def gelu(x, approximate=True):
     """GELU; ``approximate=True`` is the tanh form the GPT MLP uses
-    (``jax.nn.gelu(approximate=True)`` in the JAX package)."""
+    (``jax.nn.gelu(approximate=True)`` in the JAX package); bf16 under
+    ``auto_cast`` O2."""
+    (x,) = amp_cast("gelu", x)
     return torch.nn.functional.gelu(
         x, approximate="tanh" if approximate else "none")
 

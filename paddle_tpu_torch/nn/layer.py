@@ -10,7 +10,8 @@ one to one (``convert.params_from_paddle_tpu``), and are trainable
   ``torch.addmm``/``torch.matmul``: the JAX package leaves these products
   to XLA outside any Pallas kernel. Under ``auto_cast`` O1 it computes in
   the AMP dtype (``linear`` is on the white list).
-* :class:`Embedding` is a row gather of its ``[num, dim]`` table.
+* :class:`Embedding` is a row gather of its ``[num, dim]`` table (its
+  table cast as ``embedding`` says under ``auto_cast``: bf16 under O2).
 * :class:`LayerNorm` runs :class:`~..ops.kernels.LayerNormFunction`: the
   ``layer_norm`` kernel wrapper forward (Triton on the card, the plain
   version on the CPU), the plain gradient backward; in f32 under
@@ -73,7 +74,8 @@ class Embedding(nn.Module):
                              generator)
 
     def forward(self, ids):
-        return self.weight[ids.long()]
+        (w,) = amp_cast("embedding", self.weight)
+        return w[ids.long()]
 
 
 class LayerNorm(nn.Module):

@@ -8,23 +8,33 @@
 //   m <- b1*m + (1-b1)*g
 //   v <- b2*v + (1-b2)*g*g
 //   w <- w - lr * (m*bc1) / (sqrt(v*bc2) + eps)
-// m and v are f32; w keeps its type (f32 or bf16, rounded to nearest even);
-// g is f32 or bf16. The update is IN PLACE: w, m and v are overwritten
-// where they lie, where the JAX kernel is functional and returns new
-// arrays.
+// w keeps its type (f32 or bf16, rounded to nearest even); g is f32 or
+// bf16; m and v are f32, or bf16 (stored rounded to nearest even: O2
+// without master weights, where the JAX optimizer keeps a bf16 parameter's
+// moments in bf16 and casts the kernel's f32 results back,
+// paddle_tpu/optimizer/optimizers.py:155-156). Master mode
+// (paddle_tpu/optimizer/optimizer.py:107-152, multi_precision): w is the
+// f32 master of a bf16 parameter p, and the same pass also writes
+// p <- bf16(w), as the JAX step's new_w.astype(bf16) does. The update is
+// IN PLACE: w, m, v (and p) are overwritten where they lie, where the JAX
+// kernel is functional and returns new arrays.
 //
 // Design. The Pallas kernel runs one grid per parameter over 512 x 128
 // tiles. Here one launch covers every tensor: a device table holds one
 // entry per tensor (pointers, element count, its own lr, wd, bc1 and bc2,
-// dtypes, and the index of its first block); each block finds its tensor
+// dtypes, and the index of its first block), so one step is one launch
+// whatever mix of modes its tensors hold; each block finds its tensor
 // by a binary search of the first-block column, takes one chunk of
 // kChunk elements of it, and reads each element of w, g, m and v once and
-// writes w, m and v once, with neighbouring threads on neighbouring
+// writes w, m and v (and p) once, with neighbouring threads on neighbouring
 // elements.
 //
 // Bound: bytes. ~12 flops per element against 28 bytes (f32 w and g: read
 // w, g, m, v, write w, m, v), far below the ridge, so the floor is the
 // bytes over 3.35 TB/s: 11.0 ms for the 1.3136 B parameters of gpt_1p3b.
+// Master mode moves 28 bytes too (read g 2 + w 4 + m 4 + v 4, write w 4 +
+// m 4 + v 4 + p 2), the same 11.0 ms; bf16 moments with a bf16 w and g
+// move 14.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -33,18 +43,29 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kChunk = kThreads * 16;
 
-// One tensor. Must match _ENTRY in fused_adamw.py (72 bytes).
+// One tensor. Must match _ENTRY in fused_adamw.py (88 bytes). p is the
+// bf16 parameter of an f32 master w (master mode), or 0.
 struct Entry {
-  unsigned long long w, g, m, v;
+  unsigned long long w, g, m, v, p;
   long long n, block0;
   float lr, wd, bc1, bc2;
-  int w_bf16, g_bf16;
+  int w_bf16, g_bf16, mv_bf16, pad;
 };
-static_assert(sizeof(Entry) == 72, "Entry layout");
+static_assert(sizeof(Entry) == 88, "Entry layout");
 
-__device__ __forceinline__ float load(const void* p, long long i, int bf16) {
-  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
-              : static_cast<const float*>(p)[i];
+__device__ __forceinline__ float load(unsigned long long p, long long i,
+                                      int bf16) {
+  return bf16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i])
+              : reinterpret_cast<const float*>(p)[i];
+}
+
+// __float2bfloat16 rounds to nearest even, as astype(bfloat16) does
+__device__ __forceinline__ void store(unsigned long long p, long long i,
+                                      float x, int bf16) {
+  if (bf16)
+    reinterpret_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(x);
+  else
+    reinterpret_cast<float*>(p)[i] = x;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -64,22 +85,17 @@ __global__ void __launch_bounds__(kThreads)
   const Entry e = table[sel];
   const long long start = ((long long)blockIdx.x - e.block0) * kChunk;
   const long long end = min(start + kChunk, e.n);
-  float* m = reinterpret_cast<float*>(e.m);
-  float* v = reinterpret_cast<float*>(e.v);
-  const void* g = reinterpret_cast<const void*>(e.g);
   const float decay = 1.f - e.lr * e.wd;
   for (long long i = start + threadIdx.x; i < end; i += kThreads) {
-    const float gi = load(g, i, e.g_bf16);
-    float w = load(reinterpret_cast<const void*>(e.w), i, e.w_bf16) * decay;
-    const float mi = b1 * m[i] + (1.f - b1) * gi;
-    const float vi = b2 * v[i] + (1.f - b2) * gi * gi;
+    const float gi = load(e.g, i, e.g_bf16);
+    float w = load(e.w, i, e.w_bf16) * decay;
+    const float mi = b1 * load(e.m, i, e.mv_bf16) + (1.f - b1) * gi;
+    const float vi = b2 * load(e.v, i, e.mv_bf16) + (1.f - b2) * gi * gi;
     w = w - e.lr * (mi * e.bc1) / (sqrtf(vi * e.bc2) + eps);
-    m[i] = mi;
-    v[i] = vi;
-    if (e.w_bf16)
-      reinterpret_cast<__nv_bfloat16*>(e.w)[i] = __float2bfloat16(w);
-    else
-      reinterpret_cast<float*>(e.w)[i] = w;
+    store(e.m, i, mi, e.mv_bf16);
+    store(e.v, i, vi, e.mv_bf16);
+    store(e.w, i, w, e.w_bf16);
+    if (e.p) reinterpret_cast<__nv_bfloat16*>(e.p)[i] = __float2bfloat16(w);
   }
 }
 

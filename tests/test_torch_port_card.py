@@ -586,3 +586,113 @@ def test_replays_add_their_captured_launches_on_card(ragged):
     counts = {k: v for k, v in K.launch_counts().items() if v}
     assert counts == {k: n * v for k, v in want.items()}
     eng.close()
+
+
+@pytest.mark.cuda
+def test_fused_adamw_master_and_bf16_moment_modes_on_card():
+    """One launch over a mixed table: f32 entries, a bf16 w with f32
+    moments, master-mode entries (f32 master and moments, bf16 parameter
+    written in the same pass) and bf16-moment entries, against the plain
+    version tensor by tensor: f32 values within 1e-6, bf16 ones within one
+    bf16 rounding; a master-mode parameter is its new master rounded to
+    nearest even, exactly."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(9)
+    bf = torch.bfloat16
+    # (w dtype, g dtype, moment dtype, master mode)
+    modes = [(torch.float32, torch.float32, torch.float32, False),
+             (bf, bf, torch.float32, False),
+             (torch.float32, bf, torch.float32, True),
+             (bf, bf, bf, False)]
+    shapes = [(1000, 33), (5,), (70000,), (64, 64), (3,), (4097,)]
+    ws, gs, ms, vs, ps = [], [], [], [], []
+    for i, sh in enumerate(shapes * 2):
+        wd_, gd_, md_, master = modes[i % len(modes)]
+        w = torch.randn(sh, device="cuda", generator=g)
+        p = w.to(bf) if master else None
+        ws.append(p.float() if master else w.to(wd_))
+        ps.append(p)
+        gs.append(torch.randn(sh, device="cuda", generator=g).to(gd_))
+        ms.append((0.1 * torch.randn(sh, device="cuda", generator=g))
+                  .to(md_))
+        vs.append(torch.rand(sh, device="cuda", generator=g).to(md_))
+    n = len(ws)
+    lrs = [1e-3 * (i + 1) for i in range(n)]
+    wds = [0.1 * (i % 2) for i in range(n)]
+    bc1 = [1.0 / (1 - 0.9 ** (i + 1)) for i in range(n)]
+    bc2 = [1.0 / (1 - 0.95 ** (i + 1)) for i in range(n)]
+    want = [K.fused_adamw_reference(w, gr, m, v, lr, 0.9, 0.95, 1e-8, wd,
+                                    c1, c2)
+            for w, gr, m, v, lr, wd, c1, c2 in zip(ws, gs, ms, vs, lrs, wds,
+                                                   bc1, bc2)]
+    before = K.fused_adamw.launches
+    K.fused_adamw(ws, gs, ms, vs, lrs, 0.9, 0.95, 1e-8, wds, bc1, bc2,
+                  params=ps)
+    torch.cuda.synchronize()
+    assert K.fused_adamw.launches == before + 1
+    for (w2, m2, v2), w, m, v, p in zip(want, ws, ms, vs, ps):
+        for got, ref in ((w, w2), (m, m2), (v, v2)):
+            assert got.dtype == ref.dtype
+            tol = 1e-6 if got.dtype == torch.float32 else 8e-3
+            torch.testing.assert_close(got.float(), ref.float(), rtol=tol,
+                                       atol=tol)
+        if p is not None:
+            assert torch.equal(p, w.to(bf))
+
+
+def _o2_train(recompute, steps=3):
+    """A 2-layer GPT at gpt_1p3b widths trained ``steps`` O2 steps (AdamW
+    with master weights, global-norm clip, warm-up schedule) at B 2 x
+    S 512 -> (losses, the bytes the last step's forward left allocated
+    for its backward, launch counts)."""
+    import paddle_tpu_torch as pt
+    cfg = pt.gpt_1p3b(dropout=0.0, recompute=recompute)
+    cfg.num_layers = 2
+    model = pt.GPTForCausalLM(cfg, seed=2).train()
+    sched = pt.optimizer.lr.LinearWarmup(1e-4, 2, 0.0, 1e-4)
+    opt = pt.AdamW(learning_rate=sched, parameters=model.parameters(),
+                   multi_precision=True,
+                   grad_clip=pt.nn.ClipGradByGlobalNorm(1.0))
+    pt.amp.decorate(model, opt, level="O2")
+    rng = np.random.RandomState(3)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 512))).cuda()
+    crit = pt.GPTPretrainingCriterion(cfg)
+    K.reset_launch_counts()
+    losses = []
+    for _ in range(steps):
+        before = torch.cuda.memory_allocated()
+        with pt.auto_cast(level="O2", dtype="bfloat16"):
+            loss = crit(model(ids), ids)
+        held = torch.cuda.memory_allocated() - before
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    return losses, held, K.launch_counts()
+
+
+@pytest.mark.cuda
+def test_o2_step_launches_adamw_once_and_recompute_matches_on_card():
+    """O2 training on the card: one fused AdamW launch a step, the flash
+    forward once a layer (twice with recompute, once more in the replay)
+    and LayerNorm 2L + 1 times (4L + 1 with recompute); recompute's
+    losses equal the run without it within 1e-3 (a reduction that sums
+    in another order each run could move them) while its forward holds
+    fewer bytes for the backward: at this size the step's peak is the
+    complete gradients at the end of the backward either way, and
+    ``chip_smoke.py`` phase 13 shows the peak fall at full depth."""
+    _need_cuda()
+    steps, L = 3, 2
+    plain, plain_held, plain_n = _o2_train(False, steps)
+    remat, remat_held, remat_n = _o2_train(True, steps)
+    assert plain_n["fused_adamw"] == remat_n["fused_adamw"] == steps
+    assert plain_n["flash_fwd"] == steps * L
+    assert remat_n["flash_fwd"] == 2 * steps * L
+    assert plain_n["layer_norm"] == steps * (2 * L + 1)
+    assert remat_n["layer_norm"] == steps * (4 * L + 1)
+    assert plain_n["flash_bwd_dq"] == remat_n["flash_bwd_dq"] == steps * L
+    assert all(np.isfinite(plain)) and plain[-1] < plain[0]
+    np.testing.assert_allclose(remat, plain, rtol=0, atol=1e-3)
+    assert remat_held < plain_held

@@ -180,9 +180,11 @@ def test_auto_cast_gives_each_op_the_dtype_of_amp_lists(monkeypatch):
         loss = pt.GPTPretrainingCriterion(cfg)(logits,
                                                torch.from_numpy(labels))
     loss.backward()
+    # embedding and gelu are on neither list: their inputs keep their type
     expect = {"linear": torch.bfloat16, "layer_norm": torch.float32,
               "scaled_dot_product_attention": torch.bfloat16,
-              "cross_entropy": torch.float32}
+              "cross_entropy": torch.float32, "embedding": torch.float32,
+              "gelu": torch.bfloat16}
     assert {op for op, _ in seen} == set(expect)
     for op, dtypes in seen:
         assert dtypes == {expect[op]}, (op, dtypes)
@@ -190,7 +192,7 @@ def test_auto_cast_gives_each_op_the_dtype_of_amp_lists(monkeypatch):
     counts = {op: sum(o == op for o, _ in seen) for op in expect}
     assert counts == {"linear": 4 * L, "layer_norm": 2 * L + 1,
                       "scaled_dot_product_attention": L,
-                      "cross_entropy": 1}
+                      "cross_entropy": 1, "embedding": 2, "gelu": L}
     # the tied head is on neither list: f32 logits in both packages
     with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
         jlogits = jm(Tensor(jnp.asarray(ids)))
@@ -202,16 +204,26 @@ def test_auto_cast_gives_each_op_the_dtype_of_amp_lists(monkeypatch):
 
 
 def test_auto_cast_nests_and_refuses_what_is_not_ported():
+    """O1 and O2 nest and restore; float16 stays refused (the port's
+    kernels take bf16 and f32), and so does an unknown level."""
     with pt.auto_cast(level="O1"):
         assert amp_mod.amp_dtype_for("linear") == torch.bfloat16
+        assert amp_mod.amp_dtype_for("gelu") is None
         with pt.auto_cast(enable=False):
             assert amp_mod.amp_dtype_for("linear") is None
+        with pt.auto_cast(level="O2"):
+            assert amp_mod.amp_dtype_for("gelu") == torch.bfloat16
+            assert amp_mod.amp_dtype_for("layer_norm") == torch.float32
         assert amp_mod.amp_dtype_for("layer_norm") == torch.float32
+        assert amp_mod.amp_dtype_for("gelu") is None
     assert amp_mod.amp_dtype_for("linear") is None
-    for kw in ({"level": "O2"}, {"dtype": "float16"}):
+    for level in ("O1", "O2"):
         with pytest.raises(NotImplementedError):
-            with pt.auto_cast(**kw):
+            with pt.auto_cast(level=level, dtype="float16"):
                 pass
+    with pytest.raises(ValueError):
+        with pt.auto_cast(level="O3"):
+            pass
 
 
 def test_auto_cast_loss_tracks_jax_in_bf16():
