@@ -104,18 +104,23 @@ exit code:
 11. **bucketed serve** — ``gpt_1p3b(use_rms_norm=True)`` bf16 (24 layers,
     random weights from seed 0) on ``ServingEngine(ragged=False)``: 16
     slots, page 16, 2048 pages, unchunked, so misses take the dense
-    prefill (the flash forward kernel) and prefix hits the chunk step,
-    both eager; the decode step is one CUDA graph (``jit=True``). A short
-    ``generate`` warms the shapes and captures the graph (count, seconds
-    and memory printed), the counters are zeroed, then phase 3's
-    36-request Poisson load runs; launches must equal exactly 24 paged
-    attention per decode step, 49 RMSNorm per forward (decode steps,
-    dense prefills and chunk steps) and 24 flash forward per dense
-    prefill. Prints tokens/s, TTFT/ITL p50/p99, rounds and peak KV
-    occupancy; the widest decode step replayed and eager (tokens equal,
-    logits bit-equal); and a steady decode step profiled as in phase 5
-    (the paged decode kernel must show as its own family, and RMSNorm,
-    in the replayed steps).
+    prefill (the flash forward kernel; the head on each row's last token)
+    and prefix hits the chunk step; every round is a program
+    (``jit=True``): a CUDA graph per (batch, seq) bucket of the prefill
+    and of the chunk step, captured at the bucket's first round, and one
+    of the decode step. A short ``generate`` captures the decode step and
+    one prefill bucket, then phase 3's 36-request Poisson load runs twice,
+    from phase 3's seed and from another (the second over the programs
+    the first captured), counters zeroed just before each; launches must
+    equal exactly 24 paged attention per decode step, 49 RMSNorm per
+    forward (decode steps, dense prefills and chunk steps) and 24 flash
+    forward per dense prefill, a capture's warm-up run counted as a
+    round. Prints tokens/s, TTFT/ITL p50/p99 of both loads, rounds, peak
+    KV occupancy, the graphs and the device memory they reserved; the
+    widest decode step, the largest dense prefill and the largest chunk
+    step replayed and eager (tokens equal, logits bit-equal); and a
+    steady decode step profiled as in phase 5 (the paged decode kernel
+    must show as its own family, and RMSNorm, in the replayed steps).
 12. **bucketed timing** — paged attention at the serve's widest decode
     step on the served layer-0 pools (f32-upcast within 1e-4, bf16 within
     4e-3 against plain) and RMSNorm at [rows of the largest dense prefill,
@@ -158,10 +163,28 @@ exit code:
     2: bit-equal); a ``GradScaler`` whose injected inf skips the step,
     leaves weights and masters alone and halves the scale.
 
+15. **generate** — the flash forward at one query row (``Sk`` 1, 17,
+    129, 383, 1000; f32 within 1e-4, bf16 with phase 6's limits) against
+    its plain version, and timed at ``Sk = 383`` beside its bound and
+    ``F.scaled_dot_product_attention``; then ``GPTForCausalLM.generate``
+    on ``gpt_1p3b`` bf16 (24 layers, seed 0), batch 4, 128-token prompts,
+    256 new tokens: greedy compiled twice (the step one CUDA graph,
+    captured in the first call), the same static step eagerly (bit-equal
+    to the replays), greedy eager over the dense cache (the flash forward
+    at ``Sq = 1``) and sampled with ``top_k=50`` twice from one seed
+    (equal). Launches exact (LayerNorm 49 a forward; the flash forward 24
+    a dense-cache forward, none in the static step); every greedy token
+    the argmax of a no-cache forward over its sequence within ``2e-2 +
+    2e-2 |max|``, every sampled one within that of its step's top 50.
+    Prints ms a step and tokens/s on the host clock and the capture
+    seconds.
+
 The lines before the last carry the ``{"kernels": [...]}`` JSON (all eight
 kernels; the ``fused_adamw`` entry adds the master and bf16-moment modes'
 numbers and phase 13's launches, and its ``max_abs_err`` is the largest of
-its three modes') and the
+its three modes'; the ``flash_fwd`` entry adds phase 15's ``sq1_*``
+numbers and the dense-cache loop's launches, ``layer_norm`` the compiled
+loop's) and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the repository beside it, the script exits
 non-zero and prints no result.
@@ -801,8 +824,10 @@ def _busy_ms(spans):
 
 
 def profile_train_step(step):
-    """One training step under ``torch.profiler``: device time by kernel
-    family, the union of device intervals and the step's host time."""
+    """One call of ``step`` (a training step, or phase 15's block of
+    replays) under ``torch.profiler``: device time by kernel family, the
+    union of device intervals and the call's host time. -> (host ms, busy
+    ms, ms by family, the top kernels, device events)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -831,7 +856,7 @@ def profile_train_step(step):
     # the ten largest kernels, and the six largest of the catch-all family
     top = ranked[:10] + [kv for kv in ranked[10:] if kv[0][0].startswith(
         "other")][:6]
-    return wall_ms, _busy_ms(spans), families, top
+    return wall_ms, _busy_ms(spans), families, top, len(spans)
 
 
 # the bf16 kernels of csrc/flash_attention_sm90.cu: mangled-name part of
@@ -1149,16 +1174,100 @@ def bucketed_model_parity(pt):
     del eng, small
 
 
-def bucketed_serve(pt, K):
-    """``gpt_1p3b(use_rms_norm=True)`` bf16 (24 layers, hidden 2048, random
-    weights from seed 0) on ``ServingEngine(ragged=False)``: 16 slots,
-    page 16, 2048 pages, unchunked. A short ``generate`` warms the launch
-    shapes, the counters are zeroed, then the phase-3 load runs. -> the
-    engine, the model, the widest decode round's and the largest dense
-    prefill's inputs, and the counts."""
+def bucketed_load(K, eng, rec, seed, label):
+    """Phase 3's 36-request Poisson load (32 mixed-length prompts and 4
+    sharing a 128-token head, from ``seed``) on the bucketed engine,
+    counters zeroed just before and read just after. The dense prefill and
+    chunk programs of buckets the load meets first are captured in it (a
+    warm-up run, then the replay), so the expected launches count those
+    warm-ups too. -> (the load's summary, the launches, the rounds by
+    kind, the captures by kind)."""
     from paddle_tpu_torch.serving import (make_mixed_length_prompts,
                                           make_shared_prefix_prompts,
                                           run_poisson_load)
+    cfg = eng.cfg
+    mixed, news = make_mixed_length_prompts(
+        32, (16, 512), cfg.vocab_size, decode_heavy=0.5,
+        max_new_tokens=(32, 32), seed=seed)
+    shared = make_shared_prefix_prompts(4, (16, 64), cfg.vocab_size, 128,
+                                        seed=seed + 1)
+    prompts = [shared[0]] + mixed + shared[1:]
+    news = [32] + news + [32] * 3
+    rec["n"] = {"decode": 0, "prefill": 0, "chunk": 0}
+    before = eng.stats()
+    programs = set(eng._programs)
+    cap_s = before["graph_capture_s"]
+    K.reset_launch_counts()
+    eng.start()
+    try:
+        res = run_poisson_load(eng, qps=16.0, prompts=prompts,
+                               max_new_tokens=news, seed=seed,
+                               timeout=600.0)
+    finally:
+        eng.stop()
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    st = eng.stats()
+    n = rec["n"]
+    caps = {k: 0 for k in n}
+    for key in eng._programs - programs:
+        caps[key[0]] += 1
+    log(f"  {label}: {json.dumps(res)}")
+    log(f"  {label}: rounds={st['steps'] - before['steps']} decode_steps="
+        f"{n['decode']} dense_prefills={n['prefill']} chunk_steps="
+        f"{n['chunk']} programs captured in the load {caps} in "
+        f"{st['graph_capture_s'] - cap_s:.3f} s (graphs now "
+        f"{st['graphs']}) prefill_shapes={st['prefill_shapes']} "
+        f"chunk_shapes={st['chunk_shapes']} kv_occupancy_peak_pct="
+        f"{st['kv_occupancy_peak_pct']} prefix_hits="
+        f"{st['prefix_hits'] - before['prefix_hits']} prefix_hit_tokens="
+        f"{st['prefix_hit_tokens'] - before['prefix_hit_tokens']} "
+        f"evictions={st['evictions']}")
+    log(f"  {label}: launches {launches}")
+    if res["requests_ok"] != len(prompts) or res["requests_failed"]:
+        fail(f"bucketed serve ({label}): {res['requests_failed']} "
+             f"request(s) failed")
+    if res["tokens"] != sum(news):
+        fail(f"bucketed serve ({label}): {res['tokens']} tokens generated, "
+             f"{sum(news)} asked")
+    if st["prefix_hits"] - before["prefix_hits"] < 1:
+        fail(f"bucketed serve ({label}): no prefix-cache hit ran")
+    counted = {k: st["bucketed_launches"][k] - before["bucketed_launches"][k]
+               for k in n}
+    if counted != n:
+        fail(f"bucketed serve ({label}): engine counted {counted}, the "
+             f"recorder {n}")
+    if st["graphs"] != st["distinct_programs"]:
+        fail(f"bucketed serve ({label}): {st['graphs']} graphs for "
+             f"{st['distinct_programs']} programs")
+    # every round, replayed or the warm-up before a capture: a decode step
+    # runs each layer's paged attention once; every forward (decode, dense
+    # prefill, chunk) two RMSNorms per layer plus ln_f; a dense prefill
+    # each layer's flash forward
+    L = cfg.num_layers
+    runs = {k: n[k] + caps[k] for k in n}
+    want = {name: 0 for name in launches}
+    want.update({"paged_attention": runs["decode"] * L,
+                 "rms_norm": sum(runs.values()) * (2 * L + 1),
+                 "flash_fwd": runs["prefill"] * L})
+    if n["decode"] <= 0 or n["prefill"] <= 0 or n["chunk"] <= 0 \
+            or launches != want:
+        fail(f"bucketed serve ({label}): kernel launches {launches} != "
+             f"{want} expected from {n} rounds and {caps} warm-ups")
+    return res, launches, n, caps
+
+
+def bucketed_serve(pt, K):
+    """``gpt_1p3b(use_rms_norm=True)`` bf16 (24 layers, hidden 2048, random
+    weights from seed 0) on ``ServingEngine(ragged=False)``: 16 slots,
+    page 16, 2048 pages, unchunked, every round a program (``jit=True``).
+    A short ``generate`` captures the decode step and one prefill bucket,
+    then phase 3's load runs twice (:func:`bucketed_load`): first from
+    phase 3's seed, capturing the buckets it meets, then from another seed
+    over the programs captured so far. Then the widest decode step, the
+    largest dense prefill and the largest chunk step run again replayed
+    and eager. -> the engine, the model, the recorded rounds and the
+    first load's launches."""
     cfg = pt.gpt_1p3b(use_rms_norm=True, dropout=0.0)
     t0 = time.perf_counter()
     model = pt.GPTForCausalLM(cfg, dtype=torch.bfloat16, seed=SEED)
@@ -1166,10 +1275,12 @@ def bucketed_serve(pt, K):
     log(f"[bucketed serve] gpt_1p3b(use_rms_norm=True) bf16 built in "
         f"{time.perf_counter() - t0:.2f} s "
         f"({sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params)")
+    mem0 = reserved_bytes()
     eng = pt.ServingEngine(model, page_size=16, num_pages=2048,
                            max_slots=16, prefill_chunk=None, ragged=False,
                            jit=True)
-    rec = {"decode": None, "prefill": None,
+    mem_kv = reserved_bytes()
+    rec = {"decode": None, "prefill": None, "chunk": None,
            "n": {"decode": 0, "prefill": 0, "chunk": 0}}
     fns = {name: getattr(eng, f"_{name}_fn")
            for name in ("decode", "prefill", "chunk")}
@@ -1181,85 +1292,43 @@ def bucketed_serve(pt, K):
                 rows = int((args[2][:, 0] > 0).sum())
                 if rec["decode"] is None or rows > rec["decode"][0]:
                     rec["decode"] = (rows, args)
-            elif name == "prefill":
+            else:
                 cells = args[0].size
-                if rec["prefill"] is None or cells > rec["prefill"][0]:
-                    rec["prefill"] = (cells, args[0].shape)
+                if rec[name] is None or cells > rec[name][0]:
+                    rec[name] = (cells, args)
             return fns[name](*args, **kw)
         return run
 
     for name in fns:
         setattr(eng, f"_{name}_fn", recording(name))
-    mixed, news = make_mixed_length_prompts(
-        32, (16, 512), cfg.vocab_size, decode_heavy=0.5,
-        max_new_tokens=(32, 32), seed=SEED)
-    shared = make_shared_prefix_prompts(4, (16, 64), cfg.vocab_size, 128,
-                                        seed=SEED + 1)
-    prompts = [shared[0]] + mixed + shared[1:]
-    news = [32] + news + [32] * 3
-    mem0 = reserved_bytes()
     t0 = time.perf_counter()
-    eng.generate(mixed[0][:20], max_new_tokens=2)
+    eng.generate(list(range(1, 21)), max_new_tokens=2)
     torch.cuda.synchronize()
     warm = eng.stats()
-    log(f"  warm-up generate (Triton compile, first launches, the decode "
-        f"step's capture) {time.perf_counter() - t0:.2f} s: "
-        f"{warm['graphs']} graph(s), captured in "
-        f"{warm['graph_capture_s']:.3f} s, {reserved_bytes() - mem0} bytes "
-        f"of device memory reserved by the warm-up (graph pool and static "
-        f"buffers)")
-    if warm["graphs"] != 1:
-        fail(f"bucketed serve: {warm['graphs']} graphs after the warm-up, "
-             f"1 (the decode step) expected")
-    rec["n"] = {"decode": 0, "prefill": 0, "chunk": 0}
-    before = eng.stats()
-    K.reset_launch_counts()
-    eng.start()
-    try:
-        res = run_poisson_load(eng, qps=16.0, prompts=prompts,
-                               max_new_tokens=news, seed=SEED, timeout=600.0)
-    finally:
-        eng.stop()
-    torch.cuda.synchronize()
-    launches = K.launch_counts()
+    log(f"  warm-up generate (Triton compile, first launches, the captures "
+        f"of the decode step and the (1, 32) prefill) "
+        f"{time.perf_counter() - t0:.2f} s: {warm['graphs']} graph(s), "
+        f"captured in {warm['graph_capture_s']:.3f} s")
+    if warm["graphs"] != 2 or warm["distinct_programs"] != 2:
+        fail(f"bucketed serve: {warm['graphs']} graphs for "
+             f"{warm['distinct_programs']} programs after the warm-up, 2 "
+             f"(the decode step, one prefill bucket) expected")
+    res, launches, n, _ = bucketed_load(K, eng, rec, SEED, "load 1")
+    res2, _, _, _ = bucketed_load(K, eng, rec, SEED + 20, "load 2")
     st = eng.stats()
-    n = rec["n"]
-    log(f"  {json.dumps(res)}")
-    log(f"  rounds={st['steps'] - before['steps']} decode_steps="
-        f"{n['decode']} dense_prefills={n['prefill']} chunk_steps="
-        f"{n['chunk']} prefill_shapes={st['prefill_shapes']} chunk_shapes="
-        f"{st['chunk_shapes']} kv_occupancy_peak_pct="
-        f"{st['kv_occupancy_peak_pct']} prefix_hits="
-        f"{st['prefix_hits'] - before['prefix_hits']} prefix_hit_tokens="
-        f"{st['prefix_hit_tokens'] - before['prefix_hit_tokens']} "
-        f"evictions={st['evictions']}")
-    log(f"  launches during the bucketed serve: {launches}")
-    if res["requests_ok"] != len(prompts) or res["requests_failed"]:
-        fail(f"bucketed serve: {res['requests_failed']} request(s) failed")
-    if res["tokens"] != sum(news):
-        fail(f"bucketed serve: {res['tokens']} tokens generated, "
-             f"{sum(news)} asked")
-    if st["prefix_hits"] - before["prefix_hits"] < 1:
-        fail("bucketed serve: no prefix-cache hit ran")
-    counted = {k: st["bucketed_launches"][k] - before["bucketed_launches"][k]
-               for k in n}
-    if counted != n:
-        fail(f"bucketed serve: engine counted {counted}, the recorder {n}")
-    # every decode step runs each layer's paged attention once; every
-    # forward (decode, dense prefill, chunk) runs two RMSNorms per layer
-    # plus ln_f; every dense prefill runs each layer's flash forward
-    L = cfg.num_layers
-    want = {name: 0 for name in launches}
-    want.update({"paged_attention": n["decode"] * L,
-                 "rms_norm": (n["decode"] + n["prefill"] + n["chunk"])
-                 * (2 * L + 1),
-                 "flash_fwd": n["prefill"] * L})
-    if n["decode"] <= 0 or n["prefill"] <= 0 or n["chunk"] <= 0 \
-            or launches != want:
-        fail(f"bucketed serve: kernel launches {launches} != {want} "
-             f"expected from {n}")
+    log(f"  TTFT p50/p99 {res['ttft_ms_p50']} / {res['ttft_ms_p99']} ms "
+        f"(load 1, its buckets' captures inside), {res2['ttft_ms_p50']} / "
+        f"{res2['ttft_ms_p99']} ms (load 2); tokens/s "
+        f"{res['tokens_per_sec']} / {res2['tokens_per_sec']}; with an eager "
+        f"prefill and chunk step this load's TTFT p50 was 21-25 ms "
+        f"(PERF.md)")
+    log(f"  {st['graphs']} graphs ({st['distinct_programs']} programs: "
+        f"{sorted(eng._programs)}) captured in "
+        f"{st['graph_capture_s']:.3f} s; device memory reserved: KV pools "
+        f"and the engine's buffers {mem_kv - mem0} bytes, the graphs' "
+        f"shared pool and static buffers {reserved_bytes() - mem_kv} bytes")
     eng.capture_logits = []
-    check = eng.generate(prompts[1][:64], max_new_tokens=4)
+    check = eng.generate(list(range(1, 65)), max_new_tokens=4)
     cap = eng.capture_logits[-1][1]
     if cap.shape != (16, cfg.vocab_size) or not np.isfinite(cap).all() \
             or not all(0 <= t < cfg.vocab_size for t in check):
@@ -1269,6 +1338,13 @@ def bucketed_serve(pt, K):
         setattr(eng, f"_{name}_fn", fns[name])
     check_replay_matches_eager("bucketed serve", "widest decode step",
                                eng._decode_fn, rec["decode"][1])
+    # the largest dense prefill with an all-zero table: its K/V goes to
+    # the scrap page, so no request's pages are touched
+    ids, lens, bt = rec["prefill"][1]
+    check_replay_matches_eager("bucketed serve", "largest dense prefill",
+                               eng._prefill_fn, (ids, lens, 0 * bt))
+    check_replay_matches_eager("bucketed serve", "largest chunk step",
+                               eng._chunk_fn, rec["chunk"][1])
     return eng, model, rec, launches
 
 
@@ -1388,7 +1464,7 @@ def bucketed_timing(K, eng, model, rec, launches):
         "smem_bytes": smem, "n_split": n_split,
         "sweep": paged_sweep(K, H, KVH, D, page, max_pages)}]
     del args, q
-    _, (nb, sb) = rec["prefill"]
+    nb, sb = rec["prefill"][1][0].shape
     R = nb * sb
     eps = cfg.layer_norm_epsilon
     g = torch.Generator(device="cuda").manual_seed(6)
@@ -1528,7 +1604,7 @@ def o2_train_slice(pt, K, recompute, steps=10, warmup=2, B=8, S=1024):
     log(f"  launches over {steps} timed steps: {launches}")
     if launches != want:
         fail(f"o2 train ({tag}): kernel launches {launches} != {want}")
-    wall_ms, busy_ms, families, top = profile_train_step(step)
+    wall_ms, busy_ms, families, top, _ = profile_train_step(step)
     total_ms = sum(families.values())
     log(f"  one step under torch.profiler: {wall_ms:.2f} ms host, device "
         f"busy {busy_ms:.2f} ms = {100 * busy_ms / wall_ms:.1f}% busy")
@@ -1827,6 +1903,194 @@ def resume_and_scaler_check(pt, K, layers=2, B=2, S=512):
     del model, opt, sched, snap
 
 
+# ------------------------------------------------------- generate phase
+def flash_decode_parity(K, B=4, H=16, D=128):
+    """The flash forward at one query row over ``Sk`` keys, the eager
+    ``generate``'s dense-cache step (not causal), against its plain
+    version: ``Sk`` in 1, 17, 129, 383 (the generate phase's last step)
+    and 1000; q a row of one fused projection, k and v contiguous as the
+    concatenated cache; f32 within 1e-4, bf16 within phase 6's limits.
+    Then the kernel at ``Sk = 383`` bf16 timed beside its bound, its plain
+    version and ``F.scaled_dot_product_attention``. -> the JSON keys it
+    adds to the flash forward's entry."""
+    scale = 1.0 / math.sqrt(D)
+    worst = 0.0
+    for dt, tol, norm_tol in ((torch.float32, 1e-4, None),
+                              (torch.bfloat16, FLASH_BF16_TOL,
+                               FLASH_BF16_NORM_TOL)):
+        for sk in (1, 17, 129, 383, 1000):
+            g = torch.Generator(device="cuda").manual_seed(sk)
+            qkv = torch.randn(B, 1, 3 * H * D, device="cuda",
+                              generator=g).to(dt)
+            q = qkv[..., :H * D].reshape(B, 1, H, D)
+            k, v = (torch.randn(B, sk, H, D, device="cuda",
+                                generator=g).to(dt) for _ in range(2))
+            o, lse = K.flash_fwd(q, k, v, scale, False)
+            ro, rl = K.flash_fwd_reference(_bhsd(q), _bhsd(k), _bhsd(v),
+                                           scale, False)
+            tag = f"Sq=1 Sk={sk} {str(dt)[6:]}"
+            err = check_close(f"flash_fwd O {tag}", o, _bshd(ro, B, H), tol,
+                              tol, norm_tol)
+            check_close(f"flash_fwd lse {tag}", lse, rl.reshape(B, H, 1),
+                        1e-4, 1e-4)
+            if dt == torch.bfloat16:
+                worst = max(worst, err)
+    kc, vc = k[:, :383].contiguous(), v[:, :383].contiguous()
+    ms, wall, src = time_ms(lambda: K.flash_fwd(q, kc, vc, scale, False))
+    plain_ms, _, _ = time_ms(lambda: K.flash_fwd_reference(
+        _bhsd(q), _bhsd(kc), _bhsd(vc), scale, False))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, kc, vc))
+    lib_ms, _, _ = time_ms(lambda: torch.nn.functional
+                           .scaled_dot_product_attention(qt, kt, vt))
+    # q, k, v read once, O written, lse written; QK^T and PV
+    nbytes = 2 * B * H * D * (2 + 2 * 383) + 4 * B * H
+    b_ms, b_by = bound(nbytes, 4 * B * H * 383 * D, BF16_FLOPS_PER_S)
+    log(f"[generate timing] flash_fwd at Sq=1 Sk=383 [{B}, 1, {H}, {D}] bf16: "
+        f"kernel {ms:.4f} ms ({src}; {wall:.4f} ms per call with launch) "
+        f"plain {plain_ms:.4f} ms F.scaled_dot_product_attention "
+        f"{lib_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}: "
+        f"{nbytes / 1e6:.2f} MB)")
+    return {"sq1_max_abs_err": worst, "sq1_ms": ms, "sq1_plain_ms": plain_ms,
+            "sq1_bound_ms": b_ms, "sq1_bound_by": b_by,
+            "sq1_library_ms": lib_ms}
+
+
+def teacher_forced(model, out, P, top_k=None, rtol=2e-2, atol=2e-2):
+    """Every token of ``out`` after the prompt against the logits of one
+    no-cache forward over ``out`` (the flash forward, causal): greedy
+    (``top_k`` None) when its logit is the row's largest, or below it by
+    at most ``atol + rtol * |largest|`` (bf16 logits of two differently
+    rounded paths); sampled with ``top_k`` when its logit is at least the
+    k-th largest less that margin. -> (tokens at or above the reference
+    logit, tokens, the largest shortfall, whether every token passes)."""
+    with torch.no_grad():
+        logits = model(out[:, :-1])[:, P - 1:].float()
+    chosen = logits.gather(-1, out[:, P:, None])[..., 0]
+    if top_k is None:
+        ref = logits.max(dim=-1).values
+    else:
+        ref = logits.topk(top_k, dim=-1).values[..., -1]
+    short = ref - chosen
+    ok = short <= atol + rtol * ref.abs()
+    return int((short <= 0).sum()), short.numel(), float(short.max()), \
+        bool(ok.all())
+
+
+def generate_phase(pt, K, B=4, P=128, N=256):
+    """``GPTForCausalLM.generate`` on ``gpt_1p3b`` bf16 (24 layers, random
+    weights from seed 0), batch 4, 128-token prompts from seed 0, 256 new
+    tokens: greedy compiled (twice: the first call captures the step's
+    graph after one eager warm-up step, the second only replays), the
+    same static step run eagerly (bit-equal to the replays), greedy eager
+    over the dense cache (the flash forward at Sq = 1, counted) and
+    sampled with ``top_k=50`` (twice from one generator seed: equal).
+    Every greedy token passes the teacher-forced check of
+    :func:`teacher_forced`, every sampled one is among its step's 50
+    largest; the launches are exact. Prints ms a step and tokens/s on the
+    host clock. -> the JSON keys the phase adds to the layer_norm and
+    flash forward entries."""
+    from paddle_tpu_torch.models.generate import generate_compiled
+    cfg = pt.gpt_1p3b(dropout=0.0)
+    model = pt.GPTForCausalLM(cfg, dtype=torch.bfloat16, seed=SEED)
+    ids = torch.from_numpy(np.random.RandomState(SEED).randint(
+        1, cfg.vocab_size, (B, P))).to(model.device)
+    L = cfg.num_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def timed(label, fn, want):
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in K.launch_counts().items() if v}
+        log(f"[generate] {label}: {wall:.3f} s, {wall * 1e3 / N:.3f} ms a "
+            f"step, {B * N / wall:.1f} tokens/s (batch {B}, {N} steps); "
+            f"launches {launches}")
+        if launches != want:
+            fail(f"generate {label}: launches {launches} != {want}")
+        if out.shape != (B, P + N) or not bool((out[:, :P] == ids).all()):
+            fail(f"generate {label}: output {tuple(out.shape)} does not "
+                 f"extend the prompt to [{B}, {P + N}]")
+        return out, wall
+
+    # the compiled step: prefill, then N - 1 steps, one LayerNorm a
+    # layer twice plus ln_f each
+    want = {"layer_norm": (2 * L + 1) * N}
+    progs = model.decode_programs
+    first, _ = timed("greedy compiled, first call", lambda: model.generate(
+        ids, max_new_tokens=N, temperature=0.0), want)
+    log(f"  {progs.graphs} graph captured in {progs.capture_s:.3f} s")
+    comp, comp_s = timed("greedy compiled, replays", lambda: model.generate(
+        ids, max_new_tokens=N, temperature=0.0), want)
+    static, _ = timed("greedy static step, eager", lambda: generate_compiled(
+        model, ids, N, None, replay=False), want)
+    if progs.graphs != 1 or not (torch.equal(first, comp)
+                                 and torch.equal(comp, static)):
+        fail(f"generate: {progs.graphs} graphs; the replayed steps equal "
+             f"the eager static step: {torch.equal(comp, static)}, the two "
+             f"compiled calls: {torch.equal(first, comp)}")
+    log("  the replayed steps' tokens equal the eager static step's")
+    # 16 replays of the step under the profiler: where its device time
+    # goes
+    dec = next(iter(progs._decoders.values()))
+    dec.prefill(ids, -1)
+    wall_ms, busy_ms, families, top, events = profile_train_step(
+        lambda: [dec.captured.replay() for _ in range(16)])
+    log(f"[generate profile] 16 replayed steps: {wall_ms / 16:.3f} ms a step "
+        f"on the host clock, device busy {busy_ms / 16:.3f} ms a step "
+        f"({100 * busy_ms / wall_ms:.1f}%), {events / 16:g} device "
+        f"kernels a step")
+    for fam, ms in sorted(families.items(), key=lambda kv: -kv[1]):
+        log(f"  {fam}: {ms / 16:.4f} ms a step")
+    for (fam, name), ms in top[:10]:
+        log(f"    {ms / 16:.4f} ms a step  [{fam}] {name[:100]}")
+    # the dense cache: N + 1 forwards (the loop's last one is not read);
+    # twice, as the first call also grows the allocator's cache
+    for run in ("first call", "second call"):
+        dense, dense_s = timed(
+            f"greedy eager, dense cache, {run}", lambda: model.generate(
+                ids, max_new_tokens=N, temperature=0.0, compiled=False),
+            {"flash_fwd": L * (N + 1),
+             "layer_norm": (2 * L + 1) * (N + 1)})
+    flash_launches = L * (N + 1)
+    same = int((dense[:, P:] == comp[:, P:]).all(dim=0).long().cumprod(
+        0).sum())
+    log(f"  the dense and the static path agree on their first {same} of "
+        f"{N} steps in every row (bf16: each path is held to itself)")
+    for label, out in (("compiled", comp), ("dense cache", dense)):
+        exact, n, short, ok = teacher_forced(model, out, P)
+        log(f"  teacher-forced, greedy {label}: {exact} of {n} tokens the "
+            f"exact argmax of a no-cache forward, the largest shortfall "
+            f"{short:.4f} (tolerance 2e-2 + 2e-2 x |max|)")
+        if not ok:
+            fail(f"generate: a greedy {label} token is not the argmax of "
+                 f"the no-cache forward within bf16 tolerance")
+    draws = []
+    for _ in range(2):
+        gen = torch.Generator(device=model.device).manual_seed(SEED)
+        out, samp_s = timed(
+            "sampled, top_k 50", lambda: model.generate(
+                ids, max_new_tokens=N, temperature=1.0, top_k=50,
+                generator=gen),
+            {"flash_fwd": L * (N + 1), "layer_norm": (2 * L + 1) * (N + 1)})
+        draws.append(out)
+    exact, n, short, ok = teacher_forced(model, draws[0], P, top_k=50)
+    log(f"  sampled: the two draws from one seed equal: "
+        f"{torch.equal(*draws)}; {n} tokens, the largest shortfall below "
+        f"the 50th logit {short:.4f}")
+    if not (ok and torch.equal(*draws)):
+        fail("generate: sampling not reproducible or outside the top 50")
+    mem = torch.cuda.max_memory_allocated()
+    log(f"  ms a step: compiled {comp_s * 1e3 / N:.3f}, dense cache "
+        f"{dense_s * 1e3 / N:.3f}, sampled {samp_s * 1e3 / N:.3f}; "
+        f"peak memory {mem / 1e9:.2f} GB")
+    del model
+    return {"generate_launches": flash_launches}, \
+        {"generate_launches": want["layer_norm"]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -2117,7 +2381,7 @@ def main():
     t_model, t_opt, t_step, t_launches = train_slice(pt, K)
 
     # ------------------------------- phase 9: train timing and profile
-    wall_ms, busy_ms, families, top = profile_train_step(t_step)
+    wall_ms, busy_ms, families, top, _ = profile_train_step(t_step)
     total_ms = sum(families.values())
     log(f"[train profile] one step under torch.profiler: {wall_ms:.2f} ms "
         f"on the host clock; device busy {busy_ms:.2f} ms (union of device "
@@ -2166,6 +2430,20 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     resume_and_scaler_check(pt, K)
+    # ------------------------------------------------ phase 15: generate
+    log("[generate parity] flash_fwd at one query row (the dense-cache "
+        "step) vs plain")
+    flash_sq1 = flash_decode_parity(K)
+    flash_gen, ln_gen = generate_phase(pt, K)
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash = next(e for e in kernels if e["name"] == "flash_fwd")
+    flash.update(flash_sq1)
+    flash.update(flash_gen)
+    flash["max_abs_err"] = max(flash["max_abs_err"],
+                               flash_sq1["sq1_max_abs_err"])
+    next(e for e in kernels if e["name"] == "layer_norm").update(ln_gen)
+
     adam = next(e for e in kernels if e["name"] == "fused_adamw")
     adam.update(adam_o2)
     adam["o2_launches"] = o_launches["fused_adamw"]

@@ -15,6 +15,11 @@ It serves a GPT through the continuous-batching ragged paged-KV engine::
                            max_slots=16, prefill_chunk=256)
     tokens = eng.generate(prompt_ids, max_new_tokens=32)
 
+decodes by itself as the JAX model does (greedy over a static KV cache,
+one CUDA graph a step; eager over the dense cache; sampled)::
+
+    out = model.generate(ids, max_new_tokens=256, temperature=0.0)
+
 and pretrains one (flash attention forward and backward, fused AdamW
 with f32 master weights) in O2 bf16, with a warm-up and cosine schedule,
 a global-norm clip and, optionally, per-block recompute::

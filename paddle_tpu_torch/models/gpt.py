@@ -49,10 +49,26 @@ The ported branches of ``GPTAttention.forward``:
   token and runs the paged decode kernel with context ``positions + 1``;
   a chunk step writes ``chunk_lens[b]`` tokens per row (padding to the
   scrap page) and runs :func:`~..ops.kernels.paged_prefill_reference`.
-* **dense prefill** (``gpt.py:400-413``, a dict whose ``"k"`` is None):
-  causal attention over the prompt (the flash forward kernel on the card),
-  leaving the un-expanded KVH-head K and V in the dict for the engine to
-  write into its pages.
+* **dense cache** (``gpt.py:400-413``): a dict whose ``"k"`` is None is
+  the prefill: causal attention over the prompt (the flash forward kernel
+  on the card), leaving the un-expanded KVH-head K and V in the dict (the
+  bucketed engine writes them into its pages; the eager ``generate``
+  keeps them). A dict that holds them takes ONE more token (``S = 1``,
+  anything else raises ``NotImplementedError`` as in JAX): its K/V is
+  concatenated on and it attends over all of them, not causal (the flash
+  forward at ``Sq = 1``, ``Sk`` = the tokens so far).
+* **static cache** (``gpt.py:318-340``), the compiled ``generate``'s::
+
+    {"static": True, "k": ..., "v": ...,   # [B, T, KVH, Dh], fixed
+     "len": 0-d int tensor}                # tokens already cached
+
+  The step's K/V is written at the device cursor ``len``
+  (:func:`_cache_write`, no host read), ``len + S`` is left in the dict,
+  and the queries attend over all ``T`` keys under the mask
+  ``key_pos <= len + q_pos`` built on the device. With a mask
+  :func:`~..nn.functional.scaled_dot_product_attention` takes its plain
+  f32 chain, as the JAX function takes XLA's (no Pallas kernel computes
+  this arm), so a CUDA graph can capture the whole step.
 
 With ``GPTConfig(recompute=True)`` a training forward (``caches=None``)
 wraps every block in :func:`~..distributed.fleet.recompute`
@@ -66,9 +82,14 @@ inputs as that name says (:mod:`..amp.auto_cast`): the embeddings
 tied head is a plain ``torch.matmul`` (no Pallas kernel in the JAX
 package either): f32 under O1, a bf16 product under O2.
 
+:meth:`GPTForCausalLM.generate` is the model's own decoding loop
+(``gpt.py:552-631``): greedy or sampled, eager over the dense cache or
+without one; greedy with the cache runs the static cache as one CUDA
+graph a step (:mod:`.generate`).
+
 Each hand-written kernel runs on a CUDA tensor, its plain version on a CPU
-tensor. The static cache branch, the one-token dense-cache concat arm,
-``generate`` and the tensor/sequence-parallel paths are not ported yet.
+tensor. The tensor/sequence-parallel paths (and ``GPTForCausalLMPipe``)
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -82,6 +103,7 @@ from ..distributed.fleet.recompute import recompute
 from ..nn import functional as F
 from ..ops.kernels import (paged_attention, paged_prefill_reference,
                            ragged_paged_attention, ragged_row_index)
+from .generate import DecodePrograms, generate_compiled
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTBlock", "GPTModel",
            "GPTForCausalLM", "GPTPretrainingCriterion", "ragged_write_index",
@@ -185,6 +207,17 @@ def _add(a, b):
     return a + b
 
 
+def _cache_write(buf, new, ln):
+    """Write ``new`` [B, s, KVH, Dh] into the static buffer ``buf``
+    [B, T, KVH, Dh] at sequence offset ``ln`` (a 0-d device tensor), in
+    place and with no host read (``gpt.py:85-94``). The start is clamped to
+    ``T - s`` as ``dynamic_update_slice`` clamps it."""
+    s = new.shape[1]
+    start = ln.long().clamp(0, buf.shape[1] - s)
+    idx = start + torch.arange(s, device=buf.device)
+    return buf.index_copy_(1, idx, new.to(buf.dtype))
+
+
 def _pool_write(pool, new, index):
     """Scatter K or V (``new`` [N, KVH, Dh]) into the page pool at
     ``index`` = (phys, slot), N entries each. In place: the pool tensor is
@@ -226,8 +259,10 @@ class GPTAttention(nn.Module):
         A ragged or paged cache dict: one serving forward, with
         ``write_index`` = (phys, slot) of every token's K/V from
         :func:`ragged_write_index` / :func:`paged_write_index` (one per
-        forward, shared by the layers). A dense dict with ``"k"`` None:
-        the prefill, which stores this layer's K and V in it."""
+        forward, shared by the layers). A static dict: one step over the
+        fixed buffers at the cursor ``len``. A dense dict: the prefill
+        (``"k"`` None), which stores this layer's K and V in it, or one
+        token appended to them."""
         b, s, h = x.shape
         H, KVH, Dh = self.num_heads, self.num_kv_heads, self.head_dim
         qkv = self.qkv_proj(x)
@@ -262,14 +297,31 @@ class GPTAttention(nn.Module):
             else:
                 out = paged_prefill_reference(q, kp, vp, bt, pos,
                                               cache["chunk_lens"])
-        elif cache.get("static") or cache.get("k") is not None:
-            raise NotImplementedError(
-                "the static cache and the one-token dense-cache append "
-                "belong to generate(), which is not ported; the port's "
-                "dense cache arm is the prefill (a dict whose 'k' is None)")
+        elif cache.get("static"):
+            ln = cache["len"]
+            kbuf = _cache_write(cache["k"], k, ln)
+            vbuf = _cache_write(cache["v"], v, ln)
+            cache["len"] = ln + s
+            T = kbuf.shape[1]
+            # key j visible to query i (at absolute position ln + i) iff
+            # j <= ln + i
+            key_pos = torch.arange(T, device=x.device)[None, :]
+            q_pos = (torch.arange(s, device=x.device) + ln)[:, None]
+            mask = (key_pos <= q_pos).reshape(1, 1, s, T)
+            out = F.scaled_dot_product_attention(
+                q, self._expand_kv(kbuf), self._expand_kv(vbuf),
+                attn_mask=mask, dropout_p=0.0, training=False)
         else:
-            # dense prefill: the pools hold KVH heads, so the cache keeps K
-            # and V before they are expanded over their groups
+            # dense cache: the prefill (k None) or one appended token; the
+            # cache keeps K and V before they are expanded over their
+            # groups (the pools hold KVH heads)
+            if cache.get("k") is not None:
+                if s != 1:
+                    raise NotImplementedError(
+                        "cached attention appends one token at a time "
+                        "after the prefill pass")
+                k = torch.cat([cache["k"], k], dim=1)
+                v = torch.cat([cache["v"], v], dim=1)
             cache["k"], cache["v"] = k, v
             out = F.scaled_dot_product_attention(
                 q, self._expand_kv(k), self._expand_kv(v), is_causal=s > 1,
@@ -327,12 +379,13 @@ class GPTModel(nn.Module):
     def forward(self, input_ids, caches=None, pos_offset=None):
         """``input_ids`` [B, S] at positions given by ``pos_offset``
         (``gpt.py:494-515``): None or an int shifts an arange (training and
-        dense prefill), a [B] tensor gives each row's offset (paged
-        serving), a [B, S] tensor each token's position. ``caches``: None,
-        or one dict per layer (ragged, paged or dense prefill; see the
-        module docstring). A ragged round (``input_ids`` [1, T]) embeds
-        each token at its position in its row unless ``pos_offset`` is
-        given (0 for pad tokens)."""
+        dense prefill), a 0-d tensor shifts it on the device (the static
+        decode step, which a graph captures: no host read), a [B] tensor
+        gives each row's offset (paged serving), a [B, S] tensor each
+        token's position. ``caches``: None, or one dict per layer (ragged,
+        paged, static or dense; see the module docstring). A ragged round
+        (``input_ids`` [1, T]) embeds each token at its position in its row
+        unless ``pos_offset`` is given (0 for pad tokens)."""
         b, s = input_ids.shape
         dev = input_ids.device
         if caches is not None and len(caches) != len(self.h):
@@ -349,10 +402,11 @@ class GPTModel(nn.Module):
                 pos_offset = pos.view(b, s)
         elif c0 is not None and c0.get("paged"):
             index = paged_write_index(c0, s)
-        if pos_offset is None or not torch.is_tensor(pos_offset) \
-                or pos_offset.dim() == 0:
+        if pos_offset is None or not torch.is_tensor(pos_offset):
             start = int(pos_offset or 0)
             pos = torch.arange(start, start + s, device=dev)[None]
+        elif pos_offset.dim() == 0:
+            pos = (torch.arange(s, device=dev) + pos_offset.long())[None]
         elif pos_offset.dim() == 1:
             pos = pos_offset.long()[:, None] + torch.arange(s,
                                                             device=dev)[None]
@@ -375,7 +429,9 @@ class GPTForCausalLM(nn.Module):
     builds the model on ``device`` (``cuda`` unless ``"cpu"`` is passed)
     with random weights drawn from ``seed``; ``seed=None`` leaves them
     uninitialised for a load (:func:`~paddle_tpu_torch.convert.
-    params_from_paddle_tpu`)."""
+    params_from_paddle_tpu`). Dropout masks and :meth:`generate`'s
+    samples draw from generators of the model's own, seeded from
+    ``seed`` (the default generator when it is None)."""
 
     def __init__(self, config, device=None, dtype=torch.float32, seed=0):
         super().__init__()
@@ -384,6 +440,8 @@ class GPTForCausalLM(nn.Module):
                 "tensor/sequence-parallel GPT is not ported yet")
         dev = resolve_device(device)
         gen = None
+        self.sample_generator = None
+        self.decode_programs = DecodePrograms()
         if seed is not None:
             gen = torch.Generator(device=dev)
             gen.manual_seed(int(seed))
@@ -405,6 +463,8 @@ class GPTForCausalLM(nn.Module):
                     m.generator = drop_gen
                 elif isinstance(m, GPTAttention):
                     m.dropout_generator = drop_gen
+            self.sample_generator = torch.Generator(device=dev)
+            self.sample_generator.manual_seed(int(seed) + 2)
         self.eval()
 
     @property
@@ -431,6 +491,95 @@ class GPTForCausalLM(nn.Module):
     def forward(self, input_ids, caches=None, pos_offset=None):
         return self._head(self.gpt(input_ids, caches=caches,
                                    pos_offset=pos_offset))
+
+    def generate(self, input_ids, max_new_tokens=32, temperature=1.0,
+                 top_k=None, eos_token_id=None, use_cache=True,
+                 compiled=None, generator=None):
+        """Autoregressive decoding of ``input_ids`` [B, P] (``gpt.py:
+        552-631``) -> ``[B, P + n]`` in ``input_ids``' type. Greedy when
+        ``temperature == 0``; else temperature and optional ``top_k``
+        sampling, drawn from ``generator`` (default: the model's
+        ``sample_generator``). With ``eos_token_id`` a row that emitted it
+        keeps emitting it.
+
+        ``compiled`` (default: greedy with the cache) decodes over a static
+        cache, one CUDA graph a step on the card (:mod:`.generate`): the
+        output is always ``[B, P + max_new_tokens]``, columns after the
+        step where every row finished stay 0. Otherwise the loop runs
+        eagerly over the dense cache (``use_cache``), or recomputes the
+        whole sequence each step, and stops once every row has finished,
+        so its output may be shorter. Runs in eval mode and restores the
+        training flag."""
+        input_ids = torch.as_tensor(input_ids, device=self.device)
+        if input_ids.shape[1] + max_new_tokens > self.config.max_seq_len:
+            raise ValueError(
+                f"prompt ({input_ids.shape[1]}) + max_new_tokens "
+                f"({max_new_tokens}) exceeds max_seq_len "
+                f"({self.config.max_seq_len}); positions past the table "
+                "would silently clamp")
+        if compiled is None:
+            compiled = temperature == 0.0 and use_cache
+        if compiled and temperature == 0.0 and use_cache:
+            return generate_compiled(self, input_ids, max_new_tokens,
+                                     eos_token_id)
+        gen = generator if generator is not None else self.sample_generator
+        was_training = self.training
+        self.eval()
+        try:
+            with torch.no_grad():
+                return self._generate_eager(input_ids, max_new_tokens,
+                                            temperature, top_k,
+                                            eos_token_id, use_cache, gen)
+        finally:
+            if was_training:
+                self.train()
+
+    def _generate_eager(self, input_ids, max_new_tokens, temperature, top_k,
+                        eos_token_id, use_cache, gen):
+        caches = [{"k": None, "v": None} for _ in self.gpt.h] \
+            if use_cache else None
+        out_ids = input_ids
+        logits = self(input_ids, caches=caches)
+        cur_len = input_ids.shape[1]
+        finished = None        # [B, 1]: rows that already emitted eos
+        for _ in range(max_new_tokens):
+            last = logits[:, -1]
+            if temperature == 0.0:
+                nxt = last.argmax(dim=-1, keepdim=True)
+            else:
+                nxt = _sample(last, temperature, top_k, gen)
+            nxt = nxt.to(input_ids.dtype)
+            if eos_token_id is not None:
+                is_eos = nxt == eos_token_id
+                if finished is None:
+                    finished = is_eos
+                else:
+                    # finished rows keep emitting eos
+                    nxt = torch.where(finished, torch.full_like(
+                        nxt, eos_token_id), nxt)
+                    finished = finished | is_eos
+            out_ids = torch.cat([out_ids, nxt], dim=1)
+            if finished is not None and bool(finished.all()):
+                break
+            if use_cache:
+                logits = self(nxt, caches=caches, pos_offset=cur_len)
+            else:
+                logits = self(out_ids)
+            cur_len += 1
+        return out_ids
+
+
+def _sample(last, temperature, top_k, generator):
+    """One token a row from the logits ``last`` [B, V] at ``temperature``,
+    among the ``top_k`` largest when given -> [B, 1]: the Gumbel-max draw
+    that ``jax.random.categorical`` makes, its noise from ``generator``."""
+    z = last.float() / max(temperature, 1e-6)
+    if top_k is not None:
+        kth = torch.topk(z, int(top_k), dim=-1).values[..., -1:]
+        z = torch.where(z < kth, torch.full_like(z, -float("inf")), z)
+    u = torch.rand(z.shape, device=z.device, generator=generator)
+    gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
+    return (z + gumbel).argmax(dim=-1, keepdim=True)
 
 
 class GPTPretrainingCriterion(nn.Module):

@@ -2,19 +2,21 @@
 
 The JAX engine runs each scheduler round as one compiled program,
 specialised per shape: the ragged round per padded token count
-(``paddle_tpu/serving/engine.py`` ``_build_ragged_step``) and the bucketed
-engine's fixed-slot decode step (``_build_step``). Here a
-:class:`RoundProgram` plays that part for one shape key. It holds
+(``paddle_tpu/serving/engine.py`` ``_build_ragged_step``), the bucketed
+engine's dense prefill and chunk step per (batch, seq) bucket
+(``_build_prefill``, ``_build_chunk_prefill``) and its fixed-slot decode
+step (``_build_step``). Here a :class:`RoundProgram` plays that part for
+one shape key. It holds
 
 * a static device input: the round's flat int32 metadata, rewritten in
   full every round, sentinels included, so a small pad that follows a
   large one never reads a stale entry;
 * a host staging buffer that the host fills, and host output buffers that
   the results come back to (both pinned on CUDA);
-* on CUDA, one ``torch.cuda.CUDAGraph`` of the round's forward, captured
-  after one eager warm-up run (which builds and loads the kernels,
-  compiles the Triton ones and sets up cuBLAS for this thread and stream
-  outside the capture).
+* on CUDA, one ``torch.cuda.CUDAGraph`` of the round's forward
+  (:func:`capture`: after one eager warm-up run, which builds and loads
+  the kernels, compiles the Triton ones and sets up cuBLAS for this
+  thread and stream outside the capture).
 
 A round then costs one host-to-device copy (staging to static input), one
 ``graph.replay()`` and one asynchronous device-to-host copy waited on by
@@ -43,6 +45,9 @@ Invariants:
   capture takes as its own whatever another thread launches through the
   wrappers meanwhile: capture while no other thread launches them.
 
+The compiled ``generate`` (``models/generate.py``) captures its decode
+step with :func:`capture` under the same invariants.
+
 A capture or a replay that fails raises; nothing falls back to the eager
 round.
 """
@@ -56,7 +61,8 @@ import torch
 
 from ..ops import kernels as _K
 
-__all__ = ["RoundProgram", "RoundPrograms", "capture_stream"]
+__all__ = ["Captured", "RoundProgram", "RoundPrograms", "capture",
+           "capture_stream"]
 
 _streams: dict = {}
 # one capture at a time in the process (engines' serve threads may each
@@ -73,6 +79,48 @@ def capture_stream(device):
     return _streams[device]
 
 
+class Captured:
+    """One captured CUDA graph, its static outputs and the kernel launches
+    a replay issues."""
+
+    def __init__(self, graph, outputs, launches):
+        self.graph = graph
+        self.outputs = outputs
+        self.launches = launches
+
+    def replay(self):
+        """Replay the graph, add its launches to the counts -> its static
+        outputs."""
+        self.graph.replay()
+        _K.add_launch_counts(self.launches)
+        return self.outputs
+
+
+def capture(fn, pool, stream):
+    """Run ``fn()`` once eagerly on ``stream`` (the warm-up: its work is
+    done for real), then capture ``fn()`` into a graph on ``stream``
+    drawing from ``pool`` -> :class:`Captured`. The capture launches
+    nothing, so it takes back the launches its wrappers counted."""
+    with _capture_lock:
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream), torch.no_grad():
+            fn()
+        torch.cuda.current_stream().wait_stream(stream)
+        before = _K.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: the serve thread may capture a new shape while
+        # other threads submit requests
+        with torch.no_grad(), torch.cuda.graph(
+                graph, pool=pool, stream=stream,
+                capture_error_mode="thread_local"):
+            outputs = fn()
+        after = _K.launch_counts()
+    launches = {k: after[k] - before[k] for k in after
+                if after[k] != before[k]}
+    _K.add_launch_counts({k: -n for k, n in launches.items()})
+    return Captured(graph, outputs, launches)
+
+
 class RoundProgram:
     """One shape key's round over ``n_inputs`` int32 of metadata. The
     forward ``fn(static_in) -> (next tokens [R], f32 logit rows [R, V])``
@@ -86,9 +134,7 @@ class RoundProgram:
         self._staging_np = self.staging.numpy()
         self.static_in = torch.zeros(n_inputs, dtype=torch.int32,
                                      device=device)
-        self.graph = None
-        self.outputs = None
-        self.launches = {}     # kernel launches one replay issues
+        self.captured = None   # the graph (CUDA), once captured
         self._host = None      # host (tokens, rows) buffers
         self._event = torch.cuda.Event() if cuda else None
 
@@ -101,36 +147,16 @@ class RoundProgram:
         self.static_in.copy_(self.staging, non_blocking=True)
 
     def capture(self, fn, pool, stream):
-        """Eager warm-up on ``stream``, then capture ``fn`` over the static
-        input into a graph on ``stream`` drawing from ``pool``."""
-        with _capture_lock:
-            stream.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(stream), torch.no_grad():
-                fn(self.static_in)
-            torch.cuda.current_stream().wait_stream(stream)
-            before = _K.launch_counts()
-            graph = torch.cuda.CUDAGraph()
-            # thread_local: the serve thread may capture a new pad while
-            # other threads submit requests
-            with torch.no_grad(), torch.cuda.graph(
-                    graph, pool=pool, stream=stream,
-                    capture_error_mode="thread_local"):
-                outputs = fn(self.static_in)
-            after = _K.launch_counts()
-        self.launches = {k: after[k] - before[k] for k in after
-                         if after[k] != before[k]}
-        _K.add_launch_counts({k: -n for k, n in self.launches.items()})
-        self.graph, self.outputs = graph, outputs
+        """Capture ``fn`` over the static input (:func:`capture`)."""
+        self.captured = capture(lambda: fn(self.static_in), pool, stream)
 
     def execute(self, fn):
         """The round on the staged input -> its device outputs: a replay
         when captured, else ``fn`` eagerly."""
-        if self.graph is None:
+        if self.captured is None:
             with torch.no_grad():
                 return fn(self.static_in)
-        self.graph.replay()
-        _K.add_launch_counts(self.launches)
-        return self.outputs
+        return self.captured.replay()
 
     def fetch(self, outputs, need_rows):
         """One asynchronous copy of the round's tokens, or of its f32
@@ -175,7 +201,7 @@ class RoundPrograms:
 
     @property
     def graphs(self):
-        return sum(p.graph is not None for p in self._progs.values())
+        return sum(p.captured is not None for p in self._progs.values())
 
     def run(self, key, fn, parts, need_rows):
         """One round of ``key``'s program over the metadata ``parts`` ->
@@ -187,7 +213,7 @@ class RoundPrograms:
             self._progs[key] = prog
         t0 = time.perf_counter()
         prog.stage(parts)
-        if self.capture and prog.graph is None:
+        if self.capture and prog.captured is None:
             prog.capture(fn, self._pool, self._stream)
             t1 = time.perf_counter()
             self.capture_s += t1 - t0

@@ -14,27 +14,31 @@ loop over a paged KV cache on the model's device:
   the same forward. Only ``total_tokens`` is padded, up the power-of-two
   schedule of :func:`~.ragged_attention.pad_total_tokens`, with the same
   flat layout as the JAX engine token for token.
-* **the bucketed fallback** (``ragged=False``) keeps the JAX engine's
-  pre-ragged shape: newly admitted misses run the dense causal forward at
-  a (batch, seq) bucket (:func:`~..inference.pick_bucket`; the flash
-  forward kernel on the card) and their K/V is written into their pages;
-  prefix-hit tails and chunked prefill (``prefill_chunk``) run the chunk
-  step (pool scatter, then partial-prefix attention over the pages); then
-  ONE fixed-shape decode step over all ``max_slots`` slots runs the paged
-  decode kernel.
+* **the bucketed fallback** (``ragged=False``, or
+  ``PADDLE_TPU_SERVING_RAGGED`` set to ``0``, ``false`` or ``off`` when
+  ``ragged`` is left None) keeps the JAX engine's pre-ragged shape: newly
+  admitted misses run the dense causal forward at a (batch, seq) bucket
+  (:func:`~..inference.pick_bucket`; the flash forward kernel on the
+  card), which writes each row's K/V into its pages and takes the head
+  on each row's last token only; prefix-hit tails and chunked prefill
+  (``prefill_chunk``) run the chunk step (pool scatter, then
+  partial-prefix attention over the pages); then ONE fixed-shape decode
+  step over all ``max_slots`` slots runs the paged decode kernel.
 * **one program per shape** (``jit=True``, the default, as in JAX): the
-  ragged round at each token pad and the bucketed engine's decode step
-  each run as a program of their own (:mod:`.compiled`). On the card that
-  program is a CUDA graph, captured at the shape's first round (or by
-  :meth:`ServingEngine.warm_ragged`) and replayed on every later round of
-  that shape: one copy of the round's metadata from pinned memory, one
-  replay of the hand kernels, one asynchronous copy of the results back.
-  On the CPU the same static-buffer round runs eagerly. ``jit=False``
-  runs every round eagerly from Python. The bucketed dense prefill and
-  chunk step stay eager; like every shape-specialised program they are
-  noted once in ``stats()["distinct_programs"]`` and the
-  ``serving_compiles_total`` / ``serving_distinct_programs`` metrics,
-  with the JAX engine's keys.
+  ragged round at each token pad, and the bucketed engine's dense prefill
+  and chunk step at each (batch, seq) bucket and its decode step, each run
+  as a program of their own (:mod:`.compiled`), under the JAX engine's
+  keys (``("ragged", T)``, ``("prefill", nb, sb)``, ``("chunk", nb,
+  sb)``, ``("decode",)``). On the card that program is a CUDA graph,
+  captured at the shape's first round (or by
+  :meth:`ServingEngine.warm_ragged`), as ``jax.jit`` compiles at the
+  first call, and replayed on every later round of that shape: one copy
+  of the round's metadata from pinned memory, one replay of the hand
+  kernels, one asynchronous copy of the results back. On the CPU the same
+  static-buffer round runs eagerly. ``jit=False`` runs every round eagerly
+  from Python. Every program is noted once in
+  ``stats()["distinct_programs"]`` and the ``serving_compiles_total`` /
+  ``serving_distinct_programs`` metrics.
 * **prefix caching** (on by default): full prompt pages are indexed in a
   page-granular trie; a hit takes the shared head by refcounted reference
   and only the tail runs;
@@ -44,13 +48,13 @@ loop over a paged KV cache on the model's device:
 
 Each round's results reach the host in one copy: the next tokens, or the
 logit rows when a request samples or ``capture_logits`` is set. The A/B
-backend gate (the kernels always run on the card), the
-``PADDLE_TPU_SERVING_RAGGED`` switch, mesh sharding, graceful SIGTERM
-shutdown, request tracing and the fleet hooks of the JAX engine are not
-ported yet.
+backend gate (the kernels always run on the card), mesh sharding,
+graceful SIGTERM shutdown, request tracing, the fleet hooks and the
+metrics JSONL writer of the JAX engine are not ported yet.
 """
 from __future__ import annotations
 
+import os
 import sys
 import threading
 import time
@@ -118,15 +122,17 @@ class ServingEngine:
             req.result(timeout=30)
 
     The engine runs where the model lives (``model.device``);
-    ``ragged=False`` selects the bucketed fallback, ``jit=False`` eager
-    rounds instead of one program (a CUDA graph on the card) per shape.
+    ``ragged=False`` selects the bucketed fallback (``ragged=None`` reads
+    ``PADDLE_TPU_SERVING_RAGGED``, ragged unless it is ``0``, ``false`` or
+    ``off``), ``jit=False`` eager rounds instead of one program (a CUDA
+    graph on the card) per shape.
     """
 
     def __init__(self, model, page_size=16, num_pages=64, max_slots=4,
                  max_queue=256, prefill_seq_buckets=None,
                  prefill_batch_buckets=None, jit=True, registry=None,
                  prefill_chunk=None, prefill_token_budget=None,
-                 prefix_cache=True, ragged=True, engine_id=None):
+                 prefix_cache=True, ragged=None, engine_id=None):
         cfg = model.config
         self.model = model
         self.model.eval()
@@ -188,6 +194,9 @@ class ServingEngine:
             self._chunk_buckets = sorted(cb)
         else:
             self._chunk_buckets = list(self.prefill_seq_buckets)
+        if ragged is None:
+            ragged = os.environ.get("PADDLE_TPU_SERVING_RAGGED",
+                                    "1") not in ("0", "false", "off")
         self.ragged = bool(ragged)
         self._ragged_shapes: set = set()  # token pads this engine has run
         # every shape-specialised program installed (ragged pad,
@@ -504,49 +513,68 @@ class ServingEngine:
             while self._prefilling:
                 self._run_chunk_batch()
 
-    def _prefill_fn(self, ids, lens):
-        """The dense causal forward of one (batch, seq) bucket ``ids``
-        [nb, sb] whose first ``len(lens)`` rows hold prompts of ``lens``
-        tokens -> (next tokens [n], logit rows [n, V] at each prompt's
-        last token, per-layer K and V [nb, sb, KVH, Dh]). The rows are
-        gathered on the device: the full logits never reach the host."""
+    def _prefill_forward(self, flat, nb, sb):
+        """The dense causal forward of one (batch, seq) bucket from its flat
+        metadata ([nb x sb token ids | nb lens | nb x P block table] int32
+        on the device; pad rows have length 0 and an all-zero table): each
+        row's K/V goes into its pages (:meth:`~.kv_cache.PagedKVCache.
+        write_prefill_rows`), and the head runs on each row's last prompt
+        token only -> (next tokens [nb], f32 logit rows [nb, V]; pad rows'
+        are garbage the host ignores)."""
+        o = nb * sb
+        lens = flat[o:o + nb]
+        bt = flat[o + nb:].view(nb, -1)
+        caches = [{"k": None, "v": None}
+                  for _ in range(self.cfg.num_layers)]
+        hidden = self.model.gpt(flat[:o].view(nb, sb), caches=caches)
+        for layer, c in enumerate(caches):
+            self.kv.write_prefill_rows(layer, c["k"], c["v"], bt, lens)
+        last = (lens.long() - 1).clamp_min(0)
+        rows = self.model._head(hidden[torch.arange(nb, device=flat.device),
+                                       last])
+        return rows.argmax(dim=-1), rows.float()
+
+    def _prefill_fn(self, ids, lens, bt, need_rows=False, jit=None):
+        """One dense prefill over host metadata (``ids`` [nb, sb], ``lens``
+        [nb], ``bt`` [nb, P]) -> ``(next tokens, f32 logit rows [nb, V]
+        when need_rows else None)``: the bucket's program (``jit``,
+        default the engine's) or the eager round."""
         nb, sb = ids.shape
-        n = len(lens)
-        flat = np.concatenate([ids.reshape(-1), lens]).astype(np.int64)
-        with torch.no_grad():
-            dev = torch.from_numpy(flat).to(self.device)
-            caches = [{"k": None, "v": None}
-                      for _ in range(self.cfg.num_layers)]
-            logits = self.model(dev[:nb * sb].view(nb, sb), caches=caches)
-            rows = logits[torch.arange(n, device=self.device),
-                          dev[nb * sb:] - 1]
-        return (rows.argmax(dim=-1), rows, [c["k"] for c in caches],
-                [c["v"] for c in caches])
+        return self._run_round(
+            ("prefill", nb, sb),
+            lambda flat: self._prefill_forward(flat, nb, sb),
+            (ids, lens, bt), need_rows, jit)
 
     def _prefill_batch(self, reqs, seq_bucket):
         """Dense causal forward at [batch bucket, seq bucket]; right
         padding is causal-safe (position i never attends j > i), so each
-        row's first ``len`` K/V rows are exact and go into its pages."""
+        row's first ``len`` K/V rows are exact and go into its pages. The
+        table is as wide as a row of the bucket can need:
+        ``pages_for(seq_bucket + 1)``, as admission allocates for a prompt
+        and its first token."""
         nb = pick_bucket(len(reqs), self.prefill_batch_buckets, strict=True)
-        ids = np.zeros((nb, seq_bucket), np.int64)
+        width = min(pages_for(seq_bucket + 1, self.page_size),
+                    self.max_pages)
+        ids = np.zeros((nb, seq_bucket), np.int32)
+        lens = np.zeros(nb, np.int32)
+        bt = np.zeros((nb, width), np.int32)
         prompts = [req.effective_prompt() for req in reqs]
-        lens = np.array([len(p) for p in prompts], np.int64)
-        for i, p in enumerate(prompts):
+        for i, (req, p) in enumerate(zip(reqs, prompts)):
+            if len(req.pages) > width:
+                raise ValueError(
+                    f"request {req.request_id} holds {len(req.pages)} "
+                    f"pages, more than a {seq_bucket}-token prefill "
+                    f"writes ({width})")
             ids[i, :len(p)] = p
+            lens[i] = len(p)
+            bt[i, :len(req.pages)] = req.pages
         self._prefill_shapes.add((nb, seq_bucket))
         self._note_program(("prefill", nb, seq_bucket))
         self._bucketed_launches["prefill"] += 1
-        nxt, rows, ks, vs = self._prefill_fn(ids, lens)
-        toks, logits_np = _fetch(nxt, rows, any(r.temperature > 0.0
-                                                for r in reqs))
+        toks, logits_np = self._prefill_fn(
+            ids, lens, bt, need_rows=any(r.temperature > 0.0 for r in reqs))
         for i, req in enumerate(reqs):
-            ln = int(lens[i])
-            pages = torch.as_tensor(req.pages, dtype=torch.long,
-                                    device=self.device)
-            for layer in range(self.cfg.num_layers):
-                self.kv.write_prefill(layer, ks[layer][i], vs[layer][i],
-                                      pages, ln)
-            req.num_cached = ln
+            req.num_cached = int(lens[i])
             tok = _select_token(logits_np[i], req) \
                 if req.temperature > 0.0 else toks[i]
             self._finish_prompt(req, prompts[i], tok)
@@ -563,25 +591,33 @@ class ServingEngine:
             caches.append(c)
         return caches
 
-    def _chunk_fn(self, tokens, positions, lens, bt):
-        """The chunk step at one (batch, chunk) bucket: write each row's
-        ``lens[b]`` tokens into its pages at ``positions[b]`` onward, then
-        partial-prefix attention over the pages -> (next tokens [nb], logit
-        rows [nb, V] at each row's last chunk token)."""
-        nb, sb = tokens.shape
-        flat = np.concatenate([tokens.reshape(-1), positions, lens,
-                               bt.reshape(-1)]).astype(np.int32)
-        with torch.no_grad():
-            dev = torch.from_numpy(flat).to(self.device)
-            o = nb * sb
-            pos, ln = dev[o:o + nb], dev[o + nb:o + 2 * nb]
-            caches = self._paged_caches(dev[o + 2 * nb:].view(nb, -1), pos,
-                                        ln)
-            logits = self.model(dev[:o].view(nb, sb), caches=caches,
+    def _chunk_forward(self, flat, nb, sb):
+        """The chunk step at one (batch, chunk) bucket from its flat
+        metadata ([nb x sb tokens | nb positions | nb lens | nb x max_pages
+        block table] int32 on the device): write each row's ``lens[b]``
+        tokens into its pages at ``positions[b]`` onward, then
+        partial-prefix attention over the pages -> (next tokens [nb], f32
+        logit rows [nb, V] at each row's last chunk token; the head runs
+        on those rows only)."""
+        o = nb * sb
+        pos, ln = flat[o:o + nb], flat[o + nb:o + 2 * nb]
+        caches = self._paged_caches(flat[o + 2 * nb:].view(nb, -1), pos, ln)
+        hidden = self.model.gpt(flat[:o].view(nb, sb), caches=caches,
                                 pos_offset=pos)
-            rows = logits[torch.arange(nb, device=self.device),
-                          (ln.long() - 1).clamp_min(0)]
-        return rows.argmax(dim=-1), rows
+        last = (ln.long() - 1).clamp_min(0)
+        rows = self.model._head(hidden[torch.arange(nb, device=flat.device),
+                                       last])
+        return rows.argmax(dim=-1), rows.float()
+
+    def _chunk_fn(self, tokens, positions, lens, bt, need_rows=False,
+                  jit=None):
+        """One chunk step over host metadata -> ``(next tokens, f32 logit
+        rows [nb, V] when need_rows else None)``: the bucket's program
+        (``jit``, default the engine's) or the eager round."""
+        nb, sb = tokens.shape
+        return self._run_round(
+            ("chunk", nb, sb), lambda flat: self._chunk_forward(flat, nb, sb),
+            (tokens, positions, lens, bt), need_rows, jit)
 
     def _run_chunk_batch(self):
         """Advance pending prefills by ONE batched chunk launch: up to
@@ -625,9 +661,9 @@ class ServingEngine:
         self._chunk_shapes.add((nb, sb))
         self._note_program(("chunk", nb, sb))
         self._bucketed_launches["chunk"] += 1
-        nxt, rows = self._chunk_fn(tokens, positions, lens, bt)
-        toks, logits_np = _fetch(nxt, rows, any(r.temperature > 0.0
-                                                for r in batch))
+        toks, logits_np = self._chunk_fn(
+            tokens, positions, lens, bt,
+            need_rows=any(r.temperature > 0.0 for r in batch))
         spent = 0
         for i, req in enumerate(batch):
             take = int(lens[i])

@@ -198,6 +198,32 @@ class PagedKVCache:
             pools[layer][idx] = arr.view(n, self.page_size, self.num_heads,
                                          self.head_dim)
 
+    def write_prefill_rows(self, layer, k_new, v_new, block_tables,
+                           lengths):
+        """:meth:`write_prefill` for a batch of rows on the device, with no
+        host read (a captured graph runs it): ``k_new``/``v_new`` [nb, S,
+        KVH, Dh], ``block_tables`` [nb, P] (each row's pages, 0 past them),
+        ``lengths`` [nb]. Row ``b``'s first ``lengths[b]`` tokens go into
+        its pages and the rest of its ``P`` pages are written with zeros,
+        as :meth:`write_prefill` writes them. Table entries past a row's
+        pages, and the whole table of a pad row (length 0), name the
+        reserved scrap page 0, which takes zeros only (never read)."""
+        nb, S = k_new.shape[:2]
+        P = block_tables.shape[1]
+        cap = P * self.page_size
+        if cap < S:
+            raise ValueError(f"{S} tokens a row > {P} pages' capacity {cap}")
+        drop = torch.arange(cap, device=self.device)[None, :] \
+            >= lengths.long()[:, None]
+        idx = block_tables.long().reshape(-1)
+        for pools, new in ((self.k, k_new), (self.v, v_new)):
+            arr = torch.zeros((nb, cap, self.num_heads, self.head_dim),
+                              dtype=self.dtype, device=self.device)
+            arr[:, :S] = new
+            arr.masked_fill_(drop[:, :, None, None], 0)
+            pools[layer][idx] = arr.view(nb * P, self.page_size,
+                                         self.num_heads, self.head_dim)
+
     def gather(self, layer, pages, length, which="k"):
         """Debug/test readback: the first ``length`` tokens of a request's
         pages as one dense ``[length, KVH, Dh]`` tensor."""

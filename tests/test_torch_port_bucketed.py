@@ -207,7 +207,9 @@ def _models(seed, **kw):
 @pytest.mark.parametrize("kvh", [None, 2])
 def test_dense_prefill_cache_arm_matches_jax(kvh):
     """The dense-prefill arm (a cache dict whose 'k' is None): the same
-    logits, and each layer's cache holds the un-expanded KVH-head K/V."""
+    logits, and each layer's cache holds the un-expanded KVH-head K/V.
+    Then the dense cache takes one more token, as JAX's does, and refuses
+    two."""
     from paddle_tpu.core.tensor import Tensor
     jm, tm = _models(3, num_kv_heads=kvh)
     ids = np.random.RandomState(1).randint(1, 256, size=(2, 9))
@@ -223,8 +225,19 @@ def test_dense_prefill_cache_arm_matches_jax(kvh):
         for key in ("k", "v"):
             np.testing.assert_allclose(t[key].numpy(),
                                        np.asarray(j[key]._data), atol=1e-5)
-    with pytest.raises(NotImplementedError, match="generate"):
-        tm(_torch(ids[:, :1]), caches=tc)
+    nxt = ids[:, :1]
+    want = np.asarray(jm(Tensor(jnp.asarray(nxt)), caches=jc,
+                         pos_offset=9)._data)
+    with torch.no_grad():
+        got = tm(_torch(nxt), caches=tc, pos_offset=9).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    for j, t in zip(jc, tc):
+        assert t["k"].shape == (2, 10, kvh or 4, 16)
+        for key in ("k", "v"):
+            np.testing.assert_allclose(t[key].numpy(),
+                                       np.asarray(j[key]._data), atol=1e-5)
+    with pytest.raises(NotImplementedError, match="one token at a time"):
+        tm(_torch(ids[:, :2]), caches=tc)
 
 
 def _dense_batches(eng, rng):

@@ -91,7 +91,9 @@ def _bshd(x, b, h):
     (1, 1, 128), (63, 63, 64), (64, 64, 16), (65, 65, 128), (127, 127, 64),
     (128, 128, 128), (129, 129, 16), (1000, 1000, 128), (129, 65, 64),
     (65, 129, 128), (1, 129, 16), (257, 1, 128), (63, 1000, 96),
-    (1000, 127, 128)])
+    (1000, 127, 128),
+    # one query row, the eager generate's dense-cache step
+    (1, 17, 128), (1, 129, 128), (1, 1000, 128)])
 def test_flash_kernels_match_plain_on_card(dtype, causal, sq, sk, d):
     """Forward, dQ and dK/dV kernels against their plain versions, S not a
     multiple of any tile and at every side of the tiles (f32: atol 1e-4;
@@ -482,10 +484,11 @@ def _assert_same_run(got, want):
 @pytest.mark.parametrize("ragged", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_graph_replay_serves_as_the_eager_round_on_card(dtype, ragged):
-    """``jit=True`` (a CUDA graph per token pad, or of the decode step,
-    captured at its first round and replayed after) and ``jit=False``
-    (eager rounds) serve the same prompts on one model: the same greedy
-    tokens and bit-equal logits (the same kernels at the same shapes)."""
+    """``jit=True`` (a CUDA graph per token pad, or per prefill and chunk
+    bucket and of the decode step, captured at its first round and
+    replayed after) and ``jit=False`` (eager rounds) serve the same
+    prompts on one model: the same greedy tokens and bit-equal logits
+    (the same kernels at the same shapes)."""
     _need_cuda()
     from paddle_tpu_torch import ServingEngine
     model = _two_layer_1p3b(getattr(torch, dtype))
@@ -495,8 +498,9 @@ def test_graph_replay_serves_as_the_eager_round_on_card(dtype, ragged):
         eng = ServingEngine(model, jit=jit, **_engine_kw(ragged))
         runs[jit] = _serve(eng, vocab)
         st = eng.stats()
-        assert st["graphs"] == (len(st["ragged_token_pads"]) if ragged
-                                else 1) * jit
+        assert st["graphs"] == st["distinct_programs"] * jit
+        if ragged:
+            assert st["distinct_programs"] == len(st["ragged_token_pads"])
         eng.close()
     _assert_same_run(runs[True], runs[False])
 
@@ -577,7 +581,7 @@ def test_replays_add_their_captured_launches_on_card(ragged):
         want = {"paged_attention": L, "rms_norm": 2 * L + 1}
         key = ("decode",)
     run()                         # warm-up and capture, then one replay
-    assert eng._rounds._progs[key].launches == want
+    assert eng._rounds._progs[key].captured.launches == want
     K.reset_launch_counts()
     n = 5
     for _ in range(n):
@@ -586,6 +590,97 @@ def test_replays_add_their_captured_launches_on_card(ragged):
     counts = {k: v for k, v in K.launch_counts().items() if v}
     assert counts == {k: n * v for k, v in want.items()}
     eng.close()
+
+
+@pytest.mark.cuda
+def test_replayed_prefill_and_chunk_buckets_equal_eager_rounds_on_card():
+    """A dense prefill bucket and a chunk bucket of the bucketed engine,
+    replayed (``jit=True``, captured at their first round) and eager
+    (``jit=False``) on the same inputs: tokens, logit rows and the pools
+    they wrote bit-equal; each replay runs the flash forward (prefill) and
+    RMSNorm kernels it captured, and the prefill zeroes the tail of its
+    last page."""
+    _need_cuda()
+    from paddle_tpu_torch import ServingEngine
+    model = _two_layer_1p3b(torch.bfloat16, use_rms_norm=True)
+    eng = ServingEngine(model, jit=True, **_engine_kw(False))
+    L, rng = 2, np.random.RandomState(4)
+    nb, sb, lens = 2, 32, np.array([29, 17], np.int32)
+    ids = rng.randint(1, 50304, (nb, sb)).astype(np.int32)
+    bt = np.zeros((nb, 3), np.int32)
+    bt[0], bt[1, :2] = [5, 6, 7], [9, 10]
+    kv = eng.kv
+    kv.k[0][1:].normal_()                      # old values to overwrite
+    rounds = {
+        ("prefill", nb, sb): (eng._prefill_fn, (ids, lens, bt)),
+        # a chunk of 8 tokens a row at positions 29 and 17, over the
+        # pages the prefill wrote
+        ("chunk", nb, 8): (eng._chunk_fn, (
+            rng.randint(1, 50304, (nb, 8)).astype(np.int32),
+            lens, np.array([8, 5], np.int32),
+            np.pad(bt, ((0, 0), (0, eng.max_pages - 3)))))}
+    for key, (run, args) in rounds.items():
+        tok_r, rows_r = run(*args, need_rows=True, jit=True)
+        pools = [t.clone() for t in kv.k + kv.v]
+        tok_e, rows_e = run(*args, need_rows=True, jit=False)
+        torch.cuda.synchronize()
+        assert tok_r == tok_e
+        np.testing.assert_array_equal(rows_r, rows_e)
+        for a, b in zip(pools, kv.k + kv.v):
+            assert torch.equal(a, b), key
+        want = {"rms_norm": 2 * L + 1}
+        if key[0] == "prefill":
+            want["flash_fwd"] = L
+            # row 0: 29 tokens in pages 5, 6 (16 + 13), zeros after
+            assert (kv.k[0][6, 13:] == 0).all() and (kv.k[0][7] == 0).all()
+            assert not (kv.k[0][6, :13] == 0).all()
+        assert eng._rounds._progs[key].captured.launches == want
+    eng.close()
+
+
+def _generate_inputs(model, B=2, P=16, seed=0):
+    return torch.from_numpy(np.random.RandomState(seed).randint(
+        1, model.config.vocab_size, (B, P))).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_generate_replays_equal_the_eager_static_step_on_card(dtype):
+    """The compiled ``generate``: its replayed step (one graph, captured
+    after one eager warm-up step) gives the eager static step's tokens bit
+    for bit, with and without an eos that stops every row early (the
+    columns after it stay 0); LayerNorm launches 2L + 1 times a forward
+    whether replayed or eager. In f32 the dense-cache loop (the flash
+    forward at Sq = 1, L launches a forward) gives the same greedy tokens,
+    as JAX's test holds the two on the CPU."""
+    _need_cuda()
+    from paddle_tpu_torch.models.generate import generate_compiled
+    model = _two_layer_1p3b(getattr(torch, dtype))
+    ids = _generate_inputs(model)
+    L, N = 2, 24
+    K.reset_launch_counts()
+    out = model.generate(ids, max_new_tokens=N, temperature=0.0)
+    assert model.decode_programs.graphs == 1
+    eager = generate_compiled(model, ids, N, None, replay=False)
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    assert K.launch_counts()["layer_norm"] == 2 * (2 * L + 1) * N
+    eos = int(out[0, 18])
+    rows = [set(r[16:].tolist()) for r in out]
+    if all(eos in r for r in rows):
+        got = model.generate(ids, max_new_tokens=N, temperature=0.0,
+                             eos_token_id=eos)
+        assert torch.equal(got, generate_compiled(model, ids, N, eos,
+                                                  replay=False))
+    if dtype == "float32":
+        K.reset_launch_counts()
+        dense = model.generate(ids, max_new_tokens=N, temperature=0.0,
+                               compiled=False)
+        torch.cuda.synchronize()
+        assert torch.equal(dense, out)
+        counts = K.launch_counts()
+        assert counts["flash_fwd"] == L * (N + 1)
+        assert counts["layer_norm"] == (2 * L + 1) * (N + 1)
 
 
 @pytest.mark.cuda
