@@ -178,13 +178,50 @@ exit code:
     2e-2 |max|``, every sampled one within that of its step's top 50.
     Prints ms a step and tokens/s on the host clock and the capture
     seconds.
+16. **operations** — the serving engine's operational surface on
+    ``gpt_1p3b`` bf16 (24 layers, seed 0) with two ragged engines A and B
+    on one model (16 slots, page 16, 2048 pages each, chunked prefill
+    256, ``jit=True``): (a) after ``warm_ragged()``, phase 3's load twice
+    on A, once with request tracing at sample rate 1 and a metrics
+    registry writing JSONL, once with both off (tokens/s, TTFT/ITL
+    p50/p99, the host ms a round split as in phase 5; every request's
+    trace runs ``enqueue`` … ``request_done``, one ``decode_round`` span a
+    round, ``trace_report`` one row a request, the JSONL's counters equal
+    the engine's own; launches exact: 24 ragged attention and 49
+    LayerNorm a round); (b) a 200-token request decoded alone on A for 8
+    rounds moves to B by ``fleet.migrate_request``: ``snapshot_kv`` on B
+    equals A's payload bit for bit, and B's continuation gives the tokens
+    and the bit-equal logits of the same request run unmigrated on A
+    (payload bytes and the ms of snapshot, release and adopt printed);
+    (c) 16 requests on A, 8 of them migrated to B after 8 rounds and one
+    more aborted (slot freed, pages back to refcount 0, ``on_done`` never
+    fired), every other request finishing with its tokens, each greedy
+    token the argmax of a no-cache forward within phase 15's tolerance,
+    launches exact on both engines; (f) an engine built with
+    ``attn_backend="auto"`` reports the gate's plain and kernel times,
+    stays ``"pallas"`` and launches the ragged kernel in its next round,
+    and ``"xla"`` on the card raises; (d) 36 requests into 16 slots, then
+    ``shutdown(drain_s=30)`` after 4 rounds (queued requests fail with
+    ``EngineShuttingDown``, every in-flight one finishes, the summary
+    counts both, the JSONL is flushed), and ``drain_s=0`` on a fresh load
+    (the in-flight requests fail naming the deadline); (e) a child
+    process (``chip_smoke.py --sigterm-child``: a 2-layer model at
+    ``gpt_1p3b`` widths, ``install_sigterm``, a request started) is sent
+    SIGTERM and must exit 75 after printing the request's complete
+    tokens; (g) the bucketed engine (2 layers at full width, RMSNorm,
+    ``ragged=False``) migrates a request alone as in (b), tokens equal
+    and logits bit-equal, launches exact (2 paged attention and 5 RMSNorm
+    a decode step, 2 flash forward a dense prefill, a capture's warm-up
+    counted).
 
 The lines before the last carry the ``{"kernels": [...]}`` JSON (all eight
 kernels; the ``fused_adamw`` entry adds the master and bf16-moment modes'
 numbers and phase 13's launches, and its ``max_abs_err`` is the largest of
 its three modes'; the ``flash_fwd`` entry adds phase 15's ``sq1_*``
 numbers and the dense-cache loop's launches, ``layer_norm`` the compiled
-loop's) and the
+loop's; the entries of the kernels phase 16 runs add its launches as
+``ops_launches``, and the ragged entry the gate's plain and kernel ms) and
+the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the repository beside it, the script exits
 non-zero and prints no result.
@@ -2091,6 +2128,565 @@ def generate_phase(pt, K, B=4, P=128, N=256):
         {"generate_launches": want["layer_norm"]}
 
 
+# ------------------------------------------------------ operations phase
+OPS_ENGINE = dict(page_size=16, num_pages=2048, max_slots=16,
+                  prefill_chunk=256, jit=True)
+
+
+def phase3_load(vocab):
+    """Phase 3's 36 requests (32 mixed-length, 4 sharing a 128-token
+    head) and their token budgets."""
+    from paddle_tpu_torch.serving import (make_mixed_length_prompts,
+                                          make_shared_prefix_prompts)
+    mixed, news = make_mixed_length_prompts(
+        32, (16, 512), vocab, decode_heavy=0.5, max_new_tokens=(32, 32),
+        seed=SEED)
+    shared = make_shared_prefix_prompts(4, (16, 64), vocab, 128,
+                                        seed=SEED + 1)
+    return [shared[0]] + mixed + shared[1:], [32] + news + [32] * 3
+
+
+def count_rounds(eng):
+    """Count ``eng``'s launched ragged rounds in ``eng.launched`` (an
+    instance wrapper over its round function)."""
+    run = eng._ragged_fn
+    eng.launched = 0
+
+    def counting(*a, **kw):
+        eng.launched += 1
+        return run(*a, **kw)
+
+    eng._ragged_fn = counting
+
+
+def check_launches(K, tag, rounds, L):
+    """The counts since the last reset against ``rounds`` ragged rounds
+    of ``L`` layers: attention L and LayerNorm 2L + 1 times a round."""
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in K.launch_counts().items() if v}
+    want = {"ragged_paged_attention": rounds * L,
+            "layer_norm": rounds * (2 * L + 1)}
+    log(f"  {tag}: launches {launches} over {rounds} rounds")
+    if rounds <= 0 or launches != want:
+        fail(f"operations {tag}: launches {launches} != {want}")
+    return launches
+
+
+def ops_load(K, eng, prompts, news, label):
+    """Phase 3's Poisson load on ``eng``'s serve loop, counters zeroed
+    just before -> (summary, rounds launched, host ms a round split into
+    scheduler and assembly / program call / fetch wait, stats before and
+    after). Each round's host time is taken around ``step()``."""
+    from paddle_tpu_torch.serving import run_poisson_load
+    step, host = eng.step, [0.0]
+
+    def timed_step():
+        t0 = time.perf_counter()
+        try:
+            return step()
+        finally:
+            host[0] += time.perf_counter() - t0
+
+    eng.step = timed_step
+    before = eng.stats()
+    launched0 = eng.launched
+    K.reset_launch_counts()
+    eng.start()
+    try:
+        res = run_poisson_load(eng, qps=16.0, prompts=prompts,
+                               max_new_tokens=news, seed=SEED,
+                               timeout=600.0)
+    finally:
+        eng.stop()
+        del eng.step
+    st = eng.stats()
+    rounds = eng.launched - launched0
+    steps = st["steps"] - before["steps"]
+    split = {"round": host[0] * 1e3 / steps}
+    for k in ("call", "wait"):
+        split[k] = (st["round_host_s"][k] - before["round_host_s"][k]) \
+            * 1e3 / steps
+    split["scheduler and assembly"] = split["round"] - split["call"] \
+        - split["wait"]
+    log(f"[operations] load {label}: {res['tokens_per_sec']} tokens/s, "
+        f"TTFT p50 {res['ttft_ms_p50']} / p99 {res['ttft_ms_p99']} ms, ITL "
+        f"p50 {res['itl_ms_p50']} / p99 {res['itl_ms_p99']} ms; {steps} "
+        f"rounds, host {split['round']:.4f} ms a round (scheduler and "
+        f"assembly {split['scheduler and assembly']:.4f}, program call "
+        f"{split['call']:.4f}, fetch wait {split['wait']:.4f})")
+    log(f"  {json.dumps(res)}")
+    if res["requests_ok"] != len(prompts) or res["requests_failed"] \
+            or res["tokens"] != sum(news):
+        fail(f"operations load {label}: {res['requests_failed']} failed, "
+             f"{res['tokens']} of {sum(news)} tokens")
+    if rounds != steps:
+        fail(f"operations load {label}: {rounds} launched rounds in "
+             f"{steps} steps")
+    if st["graphs"] != before["graphs"]:
+        fail(f"operations load {label}: a pad was captured mid-load")
+    return res, rounds, split, before, st
+
+
+def ops_trace_and_metrics(K, A, prompts, news, work):
+    """16a: the load traced with a JSONL registry, then untraced. -> the
+    rounds of both loads."""
+    from paddle_tpu_torch.observability import (MetricsRegistry,
+                                                trace_report, tracing)
+    from paddle_tpu_torch.serving import ServingMetrics
+    L, eid = A.cfg.num_layers, A.engine_id
+    reg = MetricsRegistry(rank=0, out_dir=work)
+    A.metrics = ServingMetrics(registry=reg, engine=eid)
+    path = os.path.join(work, "trace.0.json")
+    os.environ["PADDLE_TPU_TRACE_SAMPLE"] = "1"
+    tracing.start(path=path, rank=0)
+    try:
+        res_on, rounds_on, split_on, st0, st1 = ops_load(
+            K, A, prompts, news, "traced, metrics JSONL on")
+    finally:
+        tracing.stop()
+        os.environ.pop("PADDLE_TPU_TRACE_SAMPLE")
+    check_launches(K, "traced load", rounds_on, L)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [e for e in events if e.get("name") == "decode_round"]
+    lanes = {}
+    for e in events:
+        tid = (e.get("args") or {}).get("trace")
+        if tid is not None:
+            lanes.setdefault(tid, []).append(e["name"])
+    rows = trace_report.build_request_rows(trace_report.load_events(path))
+    whole = all(n[0] == "enqueue" and n[-1] == "request_done"
+                for n in lanes.values())
+    log(f"  trace: {len(events)} events, {len(spans)} decode_round spans "
+        f"for {rounds_on} rounds, {len(lanes)} request traces (each "
+        f"enqueue ... request_done: {whole}), trace_report {len(rows)} "
+        f"rows")
+    if len(spans) != rounds_on or len(lanes) != len(prompts) or not whole \
+            or len(rows) != len(prompts):
+        fail("operations: the trace does not hold one decode_round a round "
+             "and one whole lifecycle a request")
+    reg.flush()
+    with open(reg.out_path()) as f:
+        last = json.loads(f.read().splitlines()[-1])
+    c = last["counters"]
+    got = {"ok": c.get(f"serving_requests_total{{engine={eid},status=ok}}"),
+           "tokens": c.get(f"serving_tokens_total{{engine={eid}}}"),
+           "prefill": c.get("serving_prefill_chunk_tokens_total"
+                            f"{{engine={eid}}}")}
+    want = {"ok": len(prompts), "tokens": res_on["tokens"],
+            "prefill": st1["prefill_chunk_tokens"]
+            - st0["prefill_chunk_tokens"]}
+    decoded = st1["decode_tokens"] - st0["decode_tokens"]
+    log(f"  JSONL line {last['seq']}: {got}; the engine: {want}, {decoded} "
+        f"decode tokens + {len(prompts)} first tokens")
+    if got != want or got["tokens"] != decoded + len(prompts):
+        fail(f"operations: the JSONL counters {got} != the engine's {want}")
+    A.metrics = ServingMetrics(registry=None, engine=eid)
+    if A.metrics.enabled:
+        fail("operations: the untraced run has a metrics registry")
+    A.prefix.clear()     # the same prompts must not hit the first run's
+    _, rounds_off, split_off, _, _ = ops_load(
+        K, A, prompts, news, "untraced, metrics off")
+    check_launches(K, "untraced load", rounds_off, L)
+    log(f"  tracing and JSONL on minus off: "
+        f"{split_on['scheduler and assembly'] - split_off['scheduler and assembly']:.4f}"
+        f" ms a round of scheduler and assembly, "
+        f"{split_on['round'] - split_off['round']:.4f} ms a round in all")
+    A.prefix.clear()
+    return rounds_on + rounds_off
+
+
+def greedy_run(eng, prompt, new, rounds_before, on_migrate=None):
+    """``prompt`` alone on ``eng``: ``rounds_before`` rounds (the first
+    prefills), then ``on_migrate(req)`` (which moves the request and
+    returns the engine it is on) if given, then to the end with
+    ``capture_logits`` on -> (tokens, the request's logit rows of the
+    captured rounds)."""
+    req = eng.submit(prompt, max_new_tokens=new)
+    for _ in range(rounds_before):
+        eng.step()
+    on = eng if on_migrate is None else on_migrate(req)
+    on.capture_logits = []
+    on.run_until_idle()
+    rows = [cap[next(s for s, r in m.items() if r == req.request_id)]
+            for m, cap in on.capture_logits]
+    on.capture_logits = None
+    return req.result(1), np.stack(rows)
+
+
+def timed_migration(src, dst, req, times, payload):
+    """``fleet.migrate_request(src, dst, req)`` with snapshot, release and
+    adopt each timed (synchronised) and the payload kept -> outcome."""
+    from paddle_tpu_torch.serving.fleet import migrate_request
+
+    def timed(name, fn):
+        def run(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            times[name] = (time.perf_counter() - t0) * 1e3
+            if name == "snapshot_kv":
+                payload.extend(out)
+            return out
+        return run
+
+    src.snapshot_kv = timed("snapshot_kv", src.snapshot_kv)
+    src.release_request = timed("release_request", src.release_request)
+    dst.adopt_request = timed("adopt_request", dst.adopt_request)
+    try:
+        return migrate_request(src, dst, req)
+    finally:
+        del src.snapshot_kv, src.release_request, dst.adopt_request
+
+
+def lone_migration(tag, A, B, vocab, rounds_before=8, new=24):
+    """16b / 16g: a 200-token request alone on A for ``rounds_before``
+    rounds (the bucketed engine's first round prefills and decodes) moves
+    to B (B's snapshot equals A's payload bit for bit); its
+    tokens and logit rows on B against the same request run unmigrated on
+    A (bit-equal). -> the payload's size and the steps' ms."""
+    prompt = np.random.RandomState(SEED + 30).randint(
+        1, vocab, size=200).tolist()
+    times, payload, snap = {}, [], []
+
+    def migrate(req):
+        outcome = timed_migration(A, B, req, times, payload)
+        if outcome != "migrated":
+            fail(f"operations {tag}: migrate_request -> {outcome}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap.extend(B.snapshot_kv(req))
+        times["second snapshot_kv (on B)"] = (time.perf_counter() - t0) * 1e3
+        return B
+
+    toks, rows = greedy_run(A, prompt, new, rounds_before, migrate)
+    A.prefix.clear()     # the reference prefills as the first run did
+    ref_toks, ref_rows = greedy_run(A, prompt, new, rounds_before)
+    ks, vs, length = payload
+    same_kv = snap[2] == length and all(
+        torch.equal(a, b) for a, b in zip(ks + vs, snap[0] + snap[1]))
+    nbytes = 2 * sum(k.numel() * k.element_size() for k in ks)
+    L, KVH, Dh = len(ks), ks[0].shape[1], ks[0].shape[2]
+    same_rows = rows.shape == ref_rows.shape \
+        and np.array_equal(rows, ref_rows)
+    diff = float(np.abs(rows - ref_rows).max()) \
+        if rows.shape == ref_rows.shape else float("nan")
+    snap_ms, adopt_ms = times["snapshot_kv"], times["adopt_request"]
+    log(f"[operations] {tag}: {length} tokens moved, payload {nbytes} bytes "
+        f"(2 x {L} layers x {length} x {KVH} x {Dh} x 2 B); snapshot_kv "
+        f"{snap_ms:.3f} ms ({nbytes / snap_ms / 1e6:.2f} GB/s), "
+        f"release_request {times['release_request']:.3f} ms, adopt_request "
+        f"{adopt_ms:.3f} ms ({nbytes / adopt_ms / 1e6:.2f} GB/s); a second "
+        f"snapshot_kv (on B, its pinned buffers cached) "
+        f"{times['second snapshot_kv (on B)']:.3f} ms")
+    log(f"  snapshot on B equals A's payload: {same_kv}; tokens "
+        f"{'equal' if toks == ref_toks else 'DIFFER'} over {len(toks)}; "
+        f"{rows.shape[0]} continuation rounds' logits bit-equal: "
+        f"{same_rows} (largest difference {diff})")
+    if not (same_kv and toks == ref_toks and same_rows):
+        fail(f"operations {tag}: the migrated request differs from the "
+             f"unmigrated one")
+    return {"payload_bytes": nbytes, "tokens": length, **times}
+
+
+def migrate_under_load(K, A, B, model, vocab):
+    """16c: 16 requests on A; after 8 rounds 8 active ones move to B and a
+    prefilling one is aborted; both engines run to idle. -> its rounds."""
+    from paddle_tpu_torch.serving import make_mixed_length_prompts
+    from paddle_tpu_torch.serving.fleet import migrate_request
+    L = A.cfg.num_layers
+    # prompts of at most one chunk: one prompt completes a round
+    prompts, news = make_mixed_length_prompts(
+        16, (16, 256), vocab, decode_heavy=0.5, max_new_tokens=(32, 32),
+        seed=SEED + 40)
+    done = []
+    a0, b0 = A.launched, B.launched
+    K.reset_launch_counts()
+    reqs = [A.submit(p, max_new_tokens=n,
+                     on_done=lambda r: done.append(r.request_id))
+            for p, n in zip(prompts, news)]
+    for _ in range(8):
+        A.step()
+    active = sorted((r for r in A.scheduler.active.values()
+                     if r.state == "active"), key=lambda r: r.slot)
+    victim = next((r for r in reqs if r.state == "prefilling"), None)
+    if len(active) < 8 or victim is None:
+        fail(f"operations under load: {len(active)} active after 8 rounds")
+    outcomes = [migrate_request(A, B, r) for r in active[:8]]
+    pages = list(victim.pages)
+    alloc = A.kv.allocator
+    aborted = A.abort_request(victim)
+    freed = victim.slot is None and not victim.pages and all(
+        alloc.refcount(p) == 0 for p in pages)
+    again = A.abort_request(victim)
+    while A.scheduler.has_work() or B.scheduler.has_work():
+        for eng in (A, B):
+            if eng.scheduler.has_work():
+                eng.step()
+    rounds = (A.launched - a0) + (B.launched - b0)
+    check_launches(K, "migration and abort under load", rounds, L)
+    short = [r.request_id for r, n in zip(reqs, news)
+             if r is not victim and len(r.result(1)) != n]
+    log(f"[operations] under load: migrations {outcomes}; aborted a "
+        f"prefilling request: {aborted} (slot freed, its {len(pages)} "
+        f"pages at refcount 0: {freed}; a second abort refused: "
+        f"{not again}; on_done fired for it: {victim.request_id in done}); "
+        f"{len(done)} requests done; A {A.launched - a0} rounds, B "
+        f"{B.launched - b0}")
+    if outcomes != ["migrated"] * 8 or not aborted or not freed or again \
+            or victim.request_id in done or short or len(done) != 15:
+        fail("operations under load: a migration, the abort or a request's "
+             "tokens went wrong")
+    worst, exact, n_tok = 0.0, 0, 0
+    for r, p in zip(reqs, prompts):
+        if r is victim:
+            continue
+        out = torch.tensor([p + r.generated], device=model.device)
+        e, n, short_by, ok = teacher_forced(model, out, len(p))
+        exact, n_tok, worst = exact + e, n_tok + n, max(worst, short_by)
+        if not ok:
+            fail(f"operations under load: request {r.request_id}'s tokens "
+                 f"are not the argmax of a no-cache forward")
+    log(f"  teacher-forced: {exact} of {n_tok} tokens the exact argmax, the "
+        f"largest shortfall {worst:.4f} (tolerance 2e-2 + 2e-2 x |max|)")
+    return rounds
+
+
+def ab_gate_check(K, pt, model):
+    """16f: the measure-only gate keeps the kernel; "xla" raises. -> the
+    gate's row."""
+    eng = pt.ServingEngine(model, page_size=16, num_pages=64, max_slots=16,
+                           prefill_chunk=256, attn_backend="auto",
+                           jit=False)
+    ab = eng.stats()["attn_ab"]
+    K.reset_launch_counts()
+    eng.generate(list(range(1, 21)), max_new_tokens=1)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in K.launch_counts().items() if v}
+    L = model.config.num_layers
+    log(f"[operations] gate attn_backend='auto': {ab}; attn_backend "
+        f"{eng.attn_backend}; the next round's launches {launches}")
+    if eng.attn_backend != "pallas" or ab["xla_ms"] is None \
+            or ab["pallas_ms"] is None or launches != {
+                "ragged_paged_attention": L, "layer_norm": 2 * L + 1}:
+        fail("operations: the gate did not measure both or demoted the "
+             "kernel")
+    eng.close()
+    try:
+        pt.ServingEngine(model, page_size=16, num_pages=8,
+                         attn_backend="xla")
+    except ValueError as e:
+        log(f"  attn_backend='xla' on the card raises: {e}")
+    else:
+        fail("operations: attn_backend='xla' ran on the card")
+    return ab
+
+
+def drain_check(A, B, prompts, news, work):
+    """16d: a drain with a 30 s deadline under 36 requests, then a zero
+    deadline on a fresh load. -> the drain's ms."""
+    from paddle_tpu_torch.observability import MetricsRegistry
+    from paddle_tpu_torch.serving import EngineShuttingDown, ServingMetrics
+    reg = MetricsRegistry(rank=1, out_dir=work)
+    A.metrics = ServingMetrics(registry=reg, engine=A.engine_id)
+    reqs = [A.submit(p, max_new_tokens=n) for p, n in zip(prompts, news)]
+    for _ in range(4):
+        A.step()
+    inflight = list(A.scheduler.active.values())
+    queued = list(A.scheduler.waiting)
+    t0 = time.perf_counter()
+    out = A.shutdown(drain_s=30)
+    drain_ms = (time.perf_counter() - t0) * 1e3
+    finished = sum(len(r.result(0)) == n for r, n in zip(reqs, news)
+                   if r in inflight)
+    refused = 0
+    for r in queued:
+        try:
+            r.result(0)
+        except EngineShuttingDown:
+            refused += 1
+    with open(reg.out_path()) as f:
+        c = json.loads(f.read().splitlines()[-1])["counters"]
+    eid = A.engine_id
+    counted = (c.get(f"serving_requests_total{{engine={eid},status=ok}}"),
+               c.get(f"serving_requests_total{{engine={eid},"
+                     f"status=failed}}"))
+    log(f"[operations] drain: shutdown(drain_s=30) after 4 rounds -> {out} "
+        f"in {drain_ms:.1f} ms; {finished} of {len(inflight)} in flight "
+        f"finished, {refused} of {len(queued)} queued failed with "
+        f"EngineShuttingDown; the flushed JSONL's ok / failed {counted}")
+    if out["failed_queued"] != len(queued) or out["failed_inflight"] \
+            or out["drained_tokens"] <= 0 or finished != len(inflight) \
+            or refused != len(queued) or counted != (len(inflight),
+                                                     len(queued)):
+        fail("operations: the drain lost or miscounted a request")
+    for p, n in zip(prompts, news):
+        B.submit(p, max_new_tokens=n)
+    for _ in range(2):
+        B.step()
+    inflight = list(B.scheduler.active.values())
+    out0 = B.shutdown(drain_s=0)
+    named = 0
+    for r in inflight:
+        try:
+            r.result(0)
+        except EngineShuttingDown as e:
+            named += "drain deadline" in str(e)
+    log(f"  shutdown(drain_s=0) -> {out0}; {named} of {len(inflight)} in "
+        f"flight failed naming the deadline")
+    if not inflight or out0["failed_inflight"] < len(inflight) \
+            or named != len(inflight):
+        fail("operations: the zero-deadline drain did not fail the "
+             "in-flight requests")
+    return drain_ms
+
+
+SIGTERM_TOKENS = 64
+
+
+def sigterm_child():
+    """``chip_smoke.py --sigterm-child``: a 2-layer model at ``gpt_1p3b``
+    widths, ``install_sigterm``, one request stepped to its first token,
+    then ``STARTED`` on stdout; on SIGTERM the drain finishes the request
+    (its ``on_done`` prints its tokens) and the process exits 75."""
+    import paddle_tpu_torch as pt
+    cfg = pt.gpt_1p3b(dropout=0.0)
+    cfg.num_layers = 2
+    model = pt.GPTForCausalLM(cfg, dtype=torch.bfloat16, seed=SEED)
+    eng = pt.ServingEngine(model, page_size=16, num_pages=64, max_slots=4,
+                           prefill_chunk=256, jit=True)
+    if not eng.install_sigterm(drain_s=60):
+        return 3
+    prompt = np.random.RandomState(SEED + 50).randint(
+        1, cfg.vocab_size, size=64).tolist()
+
+    def done(r):
+        print(json.dumps({"tokens": r.generated, "state": r.state,
+                          "draining": eng._draining}), flush=True)
+
+    req = eng.submit(prompt, max_new_tokens=SIGTERM_TOKENS, on_done=done)
+    while not req.generated:
+        eng.step()
+    print("STARTED", flush=True)
+    while True:            # the drain runs on the watcher thread
+        time.sleep(0.05)
+
+
+def sigterm_check():
+    """16e: SIGTERM to the child -> exit 75 with the complete tokens. ->
+    ms from the signal to the exit."""
+    import signal as _signal
+    child = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                              "--sigterm-child"], cwd=HERE,
+                             stdout=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        for line in child.stdout:
+            if line.strip() == "STARTED":
+                break
+        else:
+            fail(f"operations: the SIGTERM child exited {child.wait()} "
+                 f"before its request started")
+        t1 = time.perf_counter()
+        child.send_signal(_signal.SIGTERM)
+        rest, _ = child.communicate(timeout=120)
+        t2 = time.perf_counter()
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    rc = child.returncode
+    outs = [json.loads(x) for x in rest.splitlines() if x.startswith("{")]
+    log(f"[operations] SIGTERM child: ready in {t1 - t0:.2f} s, exit {rc} "
+        f"{(t2 - t1) * 1e3:.1f} ms after the signal; on_done: "
+        f"{[(len(o['tokens']), o['state'], o['draining']) for o in outs]}")
+    if rc != 75 or len(outs) != 1 \
+            or len(outs[0]["tokens"]) != SIGTERM_TOKENS \
+            or outs[0]["state"] != "finished" or not outs[0]["draining"]:
+        fail(f"operations: the SIGTERM child exited {rc} with {outs}")
+    return (t2 - t1) * 1e3
+
+
+def bucketed_migration(K, pt):
+    """16g: a lone migration on the bucketed engine (2 layers at full
+    width, RMSNorm), launches exact over both engines. -> its numbers and
+    launches."""
+    cfg = pt.gpt_1p3b(use_rms_norm=True, dropout=0.0)
+    cfg.num_layers = L = 2
+    model = pt.GPTForCausalLM(cfg, dtype=torch.bfloat16, seed=SEED)
+    kw = dict(page_size=16, num_pages=256, max_slots=16, prefill_chunk=None,
+              ragged=False, jit=True)
+    GA = pt.ServingEngine(model, engine_id="GA", **kw)
+    GB = pt.ServingEngine(model, engine_id="GB", **kw)
+
+    def runs():
+        # forwards of each kind, a capture's warm-up run counted
+        out = {}
+        for eng in (GA, GB):
+            for k, v in eng.stats()["bucketed_launches"].items():
+                out[k] = out.get(k, 0) + v + sum(
+                    1 for key, prog in eng._rounds._progs.items()
+                    if key[0] == k and prog.captured is not None)
+        return out
+
+    K.reset_launch_counts()
+    before = runs()
+    numbers = lone_migration("bucketed lone migration", GA, GB,
+                             cfg.vocab_size)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in K.launch_counts().items() if v}
+    n = {k: v - before[k] for k, v in runs().items()}
+    want = {"paged_attention": n["decode"] * L,
+            "rms_norm": sum(n.values()) * (2 * L + 1),
+            "flash_fwd": n["prefill"] * L}
+    log(f"  bucketed: {n} forwards on GA and GB (a capture's warm-up "
+        f"counted), launches {launches}")
+    if launches != {k: v for k, v in want.items() if v} or n["prefill"] < 2:
+        fail(f"operations bucketed: launches {launches} != {want}")
+    GA.close()
+    GB.close()
+    return numbers, launches
+
+
+def operations_phase(pt, K):
+    """Phase 16 (module docstring) -> its numbers and the launches it
+    adds to the kernel entries."""
+    import tempfile
+    cfg = pt.gpt_1p3b(dropout=0.0)
+    model = pt.GPTForCausalLM(cfg, dtype=torch.bfloat16, seed=SEED)
+    L = cfg.num_layers
+    A = pt.ServingEngine(model, engine_id="A", **OPS_ENGINE)
+    B = pt.ServingEngine(model, engine_id="B", **OPS_ENGINE)
+    for eng in (A, B):
+        eng.warm_ragged()
+        count_rounds(eng)
+    log(f"[operations] gpt_1p3b bf16, engines A and B "
+        f"({A.kv.nbytes() / 1e9:.2f} GB of KV each, {A.stats()['graphs']} "
+        f"graphs each); A's gate at construction: {A.stats()['attn_ab']}")
+    prompts, news = phase3_load(cfg.vocab_size)
+    out = {}
+    with tempfile.TemporaryDirectory() as work:
+        rounds_a = ops_trace_and_metrics(K, A, prompts, news, work)
+        # the prefill round, then 8 decode rounds
+        out["migration"] = lone_migration("lone migration", A, B,
+                                          cfg.vocab_size, rounds_before=9)
+        rounds_c = migrate_under_load(K, A, B, model, cfg.vocab_size)
+        out["gate"] = ab_gate_check(K, pt, model)
+        out["drain_ms"] = drain_check(A, B, prompts, news, work)
+    del A, B, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["sigterm_exit_ms"] = sigterm_check()
+    out["bucketed_migration"], g_launches = bucketed_migration(K, pt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rounds = rounds_a + rounds_c
+    out["launches"] = {"ragged_paged_attention": rounds * L,
+                       "layer_norm": rounds * (2 * L + 1), **g_launches}
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -2444,6 +3040,16 @@ def main():
                                flash_sq1["sq1_max_abs_err"])
     next(e for e in kernels if e["name"] == "layer_norm").update(ln_gen)
 
+    # ---------------------------------------------- phase 16: operations
+    ops = operations_phase(pt, K)
+    for name, n in ops["launches"].items():
+        next(e for e in kernels if e["name"] == name)["ops_launches"] = n
+    gate = ops["gate"]
+    ragged_entry = next(e for e in kernels
+                        if e["name"] == "ragged_paged_attention")
+    ragged_entry.update({"ops_gate_plain_ms": gate["xla_ms"],
+                         "ops_gate_kernel_ms": gate["pallas_ms"]})
+
     adam = next(e for e in kernels if e["name"] == "fused_adamw")
     adam.update(adam_o2)
     adam["o2_launches"] = o_launches["fused_adamw"]
@@ -2460,4 +3066,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--sigterm-child"]:
+        sys.exit(sigterm_child())
     sys.exit(main())

@@ -1,5 +1,5 @@
-"""Distributed training of the port (the subset ported so far: ``fleet``'s
-activation recomputation)."""
-from . import fleet
+"""Distributed pieces of the port ported so far: ``fleet``'s activation
+recomputation and ``fault``'s injection points and graceful preemption."""
+from . import fault, fleet
 
-__all__ = ["fleet"]
+__all__ = ["fault", "fleet"]

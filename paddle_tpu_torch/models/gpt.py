@@ -48,7 +48,8 @@ The ported branches of ``GPTAttention.forward``:
   (:func:`paged_write_index`). A decode step (S = 1) writes each row's
   token and runs the paged decode kernel with context ``positions + 1``;
   a chunk step writes ``chunk_lens[b]`` tokens per row (padding to the
-  scrap page) and runs :func:`~..ops.kernels.paged_prefill_reference`.
+  scrap page, as zeros) and runs
+  :func:`~..ops.kernels.paged_prefill_reference`.
 * **dense cache** (``gpt.py:400-413``): a dict whose ``"k"`` is None is
   the prefill: causal attention over the prompt (the flash forward kernel
   on the card), leaving the un-expanded KVH-head K and V in the dict (the
@@ -180,9 +181,14 @@ def paged_write_index(cache, seq_len):
     token ``i`` of row ``b`` sits at ``positions[b] + i`` in
     ``block_tables[b, pos // page]`` at ``pos % page``. A chunk step's
     tokens past ``chunk_lens[b]`` are redirected to the reserved scrap page
-    0 (``_pool_write_seq``, ``gpt.py:122-140``); a decode step writes every
-    row (``_pool_write``, :106-119): inactive slots carry position 0 and an
-    all-zero table, so theirs lands on the scrap page, never read."""
+    0 (``_pool_write_seq``, ``gpt.py:122-140``), and a third entry, their
+    ``keep`` mask [B * S], has :func:`_pool_write` write them as zeros: a
+    pad row of the chunk step (length 0, all-zero table) attends over the
+    scrap page, which then holds this round's zeros only, so its discarded
+    output is the same on every run. A decode step writes every row
+    (``_pool_write``, :106-119): inactive slots carry position 0, token 0
+    and an all-zero table, so theirs lands on the scrap page as one value
+    and only they read it."""
     if seq_len > 1 and "chunk_lens" not in cache:
         raise ValueError(
             "multi-token paged forward is chunked prefill and needs "
@@ -194,10 +200,12 @@ def paged_write_index(cache, seq_len):
     pos = cache["positions"].long()[:, None] + i[None, :]        # [B, S]
     logical = (pos // page_size).clamp(0, bt.shape[1] - 1)
     phys = bt.long().gather(1, logical)
-    if seq_len > 1:
-        valid = i[None, :] < cache["chunk_lens"].long()[:, None]
-        phys = torch.where(valid, phys, torch.zeros_like(phys))
-    return phys.reshape(-1), (pos % page_size).reshape(-1)
+    slot = (pos % page_size).reshape(-1)
+    if seq_len == 1:
+        return phys.reshape(-1), slot
+    valid = i[None, :] < cache["chunk_lens"].long()[:, None]
+    phys = torch.where(valid, phys, torch.zeros_like(phys))
+    return phys.reshape(-1), slot, valid.reshape(-1)
 
 
 def _add(a, b):
@@ -220,13 +228,19 @@ def _cache_write(buf, new, ln):
 
 def _pool_write(pool, new, index):
     """Scatter K or V (``new`` [N, KVH, Dh]) into the page pool at
-    ``index`` = (phys, slot), N entries each. In place: the pool tensor is
-    updated where it lies, which takes the place of the JAX package's
-    functional ``.at[].set`` on donated pools. Entries redirected to the
-    scrap page may share an index; which value lands there is left
-    undefined, as the page is never read."""
-    phys, slot = index
-    pool[phys, slot] = new.to(pool.dtype)
+    ``index`` = (phys, slot), N entries each, or (phys, slot, keep), whose
+    entries outside ``keep`` [N] bool are written as zeros. In place: the
+    pool tensor is updated where it lies, which takes the place of the JAX
+    package's functional ``.at[].set`` on donated pools. Entries
+    redirected to the scrap page may share an index; which of them lands
+    there is left undefined, so only zeros (a chunk step's padding,
+    :func:`paged_write_index`) or one value (a decode step's inactive
+    slots) go there where the scrap page is read, and a ragged round's pad
+    tokens, whose page nothing reads, may carry any value."""
+    new = new.to(pool.dtype)
+    if len(index) == 3:
+        new = new.masked_fill(~index[2][:, None, None], 0)
+    pool[index[0], index[1]] = new
     return pool
 
 
@@ -257,7 +271,7 @@ class GPTAttention(nn.Module):
     def forward(self, x, cache=None, write_index=None):
         """``cache=None``: causal attention over ``x`` [B, S, h] (training).
         A ragged or paged cache dict: one serving forward, with
-        ``write_index`` = (phys, slot) of every token's K/V from
+        ``write_index`` = (phys, slot[, keep]) of every token's K/V from
         :func:`ragged_write_index` / :func:`paged_write_index` (one per
         forward, shared by the layers). A static dict: one step over the
         fixed buffers at the cursor ``len``. A dense dict: the prefill

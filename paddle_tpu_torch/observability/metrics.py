@@ -1,22 +1,47 @@
-"""Metrics registry — lock-cheap counters, gauges and histograms.
+"""Metrics registry — lock-cheap counters, gauges and histograms, and
+their JSONL snapshots.
 
-The registry half of ``paddle_tpu/observability/metrics.py`` (stdlib
-only): :class:`Counter` / :class:`Gauge` / :class:`Histogram` with labels
-and one process-wide :class:`MetricsRegistry` gated by
-``PADDLE_TPU_METRICS=1`` (unset: every hook is a constant-time no-op);
-:meth:`MetricsRegistry.snapshot` reads everything as one dict. The JSONL
-writer and the collective, replication and peak-rate helpers of the JAX
-package are not ported yet.
+The port of ``paddle_tpu/observability/metrics.py`` (stdlib only):
+
+* :class:`Counter` / :class:`Gauge` / :class:`Histogram` with labels;
+  latency histograms use exponential buckets so one 24-bucket vector
+  spans 1..8.4e6 (µs or ms) with constant relative error.
+* One process-wide :class:`MetricsRegistry`, env-gated
+  (``PADDLE_TPU_METRICS=1``; unset = every hook is a constant-time
+  no-op: one module-global ``None`` check, no allocation).
+* Periodic JSONL snapshots, one per line, into
+  ``<dir>/metrics.<rank>.jsonl`` (``PADDLE_TPU_METRICS_DIR``, falling
+  back to the launcher's ``PADDLE_TPU_WORKERLOG_DIR``; interval
+  ``PADDLE_TPU_METRICS_INTERVAL_S``, default 10 s, 0 = explicit flushes
+  only) plus an atexit flush. Each line holds ``ts``, ``rank``, ``seq``,
+  ``counters``, ``gauges`` and ``histograms``, as the JAX package writes
+  them.
+
+The collective and replication helpers and the peak-rate table of the JAX
+module are not ported.
 """
 from __future__ import annotations
 
+import atexit
 import bisect
+import json
 import os
+import sys
 import threading
 import time
 
-__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
-           "exp_buckets", "metric_key", "get_registry"]
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "env_rank",
+           "exp_buckets", "get_registry", "enabled", "enable", "disable",
+           "metric_key", "parse_metric_key", "counter", "gauge",
+           "histogram", "observe", "flush", "hist_quantile", "hist_mean"]
+
+
+def env_rank() -> int:
+    """This process's rank for artifact naming — the launcher-exported
+    id chain (one copy, shared with the trace buffer)."""
+    return int(os.environ.get(
+        "PADDLE_TPU_PROCESS_ID",
+        os.environ.get("PADDLE_TRAINER_ID", "0")) or 0)
 
 
 def exp_buckets(start=1.0, factor=2.0, count=24):
@@ -39,6 +64,19 @@ def metric_key(name, labels=None):
         return name
     inner = ",".join(f"{k}={labels[k]}" for k in sorted(labels))
     return f"{name}{{{inner}}}"
+
+
+def parse_metric_key(key):
+    """Inverse of :func:`metric_key` -> (name, labels dict)."""
+    if "{" not in key:
+        return key, {}
+    name, _, rest = key.partition("{")
+    labels = {}
+    for part in rest.rstrip("}").split(","):
+        if "=" in part:
+            k, _, v = part.partition("=")
+            labels[k] = v
+    return name, labels
 
 
 class Counter:
@@ -107,14 +145,56 @@ class Histogram:
                     "min": self.min, "max": self.max}
 
 
-class MetricsRegistry:
-    """Process-wide metric store."""
+def hist_quantile(h, q):
+    """Quantile estimate from a histogram dict (``Histogram.to_dict`` or a
+    JSONL-deserialized one); linear within the winning bucket. Returns
+    None for an empty histogram."""
+    count = h.get("count") or 0
+    if count <= 0:
+        return None
+    bounds = h["bounds"]
+    counts = h["counts"]
+    target = q * count
+    cum = 0
+    for i, c in enumerate(counts):
+        if c == 0:
+            continue
+        lo = bounds[i - 1] if i > 0 else 0.0
+        hi = bounds[i] if i < len(bounds) else (h.get("max") or bounds[-1])
+        if cum + c >= target:
+            frac = (target - cum) / c
+            return lo + (hi - lo) * max(0.0, min(1.0, frac))
+        cum += c
+    return h.get("max")
 
-    def __init__(self):
+
+def hist_mean(h):
+    count = h.get("count") or 0
+    return (h.get("sum", 0.0) / count) if count else None
+
+
+class MetricsRegistry:
+    """Process-wide metric store + JSONL snapshot writer: ``flush()``
+    appends one snapshot line to :meth:`out_path`, and with ``out_dir``
+    and ``interval_s > 0`` a daemon thread flushes every ``interval_s``
+    seconds until :meth:`close`."""
+
+    def __init__(self, rank=None, out_dir=None, interval_s=0.0):
+        self.rank = env_rank() if rank is None else int(rank)
+        self.out_dir = out_dir
+        self.interval_s = float(interval_s or 0.0)
         self._lock = threading.Lock()
         self._metrics: dict = {}
         self._seq = 0
+        self._stop = threading.Event()
+        self._thread = None
+        if self.out_dir and self.interval_s > 0:
+            self._thread = threading.Thread(
+                target=self._flusher, name="paddle-tpu-torch-metrics",
+                daemon=True)
+            self._thread.start()
 
+    # ------------------------------------------------------------ children
     def _child(self, cls, name, labels, *args):
         key = metric_key(name, labels)
         m = self._metrics.get(key)
@@ -135,12 +215,13 @@ class MetricsRegistry:
     def histogram(self, name, bounds=None, **labels) -> Histogram:
         return self._child(Histogram, name, labels, bounds)
 
+    # ------------------------------------------------------------ snapshot
     def snapshot(self):
         """One JSON-ready dict of everything (counters cumulative)."""
         with self._lock:
             items = list(self._metrics.items())
         self._seq += 1
-        out = {"ts": time.time(), "seq": self._seq,
+        out = {"ts": time.time(), "rank": self.rank, "seq": self._seq,
                "counters": {}, "gauges": {}, "histograms": {}}
         for key, m in items:
             if isinstance(m, Counter):
@@ -152,21 +233,153 @@ class MetricsRegistry:
                 out["histograms"][key] = m.to_dict()
         return out
 
+    def out_path(self):
+        if not self.out_dir:
+            return None
+        return os.path.join(self.out_dir, f"metrics.{self.rank}.jsonl")
+
+    def flush(self):
+        """Append one snapshot line; returns the path (None when no dir is
+        configured or nothing was ever recorded)."""
+        path = self.out_path()
+        if path is None:
+            return None
+        with self._lock:
+            empty = not self._metrics
+        if empty:
+            return None
+        try:
+            os.makedirs(self.out_dir, exist_ok=True)
+            with open(path, "a") as f:
+                f.write(json.dumps(self.snapshot(), default=str) + "\n")
+        except OSError as e:  # telemetry must never kill the job
+            print(f"[metrics] flush to {path} failed: {e}",
+                  file=sys.stderr, flush=True)
+            return None
+        return path
+
+    def _flusher(self):
+        while not self._stop.wait(self.interval_s):
+            self.flush()
+
+    def close(self):
+        self._stop.set()
+        self.flush()
+
+
+# ------------------------------------------------- module-level singleton
 
 _state_lock = threading.Lock()
 _REG: MetricsRegistry | None = None
 _loaded = False
+_atexit_armed = False
+
+
+def _arm_atexit():
+    global _atexit_armed
+    if not _atexit_armed:
+        _atexit_armed = True
+        atexit.register(_atexit_flush)
+
+
+def _atexit_flush():
+    reg = _REG
+    if reg is not None:
+        reg.flush()
+
+
+def _load():
+    """Resolve the env gate once: ``PADDLE_TPU_METRICS=1`` enables the
+    registry; snapshots land in ``PADDLE_TPU_METRICS_DIR`` (falling back
+    to ``PADDLE_TPU_WORKERLOG_DIR``) every ``PADDLE_TPU_METRICS_INTERVAL_S``
+    seconds (default 10; 0 = explicit flushes only)."""
+    global _REG, _loaded
+    with _state_lock:
+        if _loaded:
+            return _REG
+        on = os.environ.get("PADDLE_TPU_METRICS", "")
+        if on not in ("", "0", "false", "False"):
+            out_dir = (os.environ.get("PADDLE_TPU_METRICS_DIR")
+                       or os.environ.get("PADDLE_TPU_WORKERLOG_DIR"))
+            try:
+                interval = float(
+                    os.environ.get("PADDLE_TPU_METRICS_INTERVAL_S", "10")
+                    or 0)
+            except ValueError:
+                interval = 10.0
+            _REG = MetricsRegistry(out_dir=out_dir, interval_s=interval)
+            _arm_atexit()
+        else:
+            _REG = None
+        _loaded = True
+        return _REG
 
 
 def get_registry() -> MetricsRegistry | None:
     """The env-gated singleton registry, or None when metrics are off."""
+    return _REG if _loaded else _load()
+
+
+def enabled() -> bool:
+    return get_registry() is not None
+
+
+def enable(out_dir=None, interval_s=0.0, rank=None) -> MetricsRegistry:
+    """Programmatic gate (tests / bench) — replaces the singleton."""
     global _REG, _loaded
-    if _loaded:
-        return _REG
     with _state_lock:
-        if not _loaded:
-            on = os.environ.get("PADDLE_TPU_METRICS", "")
-            _REG = MetricsRegistry() \
-                if on not in ("", "0", "false", "False") else None
-            _loaded = True
-    return _REG
+        if _REG is not None:
+            _REG.close()
+        _REG = MetricsRegistry(rank=rank, out_dir=out_dir,
+                               interval_s=interval_s)
+        _loaded = True
+        _arm_atexit()
+        return _REG
+
+
+def disable():
+    global _REG, _loaded
+    with _state_lock:
+        if _REG is not None:
+            _REG.close()
+        _REG = None
+        _loaded = True
+
+
+def _reset_state():
+    """Test hook: back to the unresolved env-gated state."""
+    global _REG, _loaded
+    with _state_lock:
+        if _REG is not None:
+            _REG._stop.set()
+        _REG = None
+        _loaded = False
+
+
+# ------------------------------------------------------ no-op-safe helpers
+
+def counter(name, **labels) -> Counter | None:
+    reg = _REG if _loaded else _load()
+    return reg.counter(name, **labels) if reg is not None else None
+
+
+def gauge(name, **labels) -> Gauge | None:
+    reg = _REG if _loaded else _load()
+    return reg.gauge(name, **labels) if reg is not None else None
+
+
+def histogram(name, bounds=None, **labels) -> Histogram | None:
+    reg = _REG if _loaded else _load()
+    return reg.histogram(name, bounds, **labels) if reg is not None \
+        else None
+
+
+def observe(name, value, **labels):
+    reg = _REG if _loaded else _load()
+    if reg is not None:
+        reg.histogram(name, **labels).observe(value)
+
+
+def flush():
+    reg = _REG if _loaded else _load()
+    return reg.flush() if reg is not None else None

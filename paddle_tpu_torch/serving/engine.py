@@ -47,10 +47,38 @@ loop over a paged KV cache on the model's device:
   next round without stalling in-flight rows.
 
 Each round's results reach the host in one copy: the next tokens, or the
-logit rows when a request samples or ``capture_logits`` is set. The A/B
-backend gate (the kernels always run on the card), mesh sharding,
-graceful SIGTERM shutdown, request tracing, the fleet hooks and the
-metrics JSONL writer of the JAX engine are not ported yet.
+logit rows when a request samples or ``capture_logits`` is set.
+
+The operational surface of the JAX engine:
+
+* **graceful shutdown** — :meth:`ServingEngine.shutdown` stops admission
+  (queued requests and later submits fail with the named
+  :class:`~.scheduler.EngineShuttingDown`), drains in-flight requests up
+  to ``drain_s`` seconds, fails what missed the deadline, flushes the
+  metrics JSONL and drops the round programs;
+  :meth:`ServingEngine.install_sigterm` runs that drain on SIGTERM and
+  exits ``EXIT_PREEMPT`` (75), the resumable code.
+* **request tracing** — with :mod:`..observability.tracing` on, every
+  request carries a trace context (enqueue … request_done, with the
+  rounds' ``prefill_chunk`` and ``first_token`` events), and every round
+  adds one ``decode_round`` span; off, a round pays one module-global
+  check.
+* **the fleet hooks** — :meth:`~ServingEngine.snapshot_kv`,
+  :meth:`~ServingEngine.release_request`,
+  :meth:`~ServingEngine.adopt_request`,
+  :meth:`~ServingEngine.readmit_request`,
+  :meth:`~ServingEngine.abort_request`, ``submit(on_done=)`` and a
+  request's ``migrate_hook``: the KV page migration of
+  :mod:`.fleet.disagg`.
+* **the A/B gate** — ``attn_backend`` (:func:`.decode.resolve_backend`)
+  measures the plain version against the kernel at the engine's own
+  launch shape and reports it in ``stats()["attn_ab"]``; the kernel stays
+  on the path (:mod:`.decode`).
+* **fault injection** — the serve loop's ``serve_loop`` site
+  (``PADDLE_TPU_FAULTS``, narrowed to one engine by
+  ``PADDLE_TPU_FAULT_ENGINE``).
+
+Mesh sharding and the fleet's page-share client are not ported.
 """
 from __future__ import annotations
 
@@ -62,20 +90,24 @@ import time
 import numpy as np
 import torch
 
+from ..distributed import fault as _fault
 from ..inference import pick_bucket
+from ..observability import tracing as _trc
 from ..ops.kernels.paged_attention import \
     reserve_scratch as _reserve_paged_scratch
 from ..ops.kernels.ragged_attention import \
     reserve_scratch as _reserve_ragged_scratch
 from ..ops.kernels.ragged_attention import \
     scratch_sizes as _ragged_scratch_sizes
+from . import decode as _decode
 from .compiled import RoundPrograms
 from .kv_cache import PagedKVCache, pages_for
 from .metrics import ServingMetrics
 from .prefix_cache import PrefixCache
+from .ragged_attention import ab_compare_ragged as _ab_compare_ragged
 from .ragged_attention import pad_total_tokens as _pad_total_tokens
 from .scheduler import (ContinuousBatchingScheduler, EngineClosed,
-                        GenerationRequest)
+                        EngineShuttingDown, GenerationRequest)
 
 __all__ = ["ServingEngine"]
 
@@ -125,12 +157,15 @@ class ServingEngine:
     ``ragged=False`` selects the bucketed fallback (``ragged=None`` reads
     ``PADDLE_TPU_SERVING_RAGGED``, ragged unless it is ``0``, ``false`` or
     ``off``), ``jit=False`` eager rounds instead of one program (a CUDA
-    graph on the card) per shape.
+    graph on the card) per shape. ``attn_backend`` (None, ``"auto"``,
+    ``"pallas"``; ``"xla"`` on the CPU only) selects the measure-only A/B
+    gate (:mod:`.decode`).
     """
 
     def __init__(self, model, page_size=16, num_pages=64, max_slots=4,
                  max_queue=256, prefill_seq_buckets=None,
-                 prefill_batch_buckets=None, jit=True, registry=None,
+                 prefill_batch_buckets=None, attn_backend=None, jit=True,
+                 registry=None,
                  prefill_chunk=None, prefill_token_budget=None,
                  prefix_cache=True, ragged=None, engine_id=None):
         cfg = model.config
@@ -138,6 +173,8 @@ class ServingEngine:
         self.model.eval()
         self.cfg = cfg
         self.device = model.device
+        requested = _decode.resolve_backend(attn_backend)
+        _decode.check_backend(requested, self.device)
         self.engine_id = engine_id
         self.page_size = int(page_size)
         self.max_slots = int(max_slots)
@@ -215,6 +252,15 @@ class ServingEngine:
                 else _reserve_paged_scratch(self.max_slots, H, KVH, Dh,
                                             self.max_pages, self.page_size,
                                             self.device)
+        # the A/B gate: measures the plain version against the kernel at
+        # this engine's launch shape and reports it; the kernel stays
+        self.attn_ab = None
+        if requested == "auto":
+            self.attn_ab = self._run_ab_gate_ragged() if self.ragged \
+                else self._run_ab_gate()
+            self.attn_backend = self.attn_ab["backend"]
+        else:
+            self.attn_backend = requested
         # (batch, seq) buckets the dense prefill and the chunk step ran at,
         # and the launches of each bucketed forward
         self._prefill_shapes: set = set()
@@ -230,10 +276,43 @@ class ServingEngine:
         self._stop_evt = threading.Event()
         self._wake = threading.Event()
         self._closed = False
+        self._draining = False
         self._loop_error = None  # terminal serve-loop crash (unhealthy)
-        # serializes scheduler rounds against warm_ragged from another
-        # thread; re-entrant so the serve loop's own step nests freely
+        self._shutdown_lock = threading.Lock()
+        # serializes scheduler rounds against warm_ragged, the fleet hooks
+        # and a SIGTERM drain (a watcher thread) from other threads;
+        # re-entrant so the serve loop's own step nests freely
         self._step_lock = threading.RLock()
+
+    # ------------------------------------------------------------ A/B gate
+    def _gate_q(self, rows):
+        g = torch.Generator(device=self.device).manual_seed(0)
+        H = self.cfg.num_heads
+        return torch.randn((rows, H, self.cfg.hidden_size // H),
+                           generator=g, device=self.device).to(self.kv.dtype)
+
+    def _run_ab_gate(self):
+        """The gate at this engine's decode shape (every slot one token
+        over one page of keys)."""
+        S = self.max_slots
+        bt = np.zeros((S, self.max_pages), np.int32)
+        lens = np.full(S, min(self.page_size, self.cfg.max_seq_len),
+                       np.int32)
+        return _decode.ab_compare(self._gate_q(S), self.kv.k[0],
+                                  self.kv.v[0], bt, lens,
+                                  scratch=self._split_scratch)
+
+    def _run_ab_gate_ragged(self):
+        """The gate at this engine's ragged launch shape (a full round:
+        every slot a decode row, padded to the schedule)."""
+        R = self.max_slots
+        T = _pad_total_tokens(R + self._prefill_budget)
+        kl = np.full(R, min(self.page_size, self.cfg.max_seq_len), np.int32)
+        return _ab_compare_ragged(
+            self._gate_q(T), self.kv.k[0], self.kv.v[0],
+            np.arange(R, dtype=np.int32), np.ones(R, np.int32), kl,
+            np.zeros((R, self.max_pages), np.int32),
+            scratch=self._split_scratch)
 
     def _note_program(self, key):
         """Record the installation of a new shape-specialised program
@@ -359,6 +438,10 @@ class ServingEngine:
         """One ragged scheduler round: admit, grow/evict, then assemble
         decode rows + prefill chunks (budget-bounded FIFO) into ONE flat
         launch. -> decode tokens emitted."""
+        # the ONE tracing gate of the round (off: one check, no
+        # allocation, no call)
+        tr = _trc._TR if _trc._loaded else _trc._load()
+        t0 = time.time() if tr is not None else 0.0
         admitted = self.scheduler.schedule()
         for req in admitted:
             self.metrics.on_admit(req)
@@ -457,6 +540,19 @@ class ServingEngine:
         if spent:
             self._chunk_tokens += spent
             self.metrics.on_prefill_chunk(spent)
+        if tr is not None:
+            now = time.time()
+            # engine-lane round span: ONE per round, row counts in args
+            tr.add("decode_round", t0, now - t0, cat="serving",
+                   args={"decode_rows": len(by_slot),
+                         "prefill_rows": len(plan) - len(decode_rows),
+                         "prefill_tokens": spent})
+            for req, take, _ in plan[len(decode_rows):]:
+                if req.trace is not None:
+                    _trc.req_event(req.trace, "prefill_chunk", t0,
+                                   now - t0,
+                                   args={"tokens": take,
+                                         "cached": req.num_cached})
         self._decode_tokens += len(by_slot)
         return len(by_slot)
 
@@ -471,6 +567,10 @@ class ServingEngine:
         req.emit(tok)
         if first:
             self.metrics.on_first_token(req)
+            if req.trace is not None:
+                _trc.req_event(req.trace, "first_token", time.time(), 0.0,
+                               args={"ttft_ms": (req.t_first_token -
+                                                 req.t_submit) * 1e3})
         self.metrics.on_token(req)
         req.state = "active"
         if req in self._prefilling:
@@ -480,6 +580,21 @@ class ServingEngine:
         if req.hit_stop():
             self.scheduler.finish(req)
             self.metrics.on_finish(req)
+            return
+        hook = req.migrate_hook
+        if hook is not None:
+            # prefill/decode disaggregation: the prompt is done but the
+            # budget has more to go — the hook hands the request (and its
+            # KV pages) to another engine and owns the release/adopt; True
+            # means the request left. A failed hook keeps the row decoding
+            # here, never stranding the caller.
+            try:
+                if hook(self, req):
+                    self.metrics.on_migrate_out(req)
+            except Exception as e:
+                print(f"[serving] migrate hook failed for request "
+                      f"{req.request_id}: {type(e).__name__}: {e} — "
+                      "decoding locally", file=sys.stderr, flush=True)
 
     # ------------------------------------------------- bucketed fallback
     def _prefill_admitted(self, admitted):
@@ -552,6 +667,8 @@ class ServingEngine:
         table is as wide as a row of the bucket can need:
         ``pages_for(seq_bucket + 1)``, as admission allocates for a prompt
         and its first token."""
+        tr = _trc._TR if _trc._loaded else _trc._load()
+        t0 = time.time() if tr is not None else 0.0
         nb = pick_bucket(len(reqs), self.prefill_batch_buckets, strict=True)
         width = min(pages_for(seq_bucket + 1, self.page_size),
                     self.max_pages)
@@ -575,6 +692,10 @@ class ServingEngine:
             ids, lens, bt, need_rows=any(r.temperature > 0.0 for r in reqs))
         for i, req in enumerate(reqs):
             req.num_cached = int(lens[i])
+            if tr is not None and req.trace is not None:
+                _trc.req_event(req.trace, "prefill_chunk", t0,
+                               time.time() - t0,
+                               args={"tokens": int(lens[i]), "dense": True})
             tok = _select_token(logits_np[i], req) \
                 if req.temperature > 0.0 else toks[i]
             self._finish_prompt(req, prompts[i], tok)
@@ -629,6 +750,8 @@ class ServingEngine:
         pending = self._prefilling
         if not pending:
             return 0
+        tr = _trc._TR if _trc._loaded else _trc._load()
+        t0 = time.time() if tr is not None else 0.0
         cap = self.prefill_chunk
         max_rows = min(self.max_slots, self.prefill_batch_buckets[-1])
         if cap is not None:
@@ -676,6 +799,14 @@ class ServingEngine:
             self._finish_prompt(req, prompts[i], tok)
         self._chunk_tokens += spent
         self.metrics.on_prefill_chunk(spent)
+        if tr is not None:
+            now = time.time()
+            for i, req in enumerate(batch):
+                if req.trace is not None:
+                    _trc.req_event(req.trace, "prefill_chunk", t0,
+                                   now - t0,
+                                   args={"tokens": int(lens[i]),
+                                         "cached": req.num_cached})
         return spent
 
     def _decode_forward(self, flat):
@@ -703,6 +834,8 @@ class ServingEngine:
 
     def _decode_once(self, active):
         self._note_program(("decode",))
+        tr = _trc._TR if _trc._loaded else _trc._load()
+        t0 = time.time() if tr is not None else 0.0
         S, maxp = self.max_slots, self.max_pages
         tokens = np.zeros(S, np.int32)
         positions = np.zeros(S, np.int32)
@@ -733,6 +866,9 @@ class ServingEngine:
                 req, tt[-1] - tt[-2] if len(tt) >= 2 else None)
         for req in finished:
             self.metrics.on_finish(req)
+        if tr is not None:
+            tr.add("decode_round", t0, time.time() - t0, cat="serving",
+                   args={"decode_rows": len(by_slot)})
         self._decode_tokens += len(by_slot)
         return len(by_slot)
 
@@ -792,18 +928,132 @@ class ServingEngine:
     # ------------------------------------------------------------- serving
     def submit(self, prompt_ids, max_new_tokens=16, eos_token_id=None,
                temperature=0.0, top_k=None, on_token=None, block=True,
-               timeout=10.0):
+               timeout=10.0, on_done=None):
         """Queue one request (backpressure: blocks up to ``timeout`` for
-        queue space, then raises :class:`~.scheduler.QueueFull`)."""
-        if self._loop_error is not None or self._closed:
-            raise EngineClosed("engine is closed")
+        queue space, then raises :class:`~.scheduler.QueueFull`).
+        ``on_done(req)`` fires once, at its terminal state."""
         req = GenerationRequest(prompt_ids, max_new_tokens=max_new_tokens,
                                 eos_token_id=eos_token_id,
                                 temperature=temperature, top_k=top_k,
-                                on_token=on_token)
+                                on_token=on_token, on_done=on_done)
+        return self.submit_request(req, block=block, timeout=timeout)
+
+    def _check_accepting(self):
+        if self._draining:
+            raise EngineShuttingDown("engine is shutting down")
+        if self._loop_error is not None:
+            raise EngineClosed(
+                f"engine unhealthy: serve loop crashed with "
+                f"{type(self._loop_error).__name__}: {self._loop_error}"
+            ) from self._loop_error
+        if self._closed:
+            raise EngineClosed("engine is closed")
+
+    def submit_request(self, req, block=True, timeout=10.0):
+        """Queue an already-built :class:`~.scheduler.GenerationRequest`
+        (a fleet caller builds its own, wiring ``on_done`` before the
+        engine sees it)."""
+        self._check_accepting()
         self.scheduler.submit(req, block=block, timeout=timeout)
         self._wake.set()
         return req
+
+    # --------------------------------------------------- fleet migration
+    def snapshot_kv(self, req):
+        """Host copy of one request's written KV (``req.num_cached``
+        tokens) -> ``(k_layers, v_layers, length)``, each layer a
+        ``[length, KVH, Dh]`` CPU tensor in the pools' dtype (bit-exact;
+        views of one pinned buffer a side when the pools are on CUDA).
+        The JAX engine returns numpy arrays (bf16 through ``ml_dtypes``);
+        this is the port's one deviation, and :meth:`adopt_request` takes
+        either. Read-only on the pools (shared prefix pages included) and
+        serialized against rounds: the gathers run on the rounds' stream
+        after the last one, and the copy waits for them."""
+        with self._step_lock:
+            length = int(req.num_cached)
+            kv, L = self.kv, self.cfg.num_layers
+            idx = torch.as_tensor(req.pages, dtype=torch.long,
+                                  device=self.device)
+            out = []
+            for pools in (kv.k, kv.v):
+                dense = torch.stack([
+                    pools[layer][idx].reshape(-1, kv.num_heads,
+                                              kv.head_dim)[:length]
+                    for layer in range(L)])
+                host = torch.empty(dense.shape, dtype=kv.dtype,
+                                   pin_memory=self.device.type == "cuda")
+                host.copy_(dense)
+                out.append(list(host.unbind(0)))
+        return out[0], out[1], length
+
+    def release_request(self, req):
+        """Detach a migrating request from this engine: free its slot and
+        pages (a deref — shared prefix pages keep their other readers)
+        WITHOUT finishing it. The caller adopts it elsewhere."""
+        with self._step_lock:
+            self.scheduler.release_for_migration(req)
+            if req in self._prefilling:
+                self._prefilling.remove(req)
+
+    def adopt_request(self, req, k_layers, v_layers, length):
+        """Admit a migrated request with its KV pages pre-populated: the
+        block-table rebind half of page migration. Allocates pages for
+        ``length`` tokens, writes the payload (CPU tensors or numpy
+        arrays, ``[length, KVH, Dh]`` a layer) into this engine's pools in
+        place (the round programs point into them), and joins the decode
+        batch directly — the continuation consumes ``req.generated[-1]``
+        at position ``length``, exactly the round the source would have
+        run next. Raises :class:`~.kv_cache.OutOfPages` /
+        :class:`~.scheduler.OutOfSlots` when this pool/batch cannot take
+        it (the caller falls back to :meth:`readmit_request`)."""
+        with self._step_lock:
+            self._check_accepting()
+            pages = self.kv.allocator.alloc(
+                max(1, pages_for(length, self.page_size)))
+            try:
+                for layer in range(self.cfg.num_layers):
+                    self.kv.write_prefill(layer, k_layers[layer],
+                                          v_layers[layer], pages, length)
+                req.pages = pages
+                req.num_cached = int(length)
+                self.scheduler.admit_prepared(req)
+            except Exception:
+                self.kv.allocator.free(pages)
+                req.pages = []
+                raise
+            self.metrics.on_adopt(req)
+        self._wake.set()
+        return req
+
+    def readmit_request(self, req):
+        """Recompute fallback for a migrated request: re-queue it at the
+        front — admission re-prefills ``effective_prompt()`` (greedy
+        continuation is token-identical, the eviction contract)."""
+        self._check_accepting()
+        self.scheduler.readmit(req)
+        self._wake.set()
+        return req
+
+    def abort_request(self, req):
+        """Cancel one request without firing its waiters: its slot and
+        pages free at once (a deref: a prefix-hit head keeps its index and
+        other readers), its ``on_done`` never fires. Serialized against
+        rounds, and every round restages its whole block table, so a freed
+        page is never read again. Returns False when the request already
+        reached a terminal state."""
+        with self._step_lock:
+            if not self.scheduler.abort_request(req):
+                return False
+            if req in self._prefilling:
+                self._prefilling.remove(req)
+        return True
+
+    def prefetch_prefix(self, tokens):
+        """Warm this engine's prefix cache with a prompt head published
+        elsewhere in the fleet -> the number of pages imported. The
+        fleet's page-share client is not ported, and without one there is
+        nothing to import: 0, as the JAX engine returns without one."""
+        return 0
 
     def generate(self, prompt_ids, timeout=120.0, **kw):
         """Synchronous helper: submit + drive (foreground when no serve
@@ -824,8 +1074,17 @@ class ServingEngine:
         self._thread.start()
 
     def _serve_loop(self):
+        # PADDLE_TPU_FAULT_ENGINE narrows the serve_loop site to ONE
+        # engine id, so a multi-engine process kills a chosen engine (the
+        # trigger counter is process-wide)
+        target = os.environ.get("PADDLE_TPU_FAULT_ENGINE")
+        honored = target in (None, "") or target == str(self.engine_id)
         while not self._stop_evt.is_set():
             try:
+                if honored and _fault.maybe_inject("serve_loop") \
+                        == "engine_die":
+                    raise RuntimeError(
+                        "injected fault: engine_die@serve_loop")
                 if self.scheduler.has_work():
                     self.step()
                 else:
@@ -861,6 +1120,103 @@ class ServingEngine:
         with self._step_lock:
             self._rounds.clear()
 
+    # -------------------------------------------------- graceful shutdown
+    def shutdown(self, drain_s=30.0):
+        """SIGTERM-grade graceful shutdown:
+
+        1. stop admitting — later ``submit``\\ s and every QUEUED request
+           fail with the named :class:`~.scheduler.EngineShuttingDown`
+           (they never started; safe to retry elsewhere);
+        2. drain in-flight requests up to ``drain_s`` seconds — requests
+           mid-generation finish normally;
+        3. fail whatever missed the deadline (naming it), flush the
+           metrics JSONL so the final counters land on disk, and drop the
+           round programs, as :meth:`close` does.
+
+        Idempotent -> a summary dict; ``close()`` afterwards is a no-op.
+        Serialized: a concurrent second call (the SIGTERM watcher racing a
+        user's shutdown) waits for the drain in progress, then returns the
+        empty summary — two threads never both drive ``step()``."""
+        with self._shutdown_lock:
+            return self._shutdown_locked(drain_s)
+
+    def _shutdown_locked(self, drain_s):
+        if self._closed:
+            return {"drained_tokens": 0, "failed_queued": 0,
+                    "failed_inflight": 0}
+        self._draining = True
+        self.stop()  # join the serve loop; the drain runs inline
+        queued = self.scheduler.begin_shutdown()
+        for req in queued:
+            # rejected at the queue is a terminal state too: the flushed
+            # counters must show these requests
+            self.metrics.on_finish(req)
+        deadline = time.monotonic() + max(0.0, float(drain_s))
+        drained = 0
+        # drain on has_work, not just active: KV pressure can EVICT an
+        # in-flight request back onto the queue mid-drain, and it deserves
+        # its remaining budget (schedule() re-admits it)
+        while self.scheduler.has_work() and time.monotonic() < deadline:
+            drained += self.step()
+        missed = [r for r in self.scheduler.active.values()
+                  if r.state in ("active", "prefilling")]
+        # evicted mid-drain and never re-admitted: close out the pending
+        # queue-wait segment before close() stamps them failed
+        now = time.perf_counter()
+        for req in self.scheduler.waiting:
+            req.queue_wait_s += now - req.t_enqueue
+        missed += list(self.scheduler.waiting)
+        self._closed = True
+        self.scheduler.close(error=EngineShuttingDown(
+            f"engine shut down before this request finished "
+            f"(drain deadline {drain_s:.0f}s)"))
+        for req in missed:
+            self.metrics.on_finish(req)
+        reg = self.metrics._reg
+        if reg is not None:
+            reg.flush()
+        with self._step_lock:
+            self._rounds.clear()
+        out = {"drained_tokens": drained, "failed_queued": len(queued),
+               "failed_inflight": len(missed)}
+        print(f"[serving] graceful shutdown: {out}", flush=True)
+        return out
+
+    def install_sigterm(self, drain_s=None):
+        """Wire SIGTERM to the preemption convention: graceful drain
+        (:meth:`shutdown`), then exit ``EXIT_PREEMPT`` (75), which a
+        launcher treats as resumable, not failed. ``drain_s`` defaults to
+        ``PADDLE_TPU_SERVING_DRAIN_S`` (30). Returns True if the handler
+        was installed (main thread only).
+
+        The handler only sets the preemption flag; the drain runs on a
+        watcher thread. Running ``shutdown()`` inside the signal frame
+        would deadlock if SIGTERM landed while the interrupted main thread
+        held the scheduler's (non-reentrant) admission lock."""
+        if drain_s is None:
+            drain_s = float(os.environ.get(
+                "PADDLE_TPU_SERVING_DRAIN_S", "30"))
+        if not _fault.install_preemption_handler():
+            return False
+
+        def _watch():
+            while not self._closed:
+                if _fault.preempted():
+                    # the exit must happen even if the drain raises: a
+                    # dead watcher would swallow the SIGTERM, and the
+                    # grace window would end in SIGKILL with no flush
+                    try:
+                        self.shutdown(drain_s=drain_s)
+                    finally:
+                        sys.stdout.flush()
+                        sys.stderr.flush()
+                        os._exit(_fault.EXIT_PREEMPT)
+                time.sleep(0.1)
+
+        threading.Thread(target=_watch, daemon=True,
+                         name="serving-sigterm-drain").start()
+        return True
+
     def __enter__(self):
         return self
 
@@ -880,6 +1236,8 @@ class ServingEngine:
             "kv_occupancy_peak_pct": round(self._peak_occupancy, 2),
             "active": len(self.scheduler.active),
             "queued": self.scheduler.queue_depth(),
+            "attn_backend": self.attn_backend,
+            "attn_ab": self.attn_ab,
             "num_kv_heads": self.num_kv_heads,
             "prefill_chunk": self.prefill_chunk,
             "prefill_chunk_tokens": self._chunk_tokens,

@@ -35,8 +35,8 @@ class BlockAllocator:
 
     Page ids ``[0, reserved)`` are never handed out (page 0 is the scrap
     page). Every live page carries a refcount (1 at :meth:`alloc`;
-    :meth:`reuse_cached` adds readers — prefix-cache hits share one
-    physical page).
+    :meth:`ref` and :meth:`reuse_cached` add readers — prefix-cache hits
+    share one physical page).
     :meth:`free` drops one reader; the last reader returns the page to the
     free list, or parks it in a **reclaimable LRU** while a
     :class:`~.prefix_cache.PrefixCache` (``self.cache``) still indexes its
@@ -78,6 +78,9 @@ class BlockAllocator:
         """Refcount-0 pages parked for prefix-cache reuse."""
         return len(self._reclaimable)
 
+    def refcount(self, page):
+        return self._refs.get(int(page), 0)
+
     def shared_pages(self):
         """Pages with more than one live reader (prefix-shared)."""
         return sum(1 for rc in self._refs.values() if rc > 1)
@@ -111,6 +114,17 @@ class BlockAllocator:
             self._refs[p] = 1
             out.append(p)
         return out
+
+    def ref(self, pages):
+        """Add one reader to each live page (prefix-cache sharing)."""
+        for p in pages:
+            p = int(p)
+            rc = self._refs.get(p, 0)
+            if rc <= 0:
+                raise ValueError(
+                    f"ref on page {p} with no live reader (free or "
+                    "reclaimable pages must go through reuse_cached)")
+            self._refs[p] = rc + 1
 
     def reuse_cached(self, page):
         """A prefix-cache hit on ``page``: add a reader, reactivating it
@@ -180,12 +194,12 @@ class PagedKVCache:
         return self.allocator.occupancy_pct()
 
     def write_prefill(self, layer, k_new, v_new, pages, length):
-        """Write one request's prefill K/V (``[S, KVH, Dh]`` with
-        ``S >= length``; rows past ``length`` are padding and dropped) into
-        its ``pages`` (a list of page ids, or a long tensor of them on the
-        pools' device). The tail of the last page is written with zeros,
-        as the JAX package pads it; reads are masked by the context
-        anyway."""
+        """Write one request's prefill K/V (``[S, KVH, Dh]`` tensors on any
+        device, or numpy arrays, with ``S >= length``; rows past
+        ``length`` are padding and dropped) into its ``pages`` (a list of
+        page ids, or a long tensor of them on the pools' device), in place.
+        The tail of the last page is written with zeros, as the JAX
+        package pads it; reads are masked by the context anyway."""
         n = len(pages)
         cap = n * self.page_size
         if length > cap:
@@ -194,7 +208,7 @@ class PagedKVCache:
         for pools, new in ((self.k, k_new), (self.v, v_new)):
             arr = torch.zeros((cap, self.num_heads, self.head_dim),
                               dtype=self.dtype, device=self.device)
-            arr[:length] = new[:length]
+            arr[:length] = torch.as_tensor(new[:length])
             pools[layer][idx] = arr.view(n, self.page_size, self.num_heads,
                                          self.head_dim)
 

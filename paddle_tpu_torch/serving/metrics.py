@@ -23,6 +23,12 @@ lands in the registry of :mod:`paddle_tpu_torch.observability.metrics`
   shape-specialised programs the engine installed (ragged token pads,
   prefill/chunk bucket pairs, the decode step), as the JAX engine counts
   its compiles
+* fleet rows: ``serving_migrations_{in,out}_total`` (page migration legs),
+  ``serving_aborts_total`` (silently cancelled legs),
+  ``serving_prefetch_pages_total`` (prefix pages imported ahead of
+  traffic), ``serving_prefix_remote_hits`` /
+  ``serving_prefix_remote_hit_tokens`` gauges (cross-engine prefix
+  imports), and ``serving_phase_ms{phase=migrate}``
 
 ``engine="e0"`` labels every row. Every hook is a no-op when the registry
 is off (one ``None`` check).
@@ -72,6 +78,9 @@ class ServingMetrics:
         return self._reg.histogram(name, **self._labels)
 
     def on_phase(self, phase, dur_s):
+        """One lifecycle-phase latency sample for the
+        ``serving_phase_ms{phase=...}`` family — fed at the same
+        boundaries the request trace stamps."""
         reg = self._reg
         if reg is None or dur_s is None:
             return
@@ -120,6 +129,18 @@ class ServingMetrics:
         self._counter("serving_evictions_total").inc()
         self._counter("serving_requests_total", status="evicted").inc()
 
+    def on_adopt(self, req):
+        """A migrated request joined this engine with its KV written."""
+        if self._reg is None:
+            return
+        self._counter("serving_migrations_in_total").inc()
+
+    def on_migrate_out(self, req):
+        """A request left this engine for another (its migrate hook)."""
+        if self._reg is None:
+            return
+        self._counter("serving_migrations_out_total").inc()
+
     def on_finish(self, req):
         if self._reg is None:
             return
@@ -141,7 +162,8 @@ class ServingMetrics:
                 (len(self._finish_times) - 1) / span)
 
     def sample_state(self, active_slots, queue_depth, occupancy_pct,
-                     shared_pages=None, cached_pages=None):
+                     shared_pages=None, cached_pages=None,
+                     remote_hits=None, remote_hit_tokens=None):
         if self._reg is None:
             return
         self._gauge("serving_active_slots").set(active_slots)
@@ -151,6 +173,24 @@ class ServingMetrics:
             self._gauge("serving_prefix_shared_pages").set(shared_pages)
         if cached_pages is not None:
             self._gauge("serving_prefix_cached_pages").set(cached_pages)
+        if remote_hits is not None:
+            self._gauge("serving_prefix_remote_hits").set(remote_hits)
+        if remote_hit_tokens is not None:
+            self._gauge("serving_prefix_remote_hit_tokens").set(
+                remote_hit_tokens)
+
+    def on_prefetch_pages(self, n_pages):
+        """Prefix pages imported ahead of traffic (fleet prefetch)."""
+        if self._reg is None:
+            return
+        self._counter("serving_prefetch_pages_total").inc(n_pages)
+
+    def on_abort(self):
+        """A leg was silently cancelled: slot + pages freed, waiters never
+        fired."""
+        if self._reg is None:
+            return
+        self._counter("serving_aborts_total").inc()
 
     def on_prefill_chunk(self, n_tokens):
         if self._reg is None:

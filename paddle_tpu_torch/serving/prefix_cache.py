@@ -124,6 +124,18 @@ class PrefixCache:
             node = page
 
     # --------------------------------------------------------- reclamation
+    def clear(self):
+        """Drop EVERY index entry and zero the counters (bench/test
+        isolation: a warm-up run's pages must not seed the measured
+        run's cache). Pages themselves are untouched — live readers keep
+        their refcounts, and already-parked reclaimable pages simply
+        stop being hits and drift to the free list as they recycle."""
+        self._index.clear()
+        self._entry.clear()
+        self._children.clear()
+        self.hits = self.misses = self.hit_tokens = 0
+        self.reclaimed_pages = 0
+
     def _drop_entry(self, key, page):
         self._index.pop(key, None)
         self._entry.pop(page, None)

@@ -6,14 +6,20 @@ prefix-cache hits) rides one flattened ``[total_tokens, H, Dh]`` launch
 described by per-row metadata. Only ``total_tokens`` is padded, up the
 power-of-two schedule of :func:`pad_total_tokens`.
 
-There is no backend knob: on a CUDA tensor the hand-written kernel runs,
-on a CPU tensor its plain version (``ops/kernels/ragged_attention.py``).
+On a CUDA tensor the hand-written kernel runs, on a CPU tensor its plain
+version (``ops/kernels/ragged_attention.py``). :func:`ab_compare_ragged`
+is the engine's measure-only A/B gate at its ragged launch shape
+(:func:`.decode.measure`): it reports the plain version's time beside the
+kernel's and never demotes the kernel.
 """
 from __future__ import annotations
 
 from ..ops.kernels import ragged_paged_attention as _kernel
+from ..ops.kernels import ragged_paged_attention_reference as _plain
+from .decode import _int32, measure
 
-__all__ = ["ragged_paged_attention", "pad_total_tokens", "PAD_FLOOR"]
+__all__ = ["ragged_paged_attention", "pad_total_tokens", "PAD_FLOOR",
+           "ab_compare_ragged"]
 
 # smallest padded launch: decode-only rounds of small engines all share
 # one shape instead of one per active-row count
@@ -38,3 +44,17 @@ def ragged_paged_attention(q, k_pool, v_pool, row_starts, row_lens,
     [T, H, Dh]; pad tokens come back zeroed and the caller discards them."""
     return _kernel(q, k_pool, v_pool, row_starts, row_lens, kv_lens,
                    block_tables, scale=scale)
+
+
+def ab_compare_ragged(q, k_pool, v_pool, row_starts, row_lens, kv_lens,
+                      block_tables, scale=None, repeats=20, scratch=None):
+    """Time the plain version against the ragged kernel at this launch
+    shape (:func:`.decode.measure`) -> ``{"backend", "xla_ms",
+    "pallas_ms", "reason"}``. ``scratch``: the engine's split scratch."""
+    dev = q.device
+    args = (q, k_pool, v_pool, _int32(row_starts, dev),
+            _int32(row_lens, dev), _int32(kv_lens, dev),
+            _int32(block_tables, dev))
+    return measure(lambda *a: _kernel(*a, scale=scale, scratch=scratch),
+                   lambda *a: _plain(*a, scale=scale), args,
+                   repeats=repeats)

@@ -13,11 +13,23 @@ re-points at requests between rounds.
   pages are freed and it returns to the FRONT of the queue with
   ``prompt + generated-so-far`` as its new prompt (recompute on readmit;
   greedy decode makes the continuation token-identical).
-* **finish** — eos / token budget frees pages + slot immediately.
+* **finish** — eos / token budget frees pages + slot immediately, and
+  fires the request's ``on_done`` once.
+* **fleet hooks** — :meth:`~ContinuousBatchingScheduler.admit_prepared`
+  (a migrated request whose KV is already written joins the decode batch
+  directly), :meth:`~ContinuousBatchingScheduler.release_for_migration`,
+  :meth:`~ContinuousBatchingScheduler.abort_request` (free slot + pages,
+  fire nothing) and :meth:`~ContinuousBatchingScheduler.readmit`.
+* **graceful shutdown** — :meth:`~ContinuousBatchingScheduler.
+  begin_shutdown` fails only the QUEUED requests with the named
+  :class:`EngineShuttingDown` and keeps the in-flight ones for the drain.
 
 Backpressure: the waiting queue is bounded; ``submit`` blocks (or raises
-:class:`QueueFull`) when producers outrun the engine. Request tracing,
-fleet migration and graceful shutdown are not ported yet.
+:class:`QueueFull`) when producers outrun the engine. With tracing on
+(:mod:`..observability.tracing`), each request carries a trace context and
+its lifecycle events (enqueue, queue_wait, prefix_hit, evicted, readmit,
+aborted, prefill, decode, request_done) land in its trace; off, every
+hook is one ``req.trace is not None`` check.
 """
 from __future__ import annotations
 
@@ -27,23 +39,42 @@ import threading
 import time
 from collections import deque
 
+from ..observability import tracing as _trc
 from .kv_cache import OutOfPages, pages_for
 
 __all__ = ["GenerationRequest", "ContinuousBatchingScheduler",
-           "QueueFull", "EngineClosed"]
+           "QueueFull", "EngineClosed", "OutOfSlots"]
 
 
 class QueueFull(RuntimeError):
     """Admission queue at capacity (open-loop producer outran the engine)."""
 
 
+class OutOfSlots(RuntimeError):
+    """No free decode slot for a direct admission (fleet page migration
+    adopting a request bypasses the queue; the caller falls back to
+    recompute-on-readmit)."""
+
+
 class EngineClosed(RuntimeError):
     """Submitted to / waited on an engine that has been closed."""
 
 
+class EngineShuttingDown(EngineClosed):
+    """The engine began a graceful shutdown (SIGTERM drain): admission is
+    closed and queued requests are failed with THIS status — a named,
+    retryable verdict the caller can route to another replica — while
+    in-flight decodes drain up to the deadline. Distinct from the bare
+    :class:`EngineClosed` a hard ``close()`` hands out."""
+
+
 _rid = itertools.count()
-# request ids minted by two processes must not alias: a pid-derived high
-# component keeps the id an int (rng() folds it into its seed)
+# Fallback request-id namespace: in a fleet, two engine PROCESSES each
+# minting rids from a bare per-process counter would alias (same rid on
+# two engines corrupts merged traces, metrics labels and ledger keys).
+# The pid-derived high component keeps the fallback an int — rng() folds
+# request_id into its seed arithmetic — while making cross-process
+# collision impossible for live pids (mod the 2^20 namespace).
 _RID_NS = (os.getpid() & 0xFFFFF) << 20
 
 
@@ -58,9 +89,15 @@ class GenerationRequest:
 
     def __init__(self, prompt_ids, max_new_tokens=16, eos_token_id=None,
                  temperature=0.0, top_k=None, seed=0, on_token=None,
-                 request_id=None):
+                 request_id=None, on_done=None, trace=None):
         self.request_id = request_id if request_id is not None \
             else (_RID_NS + next(_rid))
+        # distributed trace context ({"tid", "ps"} dict, or None): minted
+        # at the front door / scheduler submit, propagated over the fleet
+        # wire. None whenever tracing is off — every hot-path hook gates
+        # on this one attribute, which is what keeps tracing-off
+        # structurally free (no allocation, no call).
+        self.trace = trace
         self.prompt_ids = [int(t) for t in prompt_ids]
         if not self.prompt_ids:
             raise ValueError("empty prompt")
@@ -70,6 +107,13 @@ class GenerationRequest:
         self.top_k = top_k
         self.seed = int(seed)
         self.on_token = on_token
+        # fires once, at the terminal state (fleet router: re-dispatch a
+        # retryable failure to another engine without polling result())
+        self.on_done = on_done
+        # fleet migration hook: set by the router on prefill-designated
+        # engines — called from _finish_prompt when the prompt completes
+        # but the token budget has more to go (see disagg.migrate_request)
+        self.migrate_hook = None
         self.generated: list[int] = []
         self.state = "waiting"   # waiting|prefilling|active|finished|failed
         self.error = None
@@ -80,7 +124,8 @@ class GenerationRequest:
         self.evictions = 0
         self.t_submit = time.perf_counter()
         self.t_enqueue = self.t_submit   # reset on eviction; the total
-        # across re-admissions accumulates in queue_wait_s
+        # across re-admissions accumulates in queue_wait_s (an evicted
+        # request's pre-eviction queue time must not vanish from the tail)
         self.queue_wait_s = 0.0
         self.t_admit = None
         self.t_first_token = None
@@ -119,7 +164,42 @@ class GenerationRequest:
         self.state = "failed" if error is not None else "finished"
         self.error = error
         self.t_done = time.perf_counter()
+        if self.trace is not None:
+            self._trace_terminal(error)
         self._done.set()
+        cb = self.on_done
+        if cb is not None:
+            try:
+                cb(self)
+            except Exception:
+                pass  # a broken observer must not stall the engine
+
+    def _trace_terminal(self, error):
+        """Lifecycle spans at the terminal state plus (for a request this
+        process owns outright) the tail-sampling verdict. Fleet legs
+        carry ``_fleet`` and leave the verdict to the router, which alone
+        knows about hedging and the end-to-end latency. Durations are
+        perf_counter deltas anchored backward from the wall clock the
+        trace buffer stamps."""
+        ctx, now = self.trace, time.time()
+        if self.t_admit is not None and self.t_first_token is not None:
+            back = self.t_done - self.t_admit
+            _trc.req_event(ctx, "prefill", now - back,
+                           self.t_first_token - self.t_admit,
+                           args={"prompt": len(self.prompt_ids),
+                                 "prefix_hit": self.prefix_hit_tokens})
+        if self.t_first_token is not None:
+            dur = self.t_done - self.t_first_token
+            _trc.req_event(ctx, "decode", now - dur, dur,
+                           args={"tokens": len(self.generated)})
+        _trc.req_event(ctx, "request_done", now, 0.0,
+                       args={"rid": str(self.request_id),
+                             "state": self.state,
+                             "evictions": self.evictions})
+        if getattr(self, "_fleet", None) is None:
+            _trc.finish_request(ctx, dur_s=self.t_done - self.t_submit,
+                                error=error is not None,
+                                evicted=self.evictions > 0)
 
     def hit_stop(self):
         """Generation-complete test: token budget or eos."""
@@ -169,6 +249,7 @@ class ContinuousBatchingScheduler:
         self._lock = threading.Lock()
         self._space = threading.Condition(self._lock)
         self._closed = False
+        self._shutting_down = False
         self.total_evictions = 0
 
     # ---- producer side --------------------------------------------------
@@ -185,7 +266,7 @@ class ContinuousBatchingScheduler:
                 f"pool has {self.allocator.capacity} — it could never run")
         with self._space:
             if self._closed:
-                raise EngineClosed("engine is closed")
+                raise self._closed_error()
             if len(self.waiting) >= self.max_queue and block:
                 deadline = time.perf_counter() + timeout
                 while len(self.waiting) >= self.max_queue \
@@ -195,11 +276,20 @@ class ContinuousBatchingScheduler:
                         break
                     self._space.wait(left)
                 if self._closed:
-                    raise EngineClosed("engine is closed")
+                    raise self._closed_error()
             if len(self.waiting) >= self.max_queue:
                 raise QueueFull(
                     f"waiting queue at capacity ({self.max_queue})")
             self.waiting.append(req)
+        if req.trace is None:
+            # single funnel for engine-local traces: a request arriving
+            # without a fleet-minted context gets its own (None when
+            # tracing is off — one call, no allocation)
+            req.trace = _trc.mint_context()
+        if req.trace is not None:
+            _trc.req_event(req.trace, "enqueue", time.time(), 0.0,
+                           args={"rid": str(req.request_id),
+                                 "depth": len(self.waiting)})
         return req
 
     def queue_depth(self):
@@ -208,7 +298,7 @@ class ContinuousBatchingScheduler:
 
     # ---- engine side (single engine thread) -----------------------------
     def schedule(self):
-        """Admission pass: -> requests newly admitted this round (pages +
+        """Admission pass: -> requests newly admitted this step (pages +
         slot assigned; the engine prefills them). Never evicts on behalf
         of a waiting request — in-flight work has priority."""
         admitted = []
@@ -217,14 +307,17 @@ class ContinuousBatchingScheduler:
                 if not self.waiting:
                     break
                 req = self.waiting[0]
-            # prefix lookup + page accounting outside the lock: pages and
-            # slots are engine-thread-owned, only the deque needs it
+            # prefix lookup + page accounting OUTSIDE the lock: producers
+            # block on this very lock in submit(), and a lookup may be
+            # slow (a fleet-wide prefix index is a store round-trip).
+            # Pages/slots are engine-thread-owned, so only the deque
+            # needs the lock.
             prompt = req.effective_prompt()
             shared, n_shared = [], 0
             if self.prefix_cache is not None:
-                # prefix-cache hit: the shared head's pages are taken by
-                # reference (no prefill compute, no page writes) — only
-                # the tail needs private pages
+                # prefix-cache hit: the shared head's pages are taken
+                # by reference (no prefill compute, no page writes) —
+                # only the tail needs private pages
                 shared, n_shared = self.prefix_cache.lookup(prompt)
             need = pages_for(len(prompt) + 1, self.page_size) \
                 - len(shared)
@@ -234,8 +327,9 @@ class ContinuousBatchingScheduler:
                 break
             with self._lock:
                 if not self.waiting or self.waiting[0] is not req:
-                    # a readmission jumped the queue head while the lock
-                    # was dropped: un-ref and re-examine
+                    # a readmission (eviction / migration fallback, maybe
+                    # from another engine's thread) jumped the queue head
+                    # while the lock was dropped: un-ref and re-examine
                     if shared:
                         self.allocator.free(shared)
                     continue
@@ -245,7 +339,9 @@ class ContinuousBatchingScheduler:
             req.num_cached = n_shared
             req.prefix_hit_tokens = n_shared
             if self.prefix_cache is not None and req.evictions == 0:
-                # request-level hit/miss: first admission only
+                # request-level hit/miss: first admission only — a
+                # readmission re-hitting its own cached head would
+                # double-count the request in the hit rate
                 self.prefix_cache.record(n_shared)
             req.slot = self._free_slots.pop()
             req.state = "active"
@@ -253,10 +349,24 @@ class ContinuousBatchingScheduler:
             req.queue_wait_s += req.t_admit - req.t_enqueue
             self.active[req.slot] = req
             admitted.append(req)
+            if req.trace is not None:
+                self._trace_admit(req)
         return admitted
 
+    def _trace_admit(self, req):
+        """queue_wait span (anchored backward from now) + prefix-hit
+        marker for one just-admitted request."""
+        now = time.time()
+        wait = req.t_admit - req.t_enqueue
+        _trc.req_event(req.trace, "queue_wait", now - wait, wait,
+                       args={"slot": req.slot,
+                             "evictions": req.evictions})
+        if req.prefix_hit_tokens:
+            _trc.req_event(req.trace, "prefix_hit", now, 0.0,
+                           args={"tokens": req.prefix_hit_tokens})
+
     def ensure_decode_capacity(self):
-        """Before a round: every active request writing token
+        """Before a decode step: every active request writing token
         ``num_cached`` needs page ``num_cached // page_size``. Grow block
         tables, evicting the most-recently-admitted active request when
         the pool is dry. -> (grown, evicted) request lists."""
@@ -274,8 +384,8 @@ class ContinuousBatchingScheduler:
                 except OutOfPages:
                     victim = self._pick_victim(exclude=req)
                     if victim is None:
-                        # only this request is left: evict IT (it
-                        # re-prefills once pages free up)
+                        # only this request is left: nothing to reclaim —
+                        # evict IT (it re-prefills once pages free up)
                         self._evict(req)
                         evicted.append(req)
                         break
@@ -294,17 +404,79 @@ class ContinuousBatchingScheduler:
         self._release(req)
         req.evictions += 1
         self.total_evictions += 1
+        if req.trace is not None:
+            _trc.req_event(req.trace, "evicted", time.time(), 0.0,
+                           args={"evictions": req.evictions,
+                                 "generated": len(req.generated)})
         self.readmit(req)
 
     def readmit(self, req):
         """Re-queue an already-released request at the FRONT of the
         waiting queue with its context reset — it re-prefills its
-        ``effective_prompt()`` on admission."""
+        ``effective_prompt()`` on admission (greedy continuation is
+        token-identical). The eviction path and the fleet's
+        recompute-on-migrate fallback share this one copy."""
         req.state = "waiting"
         req.num_cached = 0
         req.t_enqueue = time.perf_counter()
+        if req.trace is not None:
+            _trc.req_event(req.trace, "readmit", time.time(), 0.0,
+                           args={"generated": len(req.generated)})
         with self._lock:
             self.waiting.appendleft(req)
+
+    def admit_prepared(self, req):
+        """Adopt a request whose pages are ALREADY allocated and whose KV
+        is already written into this engine's pools (fleet page
+        migration): take a free slot and join the decode batch directly —
+        no queue, no prefill. Raises :class:`OutOfSlots` when every slot
+        is taken (the caller falls back to :meth:`readmit`)."""
+        with self._lock:
+            if self._closed:
+                raise self._closed_error()
+            if not self._free_slots:
+                raise OutOfSlots(
+                    f"all {self.max_slots} slots busy — migrated request "
+                    "must recompute from the queue instead")
+            req.slot = self._free_slots.pop()
+        req.state = "active"
+        req.t_admit = time.perf_counter()
+        self.active[req.slot] = req
+
+    def release_for_migration(self, req):
+        """Free a migrating request's slot + pages WITHOUT finishing it:
+        the request object itself moves to another engine, and its
+        waiters keep waiting on the same done event."""
+        self._release(req)
+        req.state = "migrating"
+
+    def abort_request(self, req):
+        """Cancel one leg SILENTLY: free its slot + pages (wherever it
+        is — queued, prefilling or active) without firing its waiters or
+        ``on_done``. The loser of a hedged (duplicated) request: the
+        caller owns the request's done event through a different winning
+        leg, so the loser must simply vanish from this engine.
+        Returns False when the request already reached a terminal state
+        (its ``on_done`` fired / will fire normally)."""
+        if req.state in ("finished", "failed", "migrating", "aborted"):
+            return False
+        with self._lock:
+            try:
+                self.waiting.remove(req)
+                self._space.notify_all()
+            except ValueError:
+                pass
+        self._release(req)
+        req.state = "aborted"
+        ctx = req.trace
+        if ctx is not None:
+            _trc.req_event(ctx, "aborted", time.time(), 0.0,
+                           args={"generated": len(req.generated)})
+            if getattr(req, "_fleet", None) is None:
+                # a locally-owned abort is its own terminal state; fleet
+                # legs leave the verdict to the fleet's router
+                _trc.finish_request(ctx, aborted=True)
+        return True
 
     def _release(self, req):
         if req.pages:
@@ -320,15 +492,14 @@ class ContinuousBatchingScheduler:
         req.finish(error)
 
     def complete_step(self, tokens_by_slot):
-        """Account one round's decode rows: ``{slot: token}`` for every
-        slot that was decoding when the round launched. -> finished
-        requests."""
+        """Account one decode step: ``{slot: token}`` for every slot that
+        was active when the step launched. -> finished requests."""
         done = []
         for slot, token in tokens_by_slot.items():
             req = self.active.get(slot)
             if req is None or req.state != "active":
                 continue
-            req.num_cached += 1      # this round wrote the input token's KV
+            req.num_cached += 1      # this step wrote the input token's KV
             req.emit(token)
             if req.hit_stop():
                 self.finish(req)
@@ -339,9 +510,39 @@ class ContinuousBatchingScheduler:
         with self._lock:
             return bool(self.waiting) or bool(self.active)
 
+    def _closed_error(self):
+        return EngineShuttingDown("engine is shutting down") \
+            if self._shutting_down else EngineClosed("engine is closed")
+
+    def begin_shutdown(self, error=None):
+        """Graceful half of teardown: stop admitting (later submits raise
+        :class:`EngineShuttingDown`), fail every QUEUED request with that
+        named status, keep the in-flight ones — the engine drains them
+        with further decode steps up to its deadline, then ``close()``\\ s
+        whatever remains. Returns the failed queued requests (the caller
+        records their terminal metrics — they must not vanish from the
+        flushed counters)."""
+        err = error or EngineShuttingDown(
+            "engine is shutting down: request was queued, not started — "
+            "safe to retry on another replica")
+        with self._space:
+            self._closed = True
+            self._shutting_down = True
+            waiting = list(self.waiting)
+            self.waiting.clear()
+            self._space.notify_all()
+        now = time.perf_counter()
+        for req in waiting:
+            # a rejected-at-queue request's whole life was queue wait:
+            # close out the pending segment so the cumulative-wait
+            # histogram sample observed at its terminal state is honest
+            req.queue_wait_s += now - req.t_enqueue
+            req.finish(err)
+        return waiting
+
     def close(self, error=None):
         """Fail everything still queued or in flight (engine teardown)."""
-        err = error or EngineClosed("engine is closed")
+        err = error or self._closed_error()
         with self._space:
             self._closed = True
             waiting = list(self.waiting)

@@ -13,7 +13,8 @@ these tests run on, the same static-buffer round runs eagerly, over
 * the programs installed are the JAX engine's keys, and each one ran
   through its own static-buffer program;
 * the prefill's device-side page write equals ``write_prefill`` row by
-  row, and puts only zeros on the scrap page;
+  row, and puts only zeros on the scrap page; so does a chunk step's
+  padding, which a pad row of its batch bucket reads;
 * ``PADDLE_TPU_SERVING_RAGGED`` picks the engine when ``ragged`` is left
   None.
 """
@@ -164,6 +165,43 @@ def test_prefill_rows_write_equals_write_prefill():
         assert (a[1][0] == 0).all()               # scrap: zeros only
     assert not (scrap == 0).all()
     assert (got.k[1][1] == 0).all() and (got.k[1][2, 1:] == 0).all()
+
+
+def test_chunk_step_padding_writes_zeros_to_the_scrap_page():
+    """A chunk bucket of 4 rows with 3 real rows (one ending mid-chunk)
+    and a pad row, over pools holding old values everywhere: the tokens
+    past each row's length land on the scrap page as zeros in every
+    layer, so the pad row, which attends over the scrap page, reads only
+    this round's zeros whatever order the duplicate writes land in. The
+    program round equals the eager round on every row, the pad row's
+    included, over other old values on the scrap page, and the real rows'
+    pages take their tokens."""
+    _, tm = _models(61)
+    eng = ServingEngine(tm, ragged=False, jit=True, page_size=4,
+                        num_pages=64, max_slots=4)
+    rng = np.random.RandomState(5)
+    nb, sb = 4, 8
+    tokens = rng.randint(1, 256, (nb, sb)).astype(np.int32)
+    positions = np.array([8, 4, 6, 0], np.int32)
+    lens = np.array([8, 3, 5, 0], np.int32)
+    bt = np.zeros((nb, eng.max_pages), np.int32)
+    bt[0, :4], bt[1, :2], bt[2, :3] = [1, 2, 3, 4], [5, 6], [7, 8, 9]
+    args = (tokens, positions, lens, bt)
+    old = [rng.randn(*p.shape).astype(np.float32)
+           for p in eng.kv.k + eng.kv.v]
+    runs = []
+    for jit in (True, False):
+        for pool, o in zip(eng.kv.k + eng.kv.v, old):
+            pool.copy_(torch.from_numpy(o))
+            pool[0].normal_()                      # other old scrap values
+        runs.append(eng._chunk_fn(*args, need_rows=True, jit=jit))
+        for pool in eng.kv.k + eng.kv.v:
+            assert (pool[0] == 0).all()            # scrap: zeros only
+            assert not (pool[2] == 0).all()        # row 0's chunk tokens
+    (tok_p, rows_p), (tok_e, rows_e) = runs
+    assert rows_p.shape == (nb, tm.config.vocab_size)
+    assert tok_p == tok_e
+    np.testing.assert_array_equal(rows_p, rows_e)
 
 
 @pytest.mark.parametrize("value,ragged", [(None, True), ("1", True),

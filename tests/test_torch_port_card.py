@@ -638,6 +638,43 @@ def test_replayed_prefill_and_chunk_buckets_equal_eager_rounds_on_card():
     eng.close()
 
 
+@pytest.mark.cuda
+def test_chunk_bucket_pad_row_replays_bit_equal_on_card():
+    """A chunk bucket of 4 rows with 3 real rows and a pad row (length 0,
+    all-zero table), replayed and eager in turn ten times: every row bit
+    equal to the first run, the pad row's included. The pad row attends
+    over the scrap page, where the round's padding tokens write zeros in
+    parallel, so its output does not depend on which duplicate write
+    lands last."""
+    _need_cuda()
+    from paddle_tpu_torch import ServingEngine
+    model = _two_layer_1p3b(torch.bfloat16, use_rms_norm=True)
+    eng = ServingEngine(model, jit=True, **_engine_kw(False))
+    rng = np.random.RandomState(6)
+    for pool in eng.kv.k + eng.kv.v:
+        pool[1:].normal_()                     # a prefix in every page
+    nb, sb = 4, 64
+    tokens = rng.randint(1, 50304, (nb, sb)).astype(np.int32)
+    positions = np.array([32, 32, 16, 0], np.int32)
+    lens = np.array([53, 42, 60, 0], np.int32)
+    bt = np.zeros((nb, eng.max_pages), np.int32)
+    bt[0, :6], bt[1, :5], bt[2, :5] = (np.arange(1, 7), np.arange(7, 12),
+                                       np.arange(12, 17))
+    args = (tokens, positions, lens, bt)
+    first = None
+    for i in range(10):
+        tok, rows = eng._chunk_fn(*args, need_rows=True, jit=i % 2 == 0)
+        if first is None:
+            first = tok, rows
+            continue
+        assert tok == first[0]
+        np.testing.assert_array_equal(rows, first[1])
+    torch.cuda.synchronize()
+    for pool in eng.kv.k + eng.kv.v:
+        assert (pool[0] == 0).all()
+    eng.close()
+
+
 def _generate_inputs(model, B=2, P=16, seed=0):
     return torch.from_numpy(np.random.RandomState(seed).randint(
         1, model.config.vocab_size, (B, P))).cuda()
@@ -791,3 +828,116 @@ def test_o2_step_launches_adamw_once_and_recompute_matches_on_card():
     assert all(np.isfinite(plain)) and plain[-1] < plain[0]
     np.testing.assert_allclose(remat, plain, rtol=0, atol=1e-3)
     assert remat_held < plain_held
+
+
+# ------------------------------------------- the engine's operations
+def _alone(eng, prompt, new, rounds_before, move=None):
+    """``prompt`` alone on ``eng`` for ``rounds_before`` rounds, then
+    ``move(req)`` (-> the engine it is on) if given, then to the end with
+    ``capture_logits`` on -> (tokens, the request's logit rows)."""
+    req = eng.submit(prompt, max_new_tokens=new)
+    for _ in range(rounds_before):
+        eng.step()
+    on = eng if move is None else move(req)
+    on.capture_logits = []
+    on.run_until_idle()
+    rows = np.stack([cap[next(s for s, r in m.items()
+                              if r == req.request_id)]
+                     for m, cap in on.capture_logits])
+    return req.result(1), rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ragged", [True, False])
+def test_adopt_then_replay_equals_unmigrated_on_card(ragged):
+    """A request moved mid-decode between two engines on the card
+    (``fleet.migrate_request``): B's snapshot equals A's payload bit for
+    bit (the gathers and the writes run in order with the replays on one
+    stream), and B's replayed continuation gives the tokens and the
+    bit-equal logits of the same request run unmigrated on A."""
+    _need_cuda()
+    from paddle_tpu_torch import ServingEngine
+    from paddle_tpu_torch.serving.fleet import migrate_request
+    model = _two_layer_1p3b(torch.bfloat16, use_rms_norm=not ragged)
+    A = ServingEngine(model, jit=True, **_engine_kw(ragged))
+    B = ServingEngine(model, jit=True, **_engine_kw(ragged))
+    prompt = np.random.RandomState(5).randint(1, 50304, size=40).tolist()
+    payload, snap = [], []
+
+    def move(req):
+        payload.extend(A.snapshot_kv(req))
+        assert migrate_request(A, B, req) == "migrated"
+        snap.extend(B.snapshot_kv(req))
+        return B
+
+    toks, rows = _alone(A, prompt, 12, 4, move)
+    A.prefix.clear()
+    ref_toks, ref_rows = _alone(A, prompt, 12, 4)
+    assert payload[0][0].is_pinned() and payload[0][0].dtype == torch.bfloat16
+    assert snap[2] == payload[2] > len(prompt)
+    for a, b in zip(payload[0] + payload[1], snap[0] + snap[1]):
+        assert torch.equal(a, b)
+    assert toks == ref_toks
+    assert rows.shape == ref_rows.shape and np.array_equal(rows, ref_rows)
+    A.close()
+    B.close()
+
+
+@pytest.mark.cuda
+def test_abort_frees_pages_while_a_replayed_row_goes_on_on_card():
+    """Aborting one of two co-resident requests between replayed rounds
+    frees its slot and pages (refcount 0) at once; the other request's
+    tokens equal its solo run's."""
+    _need_cuda()
+    from paddle_tpu_torch import ServingEngine
+    model = _two_layer_1p3b(torch.bfloat16)
+    rng = np.random.RandomState(6)
+    keep_p, drop_p = (rng.randint(1, 50304, size=n).tolist()
+                      for n in (30, 50))
+    solo = ServingEngine(model, jit=True, **_engine_kw(True))
+    base = solo.generate(keep_p, max_new_tokens=10)
+    solo.close()
+    eng = ServingEngine(model, jit=True, **_engine_kw(True))
+    fired = []
+    keep = eng.submit(keep_p, max_new_tokens=10,
+                      on_done=lambda r: fired.append("keep"))
+    drop = eng.submit(drop_p, max_new_tokens=10,
+                      on_done=lambda r: fired.append("drop"))
+    for _ in range(4):
+        eng.step()
+    assert drop.state == "active" and keep.state == "active"
+    pages = list(drop.pages)
+    assert eng.abort_request(drop) is True
+    assert drop.slot is None and not drop.pages
+    assert all(eng.kv.allocator.refcount(p) == 0 for p in pages)
+    eng.run_until_idle()
+    assert keep.result(1) == base
+    assert fired == ["keep"] and drop.state == "aborted"
+    eng.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ragged", [True, False])
+def test_gate_measures_both_and_keeps_the_kernel_on_card(ragged):
+    """``attn_backend="auto"`` on the card times the plain version and
+    the kernel at the engine's launch shape, keeps the kernel and its next
+    round launches it; ``"xla"`` raises."""
+    _need_cuda()
+    from paddle_tpu_torch import ServingEngine
+    model = _two_layer_1p3b(torch.bfloat16, use_rms_norm=not ragged)
+    eng = ServingEngine(model, attn_backend="auto", jit=False,
+                        **_engine_kw(ragged))
+    ab = eng.stats()["attn_ab"]
+    assert eng.attn_backend == ab["backend"] == "pallas"
+    assert ab["xla_ms"] > 0 and ab["pallas_ms"] > 0
+    K.reset_launch_counts()
+    eng.generate([1, 2, 3, 4, 5], max_new_tokens=2)
+    torch.cuda.synchronize()
+    # ragged: a prefill round and a decode round; bucketed: the dense
+    # prefill and one decode step in one round; 2 layers each
+    name, want = ("ragged_paged_attention", 4) if ragged \
+        else ("paged_attention", 2)
+    assert K.launch_counts()[name] == want
+    eng.close()
+    with pytest.raises(ValueError, match="plain"):
+        ServingEngine(model, attn_backend="xla", **_engine_kw(ragged))
