@@ -213,15 +213,58 @@ exit code:
     and logits bit-equal, launches exact (2 paged attention and 5 RMSNorm
     a decode step, 2 flash forward a dense prefill, a capture's warm-up
     counted).
+17. **the other models' kernel shapes** — the flash forward, dQ and dK/dV
+    against their plain versions in the ``DP = 64`` tiles: [2, S, 12, 64]
+    for S in 512, 1, 129, 1000, [4, 7, 4, 16] over 11 keys and
+    [2, 300, 4, 32] over 77 (f32 within 1e-4, bf16 within phase 6's
+    limits, causal and not); ``flash_attention_bshd``'s autograd at
+    [2, 512, 12, 64] f32 non-causal against the plain chain; LayerNorm
+    at [8192, 768] (f32 and bf16, epsilon 1e-12 and 1e-5); fused AdamW's
+    master mode over f16 parameters (each exactly its master rounded).
+    Then the flash trio at BERT-base's [16, 512, 12, 64] bf16 non-causal
+    and LayerNorm at [8192, 768] bf16, timed beside their bounds, plain
+    versions and ``F.scaled_dot_product_attention`` / ``F.layer_norm``.
+18. **LeNet** — ``bench.py:379-397``'s step (B 64 x 1 x 28 x 28 f32 from
+    numpy seed 0, ``Adam(1e-3)``): 5 warm-up and 30 timed steps, steps/s
+    on the host clock, falling losses, one AdamW launch a step.
+19. **ResNet-50 O2 float16** (BASELINE config 2, one card) —
+    ``resnet50(num_classes=1000)`` at full depth and width, B 128 x 3 x
+    224 x 224 random images and labels from numpy seed 0,
+    ``decorate(level="O2", dtype="float16")``, ``Momentum(0.1, 0.9,
+    L2Decay(1e-4), multi_precision=True)``, ``GradScaler(2**15)``: 2
+    warm-up and 10 timed steps; losses finite and falling, every
+    BatchNorm statistic finite and moved; images/s, step ms, peak memory,
+    the scale, a profiled step (convolution, batch norm, GEMM and
+    elementwise families, busy share); then O1 bf16 on f32 weights.
+20. **BERT-base** — (a) a 2-layer f32 ``BertForMaskedLM`` at
+    ``bert_base`` widths: its loss and every gradient against autograd
+    through a dense plain forward (as phase 7); (b) ``BertForMaskedLM(
+    bert_base(dropout=0.0))`` at full size, O2 bf16 with ``AdamW(1e-4,
+    multi_precision=True)``, B 16 x S 512, 2 warm-up and 10 timed steps:
+    launches exact (flash forward, dQ and dK/dV 12 a step each,
+    LayerNorm 26, AdamW 1), step ms, tokens/s, peak, MFU (``6 N tokens +
+    12 L B S^2 h`` over 989 TFLOP/s) and a profiled step; (c)
+    ``BertForSequenceClassification`` in eval, bf16: flash without a
+    mask, the plain chain with an all-ones mask, logits within bf16
+    limits of each other.
+21. **seq2seq** — ``tests/test_models.py:216-260``'s copy task on the
+    card (vocab 16, d_model 64, nhead 4, 120 Adam steps): the loss under
+    0.1 x the first, ``translate`` reproducing at least 90% of the source
+    tokens, the flash trio launched exactly twice a training step (the
+    encoder's self-attention and the cross-attention).
 
 The lines before the last carry the ``{"kernels": [...]}`` JSON (all eight
 kernels; the ``fused_adamw`` entry adds the master and bf16-moment modes'
 numbers and phase 13's launches, and its ``max_abs_err`` is the largest of
-its three modes'; the ``flash_fwd`` entry adds phase 15's ``sq1_*``
+its modes'; the ``flash_fwd`` entry adds phase 15's ``sq1_*``
 numbers and the dense-cache loop's launches, ``layer_norm`` the compiled
 loop's; the entries of the kernels phase 16 runs add its launches as
-``ops_launches``, and the ragged entry the gate's plain and kernel ms) and
-the
+``ops_launches``, and the ragged entry the gate's plain and kernel ms;
+phases 17-21 add the flash entries' ``d64_*`` numbers, ``layer_norm``'s
+``h768_*``, ``fused_adamw``'s ``f16_master_max_abs_err``, and each of
+these kernels' launches in phase 20b and 21 as ``bert_launches`` and
+``seq2seq_launches``; every ``max_abs_err`` is the largest of its
+entry's errors) and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the repository beside it, the script exits
 non-zero and prints no result.
@@ -882,6 +925,9 @@ def profile_train_step(step):
                "flash backward dK/dV" if "flash_bwd_dkv" in name else
                "fused_adamw" if "fused_adamw" in name else
                "layer_norm (triton)" if "layer_norm_fwd" in name else
+               "convolution (cuDNN)" if any(k in name for k in (
+                   "conv", "fprop", "dgrad", "wgrad")) else
+               "batch norm" if "batch_norm" in name or "bn_" in name else
                "matmul (cuBLAS)" if any(k in name for k in (
                    "gemm", "gemv", "nvjet", "cutlass", "xmma")) else
                "copies" if "memcpy" in name or "memset" in name else
@@ -2687,6 +2733,636 @@ def operations_phase(pt, K):
     return out
 
 
+# -------------------------------------------- other models (phases 17-21)
+def cross_inputs(B, Sq, Sk, H, D, dtype, seed):
+    """q and dO [B, Sq, H, D], k and v [B, Sk, H, D] (the decoder's
+    cross-attention: separate projections, contiguous)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, do = (torch.randn(B, Sq, H, D, device="cuda", generator=g).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(B, Sk, H, D, device="cuda", generator=g).to(dtype)
+            for _ in range(2))
+    return q, k, v, do
+
+
+def flash_work(B, Sq, Sk, H, D, causal, el=2):
+    """(bytes, operations) of the flash forward, dQ and dK/dV at one
+    shape: each input read once and each output written once (lse and
+    delta f32), and 4 / 6 / 8 multiply-adds x 2 per (query, key) pair
+    kept a head dim."""
+    q_b, kv_b = B * Sq * H * D * el, B * Sk * H * D * el
+    rows = B * H * Sq * 4
+    pairs = B * H * (sum(min(i + 1, Sk) for i in range(Sq)) if causal
+                     else Sq * Sk)
+    return {"flash_fwd": (2 * q_b + 2 * kv_b + rows, 4 * pairs * D),
+            "flash_bwd_dq": (3 * q_b + 2 * kv_b + 2 * rows, 6 * pairs * D),
+            "flash_bwd_dkv": (2 * q_b + 4 * kv_b + 2 * rows, 8 * pairs * D)}
+
+
+# (B, Sq, Sk, H, D): BERT-base's encoder at S 512 and around the 64- and
+# 128-row tiles at head dim 64, the seq2seq copy task's cross-attention
+# (D 16) and a D 32 cross-attention, every one in the DP = 64 tiles
+MODEL_FLASH_SHAPES = [(2, 512, 512, 12, 64), (2, 1, 1, 12, 64),
+                      (2, 129, 129, 12, 64), (2, 1000, 1000, 12, 64),
+                      (4, 7, 11, 4, 16), (2, 300, 77, 4, 32)]
+
+
+def models_kernel_parity(K):
+    """Phase 17: the kernels at the other models' shapes against their
+    plain versions — the flash trio (:data:`MODEL_FLASH_SHAPES`, f32
+    within 1e-4 and bf16 within phase 6's limits, causal and not), the
+    autograd of ``flash_attention_bshd`` at BERT's [2, 512, 12, 64] f32
+    non-causal against autograd through the plain chain, LayerNorm at
+    [8192, 768] (f32 and bf16, epsilon 1e-12 and 1e-5), and fused AdamW's
+    master mode over f16 parameters (each parameter exactly its new
+    master rounded to f16). Then the flash trio at BERT-base's training
+    shape [16, 512, 12, 64] bf16 non-causal and LayerNorm at [8192, 768]
+    bf16, timed beside their bounds, plain versions and library calls.
+    -> {kernel: the numbers it adds to its JSON entry}"""
+    worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for B, Sq, Sk, H, D in MODEL_FLASH_SHAPES:
+        for dt, tol, norm_tol in ((torch.float32, 1e-4, None),
+                                  (torch.bfloat16, FLASH_BF16_TOL,
+                                   FLASH_BF16_NORM_TOL)):
+            for causal in (False, True):
+                q, k, v, do = cross_inputs(B, Sq, Sk, H, D, dt,
+                                           seed=Sq + Sk + D)
+                tag = (f"{str(dt)[6:]} [{B}, {Sq}, {H}, {D}] Sk={Sk} "
+                       f"{'causal' if causal else 'full'}")
+                errs = check_flash(K, tag, q, k, v, do, 1.0 / math.sqrt(D),
+                                   causal, tol, norm_tol)
+                for name, e in errs.items():
+                    worst[name] = max(worst[name], e)
+    # autograd through the kernels at BERT's shape, non-causal, f32
+    q, k, v, do = cross_inputs(2, 512, 512, 12, 64, torch.float32, 17)
+    qkv = [x.requires_grad_(True) for x in (q, k, v)]
+    got = torch.autograd.grad((K.flash_attention_bshd(*qkv, causal=False)
+                               * do).sum(), qkv)
+    sc = torch.einsum("bqhd,bkhd->bhqk", q, k) / 8.0
+    o = torch.einsum("bhqk,bkhd->bqhd", sc.softmax(-1), v)
+    want = torch.autograd.grad((o * do).sum(), qkv)
+    for name, a, b in zip("qkv", got, want):
+        check_close(f"flash_attention_bshd autograd d{name} vs plain chain "
+                    f"(f32 [2, 512, 12, 64] full)", a, b, 1e-4, 1e-4)
+    del q, k, v, do, qkv, got, want, sc, o
+    # LayerNorm at BERT's width, both epsilons
+    g = torch.Generator(device="cuda").manual_seed(18)
+    ln_err = 0.0
+    for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        x = (torch.randn(8192, 768, device="cuda", generator=g) * 2
+             + 1).to(dt)
+        w = (1 + 0.1 * torch.randn(768, device="cuda", generator=g)).to(dt)
+        b = (0.1 * torch.randn(768, device="cuda", generator=g)).to(dt)
+        for eps in (1e-12, 1e-5):
+            e = check_close(f"layer_norm [8192, 768] {str(dt)[6:]} "
+                            f"eps={eps:g}", K.layer_norm(x, w, b, eps),
+                            K.layer_norm_reference(x, w, b, eps), tol, tol)
+            if dt == torch.bfloat16:
+                ln_err = max(ln_err, e)
+    # fused AdamW master mode over f16 parameters (BERT's sizes)
+    shapes = [(30522, 768), (768, 3072), (3072,), (768,), (3,)]
+    params = [(0.05 * torch.randn(s, device="cuda", generator=g)).half()
+              for s in shapes]
+    ws = [p.float() for p in params]
+    gs = [(1e-3 * torch.randn(s, device="cuda", generator=g)).half()
+          for s in shapes]
+    ms_ = [1e-4 * torch.randn(s, device="cuda", generator=g) for s in shapes]
+    vs_ = [1e-6 * torch.rand(s, device="cuda", generator=g) for s in shapes]
+    n = len(shapes)
+    c1, c2 = 1 / (1 - 0.9 ** 5), 1 / (1 - 0.999 ** 5)
+    want = [K.fused_adamw_reference(w, gr, m, v, 1e-4, 0.9, 0.999, 1e-8,
+                                    0.01, c1, c2)
+            for w, gr, m, v in zip(ws, gs, ms_, vs_)]
+    K.fused_adamw(ws, gs, ms_, vs_, [1e-4] * n, 0.9, 0.999, 1e-8,
+                  [0.01] * n, [c1] * n, [c2] * n, params=params)
+    torch.cuda.synchronize()
+    f16_err = 0.0
+    for (w2, m2, v2), w, m, v, p in zip(want, ws, ms_, vs_, params):
+        tag = f"{tuple(w.shape)}"
+        f16_err = max(f16_err,
+                      check_close(f"fused_adamw f16 master w {tag}", w, w2,
+                                  1e-6, 1e-6),
+                      check_close(f"fused_adamw f16 master m {tag}", m, m2,
+                                  1e-6, 1e-6),
+                      check_close(f"fused_adamw f16 master v {tag}", v, v2,
+                                  1e-6, 1e-6))
+        if p.dtype != torch.float16 or not torch.equal(p, w.half()):
+            fail(f"fused_adamw f16 master mode: the parameter {tag} is not "
+                 f"its new master rounded to f16")
+    log(f"  fused_adamw f16 master mode: {n} tensors, each f16 parameter "
+        f"exactly its new f32 master rounded; max abs err {f16_err:.3e}")
+    del params, ws, gs, ms_, vs_, want
+    torch.cuda.empty_cache()
+    out = {name: {"d64_max_abs_err": e} for name, e in worst.items()}
+    out["layer_norm"] = {"h768_max_abs_err": ln_err}
+    out["fused_adamw"] = {"f16_master_max_abs_err": f16_err}
+    # timing at BERT-base's training shape
+    B, S, H, D = 16, 512, 12, 64
+    scale = 1.0 / math.sqrt(D)
+    q, k, v, do = cross_inputs(B, S, S, H, D, torch.bfloat16, 19)
+    errs = check_flash(K, f"bf16 [{B}, {S}, {H}, {D}] full (BERT-base)",
+                       q, k, v, do, scale, False, FLASH_BF16_TOL,
+                       FLASH_BF16_NORM_TOL)
+    o, lse = K.flash_fwd(q, k, v, scale, False)
+    delta = K.flash_delta(o, do)
+    bargs = lambda: [_bhsd(x) for x in (q, k, v, do)] + [  # noqa: E731
+        lse.reshape(B * H, S), delta.reshape(B * H, S), scale, False]
+    kern = {"flash_fwd": lambda: K.flash_fwd(q, k, v, scale, False),
+            "flash_bwd_dq": lambda: K.flash_bwd_dq(q, k, v, do, lse, delta,
+                                                   scale, False),
+            "flash_bwd_dkv": lambda: K.flash_bwd_dkv(q, k, v, do, lse,
+                                                     delta, scale, False)}
+    plain = {"flash_fwd": lambda: K.flash_fwd_reference(
+        _bhsd(q), _bhsd(k), _bhsd(v), scale, False),
+        "flash_bwd_dq": lambda: K.flash_bwd_dq_reference(*bargs()),
+        "flash_bwd_dkv": lambda: K.flash_bwd_dkv_reference(*bargs())}
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ot = sdpa(qt, kt, vt)
+    lib_fwd, _, _ = time_ms(lambda: sdpa(qt, kt, vt))
+    lib_bwd, _, _ = time_ms(lambda: torch.autograd.grad(
+        ot, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
+    work = flash_work(B, S, S, H, D, False)
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        ms, wall, src = time_ms(kern[name])
+        plain_ms, _, _ = time_ms(plain[name], iters=3, warmup=1)
+        lib = lib_fwd if name == "flash_fwd" else lib_bwd
+        nbytes, flops = work[name]
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        log(f"[models timing] {name} [{B}, {S}, {H}, {D}] bf16 full: "
+            f"kernel {ms:.4f} ms ({src}; {wall:.4f} ms per call with "
+            f"launch) plain {plain_ms:.4f} ms library {lib:.4f} ms bound "
+            f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP) = {100 * b_ms / ms:.1f}% of bound")
+        out[name].update({
+            "d64_ms": ms, "d64_plain_ms": plain_ms, "d64_bound_ms": b_ms,
+            "d64_bound_by": b_by, "d64_library_ms": lib,
+            "d64_max_abs_err": max(out[name]["d64_max_abs_err"],
+                                   errs[name])})
+    del q, k, v, do, o, lse, delta, qt, kt, vt, ot
+    x = torch.randn(8192, 768, device="cuda", generator=g).bfloat16()
+    w = (1 + 0.1 * torch.randn(768, device="cuda", generator=g)).bfloat16()
+    b = (0.1 * torch.randn(768, device="cuda", generator=g)).bfloat16()
+    ms, wall, src = time_ms(lambda: K.layer_norm(x, w, b, 1e-12))
+    plain_ms, _, _ = time_ms(lambda: K.layer_norm_reference(x, w, b, 1e-12))
+    lib_ms, _, _ = time_ms(lambda: torch.nn.functional.layer_norm(
+        x, (768,), w, b, 1e-12))
+    b_ms, b_by = bound(2 * x.numel() * 2 + 2 * 768 * 2, 8 * x.numel(),
+                       F32_FLOPS_PER_S)
+    log(f"[models timing] layer_norm [8192, 768] bf16: kernel {ms:.4f} ms "
+        f"({src}; {wall:.4f} ms per call with launch) plain "
+        f"{plain_ms:.4f} ms F.layer_norm {lib_ms:.4f} ms bound {b_ms:.4f} "
+        f"ms ({b_by})")
+    out["layer_norm"].update({"h768_ms": ms, "h768_plain_ms": plain_ms,
+                              "h768_bound_ms": b_ms, "h768_bound_by": b_by,
+                              "h768_library_ms": lib_ms})
+    torch.cuda.empty_cache()
+    return out
+
+
+def timed_steps(step, warmup, steps):
+    """``warmup`` calls of ``step`` (each returns its loss as a float),
+    then ``steps`` timed ones on the host clock with the launch counters
+    zeroed just before them. -> (losses, step ms, launch counts, peak
+    bytes of the timed steps)"""
+    from paddle_tpu_torch.ops import kernels as K
+    losses = [step() for _ in range(warmup)]
+    torch.cuda.synchronize()
+    gc.collect()             # earlier phases' garbage is not this peak's
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(step())
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return losses, times, K.launch_counts(), torch.cuda.max_memory_allocated()
+
+
+def check_training(tag, losses, warmup, launches, want):
+    """Fails unless the losses are finite and fall and the launches are
+    exactly ``want`` (zero for every kernel it does not name)."""
+    log(f"  losses: " + " ".join(f"{x:.4f}" for x in losses)
+        + f" (first {warmup} are warm-up)")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        fail(f"{tag}: losses not finite or not falling: {losses}")
+    full = {name: 0 for name in launches}
+    full.update(want)
+    log(f"  launches over the timed steps: {launches}")
+    if launches != full:
+        fail(f"{tag}: kernel launches {launches} != {full}")
+
+
+def report_profile(tag, step):
+    """Logs one call of ``step`` under ``torch.profiler``: device time by
+    kernel family, the largest kernels and the busy share (the union of
+    device intervals over the host time)."""
+    wall_ms, busy_ms, families, top, _ = profile_train_step(step)
+    total = sum(families.values())
+    log(f"[{tag} profile] one step under torch.profiler: {wall_ms:.2f} ms "
+        f"on the host clock; device busy {busy_ms:.2f} ms (union of device "
+        f"intervals; {total:.2f} ms summed) = "
+        f"{100 * busy_ms / wall_ms:.1f}% busy")
+    for fam, ms in sorted(families.items(), key=lambda kv: -kv[1]):
+        log(f"  {fam}: {ms:.3f} ms per step "
+            f"({100 * ms / total:.1f}% of summed device time)")
+    for (fam, name), ms in top:
+        log(f"    {ms:.3f} ms per step  [{fam}] {name[:100]}")
+
+
+def lenet_phase(pt, warmup=5, steps=30, B=64):
+    """Phase 18: LeNet as ``bench.py:379-397`` trains it — B 64 x 1 x 28 x
+    28 f32 from numpy seed 0, ``Adam(1e-3)``, cross-entropy — 5 warm-up
+    and 30 timed steps, each ending in ``loss.item()``: steps/s on the
+    host clock, falling losses, one AdamW launch a step and nothing
+    else."""
+    F = pt.nn.functional
+    model = pt.LeNet(seed=SEED)
+    opt = pt.Adam(learning_rate=1e-3, parameters=model.parameters())
+    rng = np.random.RandomState(SEED)
+    x = torch.from_numpy(rng.randn(B, 1, 28, 28).astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.randint(0, 10, B)).cuda()
+
+    def step():
+        loss = F.cross_entropy(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.item()
+
+    log(f"[lenet] LeNet f32, B={B} x 1 x 28 x 28, Adam(1e-3), {warmup} "
+        f"warm-up and {steps} timed steps")
+    losses, times, launches, peak = timed_steps(step, warmup, steps)
+    check_training("lenet", losses, warmup, launches,
+                   {"fused_adamw": steps})
+    med = float(np.median(times))
+    log("  " + json.dumps({"steps_per_s": 1e3 / med, "step_ms_median": med,
+                           "step_ms_min": min(times),
+                           "max_memory_allocated_gb": peak / 1e9,
+                           "first_loss": losses[0],
+                           "last_loss": losses[-1]}))
+
+
+def resnet_phase(pt, warmup=2, steps=10, B=128):
+    """Phase 19: ResNet-50 at full depth and width (``resnet50(
+    num_classes=1000)``) under AMP O2 float16, BASELINE config 2 on one
+    card: B 128 x 3 x 224 x 224 random images and labels from numpy seed
+    0, ``decorate(level="O2", dtype="float16")``, ``Momentum(0.1, 0.9,
+    weight_decay=L2Decay(1e-4), multi_precision=True)``,
+    ``GradScaler(init_loss_scaling=2**15)``; 2 warm-up and 10 timed
+    steps. Checks: losses finite and falling, every BatchNorm's running
+    statistics finite and moved, no hand kernel launched (none is on this
+    path). Prints images/s, step ms, peak memory, the scaler's scale and
+    one profiled step; then one O1 bf16 step on f32 weights for
+    comparison."""
+    F = pt.nn.functional
+    rng = np.random.RandomState(SEED)
+    x = torch.from_numpy(rng.randn(B, 3, 224, 224).astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.randint(0, 1000, B)).cuda()
+    t0 = time.perf_counter()
+    model = pt.resnet50(num_classes=1000, seed=SEED)
+    opt = pt.Momentum(0.1, 0.9, parameters=model.parameters(),
+                      weight_decay=pt.regularizer.L2Decay(1e-4),
+                      multi_precision=True)
+    model, opt = pt.amp.decorate(model, opt, level="O2", dtype="float16")
+    scaler = pt.amp.GradScaler(init_loss_scaling=2.0 ** 15)
+    n_params = sum(p.numel() for p in model.parameters())
+    stats0 = {n: b.detach().float().clone() for n, b in model.named_buffers()}
+    torch.cuda.synchronize()
+    log(f"[resnet] resnet50 O2 float16: {n_params / 1e6:.3f} M params, "
+        f"{len(stats0)} BatchNorm statistics, built in "
+        f"{time.perf_counter() - t0:.2f} s; B={B} x 3 x 224 x 224, "
+        f"Momentum(0.1, 0.9, L2Decay(1e-4), multi_precision), "
+        f"GradScaler(2**15)")
+
+    def step():
+        with pt.auto_cast(level="O2", dtype="float16"):
+            loss = F.cross_entropy(model(x), y)
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        return loss.item()
+
+    losses, times, launches, peak = timed_steps(step, warmup, steps)
+    check_training("resnet", losses, warmup, launches, {})
+    if any(p.dtype != torch.float16 for p in model.parameters()):
+        fail("resnet: a parameter is not float16 under O2")
+    moved = 0
+    for name, b in model.named_buffers():
+        if not bool(torch.isfinite(b.float()).all()):
+            fail(f"resnet: BatchNorm statistic {name} is not finite")
+        moved += int(not torch.equal(b.float(), stats0[name]))
+    if moved != len(stats0):
+        fail(f"resnet: only {moved} of {len(stats0)} running statistics "
+             f"moved")
+    med = float(np.median(times))
+    summary = {"images_per_s": B / med * 1e3, "step_ms_median": med,
+               "step_ms_min": min(times),
+               "max_memory_allocated_gb": peak / 1e9,
+               "loss_scale": float(scaler.get_loss_scaling()),
+               "first_loss": losses[0], "last_loss": losses[-1]}
+    log(f"  {len(stats0)} BatchNorm statistics finite and moved; "
+        + json.dumps(summary))
+    report_profile("resnet", step)
+    del model, opt, scaler
+    gc.collect()
+    torch.cuda.empty_cache()
+    # O1 bf16 on f32 weights, for comparison
+    model = pt.resnet50(num_classes=1000, seed=SEED)
+    opt = pt.Momentum(0.1, 0.9, parameters=model.parameters(),
+                      weight_decay=pt.regularizer.L2Decay(1e-4))
+
+    def o1_step():
+        with pt.auto_cast(level="O1", dtype="bfloat16"):
+            loss = F.cross_entropy(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.item()
+
+    losses, times, _, peak = timed_steps(o1_step, 1, 3)
+    log(f"[resnet] O1 bf16 on f32 weights, same batch: step ms "
+        + " ".join(f"{t:.2f}" for t in times) + f" (median "
+        f"{float(np.median(times)):.2f}; {B / float(np.median(times)) * 1e3:.1f}"
+        f" images/s), peak {peak / 1e9:.2f} GB, losses "
+        + " ".join(f"{v:.4f}" for v in losses))
+    del model, opt, x
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
+def bert_plain_logits(model, ids):
+    """The MLM logits of ``model`` (a port ``BertForMaskedLM``, no token
+    types, no mask, post-norm GELU layers) by a dense forward in plain
+    torch over its own parameters: torch's LayerNorm, attention by
+    softmax over all keys, exact GELU."""
+    tF = torch.nn.functional
+    bert, cfg = model.bert, model.config
+    emb = bert.embeddings
+    pos = torch.arange(ids.shape[1], device=ids.device)
+    h = emb.word_embeddings.weight[ids] + emb.position_embeddings.weight[pos]
+    ln = lambda x, m: tF.layer_norm(x, (x.shape[-1],), m.weight,  # noqa
+                                    m.bias, m.epsilon)
+    lin = lambda x, m: x @ m.weight + m.bias  # noqa: E731
+    h = ln(h, emb.layer_norm)
+    B, S, E = h.shape
+    nh = cfg.num_heads
+    for layer in bert.encoder.layers:
+        a = layer.self_attn
+        q, k, v = (lin(h, p).reshape(B, S, nh, E // nh)
+                   for p in (a.q_proj, a.k_proj, a.v_proj))
+        sc = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(E // nh)
+        o = torch.einsum("bhqk,bkhd->bqhd", sc.softmax(-1), v)
+        h = ln(h + lin(o.reshape(B, S, E), a.out_proj), layer.norm1)
+        f = lin(tF.gelu(lin(h, layer.linear1)), layer.linear2)
+        h = ln(h + f, layer.norm2)
+    t = ln(tF.gelu(lin(h, model.transform)), model.layer_norm)
+    return lin(t, model.decoder)
+
+
+def bert_parity(pt, K, layers=2, B=2, S=512):
+    """Phase 20a: a 2-layer f32 ``BertForMaskedLM`` at ``bert_base``
+    widths on the card; its loss and every gradient against autograd
+    through :func:`bert_plain_logits` over the same parameters (as phase
+    7 holds the GPT)."""
+    cfg = pt.bert_base(dropout=0.0)
+    cfg.num_layers = layers
+    model = pt.BertForMaskedLM(cfg, seed=SEED + 3).train()
+    rng = np.random.RandomState(SEED + 3)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, S))).cuda()
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, S))).cuda()
+    params = list(model.parameters())
+    names = [p.param_name for p in params]
+    want_loss = torch.nn.functional.cross_entropy(
+        bert_plain_logits(model, ids).reshape(-1, cfg.vocab_size),
+        labels.reshape(-1))
+    # the token-type table and the pooler take no part in the MLM loss
+    want_grads = torch.autograd.grad(want_loss, params, allow_unused=True)
+    K.reset_launch_counts()
+    loss = pt.nn.functional.cross_entropy(
+        model(ids).reshape(-1, cfg.vocab_size), labels.reshape(-1))
+    loss.backward()
+    torch.cuda.synchronize()
+    launched = K.launch_counts()
+    want = {name: 0 for name in launched}
+    want.update({"flash_fwd": layers, "flash_bwd_dq": layers,
+                 "flash_bwd_dkv": layers, "layer_norm": 2 * layers + 2})
+    if launched != want:
+        fail(f"bert parity: launches {launched} != {want}")
+    check_close("bert loss vs dense plain forward", loss.detach(),
+                want_loss.detach(), 1e-5, 1e-5)
+    want_max = {n: float(wg.abs().max()) for n, wg in zip(names, want_grads)
+                if wg is not None}
+    worst, unused, key_bias = 0.0, 0, 0.0
+    for name, p, wg in zip(names, params, want_grads):
+        if wg is None:
+            unused += 1
+            if p.grad is not None:
+                fail(f"bert parity: {name} got a gradient the plain chain "
+                     f"does not give it")
+            continue
+        if name.endswith("k_proj.bias"):
+            # zero in exact arithmetic (a constant added to a row's scores
+            # leaves its softmax alone): both sides are rounding noise,
+            # held under 1e-4 of the key weight's largest gradient
+            ref = want_max[name[:-len("bias")] + "weight"]
+            got = float(p.grad.abs().max())
+            key_bias = max(key_bias, got / ref, want_max[name] / ref)
+            if max(got, want_max[name]) > 1e-4 * ref:
+                fail(f"bert parity: {name} {got:.3e} (plain "
+                     f"{want_max[name]:.3e}) is not zero against its "
+                     f"weight's {ref:.3e}")
+            continue
+        scale = float(wg.abs().max())
+        err = (p.grad - wg).abs()
+        worst = max(worst, float(err.max()) / max(scale, 1e-30))
+        if not bool((err <= 1e-4 * scale + 1e-3 * wg.abs()).all()) \
+                or not bool(torch.isfinite(p.grad).all()):
+            fail(f"bert parity: grad of {name} disagrees (max abs err "
+                 f"{float(err.max()):.3e}, max |grad| {scale:.3e})")
+    log(f"  {len(params) - unused} gradients within 1e-4 x max|grad| + "
+        f"1e-3 x |grad| of the plain chain's (worst max-err/max|grad| "
+        f"{worst:.3e}; the key biases' at most {key_bias:.3e} of their "
+        f"weights'; {unused} tensors outside the loss got none); launches "
+        f"{launched}")
+    del model, params, want_grads, loss, want_loss
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def bert_train(pt, warmup=2, steps=10, B=16, S=512):
+    """Phase 20b: ``BertForMaskedLM(bert_base(dropout=0.0))`` at full size
+    (12 layers, 768, 12 heads, 3072, vocab 30522), built in f32 from seed
+    0, decorated O2 bf16 with ``AdamW(1e-4, multi_precision=True)``; B 16
+    x S 512 from numpy seed 0, no attention mask (so the encoder runs the
+    flash kernels, non-causal, at head dim 64); 2 warm-up and 10 timed
+    steps. Launches exact: per step the flash forward, dQ and dK/dV 12
+    each, LayerNorm 26, AdamW 1. Prints step ms, tokens/s, peak memory,
+    MFU (``6 N tokens + 12 L B S^2 h`` over 989 TFLOP/s: non-causal
+    attention is twice ``bench.py:435``'s causal term) and one profiled
+    step. -> (summary, the timed steps' launches)"""
+    F = pt.nn.functional
+    cfg = pt.bert_base(dropout=0.0)
+    t0 = time.perf_counter()
+    model = pt.BertForMaskedLM(cfg, seed=SEED).train()
+    opt = pt.AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                   multi_precision=True)
+    model, opt = pt.amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.RandomState(SEED)
+    V = cfg.vocab_size
+    ids = torch.from_numpy(rng.randint(0, V, (B, S))).cuda()
+    labels = torch.from_numpy(rng.randint(0, V, (B, S))).cuda()
+    torch.cuda.synchronize()
+    log(f"[bert] BertForMaskedLM(bert_base) O2 bf16: {n_params / 1e6:.3f} M "
+        f"params, {len(list(model.parameters()))} tensors, built in "
+        f"{time.perf_counter() - t0:.2f} s; B={B} S={S}, "
+        f"AdamW(1e-4, multi_precision)")
+
+    def step():
+        with pt.auto_cast(level="O2", dtype="bfloat16"):
+            loss = F.cross_entropy(model(ids).reshape(-1, V),
+                                   labels.reshape(-1))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.item()
+
+    losses, times, launches, peak = timed_steps(step, warmup, steps)
+    L = cfg.num_layers
+    check_training("bert", losses, warmup, launches, {
+        "flash_fwd": steps * L, "flash_bwd_dq": steps * L,
+        "flash_bwd_dkv": steps * L, "layer_norm": steps * (2 * L + 2),
+        "fused_adamw": steps})
+    med = float(np.median(times))
+    flops = 6 * n_params * B * S + 12 * L * B * S * S * cfg.hidden_size
+    summary = {"step_ms_median": med, "step_ms_min": min(times),
+               "tokens_per_s": B * S / med * 1e3,
+               "bert_train_step_mfu": flops / (med / 1e3) / BF16_FLOPS_PER_S,
+               "model_tflop_per_step": flops / 1e12,
+               "max_memory_allocated_gb": peak / 1e9,
+               "first_loss": losses[0], "last_loss": losses[-1]}
+    log("  " + json.dumps(summary))
+    report_profile("bert", step)
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary, launches
+
+
+def bert_classify(pt, K, B=16, S=512):
+    """Phase 20c: ``BertForSequenceClassification(bert_base)`` in eval,
+    built in bf16: with no mask the encoder runs the flash forward (12
+    launches), with an all-ones ``attention_mask`` the plain chain (none);
+    the two logits agree within bf16 limits (4e-2 elementwise, 2e-2 on
+    the error's norm: the two attention paths round to bf16 at other
+    places in each of 12 layers)."""
+    cfg = pt.bert_base()
+    model = pt.BertForSequenceClassification(cfg, seed=SEED + 4,
+                                             dtype=torch.bfloat16).eval()
+    rng = np.random.RandomState(SEED + 4)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, S))).cuda()
+    with torch.no_grad():
+        K.reset_launch_counts()
+        flash = model(ids)
+        torch.cuda.synchronize()
+        n_flash = K.launch_counts()["flash_fwd"]
+        K.reset_launch_counts()
+        plain = model(ids, attention_mask=torch.ones_like(ids))
+        torch.cuda.synchronize()
+        n_plain = K.launch_counts()["flash_fwd"]
+    if (n_flash, n_plain) != (12, 0):
+        fail(f"bert classify: flash forward launches {n_flash} unmasked, "
+             f"{n_plain} masked; 12 and 0 expected")
+    check_close("bert classify logits, flash vs masked plain chain (bf16)",
+                flash, plain, 4e-2, 4e-2, 2e-2)
+    log(f"  logits {tuple(flash.shape)}; flash forward launches 12 "
+        f"unmasked, 0 with the mask")
+    del model
+    torch.cuda.empty_cache()
+
+
+def seq2seq_phase(pt, steps=120, B=32, S=6, vocab=16):
+    """Phase 21: the copy task of ``tests/test_models.py:216-260`` on the
+    card — vocab 16, d_model 64, nhead 4 (head dim 16), one encoder and
+    one decoder layer, ``Adam(2e-3)``, B 32 x S 6 from numpy seed 0, 120
+    steps. The loss must end under 0.1 x the first and ``translate`` must
+    reproduce at least 90% of the first 4 rows' tokens; per training step
+    the flash trio launches exactly twice each (the encoder's
+    self-attention and the cross-attention, Sq 7 over Sk 6; the decoder's
+    masked self-attention takes the plain chain), LayerNorm 5 times and
+    AdamW once. -> the launches of the training steps"""
+    from paddle_tpu_torch.ops import kernels as K
+    F = pt.nn.functional
+    rng = np.random.RandomState(SEED)
+    src = rng.randint(2, vocab, (B, S))
+    tgt = np.concatenate([np.full((B, 1), 0), src, np.full((B, 1), 1)], 1)
+    model = pt.Seq2SeqTransformer(vocab, vocab, d_model=64, nhead=4,
+                                  num_encoder_layers=1, num_decoder_layers=1,
+                                  dim_feedforward=128, seed=SEED).train()
+    opt = pt.Adam(learning_rate=2e-3, parameters=model.parameters())
+    xs, tin, tout = (torch.from_numpy(a).cuda()
+                     for a in (src, tgt[:, :-1], tgt[:, 1:]))
+    K.reset_launch_counts()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        loss = F.cross_entropy(model(xs, tin).reshape(-1, vocab),
+                               tout.reshape(-1))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.item())
+    train_s = time.perf_counter() - t0
+    launches = K.launch_counts()
+    model.eval()
+    got = model.translate(xs[:4], max_new_tokens=S + 1).cpu().numpy()[:, :S]
+    acc = float((got == src[:4]).mean())
+    log(f"[seq2seq] copy task, {steps} Adam steps in {train_s:.2f} s "
+        f"({1e3 * train_s / steps:.2f} ms a step): loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; translate reproduces {100 * acc:.1f}% of the "
+        f"source tokens; launches {launches}")
+    if not losses[-1] < 0.1 * losses[0]:
+        fail(f"seq2seq: loss {losses[-1]} not under 0.1 x {losses[0]}")
+    if acc <= 0.9:
+        fail(f"seq2seq: translate reproduced {acc:.3f} of the tokens")
+    want = {name: 0 for name in launches}
+    want.update({"flash_fwd": 2 * steps, "flash_bwd_dq": 2 * steps,
+                 "flash_bwd_dkv": 2 * steps, "layer_norm": 5 * steps,
+                 "fused_adamw": steps})
+    if launches != want:
+        fail(f"seq2seq: kernel launches {launches} != {want}")
+    del model, opt
+    torch.cuda.empty_cache()
+    return launches
+
+
+def models_phases(pt, K):
+    """Phases 17-21. -> {kernel: the numbers they add to its JSON
+    entry}"""
+    log("[models parity] the kernels at the other models' shapes: flash at "
+        "head dims 64/32/16 with Sq != Sk, LayerNorm at 768, f16 AdamW "
+        "master mode")
+    extra = models_kernel_parity(K)
+    lenet_phase(pt)
+    resnet_phase(pt)
+    log("[bert parity] 2-layer f32 BertForMaskedLM at bert_base widths vs "
+        "autograd through a dense plain forward")
+    bert_parity(pt, K)
+    _, bert_launches = bert_train(pt)
+    bert_classify(pt, K)
+    s2s_launches = seq2seq_phase(pt)
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "layer_norm",
+                 "fused_adamw"):
+        extra[name].update({"bert_launches": bert_launches[name],
+                            "seq2seq_launches": s2s_launches[name]})
+    return extra
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -2977,17 +3653,7 @@ def main():
     t_model, t_opt, t_step, t_launches = train_slice(pt, K)
 
     # ------------------------------- phase 9: train timing and profile
-    wall_ms, busy_ms, families, top, _ = profile_train_step(t_step)
-    total_ms = sum(families.values())
-    log(f"[train profile] one step under torch.profiler: {wall_ms:.2f} ms "
-        f"on the host clock; device busy {busy_ms:.2f} ms (union of device "
-        f"intervals; {total_ms:.2f} ms summed) = "
-        f"{100 * busy_ms / wall_ms:.1f}% busy")
-    for fam, ms in sorted(families.items(), key=lambda kv: -kv[1]):
-        log(f"  {fam}: {ms:.3f} ms per step "
-            f"({100 * ms / total_ms:.1f}% of summed device time)")
-    for (fam, name), ms in top:
-        log(f"    {ms:.3f} ms per step  [{fam}] {name[:100]}")
+    report_profile("train", t_step)
     log("[train timing] the new kernels at the slice's shapes, held "
         "against their plain versions, then timed")
     kernels += train_timing(K, t_model, t_opt, t_launches)
@@ -3053,9 +3719,13 @@ def main():
     adam = next(e for e in kernels if e["name"] == "fused_adamw")
     adam.update(adam_o2)
     adam["o2_launches"] = o_launches["fused_adamw"]
-    adam["max_abs_err"] = max(adam["max_abs_err"],
-                              adam_o2["master_max_abs_err"],
-                              adam_o2["bf16_moment_max_abs_err"])
+
+    # ------------------------------- phases 17-21: the other models
+    for name, numbers in models_phases(pt, K).items():
+        next(e for e in kernels if e["name"] == name).update(numbers)
+    for e in kernels:
+        e["max_abs_err"] = max([e["max_abs_err"]] + [
+            v for k, v in e.items() if k.endswith("_max_abs_err")])
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

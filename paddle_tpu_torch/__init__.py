@@ -42,25 +42,56 @@ a global-norm clip and, optionally, per-block recompute::
 moments, masters and schedule; ``pt.amp.GradScaler`` scales the loss;
 O1 (f32 weights, ``auto_cast(level="O1")``) trains without ``decorate``.
 
+The JAX package's other models train the same way, over the layers of
+``pt.nn`` (Conv2D, BatchNorm2D, the pools, the Transformer layers) and
+``pt.SGD`` / ``pt.Momentum``: ``pt.LeNet``, the ResNets (``pt.resnet50``,
+O2 in float16 with a ``GradScaler``), BERT (``pt.BertForMaskedLM(
+pt.bert_base())``, its encoder on the flash kernels at head dim 64) and
+``pt.Seq2SeqTransformer``::
+
+    model = pt.resnet50(num_classes=1000)                # f32, on cuda
+    opt = pt.Momentum(0.1, 0.9, parameters=model.parameters(),
+                      weight_decay=pt.regularizer.L2Decay(1e-4),
+                      multi_precision=True)
+    model, opt = pt.amp.decorate(model, opt, level="O2", dtype="float16")
+    scaler = pt.amp.GradScaler(init_loss_scaling=2.0 ** 15)
+    with pt.auto_cast(level="O2", dtype="float16"):
+        loss = pt.nn.functional.cross_entropy(model(images), labels)
+    scaler.scale(loss).backward(); scaler.step(opt); scaler.update()
+    opt.clear_grad()
+
+``params_from_paddle_tpu(state, model)`` fills a port model built in the
+same configuration from a JAX model's ``state_dict()`` arrays
+(BatchNorm's running statistics included).
+
 Entry points run on ``cuda`` unless given ``device="cpu"`` and raise when
 CUDA is absent (:mod:`.device`). The package imports neither ``jax`` nor
 ``paddle_tpu``.
 """
-from . import amp, distributed, nn, optimizer, regularizer
+from . import amp, distributed, models, nn, optimizer, regularizer
 from .amp import auto_cast
 from .convert import (opt_state_from_paddle_tpu, opt_state_to_numpy,
                       params_from_paddle_tpu, params_to_numpy)
 from .device import resolve_device
-from .models.gpt import (GPTConfig, GPTForCausalLM, GPTPretrainingCriterion,
-                         gpt_13b, gpt_1p3b, gpt_small, gpt_tiny)
+from .models import (BertConfig, BertForMaskedLM,
+                     BertForSequenceClassification, BertModel, GPTConfig,
+                     GPTForCausalLM, GPTPretrainingCriterion, LeNet, ResNet,
+                     Seq2SeqTransformer, bert_base, bert_tiny, gpt_13b,
+                     gpt_1p3b, gpt_small, gpt_tiny, resnet18, resnet34,
+                     resnet50, resnet101, resnet152, resnext50_32x4d,
+                     wide_resnet50_2)
 from .ops.kernels import flash_attention_bshd
-from .optimizer import Adam, AdamW
+from .optimizer import SGD, Adam, AdamW, Momentum
 from .serving.engine import ServingEngine
 
 __all__ = ["GPTConfig", "GPTForCausalLM", "GPTPretrainingCriterion",
-           "ServingEngine", "Adam", "AdamW", "auto_cast",
+           "ServingEngine", "SGD", "Momentum", "Adam", "AdamW", "auto_cast",
            "flash_attention_bshd", "params_from_paddle_tpu",
            "params_to_numpy", "opt_state_from_paddle_tpu",
            "opt_state_to_numpy", "resolve_device", "amp", "distributed",
-           "nn", "optimizer", "regularizer", "gpt_tiny", "gpt_small",
-           "gpt_1p3b", "gpt_13b"]
+           "models", "nn", "optimizer", "regularizer", "gpt_tiny",
+           "gpt_small", "gpt_1p3b", "gpt_13b", "LeNet", "ResNet",
+           "resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
+           "resnext50_32x4d", "wide_resnet50_2", "BertConfig", "BertModel",
+           "BertForSequenceClassification", "BertForMaskedLM", "bert_base",
+           "bert_tiny", "Seq2SeqTransformer"]

@@ -1,8 +1,9 @@
 """GradScaler — dynamic loss scaling, after ``paddle_tpu/amp/
 grad_scaler.py`` (reference: python/paddle/amp/grad_scaler.py:578).
 
-With bf16 (f32's exponent range) scaling is rarely needed, but the full
-semantics are kept: ``scale`` multiplies the loss, ``unscale_`` divides
+With bf16 (f32's exponent range) scaling is rarely needed; with float16
+(O2 ResNet-50, BASELINE config 2) it keeps small gradients from
+underflowing. The full semantics are kept: ``scale`` multiplies the loss, ``unscale_`` divides
 every gradient in place (in f32, stored back in its type) and finds
 whether any is inf or nan, ``step`` skips the optimizer's step when one
 is, and ``update`` grows the scale by ``incr_ratio`` after
@@ -13,8 +14,8 @@ not update the scale; ``minimize`` does both.
 ``unscale_`` makes one host sync for the whole parameter set, as the JAX
 package does: each gradient's ``isfinite(g).all()`` stays on the device,
 the flags are reduced together and read once, and one multi-tensor
-multiply (``torch._foreach_mul_``, in f32 for bf16 gradients) unscales
-them all.
+multiply (``torch._foreach_mul_``, in f32 for bf16 and f16 gradients)
+unscales them all.
 """
 from __future__ import annotations
 

@@ -1,15 +1,20 @@
-"""Carry a JAX-package GPT's weights into the port.
+"""Carry a JAX-package model's weights into the port.
 
-``params_from_paddle_tpu(named_arrays, config, device, dtype)`` takes the
-parameters of a ``paddle_tpu.models.GPTForCausalLM`` as numpy arrays keyed
-by their structured names (``model.named_parameters()`` /
-``state_dict()``: ``gpt.wte.weight``, ``gpt.h.0.attn.qkv_proj.weight``,
-...) and returns the port's :class:`~.models.gpt.GPTForCausalLM` holding
-them. The port keeps the JAX package's names and layouts — ``Linear``
-weights stay ``[in, out]`` — so every array copies as it is; a missing,
-unexpected or misshapen name raises. The parameters stay trainable.
-``params_to_numpy(model)`` goes the other way, so trained weights can be
-compared.
+``params_from_paddle_tpu(named_arrays, model)`` takes a JAX model's
+``state_dict()`` as numpy arrays keyed by their structured names
+(parameters and persistent buffers: ``features.0.weight``,
+``bn1._mean``, ``bert.encoder.layers.0.self_attn.q_proj.weight``, ...)
+and fills ``model``, a port model built in the same configuration (with
+``seed=None`` the port's models skip their random init), in place: its
+parameters and persistent buffers (BatchNorm's ``_mean`` /
+``_variance``), each copied into its own dtype and device. For a GPT,
+``params_from_paddle_tpu(named_arrays, config, device, dtype)`` builds
+the port's :class:`~.models.gpt.GPTForCausalLM` first. The port keeps the
+JAX package's names and layouts — ``Linear`` weights stay ``[in, out]``,
+convolution weights ``[out, in / groups, kh, kw]`` — so every array
+copies as it is; a missing, unexpected or misshapen name raises. The
+parameters stay trainable. ``params_to_numpy(model)`` goes the other way
+(parameters and buffers), so trained weights can be compared.
 
 An optimizer's state crosses the same way.
 ``opt_state_from_paddle_tpu(state, name_map)`` turns a JAX optimizer's
@@ -32,36 +37,40 @@ __all__ = ["params_from_paddle_tpu", "params_to_numpy",
            "opt_state_from_paddle_tpu", "opt_state_to_numpy"]
 
 
-def params_from_paddle_tpu(named_arrays, config, device=None,
+def params_from_paddle_tpu(named_arrays, config_or_model, device=None,
                            dtype=torch.float32):
-    """-> a port ``GPTForCausalLM`` on ``device`` (``cuda`` unless
-    ``"cpu"``) in ``dtype``, filled from ``named_arrays`` (a mapping or an
-    iterable of ``(name, array)`` pairs)."""
+    """-> the port model filled from ``named_arrays`` (a mapping or an
+    iterable of ``(name, array)`` pairs): ``config_or_model`` itself when
+    it is a module, else a ``GPTForCausalLM`` built from that config on
+    ``device`` (``cuda`` unless ``"cpu"``) in ``dtype``."""
     arrays = dict(named_arrays.items() if hasattr(named_arrays, "items")
                   else named_arrays)
-    model = GPTForCausalLM(config, device=device, dtype=dtype, seed=None)
-    params = dict(model.named_parameters())
-    missing = sorted(set(params) - set(arrays))
-    unexpected = sorted(set(arrays) - set(params))
+    model = config_or_model
+    if not isinstance(model, torch.nn.Module):
+        model = GPTForCausalLM(config_or_model, device=device, dtype=dtype,
+                               seed=None)
+    targets = model.state_dict(keep_vars=True)
+    missing = sorted(set(targets) - set(arrays))
+    unexpected = sorted(set(arrays) - set(targets))
     if missing or unexpected:
         raise KeyError(f"weight names disagree: missing {missing}, "
                        f"unexpected {unexpected}")
     with torch.no_grad():
-        for name, p in params.items():
+        for name, t in targets.items():
             a = np.asarray(arrays[name])
-            if tuple(a.shape) != tuple(p.shape):
-                raise ValueError(f"{name}: array {a.shape} vs parameter "
-                                 f"{tuple(p.shape)}")
-            p.copy_(torch.from_numpy(np.array(a, dtype=np.float32)))
+            if tuple(a.shape) != tuple(t.shape):
+                raise ValueError(f"{name}: array {a.shape} vs "
+                                 f"{tuple(t.shape)}")
+            t.copy_(torch.from_numpy(np.array(a, dtype=np.float32)))
     return model
 
 
 def params_to_numpy(model):
     """``{structured name: float32 numpy array}`` of ``model``'s
-    parameters: copies on the host, which later in-place updates of the
-    parameters leave alone."""
-    return {name: p.detach().float().cpu().numpy().copy()
-            for name, p in model.named_parameters()}
+    parameters and persistent buffers: copies on the host, which later
+    in-place updates leave alone."""
+    return {name: t.detach().float().cpu().numpy().copy()
+            for name, t in model.state_dict(keep_vars=True).items()}
 
 
 def _rename(state, name_map, convert):

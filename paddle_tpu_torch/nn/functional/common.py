@@ -1,26 +1,32 @@
-"""Functional ops of the serving and training paths."""
+"""Dropout, attention and cross-entropy (``paddle_tpu/nn/functional/
+common.py`` and ``loss.py``)."""
 from __future__ import annotations
 
 import math
+import sys
 
 import torch
 
-from ..amp import amp_cast
-from ..ops.kernels import RMSNormFunction, flash_attention_bshd
+from ...ops.kernels import flash_attention_bshd
 
-__all__ = ["gelu", "dropout", "scaled_dot_product_attention",
-           "cross_entropy", "rms_norm"]
+__all__ = ["dropout", "scaled_dot_product_attention", "cross_entropy",
+           "NEG_INF"]
 
 NEG_INF = -1e30
 
 
-def gelu(x, approximate=True):
-    """GELU; ``approximate=True`` is the tanh form the GPT MLP uses
-    (``jax.nn.gelu(approximate=True)`` in the JAX package); bf16 under
-    ``auto_cast`` O2."""
-    (x,) = amp_cast("gelu", x)
-    return torch.nn.functional.gelu(
-        x, approximate="tanh" if approximate else "none")
+def _pair(v):
+    """An int or a 1- or 2-sequence -> an (H, W) pair of ints."""
+    if isinstance(v, (list, tuple)):
+        v = tuple(int(x) for x in v)
+        return v * 2 if len(v) == 1 else v
+    return (int(v),) * 2
+
+
+def _amp_cast(op_name, *tensors):
+    """The package's ``amp_cast`` (``paddle_tpu_torch.nn.functional.
+    amp_cast``), read when called: every functional casts through it."""
+    return sys.modules[__package__].amp_cast(op_name, *tensors)
 
 
 def dropout(x, p=0.5, training=True, generator=None):
@@ -42,7 +48,8 @@ def _flash_eligible(query, attn_mask, dropout_p, training):
     ``nn/functional/common.py:204-226``, without its TPU test and A/B
     gate): a CUDA tensor, no mask, no dropout while training, 4-D input
     and a head dim of at most 128 — and, the kernels' own limits, a head
-    dim that is a multiple of 16 and f32 or bf16 inputs."""
+    dim that is a multiple of 16 and f32 or bf16 inputs (f16 attention
+    takes the plain chain)."""
     return (query.device.type == "cuda" and attn_mask is None
             and not (dropout_p > 0 and training) and query.dim() == 4
             and query.shape[-1] <= 128 and query.shape[-1] % 16 == 0
@@ -52,14 +59,16 @@ def _flash_eligible(query, attn_mask, dropout_p, training):
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, generator=None):
-    """Attention on ``[B, S, H, D]`` tensors (paddle's layout). Eligible
-    configurations run the flash kernels (:func:`flash_attention_bshd`);
-    the others the plain chain of ``common.py:244-268`` in f32 (causal
-    ``-1e30`` fill, a boolean mask filled or an additive mask added,
-    softmax, dropout on the probabilities from ``generator``), returned in
-    the query's type."""
-    query, key, value = amp_cast("scaled_dot_product_attention", query, key,
-                                 value)
+    """Attention on ``[B, S, H, D]`` tensors (paddle's layout; ``Sq`` and
+    ``Sk`` may differ). Eligible configurations run the flash kernels
+    (:func:`flash_attention_bshd`); the others the plain chain of
+    ``common.py:244-268`` in f32 (causal ``-1e30`` fill, a boolean mask
+    filled or an additive mask added, softmax, dropout on the
+    probabilities from ``generator``), returned in the query's type. A
+    floating mask is cast with q, k and v under ``auto_cast``, as the JAX
+    op's fourth input is."""
+    query, key, value, attn_mask = _amp_cast(
+        "scaled_dot_product_attention", query, key, value, attn_mask)
     if _flash_eligible(query, attn_mask, dropout_p, training):
         return flash_attention_bshd(query, key, value, causal=is_causal)
     qt, kt, vt = (t.float().transpose(1, 2) for t in (query, key, value))
@@ -84,7 +93,7 @@ def cross_entropy(input, label, ignore_index=-100, reduction="mean"):
     ``input`` (``nn/functional/loss.py:29``), computed in f32: labels equal
     to ``ignore_index`` contribute 0 and, under ``"mean"``, are left out
     of the count; ``reduction`` is ``"mean"``, ``"sum"`` or ``"none"``."""
-    (input,) = amp_cast("cross_entropy", input)
+    (input,) = _amp_cast("cross_entropy", input)
     logp = torch.log_softmax(input.float(), dim=-1)
     if label.dim() == logp.dim():
         label = label.squeeze(-1)
@@ -99,13 +108,3 @@ def cross_entropy(input, label, ignore_index=-100, reduction="mean"):
     if reduction == "none":
         return loss
     raise ValueError(f"reduction {reduction!r}: mean, sum or none")
-
-
-def rms_norm(x, weight=None, epsilon=1e-6):
-    """RMSNorm over the last axis (``nn/functional/norm.py:42``): f32
-    statistics, output in x's type, in f32 under ``auto_cast``
-    (``rms_norm`` is on the black list). Runs
-    :class:`~..ops.kernels.RMSNormFunction`: the ``rms_norm`` kernel on a
-    CUDA tensor, its plain version on a CPU tensor."""
-    x, weight = amp_cast("rms_norm", x, weight)
-    return RMSNormFunction.apply(x, weight, None, float(epsilon))

@@ -8,64 +8,142 @@
 //   m <- b1*m + (1-b1)*g
 //   v <- b2*v + (1-b2)*g*g
 //   w <- w - lr * (m*bc1) / (sqrt(v*bc2) + eps)
-// w keeps its type (f32 or bf16, rounded to nearest even); g is f32 or
-// bf16; m and v are f32, or bf16 (stored rounded to nearest even: O2
-// without master weights, where the JAX optimizer keeps a bf16 parameter's
-// moments in bf16 and casts the kernel's f32 results back,
+// Each tensor carries a type code (0 f32, 1 bf16, 2 f16) for w, g, the
+// moments and p. w keeps its type (a 16-bit result rounded to nearest
+// even); g is any of the three; m and v are f32, or both bf16 or both f16
+// (stored rounded to nearest even: O2 without master weights, where the
+// JAX optimizer keeps a low-precision parameter's moments in its type and
+// casts the kernel's f32 results back,
 // paddle_tpu/optimizer/optimizers.py:155-156). Master mode
 // (paddle_tpu/optimizer/optimizer.py:107-152, multi_precision): w is the
-// f32 master of a bf16 parameter p, and the same pass also writes
-// p <- bf16(w), as the JAX step's new_w.astype(bf16) does. The update is
-// IN PLACE: w, m, v (and p) are overwritten where they lie, where the JAX
-// kernel is functional and returns new arrays.
+// f32 master of a bf16 or f16 parameter p, and the same pass also writes
+// p <- w rounded to p's type, as the JAX step's new_w.astype(p.dtype)
+// does. The update is IN PLACE: w, m, v (and p) are overwritten where
+// they lie, where the JAX kernel is functional and returns new arrays.
 //
 // Design. The Pallas kernel runs one grid per parameter over 512 x 128
 // tiles. Here one launch covers every tensor: a device table holds one
 // entry per tensor (pointers, element count, its own lr, wd, bc1 and bc2,
 // dtypes, and the index of its first block), so one step is one launch
 // whatever mix of modes its tensors hold; each block finds its tensor
-// by a binary search of the first-block column, takes one chunk of
-// kChunk elements of it, and reads each element of w, g, m and v once and
-// writes w, m and v (and p) once, with neighbouring threads on neighbouring
-// elements.
+// by a binary search of the first-block column, branches once on the
+// tensor's type codes to a loop instantiated for those types (no type
+// test per element), takes one chunk of kChunk elements of it, and reads
+// each element of w, g, m and v once and writes w, m and v (and p) once,
+// with neighbouring threads on neighbouring elements.
 //
 // Bound: bytes. ~12 flops per element against 28 bytes (f32 w and g: read
 // w, g, m, v, write w, m, v), far below the ridge, so the floor is the
 // bytes over 3.35 TB/s: 11.0 ms for the 1.3136 B parameters of gpt_1p3b.
 // Master mode moves 28 bytes too (read g 2 + w 4 + m 4 + v 4, write w 4 +
-// m 4 + v 4 + p 2), the same 11.0 ms; bf16 moments with a bf16 w and g
-// move 14.
+// m 4 + v 4 + p 2), the same 11.0 ms; 16-bit moments with a 16-bit w and
+// g move 14.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kChunk = kThreads * 16;
 
+// Type codes of Entry's *_type fields.
+constexpr int kF32 = 0, kBF16 = 1, kF16 = 2;
+
 // One tensor. Must match _ENTRY in fused_adamw.py (88 bytes). p is the
-// bf16 parameter of an f32 master w (master mode), or 0.
+// bf16 or f16 parameter of an f32 master w (master mode), or 0.
 struct Entry {
   unsigned long long w, g, m, v, p;
   long long n, block0;
   float lr, wd, bc1, bc2;
-  int w_bf16, g_bf16, mv_bf16, pad;
+  int w_type, g_type, mv_type, p_type;
 };
 static_assert(sizeof(Entry) == 88, "Entry layout");
 
-__device__ __forceinline__ float load(unsigned long long p, long long i,
-                                      int bf16) {
-  return bf16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i])
-              : reinterpret_cast<const float*>(p)[i];
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+
+// __float2bfloat16 and __float2half round to nearest even, as astype does
+template <typename T>
+__device__ __forceinline__ T from_f32(float x) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return __float2bfloat16(x);
+  else if constexpr (std::is_same<T, __half>::value)
+    return __float2half(x);
+  else
+    return x;
 }
 
-// __float2bfloat16 rounds to nearest even, as astype(bfloat16) does
-__device__ __forceinline__ void store(unsigned long long p, long long i,
-                                      float x, int bf16) {
-  if (bf16)
-    reinterpret_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16(x);
+// One block's chunk [start, end) of entry e with its types fixed at
+// compile time (W: w, G: g, M: m and v, P: the master's parameter, void
+// for none), so the loop carries no per-element type test.
+template <typename W, typename G, typename M, typename P>
+__device__ __forceinline__ void update(const Entry& e, long long start,
+                                       long long end, float b1, float b2,
+                                       float eps) {
+  W* w = reinterpret_cast<W*>(e.w);
+  const G* g = reinterpret_cast<const G*>(e.g);
+  M* m = reinterpret_cast<M*>(e.m);
+  M* v = reinterpret_cast<M*>(e.v);
+  const float decay = 1.f - e.lr * e.wd;
+  for (long long i = start + threadIdx.x; i < end; i += kThreads) {
+    const float gi = to_f32(g[i]);
+    float wi = to_f32(w[i]) * decay;
+    const float mi = b1 * to_f32(m[i]) + (1.f - b1) * gi;
+    const float vi = b2 * to_f32(v[i]) + (1.f - b2) * gi * gi;
+    wi = wi - e.lr * (mi * e.bc1) / (sqrtf(vi * e.bc2) + eps);
+    m[i] = from_f32<M>(mi);
+    v[i] = from_f32<M>(vi);
+    w[i] = from_f32<W>(wi);
+    if constexpr (!std::is_void<P>::value)
+      reinterpret_cast<P*>(e.p)[i] = from_f32<P>(wi);
+  }
+}
+
+// The block's entry is one tensor, so its type codes are uniform over the
+// block: dispatch once, outside the loop. Master mode (a parameter p) only
+// comes with an f32 w and f32 moments.
+template <typename W, typename G, typename M>
+__device__ __forceinline__ void with_p(const Entry& e, long long start,
+                                       long long end, float b1, float b2,
+                                       float eps) {
+  if constexpr (std::is_same<W, float>::value &&
+                std::is_same<M, float>::value) {
+    if (e.p && e.p_type == kBF16)
+      return update<W, G, M, __nv_bfloat16>(e, start, end, b1, b2, eps);
+    if (e.p)
+      return update<W, G, M, __half>(e, start, end, b1, b2, eps);
+  }
+  update<W, G, M, void>(e, start, end, b1, b2, eps);
+}
+
+template <typename W, typename G>
+__device__ __forceinline__ void with_m(const Entry& e, long long start,
+                                       long long end, float b1, float b2,
+                                       float eps) {
+  if (e.mv_type == kBF16)
+    with_p<W, G, __nv_bfloat16>(e, start, end, b1, b2, eps);
+  else if (e.mv_type == kF16)
+    with_p<W, G, __half>(e, start, end, b1, b2, eps);
   else
-    reinterpret_cast<float*>(p)[i] = x;
+    with_p<W, G, float>(e, start, end, b1, b2, eps);
+}
+
+template <typename W>
+__device__ __forceinline__ void with_g(const Entry& e, long long start,
+                                       long long end, float b1, float b2,
+                                       float eps) {
+  if (e.g_type == kBF16)
+    with_m<W, __nv_bfloat16>(e, start, end, b1, b2, eps);
+  else if (e.g_type == kF16)
+    with_m<W, __half>(e, start, end, b1, b2, eps);
+  else
+    with_m<W, float>(e, start, end, b1, b2, eps);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -85,18 +163,12 @@ __global__ void __launch_bounds__(kThreads)
   const Entry e = table[sel];
   const long long start = ((long long)blockIdx.x - e.block0) * kChunk;
   const long long end = min(start + kChunk, e.n);
-  const float decay = 1.f - e.lr * e.wd;
-  for (long long i = start + threadIdx.x; i < end; i += kThreads) {
-    const float gi = load(e.g, i, e.g_bf16);
-    float w = load(e.w, i, e.w_bf16) * decay;
-    const float mi = b1 * load(e.m, i, e.mv_bf16) + (1.f - b1) * gi;
-    const float vi = b2 * load(e.v, i, e.mv_bf16) + (1.f - b2) * gi * gi;
-    w = w - e.lr * (mi * e.bc1) / (sqrtf(vi * e.bc2) + eps);
-    store(e.m, i, mi, e.mv_bf16);
-    store(e.v, i, vi, e.mv_bf16);
-    store(e.w, i, w, e.w_bf16);
-    if (e.p) reinterpret_cast<__nv_bfloat16*>(e.p)[i] = __float2bfloat16(w);
-  }
+  if (e.w_type == kBF16)
+    with_g<__nv_bfloat16>(e, start, end, b1, b2, eps);
+  else if (e.w_type == kF16)
+    with_g<__half>(e, start, end, b1, b2, eps);
+  else
+    with_g<float>(e, start, end, b1, b2, eps);
 }
 
 }  // namespace

@@ -4,7 +4,7 @@ Replaces ``paddle_tpu/ops/pallas/fused_adamw.py:60`` (``fused_adamw``):
 
 * :func:`fused_adamw_reference` — the plain version of one tensor's
   update, exactly ``fused_adamw.py:32-47`` in f32: returns ``(w', m', v')``
-  with the types of w, m and v (a bf16 result rounded to nearest even).
+  with the types of w, m and v (a 16-bit result rounded to nearest even).
 * :func:`fused_adamw` — the wrapper over a whole parameter list. On CUDA
   tensors it builds a device table of ``(w, g, m, v, p, n, lr, wd, bc1,
   bc2)`` per tensor and makes **one launch** of ``csrc/fused_adamw.cu``
@@ -16,12 +16,15 @@ Replaces ``paddle_tpu/ops/pallas/fused_adamw.py:60`` (``fused_adamw``):
 
 Each entry is in one of three modes:
 
-* w f32 or bf16 with f32 moments (f32 training and O1);
+* w f32, bf16 or f16 with f32 moments (f32 training and O1);
 * **master mode** (O2 with ``multi_precision``): w is the f32 master of
-  the bf16 parameter ``params[i]``, the moments are f32, and the same pass
-  writes ``params[i] = bf16(w')``;
-* **bf16 moments** (O2 without master weights): w, m and v are bf16,
-  updated in f32 and stored rounded.
+  the bf16 or f16 parameter ``params[i]``, the moments are f32, and the
+  same pass writes ``params[i]`` = w' rounded to its type;
+* **16-bit moments** (O2 without master weights): w, m and v are bf16 (or
+  f16), updated in f32 and stored rounded.
+
+The table carries each tensor's types as codes (:data:`TYPE_CODES`: 0
+f32, 1 bf16, 2 f16), which the kernel loads and stores by.
 """
 from __future__ import annotations
 
@@ -30,16 +33,18 @@ import ctypes
 import numpy as np
 import torch
 
-__all__ = ["fused_adamw_reference", "fused_adamw"]
+__all__ = ["fused_adamw_reference", "fused_adamw", "TYPE_CODES"]
 
 # one table entry; must match ``struct Entry`` in csrc/fused_adamw.cu
 _ENTRY = np.dtype([("w", "<u8"), ("g", "<u8"), ("m", "<u8"), ("v", "<u8"),
                    ("p", "<u8"), ("n", "<i8"), ("block0", "<i8"),
                    ("lr", "<f4"), ("wd", "<f4"), ("bc1", "<f4"),
-                   ("bc2", "<f4"), ("w_bf16", "<i4"), ("g_bf16", "<i4"),
-                   ("mv_bf16", "<i4"), ("pad", "<i4")])
+                   ("bc2", "<f4"), ("w_type", "<i4"), ("g_type", "<i4"),
+                   ("mv_type", "<i4"), ("p_type", "<i4")])
 assert _ENTRY.itemsize == 88
-_FLOATS = (torch.float32, torch.bfloat16)
+# the kernel's type codes (kF32, kBF16, kF16 in csrc/fused_adamw.cu)
+TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_HALVES = (torch.bfloat16, torch.float16)
 
 
 def fused_adamw_reference(w, g, m, v, lr, b1, b2, eps, wd, bc1, bc2):
@@ -74,18 +79,18 @@ def _kernel():
 
 
 def _check(i, w, g, m, v, p, dev):
-    if w.dtype not in _FLOATS or g.dtype not in _FLOATS:
-        raise TypeError(f"tensor {i}: w {w.dtype} / g {g.dtype}; float32 "
-                        f"or bfloat16 expected")
-    if m.dtype not in _FLOATS or v.dtype != m.dtype:
+    if w.dtype not in TYPE_CODES or g.dtype not in TYPE_CODES:
+        raise TypeError(f"tensor {i}: w {w.dtype} / g {g.dtype}; float32, "
+                        f"bfloat16 or float16 expected")
+    if m.dtype not in TYPE_CODES or v.dtype != m.dtype:
         raise TypeError(f"tensor {i}: moments {m.dtype} / {v.dtype}; both "
-                        f"float32 or both bfloat16 expected")
-    if p is not None and (p.dtype != torch.bfloat16
+                        f"float32, both bfloat16 or both float16 expected")
+    if p is not None and (p.dtype not in _HALVES
                           or w.dtype != torch.float32
                           or m.dtype != torch.float32):
         raise TypeError(f"tensor {i}: master mode takes an f32 w and f32 "
-                        f"moments for a bf16 parameter, got w {w.dtype}, "
-                        f"m {m.dtype}, parameter {p.dtype}")
+                        f"moments for a bf16 or f16 parameter, got w "
+                        f"{w.dtype}, m {m.dtype}, parameter {p.dtype}")
     shapes = [tuple(x.shape) for x in (w, g, m, v, p) if x is not None]
     if len(set(shapes)) != 1:
         raise ValueError(f"tensor {i}: shapes {shapes} differ")
@@ -99,11 +104,12 @@ def _check(i, w, g, m, v, p, dev):
 
 
 def fused_adamw(ws, gs, ms, vs, lr, b1, b2, eps, wd, bc1, bc2, params=None):
-    """AdamW over the lists ``ws`` (params or f32 masters, f32 or bf16),
-    ``gs`` (grads, f32 or bf16), ``ms``/``vs`` (moments, f32 or bf16), in
-    place. ``params``, if given, holds for each entry None or the bf16
-    parameter whose f32 master is ``ws[i]`` (master mode: it is written
-    with ``bf16(w')`` in the same pass). ``lr``, ``wd``, ``bc1`` and
+    """AdamW over the lists ``ws`` (params or f32 masters, f32, bf16 or
+    f16), ``gs`` (grads, any of the three), ``ms``/``vs`` (moments, f32 or
+    the 16-bit type of their w), in place. ``params``, if given, holds for
+    each entry None or the bf16 or f16 parameter whose f32 master is
+    ``ws[i]`` (master mode: it is written with w' rounded to its type in
+    the same pass). ``lr``, ``wd``, ``bc1`` and
     ``bc2`` are lists with one float per tensor; ``b1``, ``b2``, ``eps``
     are shared. Launches per call: one on CUDA when the list holds an
     element, none on the CPU."""
@@ -148,7 +154,7 @@ def _table(ws, gs, ms, vs, params, lrs, wds, c1s, c2s, chunk):
     live = [i for i in range(len(ws)) if ws[i].numel()]
     if not live:
         return None
-    bf16 = torch.bfloat16
+    code = TYPE_CODES
     table = np.zeros(len(live), _ENTRY)
     block = 0
     for row, i in enumerate(live):
@@ -156,8 +162,8 @@ def _table(ws, gs, ms, vs, params, lrs, wds, c1s, c2s, chunk):
         table[row] = (w.data_ptr(), g.data_ptr(), m.data_ptr(),
                       vs[i].data_ptr(), 0 if p is None else p.data_ptr(),
                       w.numel(), block, lrs[i], wds[i], c1s[i], c2s[i],
-                      int(w.dtype == bf16), int(g.dtype == bf16),
-                      int(m.dtype == bf16), 0)
+                      code[w.dtype], code[g.dtype], code[m.dtype],
+                      0 if p is None else code[p.dtype])
         block += -(-w.numel() // chunk)
     dtable = torch.from_numpy(table.view(np.uint8)).to(ws[0].device)
     return dtable, len(live), block

@@ -14,10 +14,10 @@ per-parameter accumulators by name (``moment1``, ``moment2``,
 ``beta_pow``).
 
 **Master weights** (``multi_precision=True``, which ``amp.decorate``
-turns on): a bf16 parameter is updated through an f32 master, made on its
-first step from the parameter's current bf16 value (``_master_of``,
-``:111-116``), with f32 accumulators; the parameter is then written as
-the master rounded to bf16. Without masters a parameter's accumulators
+turns on): a bf16 or f16 parameter is updated through an f32 master, made
+on its first step from the parameter's current value (``_master_of``,
+``:107-116``), with f32 accumulators; the parameter is then written as
+the master rounded to its type. Without masters a parameter's accumulators
 take its own type (``:96-102``).
 
 ``state_dict`` is the JAX package's format (``:181-235``):
@@ -114,7 +114,8 @@ class Optimizer:
 
     # ---- master weights and accumulators ----
     def _use_master(self, p):
-        return self._multi_precision and p.dtype == torch.bfloat16
+        return self._multi_precision and p.dtype in (torch.bfloat16,
+                                                     torch.float16)
 
     def _master_of(self, p):
         """The f32 master of ``p``, made from its current value on first

@@ -1,5 +1,16 @@
-"""Adam and AdamW, after ``paddle_tpu/optimizer/optimizers.py:49-198``
-(reference: python/paddle/optimizer/{adam,adamw}.py).
+"""SGD, Momentum, Adam and AdamW, after ``paddle_tpu/optimizer/
+optimizers.py:20-198`` (reference: python/paddle/optimizer/{sgd,momentum,
+adam,adamw}.py).
+
+:class:`SGD` (``w <- w - lr g``) and :class:`Momentum` (``v <- m v + g``,
+then ``w <- w - lr v``, or ``w - lr (g + m v)`` with ``use_nesterov``; the
+accumulator is named ``velocity``) are jnp expressions in the JAX
+package, not Pallas kernels, so they are plain torch multi-tensor ops
+(``torch._foreach_*``) here, in place, with the JAX expressions' order of
+rounding. Both
+fold an ``L2Decay`` / ``L1Decay`` (or a float) ``weight_decay`` into the
+gradient and, under ``multi_precision``, update a 16-bit parameter
+through its f32 master (an f32 velocity too) and write it back rounded.
 
 ``step`` makes **one launch** of the fused AdamW kernel
 (:func:`~..ops.kernels.fused_adamw`, the port of
@@ -11,13 +22,14 @@ sends only parameters of at least ``_FUSED_MIN_SIZE`` (16384) elements to
 its kernel and updates the rest with the same formula in jnp; the port
 sends them all, since the two agree up to f32 rounding.
 
-Each parameter goes in the kernel mode its state asks for: a bf16
+Each parameter goes in the kernel mode its state asks for: a bf16 or f16
 parameter under ``multi_precision`` is a master-mode entry (its f32
-master, f32 moments, and the bf16 parameter written in the same pass); a
-bf16 parameter without masters keeps bf16 moments; f32 parameters (f32
-training and O1) are updated as they are. The gradient goes as it is when
-it is bf16 for an f32 master (exact in f32) and is cast to the updated
-tensor's type otherwise, as ``optimizer.py:136`` casts it.
+master, f32 moments, and the parameter written in the same pass); a
+16-bit parameter without masters keeps moments of its type; f32
+parameters (f32 training and O1) are updated as they are. The gradient
+goes as it is when it is 16-bit for an f32 master (exact in f32) and is
+cast to the updated tensor's type otherwise, as ``optimizer.py:136``
+casts it.
 
 Adam folds an L2 ``weight_decay`` (a float or ``L2Decay``) or an
 ``L1Decay`` into the gradient (``optimizer.py:137-140``); AdamW decays
@@ -34,7 +46,68 @@ import torch
 from ..ops.kernels import fused_adamw
 from .optimizer import Optimizer
 
-__all__ = ["Adam", "AdamW"]
+__all__ = ["SGD", "Momentum", "Adam", "AdamW"]
+
+
+class SGD(Optimizer):
+    """Reference: python/paddle/optimizer/sgd.py."""
+
+    def __init__(self, learning_rate=0.001, parameters=None,
+                 weight_decay=None, grad_clip=None, multi_precision=False,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision, name)
+
+    def _apply(self, items):
+        """Per param group, multi-tensor ops over its parameters: the
+        gradients in the updated tensors' type with the coupled decay
+        folded in (``optimizer.py:131-140``), the update, then each
+        16-bit parameter written as its master rounded."""
+        groups = {}
+        for p, g, lr, group in items:
+            groups.setdefault(id(group), (group, lr, [], []))
+            groups[id(group)][2].append(p)
+            groups[id(group)][3].append(g)
+        for group, lr, ps, gs in groups.values():
+            ws = [self._master_of(p) if self._use_master(p) else p
+                  for p in ps]
+            gs = [g.to(w.dtype) for g, w in zip(gs, ws)]
+            l2, l1 = self._coupled_decay_coeff(group)
+            if l2:
+                gs = torch._foreach_add(gs, torch._foreach_mul(ws, l2))
+            if l1:
+                gs = torch._foreach_add(gs, torch._foreach_mul(
+                    torch._foreach_sign(ws), l1))
+            self._update(ps, ws, gs, lr)
+            masters = [(p, w) for p, w in zip(ps, ws) if w is not p]
+            if masters:
+                torch._foreach_copy_([p for p, _ in masters],
+                                     [w for _, w in masters])
+
+    def _update(self, ps, ws, gs, lr):
+        torch._foreach_sub_(ws, torch._foreach_mul(gs, lr))
+
+
+class Momentum(SGD):
+    """Reference: python/paddle/optimizer/momentum.py."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 multi_precision=False, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision, name)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _update(self, ps, ws, gs, lr):
+        vs = [self._get_accumulator("velocity", p) for p in ps]
+        torch._foreach_mul_(vs, self._momentum)
+        torch._foreach_add_(vs, gs)
+        step = vs
+        if self._use_nesterov:
+            step = torch._foreach_add(gs, torch._foreach_mul(
+                vs, self._momentum))
+        torch._foreach_sub_(ws, torch._foreach_mul(step, lr))
 
 
 class Adam(Optimizer):
@@ -63,7 +136,7 @@ class Adam(Optimizer):
                                 f"{p.dtype}")
             master = self._use_master(p)
             w = self._master_of(p) if master else p
-            if not (master and g.dtype == torch.bfloat16):
+            if not (master and g.dtype in (torch.bfloat16, torch.float16)):
                 g = g.to(w.dtype)
             l2, l1 = self._coupled_decay_coeff(group)
             if l2:

@@ -941,3 +941,113 @@ def test_gate_measures_both_and_keeps_the_kernel_on_card(ragged):
     eng.close()
     with pytest.raises(ValueError, match="plain"):
         ServingEngine(model, attn_backend="xla", **_engine_kw(ragged))
+
+
+# ------------------------------------------------- the other models' shapes
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk,d", [
+    # BERT-base's encoder (head dim 64), the seq2seq copy task's
+    # cross-attention (16) and a head dim 32 cross-attention both ways:
+    # every one in the DP = 64 tiles with the upper lanes unused
+    (512, 512, 64), (129, 129, 64), (7, 11, 16), (7, 6, 16), (300, 77, 32),
+    (77, 300, 32), (1, 33, 32)])
+def test_flash_kernels_at_head_dims_64_32_16_on_card(dtype, causal, sq, sk,
+                                                     d):
+    """The flash trio at the head dims of BERT and the seq2seq model, Sq
+    and Sk apart, against the plain versions as
+    :func:`test_flash_kernels_match_plain_on_card` holds them."""
+    test_flash_kernels_match_plain_on_card(dtype, causal, sq, sk, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("eps", [1e-12, 1e-5])
+def test_layer_norm_at_bert_width_on_card(dtype, eps):
+    """LayerNorm at [4096, 768], BERT's width, with the embeddings'
+    epsilon and the encoder layers' (f32: 1e-4; bf16: 2e-2)."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    tol = 1e-4 if dt == torch.float32 else 2e-2
+    g = torch.Generator(device="cuda").manual_seed(30)
+    x = (torch.randn(4096, 768, device="cuda", generator=g) * 2 + 1).to(dt)
+    w = (1 + 0.1 * torch.randn(768, device="cuda", generator=g)).to(dt)
+    b = (0.1 * torch.randn(768, device="cuda", generator=g)).to(dt)
+    before = K.layer_norm.launches
+    got = K.layer_norm(x, w, b, eps)
+    torch.cuda.synchronize()
+    assert K.layer_norm.launches == before + 1
+    torch.testing.assert_close(got.float(),
+                               K.layer_norm_reference(x, w, b, eps).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_fused_adamw_master_mode_writes_f16_parameters_on_card():
+    """Master mode over f16 parameters (type code 2) beside a bf16 one and
+    an f32 tensor with f16 gradients, in one launch: f32 masters and
+    moments within 1e-6 of the plain version, each 16-bit parameter
+    exactly its new master rounded to its type."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(31)
+    shapes = [(1000, 33), (70000,), (5,), (64, 64)]
+    params = [(0.1 * torch.randn(s, device="cuda", generator=g)).half()
+              for s in shapes[:3]]
+    params.append((0.1 * torch.randn(shapes[3], device="cuda",
+                                     generator=g)).bfloat16())
+    ws = [p.float() for p in params] + [
+        torch.randn(77, device="cuda", generator=g)]
+    gs = [(1e-2 * torch.randn(w.shape, device="cuda", generator=g)).half()
+          for w in ws]
+    ms = [1e-3 * torch.randn(w.shape, device="cuda", generator=g)
+          for w in ws]
+    vs = [1e-5 * torch.rand(w.shape, device="cuda", generator=g) for w in ws]
+    n = len(ws)
+    want = [K.fused_adamw_reference(w, gr, m, v, 1e-3, 0.9, 0.999, 1e-8,
+                                    0.01, 2.0, 3.0)
+            for w, gr, m, v in zip(ws, gs, ms, vs)]
+    before = K.fused_adamw.launches
+    K.fused_adamw(ws, gs, ms, vs, [1e-3] * n, 0.9, 0.999, 1e-8, [0.01] * n,
+                  [2.0] * n, [3.0] * n, params=params + [None])
+    torch.cuda.synchronize()
+    assert K.fused_adamw.launches == before + 1
+    for (w2, m2, v2), w, m, v in zip(want, ws, ms, vs):
+        for got, ref in ((w, w2), (m, m2), (v, v2)):
+            torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
+    for p, w in zip(params, ws):
+        assert torch.equal(p, w.to(p.dtype))
+
+
+@pytest.mark.cuda
+def test_resnet18_o2_float16_steps_on_card():
+    """``resnet18`` decorated O2 float16 with ``Momentum(multi_precision=
+    True)`` and a ``GradScaler``: three steps on one batch with finite,
+    falling losses, f16 parameters with f32 masters and finite f16
+    running statistics."""
+    _need_cuda()
+    import paddle_tpu_torch as pt
+    model = pt.resnet18(num_classes=10, seed=0)
+    opt = pt.Momentum(0.05, 0.9, parameters=model.parameters(),
+                      weight_decay=pt.regularizer.L2Decay(1e-4),
+                      multi_precision=True)
+    model, opt = pt.amp.decorate(model, opt, level="O2", dtype="float16")
+    scaler = pt.amp.GradScaler(init_loss_scaling=2.0 ** 15)
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(16, 3, 64, 64).astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.randint(0, 10, 16)).cuda()
+    losses = []
+    for _ in range(3):
+        with pt.auto_cast(level="O2", dtype="float16"):
+            loss = pt.nn.functional.cross_entropy(model(x), y)
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        losses.append(loss.item())
+    assert all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]
+    for p in model.parameters():
+        assert p.dtype == torch.float16
+        assert torch.equal(p.detach(), opt._master_weights[p].half())
+    for b in model.buffers():
+        assert b.dtype == torch.float16 and bool(torch.isfinite(b).all())

@@ -204,8 +204,9 @@ def test_auto_cast_gives_each_op_the_dtype_of_amp_lists(monkeypatch):
 
 
 def test_auto_cast_nests_and_refuses_what_is_not_ported():
-    """O1 and O2 nest and restore; float16 stays refused (the port's
-    kernels take bf16 and f32), and so does an unknown level."""
+    """O1 and O2 nest and restore; float16 is taken as the JAX package
+    takes it, and an AMP dtype that is neither bf16 nor f16, or an unknown
+    level, is refused."""
     with pt.auto_cast(level="O1"):
         assert amp_mod.amp_dtype_for("linear") == torch.bfloat16
         assert amp_mod.amp_dtype_for("gelu") is None
@@ -218,9 +219,13 @@ def test_auto_cast_nests_and_refuses_what_is_not_ported():
         assert amp_mod.amp_dtype_for("gelu") is None
     assert amp_mod.amp_dtype_for("linear") is None
     for level in ("O1", "O2"):
-        with pytest.raises(NotImplementedError):
-            with pt.auto_cast(level=level, dtype="float16"):
-                pass
+        with pt.auto_cast(level=level, dtype="float16"):
+            assert amp_mod.amp_dtype_for("linear") == torch.float16
+            assert amp_mod.amp_dtype_for("layer_norm") == torch.float32
+        for dtype in ("float64", "int8"):
+            with pytest.raises(NotImplementedError):
+                with pt.auto_cast(level=level, dtype=dtype):
+                    pass
     with pytest.raises(ValueError):
         with pt.auto_cast(level="O3"):
             pass

@@ -319,7 +319,8 @@ def test_o2_without_master_weights_keeps_bf16_moments():
 def test_decorate_keeps_parameter_objects_and_names():
     """O2 casts in place: the ``Parameter`` objects (so an optimizer built
     before ``decorate`` keys its state by them) and their ``param_name``
-    stay; O1 leaves the weights f32; float16 is refused."""
+    stay; O1 leaves the weights f32; float16 casts them as bf16 does, and
+    a dtype that is neither is refused."""
     _, tm, cfg = _both(41)
     before = [(n, p) for n, p in tm.named_parameters()]
     opt = pt.AdamW(learning_rate=LR, parameters=tm.parameters())
@@ -337,7 +338,10 @@ def test_decorate_keeps_parameter_objects_and_names():
     models, opts = pt.amp.decorate([tm], [opt], level="O2")
     assert models == [tm] and opts == [opt]
     with pytest.raises(NotImplementedError):
-        pt.amp.decorate(tm, level="O2", dtype="float16")
+        pt.amp.decorate(tm, level="O2", dtype="float64")
+    assert pt.amp.decorate(tm, level="O2", dtype="float16") is tm
+    for (name, p), (name2, p2) in zip(before, tm.named_parameters()):
+        assert p is p2 and p.dtype == torch.float16
 
 
 def _name_map(jm):
