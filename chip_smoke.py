@@ -253,6 +253,43 @@ exit code:
     tokens, the flash trio launched exactly twice a training step (the
     encoder's self-attention and the cross-attention).
 
+22. **to_static** — ``paddle_tpu_torch.jit.to_static``: the f16
+    instantiation of the flash forward, dQ and dK/dV against their plain
+    versions at [8, 1024, 16, 128] causal and [16, 512, 12, 64] full
+    (phase 6's bf16 limits) and timed at the first beside bound, plain
+    version and f16 ``F.scaled_dot_product_attention``; then each train
+    step below eager and staged (``to_static(step, capture=(model,
+    opt))``: its first call the eager warm-up, its second the capture and
+    first replay, every later one a replay of one CUDA graph) from the
+    same weights and batch, each call ending in ``float(loss)``: ms a
+    step, steps/s, peak allocated (the graph pool's included) and
+    reserved memory, and one profiled step's device busy share, staged
+    beside eager; the counters zeroed after the warm-up calls must read
+    the replays' launches exactly. (a) LeNet at ``bench.py:379-397``'s
+    configuration (f32, B 64, ``Adam(1e-3)``, 5 warm-up and 30 timed
+    steps): losses and weights bit-equal to eager, or within 1e-5 where
+    a second eager run is not bit-equal either; one AdamW launch a step.
+    (b) ``bench_gpt``'s model (``bench.py:400-437``: vocab 8192, hidden
+    512, 8 layers, 8 heads, S 512, B 16, O1 bf16, ``AdamW(1e-4)``; 3 and
+    20 steps): the flash trio 8 each, LayerNorm 17, AdamW 1 a step, MFU by
+    ``bench.py:435``'s formula. (c) phase 13's O2 ``gpt_1p3b`` step (B 8
+    x S 1024, masters, clip, the schedule stepped outside the staged
+    step; 2 and 10 steps): losses within 1e-3 of eager, each timed step's
+    mean change of one f32 master within 1% of eager's (the lr changes
+    every step and the replays read it from the static AdamW table),
+    the flash trio 24 each, LayerNorm 49, AdamW 1 a step; the peak with
+    the graph pool. (d) phase 20b's BERT-base O2 step: losses within
+    1e-3, the flash trio 12 each, LayerNorm 26, AdamW 1 a step; then
+    AdamW's master mode over BERT's tensors checked and timed as phase
+    14 times gpt_1p3b's. (e) phase 19's ResNet-50 O2 float16 step with
+    its ``GradScaler``: exactly one graph-break warning (``unscale_``'s
+    ``bool()``), every later call eager, losses equal phase 19's (or
+    within 2e-3 where two eager runs differ too), and ``full_graph=True``
+    raising at its capture with parameters, masters, velocities, ``.grad``
+    and the scale untouched. (f) ``to_static(BertForMaskedLM(bert_base))``
+    in eval, bf16: every call's logits bit-equal to the eager forward's,
+    the replays' launches exact.
+
 The lines before the last carry the ``{"kernels": [...]}`` JSON (all eight
 kernels; the ``fused_adamw`` entry adds the master and bf16-moment modes'
 numbers and phase 13's launches, and its ``max_abs_err`` is the largest of
@@ -263,8 +300,11 @@ loop's; the entries of the kernels phase 16 runs add its launches as
 phases 17-21 add the flash entries' ``d64_*`` numbers, ``layer_norm``'s
 ``h768_*``, ``fused_adamw``'s ``f16_master_max_abs_err``, and each of
 these kernels' launches in phase 20b and 21 as ``bert_launches`` and
-``seq2seq_launches``; every ``max_abs_err`` is the largest of its
-entry's errors) and the
+``seq2seq_launches``; phase 22 adds the flash entries' ``f16_*`` numbers,
+``fused_adamw``'s ``bert_*`` (its master mode over BERT-base's tensors),
+and to every entry ``to_static_launches``, the kernel's launches over the
+replayed timed steps of 22a-22d, with ``to_static_parts`` by part; every
+``max_abs_err`` is the largest of its entry's errors) and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the repository beside it, the script exits
 non-zero and prints no result.
@@ -279,6 +319,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -944,9 +985,10 @@ def profile_train_step(step):
 
 # the bf16 kernels of csrc/flash_attention_sm90.cu: mangled-name part of
 # their D = 128 instantiation, and their index for the shared-memory query
-SM90_KERNELS = {"flash_fwd": ("flash_fwd_sm90_kernelILi128E", 0),
-                "flash_bwd_dkv": ("flash_bwd_dkv_sm90_kernelILi128E", 1),
-                "flash_bwd_dq": ("flash_bwd_dq_sm90_kernelILi128E", 2)}
+SM90_KERNELS = {
+    "flash_fwd": ("flash_fwd_sm90_kernelILi128E13__nv_bfloat16E", 0),
+    "flash_bwd_dkv": ("flash_bwd_dkv_sm90_kernelILi128E13__nv_bfloat16E", 1),
+    "flash_bwd_dq": ("flash_bwd_dq_sm90_kernelILi128E13__nv_bfloat16E", 2)}
 
 
 def ptxas_stats(lib, entry):
@@ -1780,7 +1822,7 @@ def launch_ms(args, iters=10, warmup=2):
     return a.elapsed_time(b) / iters
 
 
-def master_mode_timing(K, model, opt):
+def master_mode_timing(K, model, opt, tag="o2 timing"):
     """Phase 14 (kernel): master mode and bf16-moment mode over the
     model's tensors, each one launch, against the plain version on clones
     (f32 within 1e-6 + 1e-6 |plain|, bf16 within one rounding, the bf16
@@ -1813,8 +1855,9 @@ def master_mode_timing(K, model, opt):
         del before
         for p, w in zip(params, ws):
             if not torch.equal(p, w.bfloat16()):
-                fail(f"fused_adamw master mode: {p.param_name} is not its "
-                     f"master rounded to bf16")
+                fail(f"fused_adamw master mode: "
+                     f"{getattr(p, 'param_name', tuple(p.shape))} is not "
+                     f"its master rounded to bf16")
         out["master_max_abs_err"] = err
         log(f"  master mode, one launch over {n_t} tensors ({n / 1e9:.4f} "
             f"B params): w, m, v within 1e-6 + 1e-6 |plain| (max abs err "
@@ -1866,7 +1909,7 @@ def master_mode_timing(K, model, opt):
     # the kernel's time is the launch over a prebuilt table: the
     # profiler's sum over the wrapper's calls (``ms``, ``ms_b``) read 20%
     # low in these modes (two of ten launches missing from its trace)
-    log(f"[o2 timing] fused_adamw master mode over {n_t} tensors: kernel "
+    log(f"[{tag}] fused_adamw master mode over {n_t} tensors: kernel "
         f"{ev['master']:.4f} ms (one launch over a prebuilt table, CUDA "
         f"events over back-to-back launches) = "
         f"{100 * b_ms / ev['master']:.1f}% of bound {b_ms:.4f} ms ({b_by}: "
@@ -1875,7 +1918,7 @@ def master_mode_timing(K, model, opt):
         f" plain {plain_ms:.4f} ms; library torch._fused_adamw_ "
         f"{lib_adam:.4f} ms + torch._foreach_copy_ {lib_copy:.4f} ms = "
         f"{lib_adam + lib_copy:.4f} ms")
-    log(f"[o2 timing] fused_adamw bf16-moment mode: kernel "
+    log(f"[{tag}] fused_adamw bf16-moment mode: kernel "
         f"{ev['bf16_moment']:.4f} ms (prebuilt table) = "
         f"{100 * bb_ms / ev['bf16_moment']:.1f}% of bound {bb_ms:.4f} ms "
         f"({bb_by}: 14 B/param; profiler device sum {ms_b:.4f} ms); f32 w "
@@ -2972,12 +3015,10 @@ def report_profile(tag, step):
         log(f"    {ms:.3f} ms per step  [{fam}] {name[:100]}")
 
 
-def lenet_phase(pt, warmup=5, steps=30, B=64):
-    """Phase 18: LeNet as ``bench.py:379-397`` trains it — B 64 x 1 x 28 x
-    28 f32 from numpy seed 0, ``Adam(1e-3)``, cross-entropy — 5 warm-up
-    and 30 timed steps, each ending in ``loss.item()``: steps/s on the
-    host clock, falling losses, one AdamW launch a step and nothing
-    else."""
+def lenet_build(pt, B=64):
+    """``bench.py:379-397``'s LeNet step: B 64 x 1 x 28 x 28 f32 from numpy
+    seed 0, ``Adam(1e-3)``, cross-entropy -> (model, optimizer, None, the
+    step function returning the loss tensor, its arguments)."""
     F = pt.nn.functional
     model = pt.LeNet(seed=SEED)
     opt = pt.Adam(learning_rate=1e-3, parameters=model.parameters())
@@ -2985,16 +3026,25 @@ def lenet_phase(pt, warmup=5, steps=30, B=64):
     x = torch.from_numpy(rng.randn(B, 1, 28, 28).astype(np.float32)).cuda()
     y = torch.from_numpy(rng.randint(0, 10, B)).cuda()
 
-    def step():
-        loss = F.cross_entropy(model(x), y)
+    def train_step(xb, yb):
+        loss = F.cross_entropy(model(xb), yb)
         loss.backward()
         opt.step()
         opt.clear_grad()
-        return loss.item()
+        return loss
+    return model, opt, None, train_step, (x, y)
 
+
+def lenet_phase(pt, warmup=5, steps=30, B=64):
+    """Phase 18: LeNet as ``bench.py:379-397`` trains it
+    (:func:`lenet_build`), 5 warm-up and 30 timed steps, each ending in
+    ``loss.item()``: steps/s on the host clock, falling losses, one AdamW
+    launch a step and nothing else."""
+    _, _, _, train_step, args = lenet_build(pt, B)
     log(f"[lenet] LeNet f32, B={B} x 1 x 28 x 28, Adam(1e-3), {warmup} "
         f"warm-up and {steps} timed steps")
-    losses, times, launches, peak = timed_steps(step, warmup, steps)
+    losses, times, launches, peak = timed_steps(
+        lambda: train_step(*args).item(), warmup, steps)
     check_training("lenet", losses, warmup, launches,
                    {"fused_adamw": steps})
     med = float(np.median(times))
@@ -3064,6 +3114,7 @@ def resnet_phase(pt, warmup=2, steps=10, B=128):
                "max_memory_allocated_gb": peak / 1e9,
                "loss_scale": float(scaler.get_loss_scaling()),
                "first_loss": losses[0], "last_loss": losses[-1]}
+    o2_losses = losses
     log(f"  {len(stats0)} BatchNorm statistics finite and moved; "
         + json.dumps(summary))
     report_profile("resnet", step)
@@ -3092,7 +3143,7 @@ def resnet_phase(pt, warmup=2, steps=10, B=128):
     del model, opt, x
     gc.collect()
     torch.cuda.empty_cache()
-    return summary
+    return summary, o2_losses
 
 
 def bert_plain_logits(model, ids):
@@ -3194,6 +3245,33 @@ def bert_parity(pt, K, layers=2, B=2, S=512):
     torch.cuda.empty_cache()
 
 
+def bert_build(pt, B=16, S=512):
+    """Phase 20b's step: ``BertForMaskedLM(bert_base(dropout=0.0))`` built
+    in f32 from seed 0, decorated O2 bf16 with ``AdamW(1e-4,
+    multi_precision=True)``, B x S token ids and labels from numpy seed 0,
+    no mask -> (model, optimizer, None, the step function returning the
+    loss tensor, its arguments)."""
+    F = pt.nn.functional
+    cfg = pt.bert_base(dropout=0.0)
+    V = cfg.vocab_size
+    model = pt.BertForMaskedLM(cfg, seed=SEED).train()
+    opt = pt.AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                   multi_precision=True)
+    model, opt = pt.amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    rng = np.random.RandomState(SEED)
+    ids = torch.from_numpy(rng.randint(0, V, (B, S))).cuda()
+    labels = torch.from_numpy(rng.randint(0, V, (B, S))).cuda()
+
+    def train_step(x, y):
+        with pt.auto_cast(level="O2", dtype="bfloat16"):
+            loss = F.cross_entropy(model(x).reshape(-1, V), y.reshape(-1))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+    return model, opt, None, train_step, (ids, labels)
+
+
 def bert_train(pt, warmup=2, steps=10, B=16, S=512):
     """Phase 20b: ``BertForMaskedLM(bert_base(dropout=0.0))`` at full size
     (12 layers, 768, 12 heads, 3072, vocab 30522), built in f32 from seed
@@ -3205,18 +3283,10 @@ def bert_train(pt, warmup=2, steps=10, B=16, S=512):
     MFU (``6 N tokens + 12 L B S^2 h`` over 989 TFLOP/s: non-causal
     attention is twice ``bench.py:435``'s causal term) and one profiled
     step. -> (summary, the timed steps' launches)"""
-    F = pt.nn.functional
     cfg = pt.bert_base(dropout=0.0)
     t0 = time.perf_counter()
-    model = pt.BertForMaskedLM(cfg, seed=SEED).train()
-    opt = pt.AdamW(learning_rate=1e-4, parameters=model.parameters(),
-                   multi_precision=True)
-    model, opt = pt.amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    model, opt, _, train_step, args = bert_build(pt, B, S)
     n_params = sum(p.numel() for p in model.parameters())
-    rng = np.random.RandomState(SEED)
-    V = cfg.vocab_size
-    ids = torch.from_numpy(rng.randint(0, V, (B, S))).cuda()
-    labels = torch.from_numpy(rng.randint(0, V, (B, S))).cuda()
     torch.cuda.synchronize()
     log(f"[bert] BertForMaskedLM(bert_base) O2 bf16: {n_params / 1e6:.3f} M "
         f"params, {len(list(model.parameters()))} tensors, built in "
@@ -3224,13 +3294,7 @@ def bert_train(pt, warmup=2, steps=10, B=16, S=512):
         f"AdamW(1e-4, multi_precision)")
 
     def step():
-        with pt.auto_cast(level="O2", dtype="bfloat16"):
-            loss = F.cross_entropy(model(ids).reshape(-1, V),
-                                   labels.reshape(-1))
-        loss.backward()
-        opt.step()
-        opt.clear_grad()
-        return loss.item()
+        return train_step(*args).item()
 
     losses, times, launches, peak = timed_steps(step, warmup, steps)
     L = cfg.num_layers
@@ -3342,14 +3406,14 @@ def seq2seq_phase(pt, steps=120, B=32, S=6, vocab=16):
 
 
 def models_phases(pt, K):
-    """Phases 17-21. -> {kernel: the numbers they add to its JSON
-    entry}"""
+    """Phases 17-21. -> ({kernel: the numbers they add to its JSON
+    entry}, phase 19's O2 losses)"""
     log("[models parity] the kernels at the other models' shapes: flash at "
         "head dims 64/32/16 with Sq != Sk, LayerNorm at 768, f16 AdamW "
         "master mode")
     extra = models_kernel_parity(K)
     lenet_phase(pt)
-    resnet_phase(pt)
+    _, resnet_losses = resnet_phase(pt)
     log("[bert parity] 2-layer f32 BertForMaskedLM at bert_base widths vs "
         "autograd through a dense plain forward")
     bert_parity(pt, K)
@@ -3360,6 +3424,634 @@ def models_phases(pt, K):
                  "fused_adamw"):
         extra[name].update({"bert_launches": bert_launches[name],
                             "seq2seq_launches": s2s_launches[name]})
+    return extra, resnet_losses
+
+
+# ------------------------------------------------------------ phase 22
+# f16 flash checks: the GPT's shape causal, BERT's non-causal
+F16_FLASH_SHAPES = [(8, 1024, 16, 128, True), (16, 512, 12, 64, False)]
+
+
+def flash_f16_parity(K):
+    """Phase 22 (f16 flash): the f16 instantiation of the Hopper forward,
+    dQ and dK/dV against their plain versions at ``F16_FLASH_SHAPES``
+    (phase 6's bf16 limits; f16 rounds finer), q/k/v strided views of one
+    fused projection; then the three timed at the GPT's causal shape
+    beside their bounds, plain versions and f16
+    ``F.scaled_dot_product_attention`` (forward, and its backward for the
+    two backward kernels). -> {kernel: its ``f16_*`` numbers}"""
+    out = {name: {"f16_max_abs_err": 0.0}
+           for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    for B, S, H, D, causal in F16_FLASH_SHAPES:
+        _, q, k, v, do = flash_inputs(B, S, H, D, torch.float16, seed=S + D)
+        tag = f"f16 [{B}, {S}, {H}, {D}] {'causal' if causal else 'full'}"
+        errs = check_flash(K, tag, q, k, v, do, 1.0 / math.sqrt(D), causal,
+                           FLASH_BF16_TOL, FLASH_BF16_NORM_TOL)
+        for name, e in errs.items():
+            out[name]["f16_max_abs_err"] = max(out[name]["f16_max_abs_err"],
+                                               e)
+    B, S, H, D, causal = F16_FLASH_SHAPES[0]
+    scale = 1.0 / math.sqrt(D)
+    _, q, k, v, do = flash_inputs(B, S, H, D, torch.float16, seed=23)
+    o, lse = K.flash_fwd(q, k, v, scale, causal)
+    delta = K.flash_delta(o, do)
+    bargs = lambda: [_bhsd(x) for x in (q, k, v, do)] + [  # noqa: E731
+        lse.reshape(B * H, S), delta.reshape(B * H, S), scale, causal]
+    kern = {"flash_fwd": lambda: K.flash_fwd(q, k, v, scale, causal),
+            "flash_bwd_dq": lambda: K.flash_bwd_dq(q, k, v, do, lse, delta,
+                                                   scale, causal),
+            "flash_bwd_dkv": lambda: K.flash_bwd_dkv(q, k, v, do, lse,
+                                                     delta, scale, causal)}
+    plain = {"flash_fwd": lambda: K.flash_fwd_reference(
+        _bhsd(q), _bhsd(k), _bhsd(v), scale, causal),
+        "flash_bwd_dq": lambda: K.flash_bwd_dq_reference(*bargs()),
+        "flash_bwd_dkv": lambda: K.flash_bwd_dkv_reference(*bargs())}
+    # the bf16 instantiation on the same values, timed in the same call
+    qb, kb, vb, dob = (x.bfloat16() for x in (q, k, v, do))
+    ob, lseb = K.flash_fwd(qb, kb, vb, scale, causal)
+    deltab = K.flash_delta(ob, dob)
+    bf16 = {"flash_fwd": lambda: K.flash_fwd(qb, kb, vb, scale, causal),
+            "flash_bwd_dq": lambda: K.flash_bwd_dq(
+                qb, kb, vb, dob, lseb, deltab, scale, causal),
+            "flash_bwd_dkv": lambda: K.flash_bwd_dkv(
+                qb, kb, vb, dob, lseb, deltab, scale, causal)}
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ot = sdpa(qt, kt, vt, is_causal=causal)
+    lib = {"flash_fwd": time_ms(lambda: sdpa(qt, kt, vt,
+                                             is_causal=causal))[0]}
+    lib["flash_bwd_dq"] = lib["flash_bwd_dkv"] = time_ms(
+        lambda: torch.autograd.grad(ot, (qt, kt, vt), do.transpose(1, 2),
+                                    retain_graph=True))[0]
+    work = flash_work(B, S, S, H, D, causal)
+    for name in kern:
+        ms, wall, src = time_ms(kern[name])
+        bf_ms, _, _ = time_ms(bf16[name])
+        plain_ms, _, _ = time_ms(plain[name], iters=3, warmup=1)
+        nbytes, flops = work[name]
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        log(f"[f16 timing] {name} [{B}, {S}, {H}, {D}] f16 causal: kernel "
+            f"{ms:.4f} ms ({src}; {wall:.4f} ms per call with launch; bf16 "
+            f"on the same values {bf_ms:.4f} ms) plain {plain_ms:.4f} ms "
+            f"library {lib[name]:.4f} ms bound {b_ms:.4f} ms ({b_by}) = "
+            f"{100 * b_ms / ms:.1f}% of bound")
+        out[name].update({"f16_ms": ms, "f16_plain_ms": plain_ms,
+                          "f16_bound_ms": b_ms, "f16_bound_by": b_by,
+                          "f16_library_ms": lib[name],
+                          "f16_bf16_same_call_ms": bf_ms})
+    del q, k, v, do, o, lse, delta, qt, kt, vt, ot, qb, kb, vb, dob, ob
+    del lseb, deltab
+    torch.cuda.empty_cache()
+    return out
+
+
+def free():
+    """Collect what the caller dropped and give the cached blocks back."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_run(pt, build, staged, warmup, steps, track=None):
+    """One training run of what ``build()`` returns, ``(model, optimizer,
+    scheduler or None, step function, its arguments)``: eager, or the step
+    through ``pt.jit.to_static(step, capture=(model, optimizer))`` (its
+    first call the warm-up step, its second the capture and first replay,
+    every later one a replay). Each call ends in ``float(loss)``; the
+    scheduler steps after it, outside the staged step. ``warmup`` calls,
+    then ``steps`` timed ones with the counters zeroed before them; then
+    one profiled call. ``track()`` names a tensor whose mean absolute
+    change each timed step records. -> a dict of the run's numbers, its
+    model, optimizer and staged step"""
+    from paddle_tpu_torch.ops import kernels as K
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model, opt, sched, fn, args = build()
+    torch.cuda.synchronize()
+    built_s = time.perf_counter() - t0
+    step = pt.jit.to_static(fn, capture=(model, opt)) if staged else fn
+    lrs, deltas = [], []
+
+    def one():
+        before = track().detach().clone() if track is not None else None
+        lrs.append(opt.get_lr())
+        loss = float(step(*args))
+        if sched is not None:
+            sched.step()
+        if before is not None:
+            deltas.append(float((track() - before).abs().mean()))
+        return loss
+
+    t0 = time.perf_counter()
+    losses = [one() for _ in range(warmup)]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    del lrs[:], deltas[:]
+    K.reset_launch_counts()
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(one())
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - mem0
+    reserved = torch.cuda.memory_reserved()
+    host_ms, busy_ms, families, top, _ = profile_train_step(one)
+    med = float(np.median(times))
+    out = {"losses": losses, "times": times, "launches": launches,
+           "lrs": lrs, "deltas": deltas, "step_ms_median": med,
+           "step_ms_min": min(times), "steps_per_s": 1e3 / med,
+           "peak_allocated_gb": peak / 1e9, "reserved_gb": reserved / 1e9,
+           "profiled_host_ms": host_ms, "profiled_busy_ms": busy_ms,
+           "device_busy_pct": 100 * busy_ms / host_ms,
+           "families": families, "built_s": built_s, "warmup_s": warm_s,
+           "model": model, "opt": opt, "step": step}
+    if staged:
+        out["stats"] = step.stats()
+    return out
+
+
+def summary_of(run, extra=None):
+    """The run's numbers for the log: ``busy_of_median_pct`` sets the
+    profiled step's device time against the timed steps' median, which
+    the profiler's own host cost does not inflate."""
+    keys = ("step_ms_median", "step_ms_min", "steps_per_s",
+            "peak_allocated_gb", "reserved_gb", "device_busy_pct",
+            "profiled_host_ms", "profiled_busy_ms", "warmup_s")
+    out = {k: run[k] for k in keys}
+    out["busy_of_median_pct"] = min(
+        100.0, 100 * run["profiled_busy_ms"] / run["step_ms_median"])
+    if "stats" in run:
+        out["stats"] = run["stats"]
+    out.update(extra or {})
+    return out
+
+
+def host_params(model):
+    return [p.detach().cpu() for p in model.parameters()]
+
+
+def weights_diff(a, b):
+    """-> (every tensor equal, the largest absolute difference)"""
+    worst = max(float((x.float() - y.float()).abs().max()) for x, y in
+                zip(a, b))
+    return worst == 0.0, worst
+
+
+def compare_runs(tag, eager, staged, rerun, loss_tol, weight_tol):
+    """The staged run against the eager run from the same weights and
+    batches: bit-equal losses and weights pass. Otherwise ``rerun()``
+    gives a second eager run; the staged run fails if the two eager runs
+    are bit-equal (then the difference is the staging's), and is held
+    within ``loss_tol`` / ``weight_tol`` of the first eager run if they
+    are not. -> a dict of what was found"""
+    d_loss = max(abs(a - b) for a, b in zip(eager["losses"],
+                                            staged["losses"]))
+    same_w, d_w = weights_diff(eager["weights"], staged["weights"])
+    out = {"bit_equal": d_loss == 0.0 and same_w,
+           "max_loss_diff": d_loss, "max_weight_diff": d_w}
+    if out["bit_equal"]:
+        log(f"  [{tag}] staged vs eager: losses and weights bit-equal "
+            f"over {len(eager['losses'])} steps")
+        return out
+    again = rerun()
+    e_loss = max(abs(a - b) for a, b in zip(eager["losses"],
+                                            again["losses"]))
+    e_same, e_w = weights_diff(eager["weights"], again["weights"])
+    out.update({"eager_vs_eager_loss_diff": e_loss,
+                "eager_vs_eager_weight_diff": e_w})
+    log(f"  [{tag}] staged vs eager: losses differ by at most {d_loss:.3e}"
+        f", weights by {d_w:.3e}; eager vs eager: {e_loss:.3e} and "
+        f"{e_w:.3e} (tolerances {loss_tol:g} and {weight_tol:g})")
+    if e_loss == 0.0 and e_same:
+        fail(f"{tag}: the staged run differs from the eager run while two "
+             f"eager runs are bit-equal")
+    if d_loss > loss_tol or d_w > weight_tol:
+        fail(f"{tag}: the staged run differs from the eager run by "
+             f"{d_loss:.3e} (losses) / {d_w:.3e} (weights)")
+    return out
+
+
+def check_replay_launches(tag, launches, steps, per_step):
+    want = {name: 0 for name in launches}
+    want.update({k: steps * n for k, n in per_step.items()})
+    log(f"  [{tag}] launches over the {steps} replayed steps: {launches}")
+    if launches != want:
+        fail(f"{tag}: replayed launches {launches} != {want}")
+
+
+def report_pair(tag, eager, staged, extra=None):
+    e, s = summary_of(eager), summary_of(staged, extra)
+    log(f"[{tag}] eager:  " + json.dumps(e))
+    log(f"[{tag}] staged: " + json.dumps(s))
+    log(f"  [{tag}] staged step {s['step_ms_median']:.3f} ms vs eager "
+        f"{e['step_ms_median']:.3f} ms "
+        f"({e['step_ms_median'] / s['step_ms_median']:.2f}x); device busy "
+        f"{s['device_busy_pct']:.1f}% vs {e['device_busy_pct']:.1f}% of the "
+        f"profiled step, {s['busy_of_median_pct']:.1f}% vs "
+        f"{e['busy_of_median_pct']:.1f}% of the median step")
+    total = sum(staged["families"].values())
+    log(f"  [{tag}] the staged step's device ms by family: " + ", ".join(
+        f"{fam} {ms:.3f} ({100 * ms / total:.1f}%)" for fam, ms in sorted(
+            staged["families"].items(), key=lambda kv: -kv[1])))
+    return {"eager": e, "staged": s}
+
+
+def lenet_static(pt, warmup=5, steps=30, B=64):
+    """Phase 22a: ``bench.py:379-397``'s LeNet step (f32, B 64, Adam(1e-3))
+    eager, and through ``to_static(train_step, capture=(model, opt))``,
+    from the same weights and batch; 5 warm-up and 30 timed steps. The
+    staged run must equal the eager one bit for bit, or hold within 1e-5
+    where a second eager run shows that eager runs differ too; one AdamW
+    launch a replayed step and no other kernel."""
+    def build():
+        return lenet_build(pt, B)
+
+    def run(staged):
+        r = train_run(pt, build, staged, warmup, steps)
+        r["weights"] = host_params(r["model"])
+        return r
+
+    log(f"[to_static lenet] LeNet f32, B={B}, Adam(1e-3): eager, then "
+        f"staged; {warmup} warm-up and {steps} timed steps each")
+    eager, staged = run(False), run(True)
+    cmp = compare_runs("lenet", eager, staged, lambda: run(False), 1e-5,
+                       1e-5)
+    check_replay_launches("lenet", staged["launches"], steps,
+                          {"fused_adamw": 1})
+    out = report_pair("to_static lenet", eager, staged, cmp)
+    return out, staged["launches"]
+
+
+def gpt_bench_static(pt, warmup=3, steps=20, B=16, S=512):
+    """Phase 22b: ``bench_gpt``'s model (``bench.py:400-437``: vocab 8192,
+    hidden 512, 8 layers, 8 heads, S 512, f32 weights) under ``auto_cast``
+    O1 bf16 with ``AdamW(1e-4)``, B 16, eager and staged from the same
+    weights and batch: 3 warm-up and 20 timed steps. Losses and weights
+    as phase 13 holds recompute (within 1e-3), launches a replayed step:
+    the flash trio 8 each, LayerNorm 17, AdamW 1; ms a step and MFU by
+    ``bench.py:435``'s formula over 989 TFLOP/s."""
+    cfg = pt.GPTConfig(vocab_size=8192, hidden_size=512, num_layers=8,
+                       num_heads=8, max_seq_len=512, dropout=0.0)
+    rng = np.random.RandomState(SEED)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, S))).cuda()
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, S))).cuda()
+
+    def build():
+        model = pt.GPTForCausalLM(cfg, seed=SEED).train()
+        crit = pt.GPTPretrainingCriterion(cfg)
+        opt = pt.AdamW(learning_rate=1e-4, parameters=model.parameters())
+
+        def train_step(x, y):
+            with pt.auto_cast(level="O1", dtype="bfloat16"):
+                loss = crit(model(x), y)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+        return model, opt, None, train_step, (ids, labels)
+
+    def run(staged):
+        r = train_run(pt, build, staged, warmup, steps)
+        r["weights"] = host_params(r["model"])
+        return r
+
+    log(f"[to_static gpt bench] bench_gpt's model (8192, 512, 8 layers, 8 "
+        f"heads), B={B} S={S}, O1 bf16, AdamW(1e-4): eager, then staged; "
+        f"{warmup} warm-up and {steps} timed steps each")
+    eager, staged = run(False), run(True)
+    n_params = sum(w.numel() for w in eager["weights"])
+    cmp = compare_runs("gpt bench", eager, staged, lambda: run(False), 1e-3,
+                       1e-3)
+    L = cfg.num_layers
+    check_replay_launches("gpt bench", staged["launches"], steps, {
+        "flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+        "layer_norm": 2 * L + 1, "fused_adamw": 1})
+    flops = 6 * n_params * B * S + 6 * L * B * S * S * cfg.hidden_size
+    mfu = {k: flops / (r["step_ms_median"] / 1e3) / BF16_FLOPS_PER_S
+           for k, r in (("eager_mfu", eager), ("staged_mfu", staged))}
+    out = report_pair("to_static gpt bench", eager, staged,
+                      dict(cmp, n_params=n_params, **mfu,
+                           tokens_per_s=B * S / staged["step_ms_median"]
+                           * 1e3))
+    log(f"  [gpt bench] MFU staged {100 * mfu['staged_mfu']:.2f}% vs eager "
+        f"{100 * mfu['eager_mfu']:.2f}% ({n_params / 1e6:.2f} M params)")
+    return out, staged["launches"]
+
+
+def gpt_o2_static(pt, warmup=2, steps=10, B=8, S=1024):
+    """Phase 22c: phase 13's O2 step (``o2_model``: ``gpt_1p3b`` at full
+    width and depth, bf16 parameters, f32 masters in AdamW's master mode,
+    ``ClipGradByGlobalNorm(1.0)``, ``LinearWarmup(CosineAnnealingDecay)``
+    stepped after every step, outside the staged step) at B 8 x S 1024,
+    eager then staged from the same weights and batch; 2 warm-up and 10
+    timed steps. The lr changes every timed step, so the replays must
+    read it from the static AdamW table: each step's mean change of one
+    f32 master follows the eager run's within 1%, and the losses equal
+    the eager run's within phase 13's 1e-3. Launches a replayed step: the
+    flash trio 24 each, LayerNorm 49, AdamW 1. Prints the peak memory
+    with the graph pool."""
+    cfg = pt.gpt_1p3b(dropout=0.0)
+    rng = np.random.RandomState(SEED)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, S))).cuda()
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, S))).cuda()
+    held = {}
+
+    def build():
+        model, opt, sched = o2_model(pt, cfg)
+        crit = pt.GPTPretrainingCriterion(cfg)
+        held["master"] = opt._master_of(model.gpt.h[0].attn.qkv_proj.weight)
+
+        def train_step(x, y):
+            with pt.auto_cast(level="O2", dtype="bfloat16"):
+                loss = crit(model(x), y)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+        return model, opt, sched, train_step, (ids, labels)
+
+    def run(staged):
+        r = train_run(pt, build, staged, warmup, steps,
+                      track=lambda: held["master"])
+        r["weights"] = host_params(r["model"])
+        del r["model"], r["opt"], r["step"]
+        held.clear()
+        free()
+        return r
+
+    log(f"[to_static gpt o2] gpt_1p3b O2 bf16 (masters, clip, schedule), "
+        f"B={B} S={S}: eager, then staged; {warmup} warm-up and {steps} "
+        f"timed steps each")
+    eager = run(False)
+    staged = run(True)
+    cmp = compare_runs("gpt o2", eager, staged, lambda: run(False), 1e-3,
+                       1e-2)
+    rel = max(abs(a - b) / max(abs(b), 1e-30)
+              for a, b in zip(staged["deltas"], eager["deltas"]))
+    log("  [gpt o2] lr and mean |change| of h.0.attn.qkv_proj's master a "
+        "timed step (staged / eager):")
+    for lr, a, b in zip(staged["lrs"], staged["deltas"], eager["deltas"]):
+        log(f"    lr {lr:.4e}: {a:.4e} / {b:.4e} ({a / lr:.4f} / "
+            f"{b / lr:.4f} of lr)")
+    if staged["lrs"] != eager["lrs"] or len(set(staged["lrs"])) < 2:
+        fail("gpt o2: the timed steps' lr did not change, or differs")
+    if rel > 1e-2:
+        fail(f"gpt o2: the staged weights' change a step differs from the "
+             f"eager run's by {rel:.3e} (relative): the replays do not "
+             f"follow the lr")
+    L = cfg.num_layers
+    check_replay_launches("gpt o2", staged["launches"], steps, {
+        "flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+        "layer_norm": 2 * L + 1, "fused_adamw": 1})
+    n_params = sum(w.numel() for w in eager["weights"])
+    flops = train_flops(n_params, B, S, L, cfg.hidden_size)
+    mfu = {k: flops / (r["step_ms_median"] / 1e3) / BF16_FLOPS_PER_S
+           for k, r in (("eager_mfu", eager), ("staged_mfu", staged))}
+    out = report_pair("to_static gpt o2", eager, staged,
+                      dict(cmp, max_delta_rel_diff=rel, **mfu,
+                           tokens_per_s=B * S / staged["step_ms_median"]
+                           * 1e3))
+    log(f"  [gpt o2] peak allocated with the graph pool "
+        f"{staged['peak_allocated_gb']:.2f} GB (eager "
+        f"{eager['peak_allocated_gb']:.2f}), reserved "
+        f"{staged['reserved_gb']:.2f} GB; fits in 80 GB without recompute")
+    return out, staged["launches"]
+
+
+def bert_static(pt, K, warmup=2, steps=10, B=16, S=512):
+    """Phase 22d: phase 20b's BERT-base MLM step (O2 bf16, ``AdamW(1e-4,
+    multi_precision)``, B 16 x S 512, no mask) eager then staged from the
+    same weights and batch, 2 warm-up and 10 timed steps: losses within
+    1e-3, launches a replayed step the flash trio 12 each, LayerNorm 26,
+    AdamW 1; the busy share beside the eager step's. Then the fused AdamW
+    kernel's master mode over this model's tensors against its plain
+    version and timed beside its bound and the library call (phase 14's
+    :func:`master_mode_timing`). -> (summary, launches, AdamW numbers)"""
+    cfg = pt.bert_base(dropout=0.0)
+
+    def build():
+        return bert_build(pt, B, S)
+
+    def run(staged, keep=False):
+        r = train_run(pt, build, staged, warmup, steps)
+        r["weights"] = host_params(r["model"])
+        if not keep:
+            del r["model"], r["opt"], r["step"]
+            free()
+        return r
+
+    log(f"[to_static bert] BertForMaskedLM(bert_base) O2 bf16, B={B} S={S}:"
+        f" eager, then staged; {warmup} warm-up and {steps} timed steps "
+        f"each")
+    eager = run(False)
+    staged = run(True, keep=True)
+    cmp = compare_runs("bert", eager, staged, lambda: run(False), 1e-3,
+                       1e-2)
+    L = cfg.num_layers
+    check_replay_launches("bert", staged["launches"], steps, {
+        "flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+        "layer_norm": 2 * L + 2, "fused_adamw": 1})
+    n_params = sum(w.numel() for w in eager["weights"])
+    flops = 6 * n_params * B * S + 12 * L * B * S * S * cfg.hidden_size
+    mfu = {k: flops / (r["step_ms_median"] / 1e3) / BF16_FLOPS_PER_S
+           for k, r in (("eager_mfu", eager), ("staged_mfu", staged))}
+    out = report_pair("to_static bert", eager, staged, dict(
+        cmp, **mfu, tokens_per_s=B * S / staged["step_ms_median"] * 1e3))
+    model, opt = staged["model"], staged["opt"]
+    del staged["model"], staged["opt"], staged["step"]
+    free()
+    log("[to_static bert] fused_adamw master mode over BERT-base's "
+        "tensors, held against the plain version, then timed")
+    adam = master_mode_timing(K, model, opt, tag="bert adamw")
+    del model, opt
+    free()
+    return out, staged["launches"], adam
+
+
+def resnet_static(pt, phase19_losses, warmup=2, steps=10, B=128):
+    """Phase 22e: phase 19's ResNet-50 O2 float16 step with its
+    ``GradScaler`` through ``to_static``: the capture meets
+    ``unscale_``'s ``bool()`` and breaks, exactly one warning is raised,
+    and the key runs eagerly. Its losses equal phase 19's eager run from
+    the same weights and batch (bit-equal, or within 2e-3 where a second
+    eager run shows that eager runs differ too: cuDNN's backward may sum
+    in another order), every later call is eager (``stats()``), and a
+    ``full_graph=True`` staging of the same step raises at its capture
+    and leaves parameters, masters, velocities and the scale as they
+    were. Prints steps/s beside phase 19's."""
+    F = pt.nn.functional
+    rng = np.random.RandomState(SEED)
+    x = torch.from_numpy(rng.randn(B, 3, 224, 224).astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.randint(0, 1000, B)).cuda()
+    model = pt.resnet50(num_classes=1000, seed=SEED)
+    opt = pt.Momentum(0.1, 0.9, parameters=model.parameters(),
+                      weight_decay=pt.regularizer.L2Decay(1e-4),
+                      multi_precision=True)
+    model, opt = pt.amp.decorate(model, opt, level="O2", dtype="float16")
+    scaler = pt.amp.GradScaler(init_loss_scaling=2.0 ** 15)
+
+    def train_step(xb, yb):
+        with pt.auto_cast(level="O2", dtype="float16"):
+            loss = F.cross_entropy(model(xb), yb)
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        return loss
+
+    step = pt.jit.to_static(train_step, capture=(model, opt))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        losses, times, launches, peak = timed_steps(
+            lambda: float(step(x, y)), warmup, steps)
+    breaks = [str(w.message) for w in caught
+              if "to_static: falling back to eager" in str(w.message)]
+    st = step.stats()
+    log(f"[to_static resnet] resnet50 O2 float16 with GradScaler, B={B}: "
+        f"{len(breaks)} graph-break warning(s): {breaks[:1]}; stats {st}")
+    if len(breaks) != 1 or st["graph_breaks"] != 1 or st["graphs"] != 0:
+        fail(f"resnet to_static: {len(breaks)} graph-break warnings, stats "
+             f"{st}; exactly one break and no graph expected")
+    if st["eager_calls"] != warmup + steps - 1 or st["warmups"] != 1:
+        fail(f"resnet to_static: the calls after the break are not eager "
+             f"({st})")
+    d = max(abs(a - b) for a, b in zip(losses, phase19_losses))
+    log("  losses: " + " ".join(f"{v:.4f}" for v in losses)
+        + f"; against phase 19's eager run: max diff {d:.3e}")
+    if d != 0.0:
+        log("  [resnet] not bit-equal: a second eager run, for the spread")
+        em = pt.resnet50(num_classes=1000, seed=SEED)
+        eo = pt.Momentum(0.1, 0.9, parameters=em.parameters(),
+                         weight_decay=pt.regularizer.L2Decay(1e-4),
+                         multi_precision=True)
+        em, eo = pt.amp.decorate(em, eo, level="O2", dtype="float16")
+        es = pt.amp.GradScaler(init_loss_scaling=2.0 ** 15)
+
+        def eager_step():
+            with pt.auto_cast(level="O2", dtype="float16"):
+                loss = F.cross_entropy(em(x), y)
+            es.scale(loss).backward()
+            es.step(eo)
+            es.update()
+            eo.clear_grad()
+            return loss.item()
+
+        again, _, _, _ = timed_steps(eager_step, warmup, steps)
+        e = max(abs(a - b) for a, b in zip(again, phase19_losses))
+        log(f"  eager vs eager (phase 19 and now): max loss diff {e:.3e} "
+            f"(tolerance 2e-3)")
+        if e == 0.0:
+            fail("resnet to_static: the fallback's losses differ from "
+                 "phase 19's while two eager runs are bit-equal")
+        if d > 2e-3:
+            fail(f"resnet to_static: losses differ from phase 19's by {d}")
+        del em, eo, es
+        free()
+    probe = pt.jit.to_static(train_step, capture=(model, opt),
+                             full_graph=True)
+    probe(x, y)                         # its warm-up: a real step
+    torch.cuda.synchronize()
+    snap = [t.detach().clone() for t in list(model.parameters())
+            + list(opt._master_weights.values())
+            + list(opt._accumulators["velocity"].values())]
+    scale = scaler._scale
+    try:
+        probe(x, y)
+    except pt.jit.GraphBreak as e:
+        log(f"  full_graph=True: the capture raised GraphBreak ({e})")
+    else:
+        fail("resnet to_static: full_graph=True did not raise")
+    torch.cuda.synchronize()
+    now = (list(model.parameters()) + list(opt._master_weights.values())
+           + list(opt._accumulators["velocity"].values()))
+    intact = all(torch.equal(a, b) for a, b in zip(now, snap))
+    grads = all(p.grad is None for p in model.parameters())
+    log(f"  after the aborted capture: {len(snap)} parameters, masters and "
+        f"velocities {'intact' if intact else 'CHANGED'}; .grad "
+        f"{'None' if grads else 'SET'}; scale {scaler._scale} (was {scale})")
+    if not (intact and grads and scaler._scale == scale):
+        fail("resnet to_static: the aborted capture changed the state")
+    med = float(np.median(times))
+    out = {"steps_per_s": 1e3 / med, "step_ms_median": med,
+           "max_memory_allocated_gb": peak / 1e9, "graph_breaks": len(breaks),
+           "max_loss_diff_vs_phase19": d, "stats": st}
+    log("  " + json.dumps(out))
+    del model, opt, scaler, step, probe, snap, now
+    free()
+    return out
+
+
+def bert_forward_static(pt, B=16, S=512, calls=4):
+    """Phase 22f: ``to_static(model)`` on ``BertForMaskedLM(bert_base)``
+    in eval, bf16: the first call eager (its warm-up), the second captures
+    one forward graph and replays it, later ones replay; every call's MLM
+    logits equal the eager forward's bit for bit, and the replays add the
+    captured launches (the flash forward 12, LayerNorm 26 a call)."""
+    from paddle_tpu_torch.ops import kernels as K
+    cfg = pt.bert_base()
+    rng = np.random.RandomState(SEED + 5)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, S))).cuda()
+    model = pt.BertForMaskedLM(cfg, seed=SEED + 5,
+                               dtype=torch.bfloat16).eval()
+    with torch.no_grad():
+        want = model(ids)
+        staged = pt.jit.to_static(model)
+        for i in range(calls):
+            if i == 2:
+                torch.cuda.synchronize()
+                K.reset_launch_counts()
+            got = staged(ids)
+            if not torch.equal(got, want):
+                d = float((got.float() - want.float()).abs().max())
+                fail(f"bert forward to_static: call {i} differs from the "
+                     f"eager forward by {d}")
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        st = staged.forward.stats()
+        ms = time_ms(lambda: staged(ids), iters=10)[1]
+        eager_ms = time_ms(lambda: model.__class__.forward(model, ids),
+                           iters=10)[1]
+    L, n = cfg.num_layers, calls - 2
+    want_l = {name: 0 for name in launches}
+    want_l.update({"flash_fwd": n * L, "layer_norm": n * (2 * L + 2)})
+    log(f"[to_static bert forward] eval bf16 B={B} S={S}: logits "
+        f"{tuple(want.shape)} bit-equal to the eager forward on {calls} "
+        f"calls; stats {st}; launches over {n} replays {launches}; "
+        f"{ms:.3f} ms a replayed call vs {eager_ms:.3f} ms eager (CUDA "
+        f"events)")
+    if st["graphs"] != 1 or st["replays"] != calls - 1 or launches != want_l:
+        fail(f"bert forward to_static: stats {st}, launches {launches} != "
+             f"{want_l}")
+    del model, staged, want
+    free()
+    return {"replay_ms": ms, "eager_ms": eager_ms}
+
+
+def static_phases(pt, K, phase19_losses):
+    """Phase 22. -> {kernel: the numbers it adds to its JSON entry}"""
+    log("[f16 flash] the sm90 kernels' f16 instantiation vs plain at "
+        "[8, 1024, 16, 128] causal and [16, 512, 12, 64] full, then timed")
+    extra = flash_f16_parity(K)
+    parts, lsum = {}, {}
+    _, parts["lenet"] = lenet_static(pt)
+    _, parts["gpt_bench"] = gpt_bench_static(pt)
+    _, parts["gpt_1p3b_o2"] = gpt_o2_static(pt)
+    _, parts["bert_o2"], adam = bert_static(pt, K)
+    resnet_static(pt, phase19_losses)
+    bert_forward_static(pt)
+    for part, launches in parts.items():
+        for name, n in launches.items():
+            lsum.setdefault(name, {})[part] = n
+    for name, by_part in lsum.items():
+        extra.setdefault(name, {}).update({
+            "to_static_launches": sum(by_part.values()),
+            "to_static_parts": by_part})
+    extra["fused_adamw"].update({f"bert_{k}": v for k, v in adam.items()})
     return extra
 
 
@@ -3721,8 +4413,15 @@ def main():
     adam["o2_launches"] = o_launches["fused_adamw"]
 
     # ------------------------------- phases 17-21: the other models
-    for name, numbers in models_phases(pt, K).items():
+    extra, resnet_losses = models_phases(pt, K)
+    for name, numbers in extra.items():
         next(e for e in kernels if e["name"] == name).update(numbers)
+
+    # ---------------------------------------------- phase 22: to_static
+    for name, numbers in static_phases(pt, K, resnet_losses).items():
+        next(e for e in kernels if e["name"] == name).update(numbers)
+    for e in kernels:
+        e.setdefault("to_static_launches", 0)
     for e in kernels:
         e["max_abs_err"] = max([e["max_abs_err"]] + [
             v for k, v in e.items() if k.endswith("_max_abs_err")])

@@ -60,6 +60,18 @@ pt.bert_base())``, its encoder on the flash kernels at head dim 64) and
     scaler.scale(loss).backward(); scaler.step(opt); scaler.update()
     opt.clear_grad()
 
+``pt.jit.to_static`` stages a whole training step as one CUDA graph
+that replays the hand kernels (the JAX package's ``jit.to_static``,
+one XLA program a step); the LR scheduler steps outside it::
+
+    def train_step(ids, labels):
+        with pt.auto_cast(level="O2", dtype="bfloat16"):
+            loss = crit(model(ids), labels)
+        loss.backward(); opt.step(); opt.clear_grad()
+        return loss
+    step = pt.jit.to_static(train_step, capture=(model, opt))
+    loss = step(ids, labels); sched.step()
+
 ``params_from_paddle_tpu(state, model)`` fills a port model built in the
 same configuration from a JAX model's ``state_dict()`` arrays
 (BatchNorm's running statistics included).
@@ -68,7 +80,7 @@ Entry points run on ``cuda`` unless given ``device="cpu"`` and raise when
 CUDA is absent (:mod:`.device`). The package imports neither ``jax`` nor
 ``paddle_tpu``.
 """
-from . import amp, distributed, models, nn, optimizer, regularizer
+from . import amp, distributed, jit, models, nn, optimizer, regularizer
 from .amp import auto_cast
 from .convert import (opt_state_from_paddle_tpu, opt_state_to_numpy,
                       params_from_paddle_tpu, params_to_numpy)
@@ -89,7 +101,7 @@ __all__ = ["GPTConfig", "GPTForCausalLM", "GPTPretrainingCriterion",
            "flash_attention_bshd", "params_from_paddle_tpu",
            "params_to_numpy", "opt_state_from_paddle_tpu",
            "opt_state_to_numpy", "resolve_device", "amp", "distributed",
-           "models", "nn", "optimizer", "regularizer", "gpt_tiny",
+           "jit", "models", "nn", "optimizer", "regularizer", "gpt_tiny",
            "gpt_small", "gpt_1p3b", "gpt_13b", "LeNet", "ResNet",
            "resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
            "resnext50_32x4d", "wide_resnet50_2", "BertConfig", "BertModel",

@@ -28,9 +28,8 @@ dtype in place (each ``Parameter`` object, and its ``param_name``, stays,
 so an optimizer built before keeps its state by it) and turns on the
 optimizers' f32 master weights.
 
-float16 takes the same lists. The flash kernels take f32 and bf16 only,
-so f16 attention runs the plain chain (``_flash_eligible``); the norm and
-AdamW kernels take f16.
+float16 takes the same lists. The flash, norm and AdamW kernels take
+f16 as they take bf16.
 """
 from __future__ import annotations
 
@@ -42,7 +41,7 @@ import torch
 from . import amp_lists
 
 __all__ = ["auto_cast", "amp_guard", "decorate", "amp_dtype_for",
-           "amp_cast", "amp_state", "amp_state_scope"]
+           "amp_cast", "amp_state", "amp_state_scope", "amp_key"]
 
 _EXEMPT = {"cast", "clone", "getitem", "setitem", "assign"}
 
@@ -64,6 +63,16 @@ def amp_state():
     """The active AMP settings ``(enabled, level, dtype, white, black)``:
     what a replay of a forward (``recompute``) must run under again."""
     return tuple(getattr(_state, f) for f in _FIELDS)
+
+
+def amp_key():
+    """The active AMP settings as a hashable key: a staged function's
+    casts are fixed when it is captured, so ``jit.to_static`` keys its
+    programs on this (``amp_key_cached`` in the JAX package)."""
+    if not _state.enabled:
+        return (False,)
+    return (True, _state.level, _state.dtype, frozenset(_state.white),
+            frozenset(_state.black))
 
 
 @contextlib.contextmanager

@@ -9,8 +9,9 @@ f32 and stored back in its type, as the JAX package does. A parameter
 with ``need_clip = False`` is passed through and left out of the norms.
 :class:`ClipGradByGlobalNorm` takes the global norm with one multi-tensor
 reduction (``torch._foreach_norm``) and keeps the scale on the device: no
-host sync. The JAX clips are jnp, not Pallas kernels, so PyTorch's own
-ops do the work here.
+host sync, so every clip runs inside a staged step (``jit.to_static``).
+The JAX clips are jnp, not Pallas kernels, so PyTorch's own ops do the
+work here.
 """
 from __future__ import annotations
 
@@ -96,9 +97,13 @@ def clip_grad_norm_(parameters, max_norm, norm_type=2.0,
     accepted and, as in the JAX package, not acted on."""
     if isinstance(parameters, torch.Tensor):
         parameters = [parameters]
+    parameters = list(parameters)
     params = [p for p in parameters if p.grad is not None]
     if not params:
-        return torch.zeros(())
+        # on the parameters' device: a staged step must not meet a CPU
+        # tensor where it expects a device one
+        return torch.zeros((), device=parameters[0].device if parameters
+                           else None)
     grads = [p.grad for p in params]
     if norm_type == float("inf"):
         total = torch.stack([g.abs().max() for g in grads]).max()

@@ -48,12 +48,12 @@ def _flash_eligible(query, attn_mask, dropout_p, training):
     ``nn/functional/common.py:204-226``, without its TPU test and A/B
     gate): a CUDA tensor, no mask, no dropout while training, 4-D input
     and a head dim of at most 128 — and, the kernels' own limits, a head
-    dim that is a multiple of 16 and f32 or bf16 inputs (f16 attention
-    takes the plain chain)."""
+    dim that is a multiple of 16 and f32, bf16 or f16 inputs."""
     return (query.device.type == "cuda" and attn_mask is None
             and not (dropout_p > 0 and training) and query.dim() == 4
             and query.shape[-1] <= 128 and query.shape[-1] % 16 == 0
-            and query.dtype in (torch.float32, torch.bfloat16))
+            and query.dtype in (torch.float32, torch.bfloat16,
+                                torch.float16))
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,

@@ -519,8 +519,8 @@ int run(Which which, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32 (bfloat16 is flash_attention_sm90.cu's). Each
-// returns cudaGetLastError() after its launch (0 on success), or
+// dtype: 0 = float32 (bfloat16 and float16 are flash_attention_sm90.cu's).
+// Each returns cudaGetLastError() after its launch (0 on success), or
 // cudaErrorInvalidValue for a shape or type the kernels do not take.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, void* lse,

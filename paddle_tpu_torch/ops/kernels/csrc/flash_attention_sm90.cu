@@ -1,8 +1,8 @@
-// bf16 flash attention forward and backward (dQ, dK/dV) for Hopper
-// (sm_90a): wgmma with register accumulators, a TMA ring fed by a producer
-// warp, two consumer warpgroups.
+// bf16 and f16 flash attention forward and backward (dQ, dK/dV) for
+// Hopper (sm_90a): wgmma with register accumulators, a TMA ring fed by a
+// producer warp, two consumer warpgroups.
 //
-// Replaces, for bfloat16 inputs, the three Pallas kernels of
+// Replaces, for bfloat16 and float16 inputs, the three Pallas kernels of
 // paddle_tpu/ops/pallas/flash_attention.py:
 //   * paddle_tpu/ops/pallas/flash_attention.py:106 (_flash_fwd, body
 //     _fwd_kernel :51): O and the per-row logsumexp, online softmax over
@@ -17,11 +17,14 @@
 // instantiations): s = (q . k) * scale; a key counts for a query row when
 // kpos < Sk and, if causal, kpos <= qpos; a masked key adds exactly 0; l is
 // floored at 1e-30; lse = m + log(l) (natural log, f32 [B, H, Sq]); P and
-// dS are rounded to bf16 before their products; delta comes from the
+// dS are rounded to the input type before their products; delta comes from the
 // caller. q, k, v and dO are [B, S, H, D] read through their strides (the
 // GPT's views of its fused QKV projection, no copy); O, dK and dV are
 // written contiguous [B, S, H, D]; so is dQ. D is a multiple of 16 up to
-// 128.
+// 128. Every kernel is instantiated for T = __nv_bfloat16 and T = __half:
+// both are 2 bytes, so tiles, boxes, swizzles and fragments are the same,
+// and only the wgmma type, the tensor maps' data type and the rounding of
+// P, dS and the outputs differ (sm90.cuh's Elem<T>).
 //
 // Bound: bytes (just) for the forward, operations (just) for dQ and dK/dV.
 // At the GPT's shapes (B 8, S 1024, H 16, D 128, causal) the forward does
@@ -43,7 +46,7 @@
 //     Q.K^T runs on wgmma (both operands K-major in shared memory) into
 //     registers; the online softmax runs in registers (exp2 with
 //     scale*log2(e) folded in, row max and sum over the 4 threads sharing a
-//     row); P is the S accumulator converted to bf16 in place, the
+//     row); P is the S accumulator converted to T in place, the
 //     register-A operand of O += P.V (V MN-major, transpose-B). O stays in
 //     registers until the epilogue. The loop is software-pipelined: tile
 //     j's Q.K^T and softmax run while tile j-1's P.V does, and the two
@@ -71,7 +74,7 @@
 //     stream in 64-key tiles (S, dP and dQ take 32 + 32 + 64 f32 registers
 //     a thread, which 128-key tiles would spill). Per tile: S = Q.K^T and
 //     dP = dO.V^T (K-major), P = exp2(S*scale*log2e - lse*log2e) masked,
-//     dS = P (dP - delta) scale in registers, converted to bf16 in place,
+//     dS = P (dP - delta) scale in registers, converted to T in place,
 //     then dQ += dS.K (register A, the same K tile read MN-major). dQ stays
 //     in registers and is stored once. Software-pipelined as the forward:
 //     tile j's S and dP run while tile j-1's dQ product does, the
@@ -82,7 +85,6 @@
 namespace {
 
 using namespace sm90;
-using bf16 = __nv_bfloat16;
 
 constexpr int kConsumers = 2;                  // warpgroups of 64 rows
 constexpr int kThreads = 128 * (kConsumers + 1);
@@ -131,9 +133,9 @@ __device__ __forceinline__ unsigned char* aligned_base(unsigned char* raw) {
 }
 
 // Stores rows (row0, row0 + 8) of an m64 x DP accumulator, times inv[h],
-// as bf16 into a contiguous [B, S, H, D] tensor, clipped to S and D.
-template <int R>
-__device__ __forceinline__ void store_rows(const float (&acc)[R], bf16* out,
+// as T into a contiguous [B, S, H, D] tensor, clipped to S and D.
+template <typename T, int R>
+__device__ __forceinline__ void store_rows(const float (&acc)[R], T* out,
                                            const Shape& p, int S, int b,
                                            int h, int row0, const float* inv) {
   const int lane = threadIdx.x & 31;
@@ -141,14 +143,14 @@ __device__ __forceinline__ void store_rows(const float (&acc)[R], bf16* out,
   for (int hh = 0; hh < 2; ++hh) {
     const int row = row0 + 8 * hh;
     if (row >= S) continue;
-    bf16* dst = out + (((long long)b * S + row) * p.H + h) * p.D;
+    T* dst = out + (((long long)b * S + row) * p.H + h) * p.D;
 #pragma unroll
     for (int j = 0; j < R / 4; ++j) {
       const int col = 8 * j + 2 * (lane & 3);
       if (col < p.D)
         *reinterpret_cast<uint32_t*>(dst + col) =
-            pack_bf16(acc[4 * j + 2 * hh] * inv[hh],
-                      acc[4 * j + 2 * hh + 1] * inv[hh]);
+            Elem<T>::pack(acc[4 * j + 2 * hh] * inv[hh],
+                          acc[4 * j + 2 * hh + 1] * inv[hh]);
     }
   }
 }
@@ -163,11 +165,11 @@ struct Fwd {
       1024 + kQBytes + 2 * kStages * kKBytes + 8 * (1 + 2 * kStages);
 };
 
-template <int DP>
+template <int DP, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
-                          const __grid_constant__ CUtensorMap tv, bf16* o_out,
+                          const __grid_constant__ CUtensorMap tv, T* o_out,
                           float* lse_out, Shape p) {
   using L = Fwd<DP>;
   constexpr int BQ = L::BQ, BK = L::BK, NB = DP / 64;
@@ -240,9 +242,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk)
-        mma_ss<0, 0>(sc, desc_kmajor(qw, kk, L::kQBox),
-                     desc_kmajor(k_s + s * L::kKBytes, kk, L::kKBox),
-                     kk > 0);
+        mma_ss<T, 0, 0>(sc, desc_kmajor(qw, kk, L::kQBox),
+                        desc_kmajor(k_s + s * L::kKBytes, kk, L::kKBox),
+                        kk > 0);
       wgmma_commit();
     };
     // O += P.V of key tile kt, P in pf (issued, not waited for)
@@ -250,7 +252,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const unsigned char* vt = v_s + (kt % kStages) * L::kKBytes;
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        mma_rs<1>(o, pf[kk], desc_mnmajor(vt, kk, L::kKBox));
+        mma_rs<T, 1>(o, pf[kk], desc_mnmajor(vt, kk, L::kKBox));
       wgmma_commit();
     };
     // Masks key tile kt's scores where it has to, folds them into m and
@@ -301,7 +303,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     wgmma_wait<0>();
     fence_regs(sc);
     softmax(0);
-    frag_from_acc(sc, pf);
+    frag_from_acc<T>(sc, pf);
     for (int kt = 1; kt < nk; ++kt) {
       my_turn();
       scores(kt);
@@ -315,7 +317,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_arrive(&empty[(kt - 1) % kStages]);
 #pragma unroll
       for (int i = 0; i < DP / 2; ++i) o[i] *= corr[(i / 2) & 1];
-      frag_from_acc(sc, pf);
+      frag_from_acc<T>(sc, pf);
     }
     my_turn();
     wgmma_fence();
@@ -349,14 +351,14 @@ struct Dkv {
       1024 + 2 * kKBytes + kStages * kStage + 8 * (1 + 2 * kStages);
 };
 
-template <int DP>
+template <int DP, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                               const __grid_constant__ CUtensorMap tk,
                               const __grid_constant__ CUtensorMap tv,
                               const __grid_constant__ CUtensorMap tdo,
                               const float* lse, const float* delta,
-                              bf16* dk_out, bf16* dv_out, Shape p) {
+                              T* dk_out, T* dv_out, Shape p) {
   using L = Dkv<DP>;
   constexpr int BQ = L::BQ, BK = L::BK, NB = DP / 64;
   extern __shared__ unsigned char smem_raw[];
@@ -456,12 +458,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk)
-        mma_ss<0, 0>(st, desc_kmajor(kw, kk, L::kKBox),
-                     desc_kmajor(q_t, kk, L::kQBox), kk > 0);
+        mma_ss<T, 0, 0>(st, desc_kmajor(kw, kk, L::kKBox),
+                        desc_kmajor(q_t, kk, L::kQBox), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk)
-        mma_ss<0, 0>(dpt, desc_kmajor(vw, kk, L::kKBox),
-                     desc_kmajor(do_t, kk, L::kQBox), kk > 0);
+        mma_ss<T, 0, 0>(dpt, desc_kmajor(vw, kk, L::kKBox),
+                        desc_kmajor(do_t, kk, L::kQBox), kk > 0);
       wgmma_commit();
       if (wg == 0 || it + 1 < n_it) your_turn();  // none waits after the last
       wgmma_wait<0>();
@@ -478,15 +480,15 @@ __global__ void __launch_bounds__(kThreads, 1)
         dpt[i] = pv * (dpt[i] - dl[c]) * p.scale;
       }
       uint32_t pf[BQ / 16][4], df[BQ / 16][4];
-      frag_from_acc(st, pf);
-      frag_from_acc(dpt, df);
+      frag_from_acc<T>(st, pf);
+      frag_from_acc<T>(dpt, df);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk)
-        mma_rs<1>(dv, pf[kk], desc_mnmajor(do_t, kk, L::kQBox));
+        mma_rs<T, 1>(dv, pf[kk], desc_mnmajor(do_t, kk, L::kQBox));
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk)
-        mma_rs<1>(dk, df[kk], desc_mnmajor(q_t, kk, L::kQBox));
+        mma_rs<T, 1>(dk, df[kk], desc_mnmajor(q_t, kk, L::kQBox));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dk);
@@ -512,14 +514,14 @@ struct Dq {
                                   2 * BQ * 4 + 8 * (1 + 2 * kStages);
 };
 
-template <int DP>
+template <int DP, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv,
                              const __grid_constant__ CUtensorMap tdo,
                              const float* lse, const float* delta,
-                             bf16* dq_out, Shape p) {
+                             T* dq_out, Shape p) {
   using L = Dq<DP>;
   constexpr int BQ = L::BQ, BK = L::BK, NB = DP / 64;
   extern __shared__ unsigned char smem_raw[];
@@ -610,12 +612,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk)
-        mma_ss<0, 0>(sc, desc_kmajor(qw, kk, L::kQBox),
-                     desc_kmajor(k_t, kk, L::kKBox), kk > 0);
+        mma_ss<T, 0, 0>(sc, desc_kmajor(qw, kk, L::kQBox),
+                        desc_kmajor(k_t, kk, L::kKBox), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk)
-        mma_ss<0, 0>(dp, desc_kmajor(dow, kk, L::kQBox),
-                     desc_kmajor(k_t + L::kKBytes, kk, L::kKBox), kk > 0);
+        mma_ss<T, 0, 0>(dp, desc_kmajor(dow, kk, L::kQBox),
+                        desc_kmajor(k_t + L::kKBytes, kk, L::kKBox), kk > 0);
       wgmma_commit();
     };
     // dQ += dS.K of key tile kt, dS in df (issued, not waited for)
@@ -623,7 +625,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const unsigned char* k_t = ring + (kt % kStages) * L::kStage;
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        mma_rs<1>(dq, df[kk], desc_mnmajor(k_t, kk, L::kKBox));
+        mma_rs<T, 1>(dq, df[kk], desc_mnmajor(k_t, kk, L::kKBox));
       wgmma_commit();
     };
     // dS = P (dP - delta) scale into dp, P recomputed from lse and masked
@@ -654,7 +656,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_regs(sc);
     fence_regs(dp);
     grads(0);
-    frag_from_acc(dp, df);
+    frag_from_acc<T>(dp, df);
     for (int kt = 1; kt < nk; ++kt) {
       my_turn();
       products(kt);
@@ -668,7 +670,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_regs(dq);
       fence_regs(dp);  // df is rewritten only once its product is done
       mbar_arrive(&empty[(kt - 1) % kStages]);
-      frag_from_acc(dp, df);
+      frag_from_acc<T>(dp, df);
     }
     my_turn();
     wgmma_fence();
@@ -706,126 +708,149 @@ bool parse(const long long* meta, float scale, int causal, Shape* p,
          p->H > 0 && p->Sq > 0 && p->Sk > 0;
 }
 
+template <typename T>
 bool encode(CUtensorMap* map, const Shape& p, const View& v, int S,
             int rows) {
-  return encode_bshd(map, v.ptr, p.B, S, p.H, p.D, v.sb, v.ss, v.sh, rows);
+  return encode_bshd(map, Elem<T>::kMapType, v.ptr, p.B, S, p.H, p.D, v.sb,
+                     v.ss, v.sh, rows);
 }
 
-template <int DP>
+template <int DP, typename T>
 int launch_fwd(const Shape& p, const View* v, void* o, void* lse,
                cudaStream_t stream) {
   using L = Fwd<DP>;
   CUtensorMap tq, tk, tv;
-  if (!encode(&tq, p, v[0], p.Sq, L::BQ) ||
-      !encode(&tk, p, v[1], p.Sk, L::BK) || !encode(&tv, p, v[2], p.Sk, L::BK))
+  if (!encode<T>(&tq, p, v[0], p.Sq, L::BQ) ||
+      !encode<T>(&tk, p, v[1], p.Sk, L::BK) ||
+      !encode<T>(&tv, p, v[2], p.Sk, L::BK))
     return kMapRefused;
-  auto kernel = flash_fwd_sm90_kernel<DP>;
+  auto kernel = flash_fwd_sm90_kernel<DP, T>;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kSmem);
   if (e != cudaSuccess) return (int)e;
   const unsigned grid = (unsigned)((p.Sq + L::BQ - 1) / L::BQ) * p.B * p.H;
   kernel<<<grid, kThreads, L::kSmem, stream>>>(
-      tq, tk, tv, static_cast<bf16*>(o), static_cast<float*>(lse), p);
+      tq, tk, tv, static_cast<T*>(o), static_cast<float*>(lse), p);
   return (int)cudaGetLastError();
 }
 
-template <int DP>
+template <int DP, typename T>
 int launch_dkv(const Shape& p, const View* v, const void* lse,
                const void* delta, void* dk, void* dv, cudaStream_t stream) {
   using L = Dkv<DP>;
   CUtensorMap tq, tk, tv, tdo;
-  if (!encode(&tq, p, v[0], p.Sq, L::BQ) ||
-      !encode(&tk, p, v[1], p.Sk, L::BK) ||
-      !encode(&tv, p, v[2], p.Sk, L::BK) ||
-      !encode(&tdo, p, v[3], p.Sq, L::BQ))
+  if (!encode<T>(&tq, p, v[0], p.Sq, L::BQ) ||
+      !encode<T>(&tk, p, v[1], p.Sk, L::BK) ||
+      !encode<T>(&tv, p, v[2], p.Sk, L::BK) ||
+      !encode<T>(&tdo, p, v[3], p.Sq, L::BQ))
     return kMapRefused;
-  auto kernel = flash_bwd_dkv_sm90_kernel<DP>;
+  auto kernel = flash_bwd_dkv_sm90_kernel<DP, T>;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kSmem);
   if (e != cudaSuccess) return (int)e;
   const unsigned grid = (unsigned)((p.Sk + L::BK - 1) / L::BK) * p.B * p.H;
   kernel<<<grid, kThreads, L::kSmem, stream>>>(
       tq, tk, tv, tdo, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), p);
+      static_cast<const float*>(delta), static_cast<T*>(dk),
+      static_cast<T*>(dv), p);
   return (int)cudaGetLastError();
 }
 
-template <int DP>
+template <int DP, typename T>
 int launch_dq(const Shape& p, const View* v, const void* lse,
               const void* delta, void* dq, cudaStream_t stream) {
   using L = Dq<DP>;
   CUtensorMap tq, tk, tv, tdo;
-  if (!encode(&tq, p, v[0], p.Sq, L::BQ) ||
-      !encode(&tk, p, v[1], p.Sk, L::BK) ||
-      !encode(&tv, p, v[2], p.Sk, L::BK) ||
-      !encode(&tdo, p, v[3], p.Sq, L::BQ))
+  if (!encode<T>(&tq, p, v[0], p.Sq, L::BQ) ||
+      !encode<T>(&tk, p, v[1], p.Sk, L::BK) ||
+      !encode<T>(&tv, p, v[2], p.Sk, L::BK) ||
+      !encode<T>(&tdo, p, v[3], p.Sq, L::BQ))
     return kMapRefused;
-  auto kernel = flash_bwd_dq_sm90_kernel<DP>;
+  auto kernel = flash_bwd_dq_sm90_kernel<DP, T>;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kSmem);
   if (e != cudaSuccess) return (int)e;
   const unsigned grid = (unsigned)((p.Sq + L::BQ - 1) / L::BQ) * p.B * p.H;
   kernel<<<grid, kThreads, L::kSmem, stream>>>(
       tq, tk, tv, tdo, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq), p);
+      static_cast<const float*>(delta), static_cast<T*>(dq), p);
   return (int)cudaGetLastError();
 }
+
+// The element type code the entries take: 1 bf16, 2 f16 (the f32
+// library's 0 is not taken here).
+constexpr int kBF16 = 1, kF16 = 2;
 
 }  // namespace
 
 // Dynamic shared memory a block of kernel `which` (0 forward, 1 dK/dV,
-// 2 dQ) launches with at head dim `d`.
+// 2 dQ) launches with at head dim `d` (the same for both element types).
 extern "C" int flash_attention_sm90_smem_bytes(int which, int d) {
   if (which == 0) return (int)(d <= 64 ? Fwd<64>::kSmem : Fwd<128>::kSmem);
   if (which == 2) return (int)(d <= 64 ? Dq<64>::kSmem : Dq<128>::kSmem);
   return (int)(d <= 64 ? Dkv<64>::kSmem : Dkv<128>::kSmem);
 }
 
-// bf16 only. Each returns cudaGetLastError() after its launch (0 on
-// success), cudaErrorInvalidValue for a shape the kernels do not take, or
-// -1 when the driver refuses a tensor map (a base or a stride that is not
-// 16-byte aligned).
+// `dtype` 1 (bf16) or 2 (f16). Each returns cudaGetLastError() after its
+// launch (0 on success), cudaErrorInvalidValue for a shape or a type the
+// kernels do not take, or -1 when the driver refuses a tensor map (a base
+// or a stride that is not 16-byte aligned).
 extern "C" int flash_attention_sm90_fwd(const void* q, const void* k,
                                         const void* v, void* o, void* lse,
                                         const long long* meta, float scale,
-                                        int causal, void* stream) {
+                                        int causal, int dtype, void* stream) {
   Shape p;
   View views[3];
   const void* ptrs[3] = {q, k, v};
-  if (!parse(meta, scale, causal, &p, views, ptrs, 3))
+  if (!parse(meta, scale, causal, &p, views, ptrs, 3) ||
+      (dtype != kBF16 && dtype != kF16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return p.D <= 64 ? launch_fwd<64>(p, views, o, lse, s)
-                   : launch_fwd<128>(p, views, o, lse, s);
+  if (dtype == kF16)
+    return p.D <= 64 ? launch_fwd<64, __half>(p, views, o, lse, s)
+                     : launch_fwd<128, __half>(p, views, o, lse, s);
+  return p.D <= 64 ? launch_fwd<64, __nv_bfloat16>(p, views, o, lse, s)
+                   : launch_fwd<128, __nv_bfloat16>(p, views, o, lse, s);
 }
 
 extern "C" int flash_attention_sm90_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv,
-    const long long* meta, float scale, int causal, void* stream) {
+    const long long* meta, float scale, int causal, int dtype, void* stream) {
   Shape p;
   View views[4];
   const void* ptrs[4] = {q, k, v, dout};
-  if (!parse(meta, scale, causal, &p, views, ptrs, 4))
+  if (!parse(meta, scale, causal, &p, views, ptrs, 4) ||
+      (dtype != kBF16 && dtype != kF16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return p.D <= 64 ? launch_dkv<64>(p, views, lse, delta, dk, dv, s)
-                   : launch_dkv<128>(p, views, lse, delta, dk, dv, s);
+  if (dtype == kF16)
+    return p.D <= 64
+               ? launch_dkv<64, __half>(p, views, lse, delta, dk, dv, s)
+               : launch_dkv<128, __half>(p, views, lse, delta, dk, dv, s);
+  return p.D <= 64
+             ? launch_dkv<64, __nv_bfloat16>(p, views, lse, delta, dk, dv, s)
+             : launch_dkv<128, __nv_bfloat16>(p, views, lse, delta, dk, dv,
+                                              s);
 }
 
 extern "C" int flash_attention_sm90_bwd_dq(const void* q, const void* k,
                                            const void* v, const void* dout,
                                            const void* lse, const void* delta,
                                            void* dq, const long long* meta,
-                                           float scale, int causal,
+                                           float scale, int causal, int dtype,
                                            void* stream) {
   Shape p;
   View views[4];
   const void* ptrs[4] = {q, k, v, dout};
-  if (!parse(meta, scale, causal, &p, views, ptrs, 4))
+  if (!parse(meta, scale, causal, &p, views, ptrs, 4) ||
+      (dtype != kBF16 && dtype != kF16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return p.D <= 64 ? launch_dq<64>(p, views, lse, delta, dq, s)
-                   : launch_dq<128>(p, views, lse, delta, dq, s);
+  if (dtype == kF16)
+    return p.D <= 64 ? launch_dq<64, __half>(p, views, lse, delta, dq, s)
+                     : launch_dq<128, __half>(p, views, lse, delta, dq, s);
+  return p.D <= 64
+             ? launch_dq<64, __nv_bfloat16>(p, views, lse, delta, dq, s)
+             : launch_dq<128, __nv_bfloat16>(p, views, lse, delta, dq, s);
 }

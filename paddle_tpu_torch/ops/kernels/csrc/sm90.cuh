@@ -3,8 +3,13 @@
 // register reallocation. PTX semantics as in the PTX ISA 8.x chapters on
 // wgmma.mma_async, mbarrier and cp.async.bulk.tensor.
 //
+// The element type T of the products, tiles and packs is bf16
+// (__nv_bfloat16) or f16 (__half): both are 2 bytes, so every layout below
+// is the same for the two; only the wgmma type, the tensor map's data type
+// and the pack's rounding differ (Elem<T>).
+//
 // Shared-memory tiles are written by TMA with CU_TENSOR_MAP_SWIZZLE_128B:
-// a box of `rows` x 64 bf16 (128 bytes a row) whose 8-row groups (1024
+// a box of `rows` x 64 elements (128 bytes a row) whose 8-row groups (1024
 // bytes) are the swizzle atoms, so every tile starts 1024-byte aligned. A
 // head dim of 128 is two such boxes, `rows` x 128 bytes apart.
 //
@@ -18,17 +23,45 @@
 // Accumulator layout of m64nNk16 (thread t of the warpgroup, warp w = t/32,
 // lane l): d[4*j + 2*h + e] is row 16*w + l/4 + 8*h, column 8*j + 2*(l%4)
 // + e. The register-A fragment of a k16 step kk is that layout's columns
-// 16*kk .. 16*kk+15 packed as bf16 pairs, so an f32 accumulator turns into
+// 16*kk .. 16*kk+15 packed as pairs of T, so an f32 accumulator turns into
 // the A operand of the next product in place (frag_from_acc).
 #pragma once
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <stdint.h>
 
 namespace sm90 {
+
+// What differs between the two element types.
+template <typename T>
+struct Elem;
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr CUtensorMapDataType kMapType =
+      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  // f32 pair -> two elements rounded to nearest even, lo in the low half
+  __device__ __forceinline__ static uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+};
+template <>
+struct Elem<__half> {
+  static constexpr CUtensorMapDataType kMapType =
+      CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  __device__ __forceinline__ static uint32_t pack(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+};
+template <typename T>
+constexpr bool kIsHalf = false;
+template <>
+constexpr bool kIsHalf<__half> = true;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -181,54 +214,78 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
            "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "   \
            "%56, %57, %58, %59, %60, %61, %62, %63"
 
-// D (+)= A.B with A and B in shared memory (m64 N k16, bf16 in, f32
+// The wgmma forms, TY the element type's name in PTX ("bf16" or "f16").
+#define SM90_MMA_SS32(TY)                                                  \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"              \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY    \
+               " {" SM90_L32 "}, %32, %33, p, 1, 1, %35, %36;\n}\n"       \
+               : SM90_F32                                                  \
+               : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB))
+#define SM90_MMA_SS64(TY)                                                  \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"              \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY   \
+               " {" SM90_L64 "}, %64, %65, p, 1, 1, %67, %68;\n}\n"       \
+               : SM90_F64                                                  \
+               : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB))
+#define SM90_MMA_RS32(TY)                                                  \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"              \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY    \
+               " {" SM90_L32 "}, {%32, %33, %34, %35}, %36, p, 1, 1, "     \
+               "%38;\n}\n"                                                \
+               : SM90_F32                                                  \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),      \
+                 "r"(1), "n"(TB))
+#define SM90_MMA_RS64(TY)                                                  \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"              \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY   \
+               " {" SM90_L64 "}, {%64, %65, %66, %67}, %68, p, 1, 1, "     \
+               "%70;\n}\n"                                                \
+               : SM90_F64                                                  \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),      \
+                 "r"(1), "n"(TB))
+
+// D (+)= A.B with A and B in shared memory (m64 N k16, T in, f32
 // accumulate); scale_d = 0 overwrites D. TA / TB set the transpose bits.
-template <int TA, int TB>
+template <typename T, int TA, int TB>
 __device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t da,
                                        uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" SM90_L32
-      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
-      : SM90_F32
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  if constexpr (kIsHalf<T>)
+    SM90_MMA_SS32("f16");
+  else
+    SM90_MMA_SS32("bf16");
 }
-template <int TA, int TB>
+template <typename T, int TA, int TB>
 __device__ __forceinline__ void mma_ss(float (&d)[64], uint64_t da,
                                        uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" SM90_L64
-      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
-      : SM90_F64
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  if constexpr (kIsHalf<T>)
+    SM90_MMA_SS64("f16");
+  else
+    SM90_MMA_SS64("bf16");
 }
 
-// D += A.B with A from registers (a[4]: one k16 step, bf16 pairs) and B in
+// D += A.B with A from registers (a[4]: one k16 step, pairs of T) and B in
 // shared memory.
-template <int TB>
+template <typename T, int TB>
 __device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
                                        uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" SM90_L32
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : SM90_F32
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
-        "n"(TB));
+  if constexpr (kIsHalf<T>)
+    SM90_MMA_RS32("f16");
+  else
+    SM90_MMA_RS32("bf16");
 }
-template <int TB>
+template <typename T, int TB>
 __device__ __forceinline__ void mma_rs(float (&d)[64], const uint32_t (&a)[4],
                                        uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" SM90_L64
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-      : SM90_F64
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
-        "n"(TB));
+  if constexpr (kIsHalf<T>)
+    SM90_MMA_RS64("f16");
+  else
+    SM90_MMA_RS64("bf16");
 }
 
+#undef SM90_MMA_SS32
+#undef SM90_MMA_SS64
+#undef SM90_MMA_RS32
+#undef SM90_MMA_RS64
 #undef SM90_F8
 #undef SM90_F32
 #undef SM90_F64
@@ -244,22 +301,18 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // The register-A fragments of an m64nNk16 accumulator's columns, one k16
-// step (16 columns) each: f[kk] holds columns 16*kk .. 16*kk+15.
-template <int R>
+// step (16 columns) each, rounded to T: f[kk] holds columns 16*kk ..
+// 16*kk+15.
+template <typename T, int R>
 __device__ __forceinline__ void frag_from_acc(const float (&d)[R],
                                               uint32_t (&f)[R / 8][4]) {
 #pragma unroll
   for (int kk = 0; kk < R / 8; ++kk) {
-    f[kk][0] = pack_bf16(d[8 * kk + 0], d[8 * kk + 1]);
-    f[kk][1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
-    f[kk][2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
-    f[kk][3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+    f[kk][0] = Elem<T>::pack(d[8 * kk + 0], d[8 * kk + 1]);
+    f[kk][1] = Elem<T>::pack(d[8 * kk + 2], d[8 * kk + 3]);
+    f[kk][2] = Elem<T>::pack(d[8 * kk + 4], d[8 * kk + 5]);
+    f[kk][3] = Elem<T>::pack(d[8 * kk + 6], d[8 * kk + 7]);
   }
 }
 
@@ -294,11 +347,13 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 [B, S, H, D] tensor read through element strides (sb, ss, sh; D
-// contiguous) as a 4-d map over (D, H, S, B), whose box is `rows` rows of
-// S by 64 elements of D (128 bytes, 128-byte swizzle). Elements past D or
-// S are zero-filled. -> false when the driver refuses it.
-inline bool encode_bshd(CUtensorMap* map, const void* base, long long B,
+// A [B, S, H, D] tensor of 2-byte elements of `type` read through element
+// strides (sb, ss, sh; D contiguous) as a 4-d map over (D, H, S, B), whose
+// box is `rows` rows of S by 64 elements of D (128 bytes, 128-byte
+// swizzle). Elements past D or S are zero-filled. -> false when the driver
+// refuses it.
+inline bool encode_bshd(CUtensorMap* map, CUtensorMapDataType type,
+                        const void* base, long long B,
                         long long S, long long H, long long D, long long sb,
                         long long ss, long long sh, int rows) {
   EncodeTiledFn fn = encode_tiled();
@@ -314,7 +369,7 @@ inline bool encode_bshd(CUtensorMap* map, const void* base, long long B,
                                  (cuuint64_t)sb * 2};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  return fn(map, type, 4,
             const_cast<void*>(base), dims, strides, box, estr,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,

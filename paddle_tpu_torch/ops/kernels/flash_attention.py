@@ -13,8 +13,9 @@ The port of ``paddle_tpu/ops/pallas/flash_attention.py``:
 * the wrappers of the CUDA kernels on ``[B, S, H, D]`` tensors read
   through their strides (lse and delta ``[B, H, S]`` f32):
   :func:`flash_fwd`, :func:`flash_bwd_dq`, :func:`flash_bwd_dkv`. bf16
-  launches ``csrc/flash_attention_sm90.cu`` (wgmma, TMA, warp
-  specialisation), f32 ``csrc/flash_attention.cu``. On a CPU tensor each
+  and f16 launch ``csrc/flash_attention_sm90.cu`` (wgmma, TMA, warp
+  specialisation; one instantiation per type), f32
+  ``csrc/flash_attention.cu``. On a CPU tensor each
   runs its plain version; on a CUDA tensor it launches its kernel or
   raises, and counts the launch. See the sources for their designs and bounds.
 * :func:`flash_attention_bshd` — the differentiable entry point with the
@@ -34,7 +35,8 @@ __all__ = ["flash_fwd_reference", "flash_bwd_dq_reference",
            "flash_bwd_dkv", "flash_delta", "flash_attention_bshd"]
 
 NEG_INF = -1e30
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernels' type codes: 0 runs flash_attention.cu, 1 and 2 the sm90 file
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 # ------------------------------------------------------- plain versions
@@ -111,8 +113,8 @@ def flash_delta(o, do):
 
 # -------------------------------------------------------------- kernels
 _fns = {}
-# C entry point -> (library, pointer arguments); the sm90 library's take
-# no dtype argument (bf16 only)
+# C entry point -> (library, pointer arguments); every entry then takes
+# the meta array, scale, causal, the type code and the stream
 _ENTRIES = {"flash_attention_fwd": ("flash_attention", 5),
             "flash_attention_bwd_dq": ("flash_attention", 7),
             "flash_attention_bwd_dkv": ("flash_attention", 8),
@@ -127,10 +129,9 @@ def _kernel(name):
         from . import _build
         lib, n_ptr = _ENTRIES[name]
         fn = getattr(_build.load(lib), name)
-        dtype_arg = [] if lib == "flash_attention_sm90" else [ctypes.c_int]
         fn.argtypes = ([ctypes.c_void_p] * n_ptr
-                       + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int]
-                       + dtype_arg + [ctypes.c_void_p])
+                       + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
@@ -155,7 +156,8 @@ def _prepare(name, q, k, v, do=None):
     (re-laid out contiguous only where :func:`_readable` refuses them) and
     the host meta array (B, H, Sq, Sk, D and their strides)."""
     if q.dtype not in _DTYPES:
-        raise TypeError(f"{name} takes float32 or bfloat16, got {q.dtype}")
+        raise TypeError(f"{name} takes float32, bfloat16 or float16, got "
+                        f"{q.dtype}")
     ops = [("q", q), ("k", k), ("v", v)] + ([("do", do)] if do is not None
                                             else [])
     for n, x in ops:
@@ -205,6 +207,13 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
+def _entry(kind, q):
+    """The C entry of ``kind`` (fwd, bwd_dq, bwd_dkv) for q's type: the
+    Hopper kernels for bf16 and f16, the f32 library for f32."""
+    sm90 = "_sm90" if q.dtype != torch.float32 else ""
+    return f"flash_attention{sm90}_{kind}"
+
+
 def _raise_if(rc, name):
     if rc == -1:
         raise RuntimeError(f"{name}: the driver refused a TMA tensor map")
@@ -226,10 +235,7 @@ def flash_fwd(q, k, v, scale, causal):
     lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), meta, float(scale), int(bool(causal)))
-    if q.dtype == torch.bfloat16:
-        rc = _kernel("flash_attention_sm90_fwd")(*args, _stream())
-    else:
-        rc = _kernel("flash_attention_fwd")(*args, 0, _stream())
+    rc = _kernel(_entry("fwd", q))(*args, _DTYPES[q.dtype], _stream())
     _raise_if(rc, "flash_fwd")
     flash_fwd.launches += 1
     return o, lse
@@ -251,10 +257,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale, causal):
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), meta,
             float(scale), int(bool(causal)))
-    if q.dtype == torch.bfloat16:
-        rc = _kernel("flash_attention_sm90_bwd_dq")(*args, _stream())
-    else:
-        rc = _kernel("flash_attention_bwd_dq")(*args, 0, _stream())
+    rc = _kernel(_entry("bwd_dq", q))(*args, _DTYPES[q.dtype], _stream())
     _raise_if(rc, "flash_bwd_dq")
     flash_bwd_dq.launches += 1
     return dq
@@ -278,10 +281,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal):
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             meta, float(scale), int(bool(causal)))
-    if q.dtype == torch.bfloat16:
-        rc = _kernel("flash_attention_sm90_bwd_dkv")(*args, _stream())
-    else:
-        rc = _kernel("flash_attention_bwd_dkv")(*args, 0, _stream())
+    rc = _kernel(_entry("bwd_dkv", q))(*args, _DTYPES[q.dtype], _stream())
     _raise_if(rc, "flash_bwd_dkv")
     flash_bwd_dkv.launches += 1
     return dk, dv

@@ -25,6 +25,18 @@ Each entry is in one of three modes:
 
 The table carries each tensor's types as codes (:data:`TYPE_CODES`: 0
 f32, 1 bf16, 2 f16), which the kernel loads and stores by.
+
+A call builds its table in numpy and copies it to the card from pageable
+memory, which a CUDA graph cannot capture, and which would bake the
+step's lr and bias corrections into it. A staged training step
+(``jit.to_static``) passes an :class:`AdamWTable` instead: a static device
+table, allocated at the step's eager first call, whose pointer fields the
+capture fills (the tensors the graph replays) and whose float fields the
+host rewrites before each replay (:meth:`AdamWTable.set_scalars`), then
+copies in with one non-blocking copy from pinned memory
+(:meth:`AdamWTable.upload`), as ``serving/compiled.py``'s
+``RoundProgram.stage`` rewrites its static input. The launch inside the
+graph reads the table from the device.
 """
 from __future__ import annotations
 
@@ -33,7 +45,8 @@ import ctypes
 import numpy as np
 import torch
 
-__all__ = ["fused_adamw_reference", "fused_adamw", "TYPE_CODES"]
+__all__ = ["fused_adamw_reference", "fused_adamw", "AdamWTable",
+           "TYPE_CODES"]
 
 # one table entry; must match ``struct Entry`` in csrc/fused_adamw.cu
 _ENTRY = np.dtype([("w", "<u8"), ("g", "<u8"), ("m", "<u8"), ("v", "<u8"),
@@ -103,7 +116,8 @@ def _check(i, w, g, m, v, p, dev):
             raise ValueError(f"tensor {i} must be contiguous")
 
 
-def fused_adamw(ws, gs, ms, vs, lr, b1, b2, eps, wd, bc1, bc2, params=None):
+def fused_adamw(ws, gs, ms, vs, lr, b1, b2, eps, wd, bc1, bc2, params=None,
+                table=None):
     """AdamW over the lists ``ws`` (params or f32 masters, f32, bf16 or
     f16), ``gs`` (grads, any of the three), ``ms``/``vs`` (moments, f32 or
     the 16-bit type of their w), in place. ``params``, if given, holds for
@@ -111,8 +125,10 @@ def fused_adamw(ws, gs, ms, vs, lr, b1, b2, eps, wd, bc1, bc2, params=None):
     ``ws[i]`` (master mode: it is written with w' rounded to its type in
     the same pass). ``lr``, ``wd``, ``bc1`` and
     ``bc2`` are lists with one float per tensor; ``b1``, ``b2``, ``eps``
-    are shared. Launches per call: one on CUDA when the list holds an
-    element, none on the CPU."""
+    are shared. On CUDA, ``table`` (an :class:`AdamWTable`) holds the
+    launch's table instead of a new one: it is filled from these tensors
+    and, unless the stream is capturing, uploaded. Launches per call: one
+    on CUDA when the list holds an element, none on the CPU."""
     n = len(ws)
     if params is None:
         params = [None] * n
@@ -142,18 +158,23 @@ def fused_adamw(ws, gs, ms, vs, lr, b1, b2, eps, wd, bc1, bc2, params=None):
                     p.copy_(w2)
         return
     fn, chunk = _kernel()
-    plan = _table(ws, gs, ms, vs, params, lrs, wds, c1s, c2s, chunk)
+    if table is not None:
+        table.fill(ws, gs, ms, vs, params, chunk)
+        table.set_scalars(lrs, wds, c1s, c2s)
+        if not torch.cuda.is_current_stream_capturing():
+            table.upload()
+        plan = table.plan()
+    else:
+        plan = _table(ws, gs, ms, vs, params, lrs, wds, c1s, c2s, chunk)
     if plan is not None:
         _launch(fn, plan, b1, b2, eps)
         fused_adamw.launches += 1
 
 
-def _table(ws, gs, ms, vs, params, lrs, wds, c1s, c2s, chunk):
-    """The launch's device table over the non-empty tensors -> ``(table,
-    rows, blocks)``, or None when every tensor is empty."""
+def _entries(ws, gs, ms, vs, params, chunk):
+    """-> (numpy table over the non-empty tensors with every field but the
+    floats, their indices, the blocks the launch takes)."""
     live = [i for i in range(len(ws)) if ws[i].numel()]
-    if not live:
-        return None
     code = TYPE_CODES
     table = np.zeros(len(live), _ENTRY)
     block = 0
@@ -161,12 +182,85 @@ def _table(ws, gs, ms, vs, params, lrs, wds, c1s, c2s, chunk):
         w, g, m, p = ws[i], gs[i], ms[i], params[i]
         table[row] = (w.data_ptr(), g.data_ptr(), m.data_ptr(),
                       vs[i].data_ptr(), 0 if p is None else p.data_ptr(),
-                      w.numel(), block, lrs[i], wds[i], c1s[i], c2s[i],
+                      w.numel(), block, 0.0, 0.0, 0.0, 0.0,
                       code[w.dtype], code[g.dtype], code[m.dtype],
                       0 if p is None else code[p.dtype])
         block += -(-w.numel() // chunk)
+    return table, live, block
+
+
+def _set_floats(table, live, lrs, wds, c1s, c2s):
+    for field, vals in (("lr", lrs), ("wd", wds), ("bc1", c1s),
+                        ("bc2", c2s)):
+        table[field] = [vals[i] for i in live]
+
+
+def _table(ws, gs, ms, vs, params, lrs, wds, c1s, c2s, chunk):
+    """The launch's device table over the non-empty tensors -> ``(table,
+    rows, blocks)``, or None when every tensor is empty."""
+    table, live, blocks = _entries(ws, gs, ms, vs, params, chunk)
+    if not live:
+        return None
+    _set_floats(table, live, lrs, wds, c1s, c2s)
     dtable = torch.from_numpy(table.view(np.uint8)).to(ws[0].device)
-    return dtable, len(live), block
+    return dtable, len(live), blocks
+
+
+class AdamWTable:
+    """One launch's table kept across calls (a staged step's): the device
+    table the kernel reads, a host copy of it, and two pinned buffers that
+    take turns carrying it to the card. Allocated by the first
+    :meth:`fill`, which must not run under a capture; a later fill (the
+    capture's) must name as many non-empty tensors."""
+
+    def __init__(self):
+        self.dev = None
+        self._np = None          # the host table (numpy, _ENTRY rows)
+        self._live = None        # indices of the tensors the rows hold
+        self._blocks = 0
+        self._pinned = []        # [(pinned uint8 buffer, event)] x 2
+        self._turn = 0
+
+    def fill(self, ws, gs, ms, vs, params, chunk):
+        """Write every row's pointers, sizes, blocks and type codes from
+        these tensors (under a capture: the ones the graph replays)."""
+        table, live, blocks = _entries(ws, gs, ms, vs, params, chunk)
+        if self.dev is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("an AdamWTable is allocated by an eager "
+                                   "call before it is captured")
+            dev = ws[0].device
+            self.dev = torch.empty(table.nbytes, dtype=torch.uint8,
+                                   device=dev)
+            self._pinned = [(torch.empty(table.nbytes, dtype=torch.uint8,
+                                         pin_memory=True), torch.cuda.Event())
+                            for _ in range(2)]
+        elif table.nbytes != self.dev.numel():
+            raise ValueError(f"the table holds {self.dev.numel() // 88} "
+                             f"rows; this call has {len(live)}")
+        self._np, self._live, self._blocks = table, live, blocks
+
+    def set_scalars(self, lrs, wds, c1s, c2s):
+        """Rewrite the rows' lr, wd, bc1 and bc2 on the host (one float per
+        tensor of the filled lists, empty ones included)."""
+        _set_floats(self._np, self._live, lrs, wds, c1s, c2s)
+
+    def upload(self):
+        """One non-blocking copy of the host table to the device table on
+        the current stream. The pinned buffer it goes through was last read
+        by the copy two uploads ago, which its event waits for."""
+        pinned, event = self._pinned[self._turn]
+        self._turn ^= 1
+        event.synchronize()
+        pinned.numpy()[:] = self._np.view(np.uint8)
+        self.dev.copy_(pinned, non_blocking=True)
+        event.record()
+
+    def plan(self):
+        """-> ``(device table, rows, blocks)`` for :func:`_launch`, or None
+        when every tensor is empty."""
+        return (self.dev, len(self._live), self._blocks) if self._live \
+            else None
 
 
 def _launch(fn, plan, b1, b2, eps):

@@ -32,6 +32,19 @@ as the JAX package's immutable arrays are left.
 Unlike the JAX package, which rebinds each parameter to a new array, the
 port's updates write parameters, masters and accumulators in place. Not
 ported: the static-graph ``minimize`` and the distributed hooks.
+
+**Staged steps** (``jit.to_static(step, capture=(model, opt))``,
+``optimizer.py:237-262``): :meth:`materialize` creates every accumulator
+and master up front and :meth:`_state_slots` lists them. While a step is
+staged, ``_staged`` holds that step's store (a dict the staging keeps per
+compiled step) and the updates keep their per-step host scalars on the
+device: SGD and Momentum multiply by a 0-d lr tensor, Adam and AdamW
+launch from a static :class:`~..ops.kernels.fused_adamw.AdamWTable`. A
+replay runs no Python, so :meth:`_replay_step` does before each replay
+what the step's host side would have done: it advances ``_global_step``
+and each ``beta_pow`` once and rewrites the lr tensors and the AdamW
+table from ``get_lr()``, so a scheduler's new lr reaches the graph, as
+the JAX package passes ``lrs`` into its compiled step.
 """
 from __future__ import annotations
 
@@ -76,6 +89,8 @@ class Optimizer:
         self._accumulators = defaultdict(dict)
         self._master_weights = {}
         self._global_step = 0
+        # the store of the step jit.to_static is staging, or None
+        self._staged = None
 
     # ---- learning rate ----
     def get_lr(self):
@@ -157,11 +172,65 @@ class Optimizer:
         if items:
             self._apply(items)
         self._global_step += 1
+        if self._staged is not None:
+            self._staged["steps"] = self._staged.get("steps", 0) + 1
 
     def _apply(self, items):
         """Update every ``(param, grad, lr, group)`` of ``items`` in place.
         Subclasses implement."""
         raise NotImplementedError
+
+    # ---- staging (jit.to_static) ----
+    def materialize(self):
+        """Create every accumulator (and master weight) up front, so a
+        staged step finds all its state before it is captured."""
+        for group in self._param_groups:
+            for p in group["params"]:
+                if not p.requires_grad:
+                    continue
+                if self._use_master(p):
+                    self._master_of(p)
+                self._materialize_param(p)
+
+    def _materialize_param(self, p):
+        """Subclasses create their accumulators of ``p``."""
+
+    def _state_slots(self):
+        """``[(container, key)]`` of every accumulator and master: the
+        state a staged step reads and writes."""
+        slots = [(per, p) for per in self._accumulators.values()
+                 for p in per]
+        return slots + [(self._master_weights, p)
+                        for p in self._master_weights]
+
+    def _host_state(self):
+        """A snapshot of the host side of the optimizer's state: the step
+        count and the accumulator and master dicts' entries (beta_pow are
+        host floats; tensors by reference)."""
+        return (self._global_step,
+                {n: dict(per) for n, per in self._accumulators.items()},
+                dict(self._master_weights))
+
+    def _set_host_state(self, state):
+        """Put back a :meth:`_host_state` snapshot: entries made since are
+        dropped."""
+        self._global_step, accs, masters = state
+        for name in list(self._accumulators):
+            per = self._accumulators[name]
+            per.clear()
+            per.update(accs.get(name, {}))
+        self._master_weights.clear()
+        self._master_weights.update(masters)
+
+    def _replay_step(self, store):
+        """The host side of one replay of the staged step whose store is
+        ``store``: advance the counters as its ``step`` calls did when it
+        was captured, and rewrite its static device scalars."""
+        self._replay_scalars(store)
+        self._global_step += store.get("steps", 0)
+
+    def _replay_scalars(self, store):
+        """Subclasses rewrite the step's lr tensors or launch tables."""
 
     # ---- grads ----
     def clear_grad(self, set_to_zero=True):

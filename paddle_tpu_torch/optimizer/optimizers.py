@@ -31,6 +31,10 @@ goes as it is when it is 16-bit for an f32 master (exact in f32) and is
 cast to the updated tensor's type otherwise, as ``optimizer.py:136``
 casts it.
 
+In a staged step (``jit.to_static``) SGD and Momentum multiply by a 0-d
+lr tensor per param group and Adam/AdamW launch from a static table, each
+rewritten before every replay (``optimizer.py``'s staging notes).
+
 Adam folds an L2 ``weight_decay`` (a float or ``L2Decay``) or an
 ``L1Decay`` into the gradient (``optimizer.py:137-140``); AdamW decays
 decoupled, per parameter, unless ``apply_decay_param_fun(name)`` says no
@@ -44,6 +48,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.kernels import fused_adamw
+from ..ops.kernels.fused_adamw import AdamWTable
 from .optimizer import Optimizer
 
 __all__ = ["SGD", "Momentum", "Adam", "AdamW"]
@@ -78,6 +83,8 @@ class SGD(Optimizer):
             if l1:
                 gs = torch._foreach_add(gs, torch._foreach_mul(
                     torch._foreach_sign(ws), l1))
+            if self._staged is not None:
+                lr = self._lr_tensor(group, lr, ws[0].device)
             self._update(ps, ws, gs, lr)
             masters = [(p, w) for p, w in zip(ps, ws) if w is not p]
             if masters:
@@ -86,6 +93,23 @@ class SGD(Optimizer):
 
     def _update(self, ps, ws, gs, lr):
         torch._foreach_sub_(ws, torch._foreach_mul(gs, lr))
+
+    def _lr_tensor(self, group, lr, device):
+        """The staged step's 0-d f32 lr of ``group``: made at the step's
+        eager first call and written with ``lr`` there; under a capture
+        only read (each replay's value comes from :meth:`_replay_scalars`)."""
+        bufs = self._staged.setdefault("lr", {})
+        if id(group) not in bufs:
+            bufs[id(group)] = (group, torch.empty((), dtype=torch.float32,
+                                                  device=device))
+        buf = bufs[id(group)][1]
+        if not (buf.is_cuda and torch.cuda.is_current_stream_capturing()):
+            buf.fill_(lr)
+        return buf
+
+    def _replay_scalars(self, store):
+        for group, buf in store.get("lr", {}).values():
+            buf.fill_(self.get_lr() * float(group.get("learning_rate", 1.0)))
 
 
 class Momentum(SGD):
@@ -98,6 +122,9 @@ class Momentum(SGD):
                          multi_precision, name)
         self._momentum = momentum
         self._use_nesterov = use_nesterov
+
+    def _materialize_param(self, p):
+        self._get_accumulator("velocity", p)
 
     def _update(self, ps, ws, gs, lr):
         vs = [self._get_accumulator("velocity", p) for p in ps]
@@ -128,8 +155,22 @@ class Adam(Optimizer):
         decay (none for Adam)."""
         return lr, 0.0
 
+    def _materialize_param(self, p):
+        self._get_accumulator("moment1", p)
+        self._get_accumulator("moment2", p)
+        self._get_accumulator("beta_pow", p, init=0.0)
+
+    def _scalars(self, p, group, lr):
+        """``p``'s ``(lr, wd, bc1, bc2)`` for its next update, its
+        ``beta_pow`` step count advanced by one."""
+        lr, wd = self._decoupled(p, group, lr)
+        t = self._get_accumulator("beta_pow", p, init=0.0) + 1.0
+        self._set_accumulator("beta_pow", p, t)
+        return (lr, wd, 1.0 / (1.0 - self._beta1 ** t),
+                1.0 / (1.0 - self._beta2 ** t))
+
     def _apply(self, items):
-        ws, gs, ms, vs, ps, lrs, wds, bc1s, bc2s = ([] for _ in range(9))
+        ws, gs, ms, vs, ps, scalars = ([] for _ in range(6))
         for p, g, lr, group in items:
             if not p.is_floating_point():
                 raise TypeError(f"Adam updates floating parameters, got "
@@ -143,20 +184,40 @@ class Adam(Optimizer):
                 g = g.to(w.dtype) + l2 * w
             if l1:
                 g = g.to(w.dtype) + l1 * torch.sign(w)
-            lr, wd = self._decoupled(p, group, lr)
-            t = self._get_accumulator("beta_pow", p, init=0.0) + 1.0
-            self._set_accumulator("beta_pow", p, t)
             ws.append(w)
             gs.append(g)
             ms.append(self._get_accumulator("moment1", p))
             vs.append(self._get_accumulator("moment2", p))
             ps.append(p if master else None)
-            lrs.append(lr)
-            wds.append(wd)
-            bc1s.append(1.0 / (1.0 - self._beta1 ** t))
-            bc2s.append(1.0 / (1.0 - self._beta2 ** t))
+            scalars.append(self._scalars(p, group, lr))
+        lrs, wds, bc1s, bc2s = zip(*scalars)
         fused_adamw(ws, gs, ms, vs, lrs, self._beta1, self._beta2,
-                    self._epsilon, wds, bc1s, bc2s, params=ps)
+                    self._epsilon, wds, bc1s, bc2s, params=ps,
+                    table=self._table(items, ws))
+
+    def _table(self, items, ws):
+        """A staged step's launch table for this ``_apply`` call (a step
+        may call ``step`` more than once), its rows' ``(param, group)``
+        recorded for :meth:`_replay_scalars`; None outside staging or on
+        the CPU, where the plain version runs."""
+        store = self._staged
+        if store is None or not ws[0].is_cuda:
+            return None
+        tables = store.setdefault("adamw", [])
+        i = store["calls"] = store.get("calls", 0) + 1
+        if i > len(tables):
+            tables.append((AdamWTable(), None))
+        table = tables[i - 1][0]
+        tables[i - 1] = (table, [(p, group) for p, _, _, group in items])
+        return table
+
+    def _replay_scalars(self, store):
+        base = self.get_lr()
+        for table, rows in store.get("adamw", []):
+            scalars = [self._scalars(p, group, base * float(
+                group.get("learning_rate", 1.0))) for p, group in rows]
+            table.set_scalars(*zip(*scalars))
+            table.upload()
 
 
 class AdamW(Adam):

@@ -46,7 +46,9 @@ Invariants:
   wrappers meanwhile: capture while no other thread launches them.
 
 The compiled ``generate`` (``models/generate.py``) captures its decode
-step with :func:`capture` under the same invariants.
+step with :func:`capture` under the same invariants, and ``jit.to_static``
+(``jit/api.py``) its staged training steps and forwards (with autograd on
+and without the warm-up, which it runs itself as the step's first call).
 
 A capture or a replay that fails raises; nothing falls back to the eager
 round.
@@ -96,28 +98,39 @@ class Captured:
         return self.outputs
 
 
-def capture(fn, pool, stream):
+def capture(fn, pool, stream, warm_up=True, grad=False, generators=()):
     """Run ``fn()`` once eagerly on ``stream`` (the warm-up: its work is
-    done for real), then capture ``fn()`` into a graph on ``stream``
-    drawing from ``pool`` -> :class:`Captured`. The capture launches
-    nothing, so it takes back the launches its wrappers counted."""
+    done for real; skipped when ``warm_up`` is False, where the caller has
+    run its own), then capture ``fn()`` into a graph on ``stream`` drawing
+    from ``pool`` -> :class:`Captured`. Autograd is off in both unless
+    ``grad`` (a staged training step calls ``backward`` inside).
+    ``generators`` are explicit CUDA generators ``fn`` draws from: each
+    is registered with the graph, so every replay draws fresh numbers, as
+    the default generator does. The capture launches nothing, so it takes
+    back the launches its wrappers counted, also when ``fn`` raises (a
+    capture ended by an exception is thrown away by the caller)."""
     with _capture_lock:
-        stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(stream), torch.no_grad():
-            fn()
-        torch.cuda.current_stream().wait_stream(stream)
+        if warm_up:
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream), torch.set_grad_enabled(grad):
+                fn()
+            torch.cuda.current_stream().wait_stream(stream)
         before = _K.launch_counts()
         graph = torch.cuda.CUDAGraph()
-        # thread_local: the serve thread may capture a new shape while
-        # other threads submit requests
-        with torch.no_grad(), torch.cuda.graph(
-                graph, pool=pool, stream=stream,
-                capture_error_mode="thread_local"):
-            outputs = fn()
-        after = _K.launch_counts()
-    launches = {k: after[k] - before[k] for k in after
-                if after[k] != before[k]}
-    _K.add_launch_counts({k: -n for k, n in launches.items()})
+        for g in generators:
+            graph.register_generator_state(g)
+        try:
+            # thread_local: the serve thread may capture a new shape while
+            # other threads submit requests
+            with torch.set_grad_enabled(grad), torch.cuda.graph(
+                    graph, pool=pool, stream=stream,
+                    capture_error_mode="thread_local"):
+                outputs = fn()
+        finally:
+            after = _K.launch_counts()
+            launches = {k: after[k] - before[k] for k in after
+                        if after[k] != before[k]}
+            _K.add_launch_counts({k: -n for k, n in launches.items()})
     return Captured(graph, outputs, launches)
 
 

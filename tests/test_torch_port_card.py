@@ -9,6 +9,7 @@ GPU machine without them::
 """
 import importlib
 import math
+import warnings
 
 import numpy as np
 import pytest
@@ -128,6 +129,46 @@ def test_flash_kernels_match_plain_on_card(dtype, causal, sq, sk, d):
     for got, want in ((o, ro), (dq, rq), (dk, rk), (dv, rv)):
         torch.testing.assert_close(got.float(), _bshd(want, b, h).float(),
                                    rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk,d", [
+    (1, 1, 128), (65, 65, 128), (129, 129, 16), (1000, 1000, 128),
+    (129, 65, 64), (65, 129, 128), (1, 129, 16), (63, 1000, 96),
+    (512, 512, 64), (300, 77, 32), (1, 1000, 128)])
+def test_flash_kernels_in_float16_on_card(causal, sq, sk, d):
+    """The f16 instantiation of the Hopper forward, dQ and dK/dV at the
+    sides of their tiles and at head dims 128 to 16, against the plain
+    versions as :func:`test_flash_kernels_match_plain_on_card` holds bf16
+    (rtol/atol 2e-2; f16 rounds finer than bf16)."""
+    test_flash_kernels_match_plain_on_card("float16", causal, sq, sk, d)
+
+
+@pytest.mark.cuda
+def test_float16_attention_takes_the_flash_kernels_on_card():
+    """``scaled_dot_product_attention`` on f16 CUDA tensors runs the flash
+    forward (and its backward the dQ and dK/dV kernels), not the plain
+    chain, and agrees with the chain run on the same values in f32
+    (rtol/atol 2e-2)."""
+    _need_cuda()
+    from paddle_tpu_torch.nn import functional as PF
+    g = torch.Generator(device="cuda").manual_seed(41)
+    q, k, v = (torch.randn(2, 100, 4, 64, device="cuda", generator=g)
+               .half().requires_grad_(True) for _ in range(3))
+    before = K.launch_counts()
+    out = PF.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                          training=False)
+    out.float().sum().backward()
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert after[name] == before[name] + 1, name
+    assert out.dtype == torch.float16
+    want = PF.scaled_dot_product_attention(
+        *(t.detach().float() for t in (q, k, v)), attn_mask=torch.ones(
+            100, 100, dtype=torch.bool, device="cuda").tril())
+    torch.testing.assert_close(out.float(), want, rtol=2e-2, atol=2e-2)
 
 
 @pytest.mark.cuda
@@ -1051,3 +1092,316 @@ def test_resnet18_o2_float16_steps_on_card():
         assert torch.equal(p.detach(), opt._master_weights[p].half())
     for b in model.buffers():
         assert b.dtype == torch.float16 and bool(torch.isfinite(b).all())
+
+
+# ------------------------------------------------ jit.to_static's graphs
+def _tiny_gpt_run(staged, steps=5, B=4, S=64):
+    """``gpt_tiny`` (2 layers, head dim 16) under ``auto_cast`` O1 bf16
+    with ``AdamW`` and a warm-up schedule stepped outside the step ->
+    (losses, model, launches of the steps after the second, step)."""
+    import paddle_tpu_torch as pt
+    cfg = pt.gpt_tiny()
+    model = pt.GPTForCausalLM(cfg, seed=3).train()
+    sched = pt.optimizer.lr.LinearWarmup(1e-3, 3, 0.0, 1e-3)
+    opt = pt.AdamW(learning_rate=sched, parameters=model.parameters(),
+                   grad_clip=pt.nn.ClipGradByGlobalNorm(1.0))
+    crit = pt.GPTPretrainingCriterion(cfg)
+    rng = np.random.RandomState(4)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, S))).cuda()
+
+    def train_step(x):
+        with pt.auto_cast(level="O1", dtype="bfloat16"):
+            loss = crit(model(x), x)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    step = pt.jit.to_static(train_step, capture=(model, opt)) if staged \
+        else train_step
+    losses = []
+    for i in range(steps):
+        if i == 2:
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+        losses.append(step(ids).item())
+        sched.step()
+    torch.cuda.synchronize()
+    return losses, model, K.launch_counts(), step
+
+
+@pytest.mark.cuda
+def test_staged_gpt_step_replays_equal_eager_on_card():
+    """The whole step as one CUDA graph (warm-up, capture, replays) gives
+    the eager run's losses and weights bit for bit (the same kernels in
+    the same order; the schedule's lr reaches every replay through the
+    static AdamW table), and each replay adds its captured launches: the
+    flash trio once a layer, LayerNorm 2L + 1, AdamW once."""
+    _need_cuda()
+    el, em, en, _ = _tiny_gpt_run(False)
+    sl, sm, sn, step = _tiny_gpt_run(True)
+    assert sl == el, (sl, el)
+    for a, b in zip(sm.parameters(), em.parameters()):
+        assert torch.equal(a, b)
+    L, replays = 2, 3
+    want = {name: 0 for name in sn}
+    want.update({"flash_fwd": replays * L, "flash_bwd_dq": replays * L,
+                 "flash_bwd_dkv": replays * L,
+                 "layer_norm": replays * (2 * L + 1),
+                 "fused_adamw": replays})
+    assert sn == want == en
+    st = step.stats()
+    assert st["warmups"] == 1 and st["graphs"] == 1
+    assert st["replays"] == 4 and st["graph_breaks"] == 0
+
+
+def _sgd_mlp(seed=5):
+    import paddle_tpu_torch as pt
+    torch.manual_seed(seed)
+    m = pt.nn.Sequential(pt.nn.Linear(6, 16), pt.nn.Tanh(),
+                         pt.nn.Linear(16, 3)).cuda()
+    with torch.no_grad():
+        for p in m.parameters():
+            p.normal_(0.0, 0.3)
+    return m
+
+
+@pytest.mark.cuda
+def test_graph_break_leaves_params_intact_on_card():
+    """A step that reads ``float(loss)`` after its update: the first call
+    runs eagerly (the warm-up), the capture at the second meets the host
+    sync and is thrown away. With ``full_graph=True`` that raises and
+    every parameter, Adam moment, ``.grad`` and counter is as the first
+    call left it; with ``full_graph=False`` it warns once and the calls
+    run eagerly, equal to an eager run bit for bit."""
+    _need_cuda()
+    import paddle_tpu_torch as pt
+    x = torch.randn(8, 6, device="cuda")
+    y = torch.randn(8, 3, device="cuda")
+
+    def build(full_graph, staged=True):
+        m = _sgd_mlp()
+        opt = pt.Adam(learning_rate=0.01, parameters=m.parameters())
+        seen = []
+
+        def train_step(xb, yb):
+            loss = ((m(xb) - yb) ** 2).mean()
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            seen.append(float(loss))
+            return loss
+
+        step = pt.jit.to_static(train_step, capture=(m, opt),
+                                full_graph=full_graph) if staged \
+            else train_step
+        return m, opt, step, seen
+
+    m, opt, step, _ = build(True)
+    step(x, y)
+    torch.cuda.synchronize()
+    params = [p.detach().clone() for p in m.parameters()]
+    moments = {k: v.clone() for k, v in opt._accumulators["moment1"].items()}
+    with pytest.raises(pt.jit.GraphBreak):
+        step(x, y)
+    torch.cuda.synchronize()
+    for p, v in zip(m.parameters(), params):
+        assert torch.equal(p.detach(), v) and p.grad is None
+    for k, v in opt._accumulators["moment1"].items():
+        assert torch.equal(v, moments[k])
+    assert opt._global_step == 1
+    assert all(b == 1.0 for b in opt._accumulators["beta_pow"].values())
+
+    m, opt, step, seen = build(False)
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        for _ in range(4):
+            step(x, y)
+    breaks = [x for x in w if "falling back to eager" in str(x.message)]
+    em, eopt, estep, eseen = build(False, staged=False)
+    for _ in range(4):
+        estep(x, y)
+    assert len(breaks) == 1 and seen == eseen
+    for a, b in zip(m.parameters(), em.parameters()):
+        assert torch.equal(a, b)
+    assert step.stats()["eager_calls"] == 3
+
+
+class _SyncInBackward(torch.autograd.Function):
+    """The identity, whose backward reads its gradient on the host."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * (1.0 if float(g.sum()) >= 0 else 1.0)
+
+
+@pytest.mark.cuda
+def test_host_sync_in_the_backward_breaks_on_card():
+    """A host sync that autograd's device thread meets inside the
+    captured backward is caught by the same detector: a graph break with
+    one warning, and the step runs eagerly with the eager step's
+    results."""
+    _need_cuda()
+    import paddle_tpu_torch as pt
+    x = torch.randn(8, 6, device="cuda")
+
+    def build(staged):
+        m = _sgd_mlp()
+        opt = pt.SGD(0.1, parameters=m.parameters())
+
+        def train_step(xb):
+            loss = (_SyncInBackward.apply(m(xb)) ** 2).mean()
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+
+        return m, (pt.jit.to_static(train_step, capture=(m, opt))
+                   if staged else train_step)
+
+    m, step = build(True)
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        got = [float(step(x)) for _ in range(3)]
+    em, estep = build(False)
+    want = [float(estep(x)) for _ in range(3)]
+    assert len([x for x in w if "falling back" in str(x.message)]) == 1
+    assert got == want
+    for a, b in zip(m.parameters(), em.parameters()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_dropout_masks_differ_between_replays_on_card():
+    """A dropout drawing from an explicit CUDA generator inside a staged
+    step: the generator is registered with the graph, so each replay
+    draws a new mask (lr 0 keeps the weights, so only the mask moves the
+    output)."""
+    _need_cuda()
+    import paddle_tpu_torch as pt
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    m = pt.nn.Sequential(pt.nn.Linear(32, 32), pt.nn.Dropout(
+        0.5, generator=gen)).cuda()
+    with torch.no_grad():
+        m[0].weight.normal_(0.0, 0.3)
+        m[0].bias.fill_(1.0)
+    m.train()
+    opt = pt.SGD(0.0, parameters=m.parameters())
+
+    def train_step(xb):
+        out = m(xb)
+        out.sum().backward()
+        opt.step()
+        opt.clear_grad()
+        return out
+
+    step = pt.jit.to_static(train_step, capture=(m, opt))
+    x = torch.ones(16, 32, device="cuda")
+    outs = [step(x) for _ in range(4)]       # warm-up, capture, replays
+    masks = [(o == 0) for o in outs]
+    assert step.stats()["replays"] == 3
+    for a in range(4):
+        assert 0.3 < float(masks[a].float().mean()) < 0.7
+        for b in range(a + 1, 4):
+            assert not torch.equal(masks[a], masks[b]), (a, b)
+
+
+@pytest.mark.cuda
+def test_staged_sgd_step_sees_the_decayed_lr_on_card():
+    """``test_whole_step_with_lr_scheduler`` on the card: after the
+    capture, each replay multiplies by the 0-d lr tensor the host rewrote
+    from the scheduler (0.1, then 0.01 from the third step on), so the
+    staged weights follow an eager twin's step for step (within f32
+    rounding of the fused multiply), and the decayed steps are smaller."""
+    _need_cuda()
+    import paddle_tpu_torch as pt
+    g = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn(16, 4, device="cuda", generator=g)
+    y = torch.randn(16, 1, device="cuda", generator=g)
+    w = 0.5 * torch.randn(4, 1, device="cuda", generator=g)
+
+    def build(staged):
+        m = pt.nn.Linear(4, 1).cuda()
+        with torch.no_grad():
+            m.weight.copy_(w)
+            m.bias.zero_()
+        sched = pt.optimizer.lr.StepDecay(0.1, step_size=2, gamma=0.1)
+        opt = pt.SGD(learning_rate=sched, parameters=m.parameters())
+
+        def train_step(xb, yb):
+            loss = ((m(xb) - yb) ** 2).mean()
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+
+        step = pt.jit.to_static(train_step, capture=(m, opt)) if staged \
+            else train_step
+        return m, sched, step
+
+    sm, ss, sstep = build(True)
+    em, es, estep = build(False)
+    moves = []
+    for _ in range(5):
+        before = sm.weight.detach().clone()
+        sstep(x, y)
+        estep(x, y)
+        ss.step()
+        es.step()
+        torch.testing.assert_close(sm.weight, em.weight, rtol=1e-6,
+                                   atol=1e-7)
+        moves.append(float((sm.weight.detach() - before).abs().mean()))
+    assert sstep.stats()["replays"] == 4
+    assert max(moves[2:]) < 0.5 * min(moves[:2]), moves
+
+
+@pytest.mark.cuda
+def test_forward_staging_on_card():
+    """``to_static(layer)``: in eval one forward graph whose replays equal
+    the eager forward bit for bit; in training a forward and a backward
+    graph on the tape (``make_graphed_callables``' pair), whose gradients
+    and BatchNorm running statistics equal the eager layer's."""
+    _need_cuda()
+    import paddle_tpu_torch as pt
+
+    def build():
+        torch.manual_seed(8)
+        m = pt.nn.Sequential(pt.nn.Linear(6, 16), pt.nn.BatchNorm1D(16),
+                             pt.nn.ReLU(), pt.nn.Linear(16, 3)).cuda()
+        with torch.no_grad():
+            for p in m.parameters():
+                p.normal_(0.0, 0.3)
+        return m
+
+    x = torch.randn(32, 6, device="cuda")
+    eager, staged = build(), pt.jit.to_static(build())
+    for mode in ("train", "eval"):
+        getattr(eager, mode)()
+        getattr(staged, mode)()
+        for i in range(3):
+            xi = x + i
+            if mode == "train":
+                for m in (eager, staged):
+                    m.zero_grad(set_to_none=True)
+                    (m(xi) ** 2).mean().backward()
+                for a, b in zip(staged.parameters(), eager.parameters()):
+                    torch.testing.assert_close(a.grad, b.grad, rtol=1e-5,
+                                               atol=1e-6)
+                for a, b in zip(staged.buffers(), eager.buffers()):
+                    torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+            else:
+                with torch.no_grad():
+                    assert torch.equal(staged(xi), eager(xi))
+    st = staged.forward.stats()
+    assert st["graphs"] == 2 and st["warmups"] == 2 and st["replays"] == 4
+    # a second forward before the first one's backward overwrote the
+    # graph's saved activations: that backward refuses to run
+    staged.train()
+    first = (staged(x) ** 2).mean()
+    (staged(x + 1) ** 2).mean().backward()
+    with pytest.raises(RuntimeError, match="ran again before the backward"):
+        first.backward()
