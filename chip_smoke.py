@@ -290,6 +290,24 @@ exit code:
     in eval, bf16: every call's logits bit-equal to the eager forward's,
     the replays' launches exact.
 
+23. **the vision zoo and the other optimizers** — (a) every factory of
+    ``models/vision_zoo.py`` and ``vision_zoo2.py`` (31, ``num_classes=
+    1000``, f32, batch norms calibrated on the batch): eval logits at B 8
+    x 3 x 224 x 224 (299 for InceptionV3) against the port's CPU forward
+    of the same weights (``2e-3 + 2e-3 |cpu|``, norm error 1e-3), one
+    training step with finite gradients, fwd + bwd timed at B 64 with its
+    peak memory; (b) MobileNetV2 with the paper's ``RMSProp(0.045, rho
+    0.9, momentum 0.9, L2Decay(4e-5))``, masters, ``ExponentialDecay(
+    0.98)`` a call, O2 bf16, B 96, eager and staged (0 breaks, equal to
+    eager, no hand kernel; images/s, busy share, families with the
+    depthwise convolutions' share); (c) phase 20b's BERT-base step with
+    ``Lamb(1e-4, lamb_weight_decay=0.01)``, eager and staged (0 breaks,
+    equal to eager, the flash trio 12 each and LayerNorm 26 a replayed
+    step), then the Lamb step alone timed over the same 205 tensors as
+    22d's fused AdamW; (d) LeNet with Adagrad, Adadelta, Adamax, Rprop and
+    centered RMSProp, eager, staged and against the CPU, and LBFGS with
+    the strong-Wolfe search against the CPU.
+
 The lines before the last carry the ``{"kernels": [...]}`` JSON (all eight
 kernels; the ``fused_adamw`` entry adds the master and bf16-moment modes'
 numbers and phase 13's launches, and its ``max_abs_err`` is the largest of
@@ -303,8 +321,10 @@ these kernels' launches in phase 20b and 21 as ``bert_launches`` and
 ``seq2seq_launches``; phase 22 adds the flash entries' ``f16_*`` numbers,
 ``fused_adamw``'s ``bert_*`` (its master mode over BERT-base's tensors),
 and to every entry ``to_static_launches``, the kernel's launches over the
-replayed timed steps of 22a-22d, with ``to_static_parts`` by part; every
-``max_abs_err`` is the largest of its entry's errors) and the
+replayed timed steps of 22a-22d, with ``to_static_parts`` by part;
+phase 23 adds ``lamb_launches``, each kernel's launches over 23c's
+replayed steps, and to ``fused_adamw`` the ``bert_lamb_*`` step times;
+every ``max_abs_err`` is the largest of its entry's errors) and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the repository beside it, the script exits
 non-zero and prints no result.
@@ -966,6 +986,8 @@ def profile_train_step(step):
                "flash backward dK/dV" if "flash_bwd_dkv" in name else
                "fused_adamw" if "fused_adamw" in name else
                "layer_norm (triton)" if "layer_norm_fwd" in name else
+               "depthwise convolution" if any(k in name for k in (
+                   "depthwise", "grouped")) else
                "convolution (cuDNN)" if any(k in name for k in (
                    "conv", "fprop", "dgrad", "wgrad")) else
                "batch norm" if "batch_norm" in name or "bn_" in name else
@@ -3245,18 +3267,19 @@ def bert_parity(pt, K, layers=2, B=2, S=512):
     torch.cuda.empty_cache()
 
 
-def bert_build(pt, B=16, S=512):
+def bert_build(pt, B=16, S=512, make_opt=None):
     """Phase 20b's step: ``BertForMaskedLM(bert_base(dropout=0.0))`` built
     in f32 from seed 0, decorated O2 bf16 with ``AdamW(1e-4,
-    multi_precision=True)``, B x S token ids and labels from numpy seed 0,
-    no mask -> (model, optimizer, None, the step function returning the
-    loss tensor, its arguments)."""
+    multi_precision=True)`` (or ``make_opt(model)``), B x S token ids
+    and labels from numpy seed 0, no mask -> (model, optimizer, None, the
+    step function returning the loss tensor, its arguments)."""
     F = pt.nn.functional
     cfg = pt.bert_base(dropout=0.0)
     V = cfg.vocab_size
     model = pt.BertForMaskedLM(cfg, seed=SEED).train()
-    opt = pt.AdamW(learning_rate=1e-4, parameters=model.parameters(),
-                   multi_precision=True)
+    opt = make_opt(model) if make_opt is not None else pt.AdamW(
+        learning_rate=1e-4, parameters=model.parameters(),
+        multi_precision=True)
     model, opt = pt.amp.decorate(model, opt, level="O2", dtype="bfloat16")
     rng = np.random.RandomState(SEED)
     ids = torch.from_numpy(rng.randint(0, V, (B, S))).cuda()
@@ -4055,6 +4078,443 @@ def static_phases(pt, K, phase19_losses):
     return extra
 
 
+# ------------------------------------------------------------- phase 23
+# every factory of models/vision_zoo.py and models/vision_zoo2.py:
+# (label, factory name, kwargs); InceptionV3 takes 3 x 299 x 299
+ZOO_FACTORIES = (
+    [(f"vgg{d}{'_bn' if bn else ''}", f"vgg{d}", dict(batch_norm=bn))
+     for d in (11, 13, 16, 19) for bn in (False, True)]
+    + [(n, n, {}) for n in ("MobileNetV1", "MobileNetV2", "alexnet")]
+    + [(f"densenet{d}", f"densenet{d}", {}) for d in (121, 161, 169, 201,
+                                                      264)]
+    + [(n, n, {}) for n in (
+        "googlenet", "inception_v3", "mobilenet_v3_large",
+        "mobilenet_v3_small", "mobilenet_v1", "mobilenet_v2",
+        "shufflenet_v2_x0_25", "shufflenet_v2_x0_33", "shufflenet_v2_x0_5",
+        "shufflenet_v2_x1_0", "shufflenet_v2_x1_5", "shufflenet_v2_x2_0",
+        "shufflenet_v2_swish", "squeezenet1_0", "squeezenet1_1")])
+
+
+def zoo_loss(F, out, y):
+    """Cross-entropy of the logits, summed over GoogLeNet's training
+    triple ``(out, aux1, aux2)``."""
+    outs = out if isinstance(out, tuple) else (out,)
+    return sum(F.cross_entropy(o, y) for o in outs)
+
+
+def calibrate_batch_norms(pt, model, x):
+    """Set every batch norm's running statistics to those of the batch
+    ``x`` (one train-mode forward without gradients at momentum 0), so an
+    eval forward of a fresh model normalises as a trained one's does:
+    at initialisation (running mean 0, variance 1) the mobile nets'
+    eval activations shrink towards 0 and a comparison of their logits
+    would hold nothing."""
+    bns = [m for m in model.modules() if isinstance(m, pt.nn.BatchNorm)]
+    saved = [m._momentum for m in bns]
+    for m in bns:
+        m._momentum = 0.0
+    model.train()
+    with torch.no_grad():
+        model(x)
+    for m, momentum in zip(bns, saved):
+        m._momentum = momentum
+
+
+def zoo_phase(pt, B=8, B_time=64, factories=ZOO_FACTORIES, hw=224,
+              hw_inception=299):
+    """Phase 23a: every factory of the two zoo files at ``num_classes=
+    1000``, f32, random weights from seed 0, inputs from numpy seed 0,
+    its batch norms calibrated on the batch (:func:`calibrate_batch_norms`):
+    the card's eval logits at B 8 x 3 x 224 x 224 (299 for InceptionV3)
+    against the port's CPU forward of the same weights (within ``2e-3 +
+    2e-3 |cpu|`` and ``||card - cpu|| / ||cpu|| <= 1e-3``: cuDNN's and
+    the CPU's f32 convolutions round differently through up to 264
+    layers), one train-mode forward and backward at B 8 with every
+    gradient finite, then forward plus backward timed at B 64 (1 warm-up
+    and 3 timed steps, host clock around a synchronise) with its peak
+    memory. -> {label: numbers}"""
+    F = pt.nn.functional
+    zoo = pt.vision.models
+    out = {}
+    log(f"[zoo] {len(factories)} factories, num_classes=1000, f32: eval "
+        f"logits at B={B} against the CPU forward, a train step's "
+        f"gradients, fwd+bwd timed at B={B_time}")
+    for label, name, kw in factories:
+        side = hw_inception if name == "inception_v3" else hw
+        rng = np.random.RandomState(SEED)
+        x = torch.from_numpy(rng.randn(B, 3, side, side).astype(np.float32))
+        y = torch.from_numpy(rng.randint(0, 1000, B))
+        t0 = time.perf_counter()
+        model = getattr(zoo, name)(num_classes=1000, seed=SEED, **kw)
+        n_params = sum(p.numel() for p in model.parameters())
+        calibrate_batch_norms(pt, model, x.cuda())
+        cpu = getattr(zoo, name)(num_classes=1000, device="cpu", seed=None,
+                                 **kw)
+        cpu.load_state_dict({k: v.cpu() for k, v in
+                             model.state_dict().items()})
+        model.eval()
+        cpu.eval()
+        with torch.no_grad():
+            got = model(x.cuda()).cpu()
+            want = cpu(x)
+        err = check_close(f"{label} eval logits [{B}, 1000] card vs CPU",
+                          got, want, 2e-3, 2e-3, norm_tol=1e-3)
+        del cpu, got, want
+        model.train()
+        loss = zoo_loss(F, model(x.cuda()), y.cuda())
+        loss.backward()
+        grads = [p.grad for p in model.parameters()]
+        if any(g is None for g in grads) or not all(
+                bool(torch.isfinite(g).all()) for g in grads) or \
+                not math.isfinite(float(loss.detach())):
+            fail(f"zoo {label}: a train step's loss or gradients are not "
+                 f"finite (or missing)")
+        model.zero_grad(set_to_none=True)
+        xt = torch.from_numpy(np.random.RandomState(SEED + 1).randn(
+            B_time, 3, side, side).astype(np.float32)).cuda()
+        yt = torch.from_numpy(np.random.RandomState(SEED + 1).randint(
+            0, 1000, B_time)).cuda()
+
+        def fwd_bwd():
+            zoo_loss(F, model(xt), yt).backward()
+            model.zero_grad(set_to_none=True)
+
+        fwd_bwd()
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            fwd_bwd()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        ms = float(np.median(times))
+        out[label] = {"params_m": n_params / 1e6, "eval_max_abs_err": err,
+                      "train_loss": float(loss.detach()), "fwd_bwd_ms": ms,
+                      "images_per_s": B_time / ms * 1e3,
+                      "peak_gb": peak / 1e9,
+                      "total_s": time.perf_counter() - t0}
+        log(f"  [zoo] {label}: {n_params / 1e6:.2f} M params, train loss "
+            f"{float(loss.detach()):.4f} with finite gradients; fwd+bwd "
+            f"B={B_time} {ms:.2f} ms ({B_time / ms * 1e3:.1f} images/s), peak "
+            f"{peak / 1e9:.2f} GB; {out[label]['total_s']:.1f} s")
+        del model, loss, grads, xt, yt
+        free()
+    return out
+
+
+def mobilenet_rmsprop(pt, warmup=2, steps=10, B=96):
+    """Phase 23b: MobileNetV2 (``mobilenet_v2(num_classes=1000)``, full
+    width and depth) with the paper's recipe (Sandler et al.,
+    arXiv:1801.04381 §6.1): ``RMSProp(0.045, rho=0.9, momentum=0.9,
+    weight_decay=L2Decay(4e-5), multi_precision=True)`` with the x 0.98
+    decay one ``ExponentialDecay(gamma=0.98)`` step a call, O2 bf16, B 96
+    x 3 x 224 x 224 from numpy seed 0; eager, then staged from the same
+    weights and batch, 2 warm-up and 10 timed steps each. The staged run
+    has 0 graph breaks, equals eager bit for bit (or within 1e-2 on the
+    losses and 2e-2 on the weights where a second eager run differs too:
+    cuDNN's weight gradients need not sum in one order), and no hand
+    kernel runs. Prints step ms, images/s, the busy share and the device
+    families, the depthwise convolutions' share among them."""
+    F = pt.nn.functional
+    rng = np.random.RandomState(SEED)
+    x = torch.from_numpy(rng.randn(B, 3, 224, 224).astype(
+        np.float32)).cuda()
+    y = torch.from_numpy(rng.randint(0, 1000, B)).cuda()
+
+    def build():
+        model = pt.vision.models.mobilenet_v2(num_classes=1000,
+                                              seed=SEED).train()
+        sched = pt.optimizer.lr.ExponentialDecay(0.045, gamma=0.98)
+        opt = pt.RMSProp(sched, rho=0.9, momentum=0.9,
+                         parameters=model.parameters(),
+                         weight_decay=pt.regularizer.L2Decay(4e-5),
+                         multi_precision=True)
+        model, opt = pt.amp.decorate(model, opt, level="O2",
+                                     dtype="bfloat16")
+
+        def train_step(xb, yb):
+            with pt.auto_cast(level="O2", dtype="bfloat16"):
+                loss = F.cross_entropy(model(xb), yb)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+        return model, opt, sched, train_step, (x, y)
+
+    def run(staged):
+        r = train_run(pt, build, staged, warmup, steps)
+        r["weights"] = host_params(r["model"])
+        del r["model"], r["opt"], r["step"]
+        free()
+        return r
+
+    log(f"[mobilenet_v2 rmsprop] MobileNetV2 O2 bf16, B={B} x 3 x 224 x "
+        f"224, RMSProp(0.045, rho 0.9, momentum 0.9, L2Decay(4e-5), "
+        f"masters), ExponentialDecay(0.98) a step: eager, then staged; "
+        f"{warmup} warm-up and {steps} timed steps each")
+    eager = run(False)
+    staged = run(True)
+    for r in (eager, staged):
+        if not all(math.isfinite(v) for v in r["losses"]):
+            fail(f"mobilenet_v2 rmsprop: losses not finite: {r['losses']}")
+    cmp = compare_runs("mobilenet_v2 rmsprop", eager, staged,
+                       lambda: run(False), 1e-2, 2e-2)
+    st = staged["stats"]
+    if st["graph_breaks"] or st["graphs"] != 1 or st["eager_calls"]:
+        fail(f"mobilenet_v2 rmsprop: staging stats {st}")
+    check_replay_launches("mobilenet_v2 rmsprop", staged["launches"], steps,
+                          {})
+    fams = staged["families"]
+    total = max(sum(fams.values()), 1e-9)
+    dw = fams.get("depthwise convolution", 0.0)
+    out = report_pair("mobilenet_v2 rmsprop", eager, staged, dict(
+        cmp, images_per_s=B / staged["step_ms_median"] * 1e3,
+        eager_images_per_s=B / eager["step_ms_median"] * 1e3,
+        depthwise_ms=dw, depthwise_share_pct=100 * dw / total))
+    log(f"  [mobilenet_v2 rmsprop] stats {st}; staged "
+        f"{B / staged['step_ms_median'] * 1e3:.1f} images/s vs eager "
+        f"{B / eager['step_ms_median'] * 1e3:.1f}; depthwise convolutions "
+        f"{dw:.3f} ms = {100 * dw / total:.1f}% of the staged step's "
+        f"device time; losses {staged['losses']}")
+    return out
+
+
+def lamb_step_timing(model, opt):
+    """The Lamb step alone over BERT-base's tensors (master mode, one
+    ``opt.step()`` on fixed bf16 gradients): device time by ``time_ms``
+    and CUDA-event time a call with its host work, beside its bound (28
+    bytes a parameter, as fused AdamW's; phase 22d times that kernel on
+    the same tensors). -> numbers for the ``fused_adamw`` entry"""
+    params = list(model.parameters())
+    n = sum(p.numel() for p in params)
+    g = torch.Generator(device=params[0].device).manual_seed(12)
+    grads = [(1e-3 * torch.randn(p.shape, device=p.device, generator=g))
+             .bfloat16() for p in params]
+
+    def step():
+        for p, gr in zip(params, grads):
+            p.grad = gr
+        opt.step()
+
+    lamb_ms, lamb_wall, src = time_ms(step, iters=10)
+    for p in params:
+        p.grad = None
+    b_ms, b_by = bound(28 * n, 20 * n, F32_FLOPS_PER_S)
+    log(f"[bert lamb timing] Lamb master-mode step over {len(params)} "
+        f"tensors ({n / 1e6:.1f} M params): {lamb_ms:.4f} ms device "
+        f"({src}), {lamb_wall:.4f} ms a call with its host work; bound "
+        f"{b_ms:.4f} ms ({b_by}, 28 B/param) = "
+        f"{100 * b_ms / lamb_ms:.1f}%")
+    return {"bert_lamb_step_ms": lamb_ms, "bert_lamb_step_wall_ms":
+            lamb_wall, "bert_lamb_bound_ms": b_ms}
+
+
+def bert_lamb(pt, warmup=2, steps=10, B=16, S=512):
+    """Phase 23c: phase 20b's BERT-base MLM step (O2 bf16, B 16 x S 512,
+    no mask) with ``Lamb(1e-4, lamb_weight_decay=0.01,
+    multi_precision=True)`` (LAMB's published beta 0.9 / 0.999 and epsilon
+    1e-6, You et al. arXiv:1904.00962, the JAX defaults), eager then
+    staged from the same weights and batch, 2 warm-up and 10 timed steps:
+    0 graph breaks, losses within 1e-3 and weights within 1e-2 of eager
+    (or bit-equal), and inside the replayed graph the flash trio 12 each
+    and LayerNorm 26 a step (no AdamW). Then the Lamb step alone timed
+    (:func:`lamb_step_timing`). -> (summary, launches, the Lamb timing)"""
+    cfg = pt.bert_base(dropout=0.0)
+
+    def make_opt(model):
+        return pt.Lamb(1e-4, lamb_weight_decay=0.01,
+                       parameters=model.parameters(), multi_precision=True)
+
+    def run(staged, keep=False):
+        r = train_run(pt, lambda: bert_build(pt, B, S, make_opt), staged,
+                      warmup, steps)
+        r["weights"] = host_params(r["model"])
+        if not keep:
+            del r["model"], r["opt"], r["step"]
+            free()
+        return r
+
+    log(f"[bert lamb] BertForMaskedLM(bert_base) O2 bf16, B={B} S={S}, "
+        f"Lamb(1e-4, wd 0.01, masters): eager, then staged; {warmup} "
+        f"warm-up and {steps} timed steps each")
+    eager = run(False)
+    staged = run(True, keep=True)
+    cmp = compare_runs("bert lamb", eager, staged, lambda: run(False), 1e-3,
+                       1e-2)
+    st = staged["stats"]
+    if st["graph_breaks"] or st["graphs"] != 1 or st["eager_calls"]:
+        fail(f"bert lamb: staging stats {st}")
+    L = cfg.num_layers
+    check_replay_launches("bert lamb", staged["launches"], steps, {
+        "flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+        "layer_norm": 2 * L + 2})
+    n_params = sum(w.numel() for w in eager["weights"])
+    flops = 6 * n_params * B * S + 12 * L * B * S * S * cfg.hidden_size
+    mfu = {k: flops / (r["step_ms_median"] / 1e3) / BF16_FLOPS_PER_S
+           for k, r in (("eager_mfu", eager), ("staged_mfu", staged))}
+    out = report_pair("bert lamb", eager, staged, dict(
+        cmp, **mfu, tokens_per_s=B * S / staged["step_ms_median"] * 1e3))
+    model, opt = staged["model"], staged["opt"]
+    del staged["model"], staged["opt"], staged["step"]
+    free()
+    lamb = lamb_step_timing(model, opt)
+    del model, opt
+    free()
+    return out, staged["launches"], lamb
+
+
+# 23d's optimizers on LeNet: (label, class name, args, kwargs, the
+# staged-vs-eager loss and weight tolerances where eager runs differ)
+LENET_OPTIMIZERS = [
+    ("adagrad", "Adagrad", (0.005,), {}, 1e-5),
+    ("adadelta", "Adadelta", (1.0,), {}, 1e-5),
+    ("adamax", "Adamax", (0.002,), {}, 1e-5),
+    ("rprop", "Rprop", (0.001,), {}, 1e-5),
+    # sqrt(ms - mg^2 + eps) and momentum 0.9 magnify a 2e-6 difference of
+    # cuDNN's weight gradients to 1e-4 in the losses and 1.3e-3 in the
+    # weights over 10 steps, between two eager runs as much as between
+    # staged and eager
+    ("rmsprop_centered", "RMSProp", (0.001,), dict(centered=True,
+                                                   momentum=0.9), 2e-3),
+]
+
+
+def lenet_cpu_losses(pt, weights, make_opt, x, y, n):
+    """``n`` eager steps of the port's CPU path from ``weights`` on the
+    same batch -> losses."""
+    F = pt.nn.functional
+    model = pt.params_from_paddle_tpu(weights, pt.LeNet(device="cpu",
+                                                        seed=None))
+    opt = make_opt(model)
+    losses = []
+    for _ in range(n):
+        loss = F.cross_entropy(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss.detach()))
+    return losses
+
+
+def lenet_optimizers(pt, warmup=2, steps=8, B=64):
+    """Phase 23d: phase 18's LeNet (f32, B 64 from numpy seed 0) with
+    Adagrad, Adadelta, Adamax, Rprop and RMSProp(centered=True), each
+    eager and staged on the card with cuDNN's deterministic algorithms (0
+    breaks; staged equal to eager bit for bit, or within the table's
+    tolerance on losses and weights where a second eager run differs
+    too) and against
+    the same 11 steps on the port's CPU path; then
+    ``LBFGS(line_search_fn="strong_wolfe", max_iter=4)`` for 5 closure
+    steps on the card against the CPU. The losses are held within
+    ``1e-4 + 1e-4 |cpu|``: cuDNN's and the CPU's f32 convolutions round
+    differently, and each adaptive step divides by running gradient
+    magnitudes, which grows that rounding step by step (Adagrad at lr
+    0.01 with cuDNN's default algorithms drifted 0.5% by step 10, so the
+    rates here are moderate). -> {label: numbers}"""
+    F = pt.nn.functional
+    rng = np.random.RandomState(SEED)
+    xh = torch.from_numpy(rng.randn(B, 1, 28, 28).astype(np.float32))
+    yh = torch.from_numpy(rng.randint(0, 10, B))
+    x, y = xh.cuda(), yh.cuda()
+    out = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    for label, cls, args, kw, tol in LENET_OPTIMIZERS:
+        held = {}
+
+        def make_opt(model, cls=cls, args=args, kw=kw):
+            return getattr(pt.optimizer, cls)(
+                *args, parameters=model.parameters(), **kw)
+
+        def build(make_opt=make_opt):
+            model = pt.LeNet(seed=SEED)
+            held["weights"] = pt.params_to_numpy(model)
+            opt = make_opt(model)
+
+            def train_step(xb, yb):
+                loss = F.cross_entropy(model(xb), yb)
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+                return loss
+            return model, opt, None, train_step, (x, y)
+
+        def run(staged):
+            r = train_run(pt, build, staged, warmup, steps)
+            r["weights"] = host_params(r["model"])
+            del r["model"], r["opt"], r["step"]
+            return r
+
+        eager, staged = run(False), run(True)
+        cmp = compare_runs(f"lenet {label}", eager, staged,
+                           lambda: run(False), tol, tol)
+        st = staged["stats"]
+        if st["graph_breaks"] or st["eager_calls"]:
+            fail(f"lenet {label}: staging stats {st}")
+        check_replay_launches(f"lenet {label}", staged["launches"], steps,
+                              {})
+        cpu = lenet_cpu_losses(pt, held["weights"], make_opt, xh, yh,
+                               len(eager["losses"]))
+        worst = max(abs(a - b) / (1e-4 + 1e-4 * abs(b))
+                    for a, b in zip(eager["losses"], cpu))
+        log(f"  [lenet {label}] card losses {eager['losses']}; CPU "
+            f"{cpu}; worst |card - cpu| / (1e-4 + 1e-4 |cpu|) = "
+            f"{worst:.3f}; staged {staged['step_ms_median']:.3f} ms vs "
+            f"eager {eager['step_ms_median']:.3f} ms a step")
+        if worst > 1.0 or not eager["losses"][-1] < eager["losses"][0]:
+            fail(f"lenet {label}: the card's losses leave the CPU run's, "
+                 f"or do not fall")
+        out[label] = dict(cmp, staged_ms=staged["step_ms_median"],
+                          eager_ms=eager["step_ms_median"],
+                          worst_vs_cpu=worst, stats=st)
+        free()
+    torch.backends.cudnn.deterministic = deterministic
+    # LBFGS: host-driven, eager, with the strong-Wolfe line search
+    weights = pt.params_to_numpy(pt.LeNet(seed=SEED))
+    runs = {}
+    for dev, xb, yb in ((None, x, y), ("cpu", xh, yh)):
+        model = pt.params_from_paddle_tpu(weights, pt.LeNet(
+            device=dev, seed=None))
+        opt = pt.LBFGS(learning_rate=1.0, max_iter=4, history_size=10,
+                       line_search_fn="strong_wolfe",
+                       parameters=model.parameters())
+
+        def closure(model=model, opt=opt, xb=xb, yb=yb):
+            opt.clear_grad()
+            loss = F.cross_entropy(model(xb), yb)
+            loss.backward()
+            return loss
+
+        t0 = time.perf_counter()
+        runs[dev] = ([opt.step(closure) for _ in range(5)],
+                     opt._state["n_evals"], time.perf_counter() - t0)
+    (lc, ec, sc), (lh, eh, _) = runs[None], runs["cpu"]
+    worst = max(abs(a - b) / (1e-4 + 1e-4 * abs(b)) for a, b in zip(lc, lh))
+    log(f"  [lenet lbfgs] strong_wolfe, 5 closure steps: card {lc} ({ec} "
+        f"evaluations, {sc:.2f} s) vs CPU {lh} ({eh}); worst "
+        f"|card - cpu| / (1e-4 + 1e-4 |cpu|) = {worst:.3f}")
+    if worst > 1.0 or not lc[-1] < lc[0]:
+        fail("lenet lbfgs: the card's losses leave the CPU run's, or do "
+             "not fall")
+    out["lbfgs"] = {"losses": lc, "evaluations": ec, "seconds": sc,
+                    "worst_vs_cpu": worst}
+    return out
+
+
+def zoo_optimizer_phases(pt):
+    """Phase 23. -> {kernel: the numbers it adds to its JSON entry}"""
+    zoo_phase(pt)
+    mobilenet_rmsprop(pt)
+    _, launches, lamb = bert_lamb(pt)
+    lenet_optimizers(pt)
+    extra = {name: {"lamb_launches": n} for name, n in launches.items()}
+    extra["fused_adamw"].update(lamb)
+    return extra
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -4422,6 +4882,10 @@ def main():
         next(e for e in kernels if e["name"] == name).update(numbers)
     for e in kernels:
         e.setdefault("to_static_launches", 0)
+
+    # ------------------------------- phase 23: the zoo, the optimizers
+    for name, numbers in zoo_optimizer_phases(pt).items():
+        next(e for e in kernels if e["name"] == name).update(numbers)
     for e in kernels:
         e["max_abs_err"] = max([e["max_abs_err"]] + [
             v for k, v in e.items() if k.endswith("_max_abs_err")])

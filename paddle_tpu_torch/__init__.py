@@ -72,6 +72,19 @@ one XLA program a step); the LR scheduler steps outside it::
     step = pt.jit.to_static(train_step, capture=(model, opt))
     loss = step(ids, labels); sched.step()
 
+The vision zoo of ``paddle_tpu.vision.models`` (VGG, MobileNet V1-V3,
+AlexNet, DenseNet, GoogLeNet, InceptionV3, ShuffleNetV2, SqueezeNet) is
+``pt.vision.models``, and the JAX package's other optimizers
+(``pt.Adagrad``, ``pt.RMSProp``, ``pt.Adadelta``, ``pt.Adamax``,
+``pt.Lamb``, ``pt.Rprop``, ``pt.LBFGS``) train them as the others do;
+MobileNetV2 with the paper's RMSProp::
+
+    model = pt.vision.models.mobilenet_v2(num_classes=1000)
+    sched = pt.optimizer.lr.ExponentialDecay(0.045, gamma=0.98)
+    opt = pt.RMSProp(sched, rho=0.9, momentum=0.9,
+                     weight_decay=pt.regularizer.L2Decay(4e-5),
+                     parameters=model.parameters(), multi_precision=True)
+
 ``params_from_paddle_tpu(state, model)`` fills a port model built in the
 same configuration from a JAX model's ``state_dict()`` arrays
 (BatchNorm's running statistics included).
@@ -80,7 +93,8 @@ Entry points run on ``cuda`` unless given ``device="cpu"`` and raise when
 CUDA is absent (:mod:`.device`). The package imports neither ``jax`` nor
 ``paddle_tpu``.
 """
-from . import amp, distributed, jit, models, nn, optimizer, regularizer
+from . import (amp, distributed, jit, models, nn, optimizer, regularizer,
+               vision)
 from .amp import auto_cast
 from .convert import (opt_state_from_paddle_tpu, opt_state_to_numpy,
                       params_from_paddle_tpu, params_to_numpy)
@@ -93,15 +107,19 @@ from .models import (BertConfig, BertForMaskedLM,
                      resnet50, resnet101, resnet152, resnext50_32x4d,
                      wide_resnet50_2)
 from .ops.kernels import flash_attention_bshd
-from .optimizer import SGD, Adam, AdamW, Momentum
+from .optimizer import (LBFGS, SGD, Adadelta, Adagrad, Adam, Adamax, AdamW,
+                        Lamb, Momentum, RMSProp, Rprop)
 from .serving.engine import ServingEngine
 
 __all__ = ["GPTConfig", "GPTForCausalLM", "GPTPretrainingCriterion",
-           "ServingEngine", "SGD", "Momentum", "Adam", "AdamW", "auto_cast",
+           "ServingEngine", "SGD", "Momentum", "Adam", "AdamW", "Adagrad",
+           "RMSProp", "Adadelta", "Adamax", "Lamb", "Rprop", "LBFGS",
+           "auto_cast",
            "flash_attention_bshd", "params_from_paddle_tpu",
            "params_to_numpy", "opt_state_from_paddle_tpu",
            "opt_state_to_numpy", "resolve_device", "amp", "distributed",
-           "jit", "models", "nn", "optimizer", "regularizer", "gpt_tiny",
+           "jit", "models", "nn", "optimizer", "regularizer", "vision",
+           "gpt_tiny",
            "gpt_small", "gpt_1p3b", "gpt_13b", "LeNet", "ResNet",
            "resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
            "resnext50_32x4d", "wide_resnet50_2", "BertConfig", "BertModel",

@@ -73,6 +73,12 @@ def params_to_numpy(model):
             for name, t in model.state_dict(keep_vars=True).items()}
 
 
+def _scalar(value):
+    """A step count (a float, a 0-d array or a 0-d tensor) as a float."""
+    return float(value) if torch.is_tensor(value) else \
+        float(np.asarray(value))
+
+
 def _rename(state, name_map, convert):
     """``state`` with every parameter name ``name_map`` holds renamed (the
     accumulator keys by their longest matching name) and every array
@@ -90,8 +96,7 @@ def _rename(state, name_map, convert):
                 name = max(names, key=len)
                 acc = key[len(name) + 1:]
                 out[f"{name_map[name]}_{acc}"] = (
-                    float(np.asarray(value)) if acc == "beta_pow"
-                    else convert(value))
+                    _scalar(value) if acc == "beta_pow" else convert(value))
     return out
 
 

@@ -11,6 +11,18 @@ from .resnet import (BasicBlock, BottleneckBlock, ResNet, resnet18,
                      resnext101_64x4d, resnext152_32x4d, resnext152_64x4d,
                      wide_resnet50_2, wide_resnet101_2)
 from .seq2seq import Seq2SeqTransformer
+from .vision_zoo import (VGG, AlexNet, MobileNetV1, MobileNetV2, alexnet,
+                         vgg11, vgg13, vgg16, vgg19)
+from .vision_zoo2 import (DenseNet, GoogLeNet, InceptionV3, MobileNetV3Large,
+                          MobileNetV3Small, ShuffleNetV2, SqueezeNet,
+                          densenet121, densenet161, densenet169, densenet201,
+                          densenet264, googlenet, inception_v3, mobilenet_v1,
+                          mobilenet_v2, mobilenet_v3_large,
+                          mobilenet_v3_small, shufflenet_v2_swish,
+                          shufflenet_v2_x0_5, shufflenet_v2_x0_25,
+                          shufflenet_v2_x0_33, shufflenet_v2_x1_0,
+                          shufflenet_v2_x1_5, shufflenet_v2_x2_0,
+                          squeezenet1_0, squeezenet1_1)
 
 __all__ = ["GPTConfig", "GPTForCausalLM", "GPTModel",
            "GPTPretrainingCriterion", "gpt_tiny", "gpt_small", "gpt_1p3b",
@@ -20,4 +32,14 @@ __all__ = ["GPTConfig", "GPTForCausalLM", "GPTModel",
            "resnext50_64x4d", "resnext101_32x4d", "resnext101_64x4d",
            "resnext152_32x4d", "resnext152_64x4d", "BertConfig", "BertModel",
            "BertForSequenceClassification", "BertForMaskedLM", "bert_base",
-           "bert_tiny", "Seq2SeqTransformer"]
+           "bert_tiny", "Seq2SeqTransformer", "VGG", "vgg11", "vgg13",
+           "vgg16", "vgg19", "MobileNetV1", "MobileNetV2", "AlexNet",
+           "alexnet", "DenseNet", "densenet121", "densenet161",
+           "densenet169", "densenet201", "densenet264", "GoogLeNet",
+           "googlenet", "InceptionV3", "inception_v3", "MobileNetV3Large",
+           "MobileNetV3Small", "mobilenet_v3_large", "mobilenet_v3_small",
+           "mobilenet_v1", "mobilenet_v2", "ShuffleNetV2",
+           "shufflenet_v2_x0_25", "shufflenet_v2_x0_33",
+           "shufflenet_v2_x0_5", "shufflenet_v2_x1_0", "shufflenet_v2_x1_5",
+           "shufflenet_v2_x2_0", "shufflenet_v2_swish", "SqueezeNet",
+           "squeezenet1_0", "squeezenet1_1"]

@@ -3,20 +3,9 @@ clipping (``paddle_tpu/nn``)."""
 from . import functional, layer
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
                    clip_grad_norm_)
-from .layer import (GELU, AdaptiveAvgPool2D, AvgPool2D, BatchNorm,
-                    BatchNorm1D, BatchNorm2D, Conv2D, Dropout, Embedding,
-                    Flatten, Identity, LayerList, LayerNorm, Linear,
-                    MaxPool2D, MultiHeadAttention, ReLU, ReLU6, RMSNorm,
-                    Sequential, Sigmoid, Silu, Tanh, Transformer,
-                    TransformerDecoder, TransformerDecoderLayer,
-                    TransformerEncoder, TransformerEncoderLayer)
+from .layer import *  # noqa: F401,F403  (every layer, as in JAX)
+from .layer import __all__ as _layers
 
-__all__ = ["Linear", "Embedding", "LayerNorm", "RMSNorm", "Dropout",
-           "Identity", "Flatten", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
-           "Conv2D", "MaxPool2D", "AvgPool2D", "AdaptiveAvgPool2D", "ReLU",
-           "ReLU6", "Tanh", "Sigmoid", "GELU", "Silu", "Sequential",
-           "LayerList", "MultiHeadAttention", "TransformerEncoderLayer",
-           "TransformerEncoder", "TransformerDecoderLayer",
-           "TransformerDecoder", "Transformer", "functional", "layer",
-           "ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm",
-           "clip_grad_norm_"]
+__all__ = list(_layers) + [
+    "functional", "layer", "ClipGradByValue", "ClipGradByNorm",
+    "ClipGradByGlobalNorm", "clip_grad_norm_"]

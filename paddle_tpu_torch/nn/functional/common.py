@@ -1,5 +1,5 @@
-"""Dropout, attention and cross-entropy (``paddle_tpu/nn/functional/
-common.py`` and ``loss.py``)."""
+"""Dropout and attention (``paddle_tpu/nn/functional/common.py``); the
+losses are in :mod:`.loss`."""
 from __future__ import annotations
 
 import math
@@ -9,8 +9,7 @@ import torch
 
 from ...ops.kernels import flash_attention_bshd
 
-__all__ = ["dropout", "scaled_dot_product_attention", "cross_entropy",
-           "NEG_INF"]
+__all__ = ["dropout", "scaled_dot_product_attention", "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -86,25 +85,3 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     probs = torch.softmax(scores, dim=-1)
     probs = dropout(probs, dropout_p, training, generator)
     return (probs @ vt).transpose(1, 2).to(query.dtype)
-
-
-def cross_entropy(input, label, ignore_index=-100, reduction="mean"):
-    """Softmax cross-entropy with hard labels over the last axis of
-    ``input`` (``nn/functional/loss.py:29``), computed in f32: labels equal
-    to ``ignore_index`` contribute 0 and, under ``"mean"``, are left out
-    of the count; ``reduction`` is ``"mean"``, ``"sum"`` or ``"none"``."""
-    (input,) = _amp_cast("cross_entropy", input)
-    logp = torch.log_softmax(input.float(), dim=-1)
-    if label.dim() == logp.dim():
-        label = label.squeeze(-1)
-    valid = label != ignore_index
-    safe = torch.where(valid, label, torch.zeros_like(label)).long()
-    picked = logp.gather(-1, safe.unsqueeze(-1)).squeeze(-1)
-    loss = torch.where(valid, -picked, torch.zeros_like(picked))
-    if reduction == "mean":
-        return loss.sum() / valid.sum().float().clamp_min(1e-12)
-    if reduction == "sum":
-        return loss.sum()
-    if reduction == "none":
-        return loss
-    raise ValueError(f"reduction {reduction!r}: mean, sum or none")

@@ -1,7 +1,9 @@
-"""Optimizers of the port (the training slices' subset) and their LR
+"""Optimizers of the port (``paddle_tpu/optimizer``) and their LR
 schedulers (``optimizer.lr``)."""
 from . import lr
 from .optimizer import Optimizer
-from .optimizers import SGD, Adam, AdamW, Momentum
+from .optimizers import (LBFGS, SGD, Adadelta, Adagrad, Adam, Adamax, AdamW,
+                         Lamb, Momentum, RMSProp, Rprop)
 
-__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "lr"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adagrad",
+           "RMSProp", "Adadelta", "Adamax", "Lamb", "Rprop", "LBFGS", "lr"]

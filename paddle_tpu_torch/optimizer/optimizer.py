@@ -11,14 +11,15 @@ as ``weight_decay``, folded into the gradient; a ``step`` that skips
 parameters with no gradient (or with ``requires_grad=False``) and counts
 ``_global_step``; ``clear_grad``, ``backward`` and ``minimize``; and
 per-parameter accumulators by name (``moment1``, ``moment2``,
-``beta_pow``).
+``beta_pow``, ... as the JAX optimizers name them).
 
 **Master weights** (``multi_precision=True``, which ``amp.decorate``
 turns on): a bf16 or f16 parameter is updated through an f32 master, made
 on its first step from the parameter's current value (``_master_of``,
 ``:107-116``), with f32 accumulators; the parameter is then written as
 the master rounded to its type. Without masters a parameter's accumulators
-take its own type (``:96-102``).
+take its own type (``:96-102``), but for the step counts and Rprop's
+step sizes, which the JAX package keeps in f32.
 
 ``state_dict`` is the JAX package's format (``:181-235``):
 ``f"{name}_{accumulator}"`` entries, ``master_weights`` by name,
@@ -38,9 +39,11 @@ ported: the static-graph ``minimize`` and the distributed hooks.
 and master up front and :meth:`_state_slots` lists them. While a step is
 staged, ``_staged`` holds that step's store (a dict the staging keeps per
 compiled step) and the updates keep their per-step host scalars on the
-device: SGD and Momentum multiply by a 0-d lr tensor, Adam and AdamW
-launch from a static :class:`~..ops.kernels.fused_adamw.AdamWTable`. A
-replay runs no Python, so :meth:`_replay_step` does before each replay
+device: SGD, Momentum and the other multi-tensor optimizers multiply by
+a 0-d lr tensor (Adamax and Lamb also keep their step counts as device
+tensors, which every replay advances), Adam and AdamW launch from a
+static :class:`~..ops.kernels.fused_adamw.AdamWTable`. A replay runs no
+Python, so :meth:`_replay_step` does before each replay
 what the step's host side would have done: it advances ``_global_step``
 and each ``beta_pow`` once and rewrites the lr tensors and the AdamW
 table from ``get_lr()``, so a scheduler's new lr reaches the graph, as
@@ -59,6 +62,12 @@ __all__ = ["Optimizer"]
 
 
 class Optimizer:
+    # accumulators kept in f32 whatever the parameter's type (step counts
+    # and per-element step sizes), and those kept as host floats
+    _F32_ACCUMULATORS = frozenset({"beta_pow", "beta1_pow",
+                                   "learning_rates"})
+    _HOST_SCALARS = frozenset({"beta_pow"})
+
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, multi_precision=False,
                  name=None):
@@ -139,17 +148,21 @@ class Optimizer:
             self._master_weights[p] = p.detach().float().clone()
         return self._master_weights[p]
 
-    def _acc_dtype(self, p):
-        return torch.float32 if self._use_master(p) else p.dtype
+    def _acc_dtype(self, p, name=None):
+        if name in self._F32_ACCUMULATORS or self._use_master(p):
+            return torch.float32
+        return p.dtype
 
-    def _get_accumulator(self, name, p, init=None):
-        """The ``name`` accumulator of ``p``, created on first use: zeros
-        shaped like ``p`` (f32 under a master, else ``p``'s type), or
-        ``init``."""
+    def _get_accumulator(self, name, p, init=None, fill=0.0, shape=None):
+        """The ``name`` accumulator of ``p``, created on first use: ``init``
+        (a host value), or a tensor of ``fill`` on ``p``'s device, shaped
+        like ``p`` (or ``shape``), f32 when ``name`` is one of
+        ``_F32_ACCUMULATORS`` or ``p`` has a master, else ``p``'s type."""
         d = self._accumulators[name]
         if p not in d:
-            d[p] = torch.zeros(p.shape, dtype=self._acc_dtype(p),
-                               device=p.device) if init is None else init
+            d[p] = init if init is not None else torch.full(
+                p.shape if shape is None else shape, fill,
+                dtype=self._acc_dtype(p, name), device=p.device)
         return d[p]
 
     def _set_accumulator(self, name, p, value):
@@ -311,7 +324,7 @@ class Optimizer:
                 continue
             pname, p = matched
             acc = key[len(pname) + 1:]
-            if acc == "beta_pow":
+            if acc in self._HOST_SCALARS:
                 self._accumulators[acc][p] = float(value)
                 continue
             value = torch.as_tensor(value)
@@ -320,4 +333,4 @@ class Optimizer:
                 have.copy_(value)
             else:
                 self._accumulators[acc][p] = value.to(
-                    p.device, self._acc_dtype(p)).clone()
+                    p.device, self._acc_dtype(p, acc)).clone()

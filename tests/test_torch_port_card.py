@@ -1405,3 +1405,117 @@ def test_forward_staging_on_card():
     (staged(x + 1) ** 2).mean().backward()
     with pytest.raises(RuntimeError, match="ran again before the backward"):
         first.backward()
+
+
+# ------------------------------------------ the zoo and the optimizers
+_CARD_OPTS = [("Adagrad", (0.1,), {}),
+              ("RMSProp", (0.01,), dict(momentum=0.9, centered=True)),
+              ("Adadelta", (1.0,), {}), ("Adamax", (0.02,), {}),
+              ("Lamb", (0.02,), {}), ("Rprop", (0.01,), {})]
+
+
+def _opt_mlp(device, dtype=torch.float32, seed=3):
+    import paddle_tpu_torch as pt
+    g = torch.Generator().manual_seed(seed)
+    m = pt.nn.Sequential(pt.nn.Linear(64, 48, device="cpu"), pt.nn.ReLU(),
+                         pt.nn.Linear(48, 8, device="cpu"))
+    with torch.no_grad():
+        for p in m.parameters():
+            p.copy_(0.2 * torch.randn(p.shape, generator=g))
+    return m.to(device=device, dtype=dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("master", [False, True], ids=["f32", "master"])
+@pytest.mark.parametrize("cls,args,kw", _CARD_OPTS,
+                         ids=[c for c, _, _ in _CARD_OPTS])
+def test_other_optimizers_on_card_match_cpu(cls, args, kw, master):
+    """Five steps of each multi-tensor optimizer on the card (its foreach
+    ops on lists of 0-d step counts and scales too) against the same on
+    the CPU, in f32 and in master mode (bf16 parameters, f32 masters):
+    the f32 tensors within 1e-5 + 1e-5 |cpu|."""
+    _need_cuda()
+    import paddle_tpu_torch as pt
+    dtype = torch.bfloat16 if master else torch.float32
+    runs = []
+    for dev in ("cpu", "cuda"):
+        m = _opt_mlp(dev, dtype)
+        opt = getattr(pt.optimizer, cls)(*args, parameters=m.parameters(),
+                                         multi_precision=master, **kw)
+        g = torch.Generator().manual_seed(4)
+        for _ in range(5):
+            for p in m.parameters():
+                p.grad = torch.randn(p.shape, generator=g).to(dev, dtype)
+            opt.step()
+        runs.append([(opt._master_weights[p] if master else p)
+                     .detach().float().cpu() for p in m.parameters()])
+    for a, b in zip(*runs):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cls,args,kw", _CARD_OPTS[:5],
+                         ids=[c for c, _, _ in _CARD_OPTS[:5]])
+def test_staged_other_optimizers_replay_equal_eager_on_card(cls, args, kw):
+    """A staged MLP step with each optimizer under an ``ExponentialDecay``
+    schedule: the replays (the lr from the 0-d tensor the host rewrites,
+    Adamax's and Lamb's step counts advanced on the card) equal an eager
+    twin bit for bit, with 0 graph breaks."""
+    _need_cuda()
+    import paddle_tpu_torch as pt
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(32, 64, device="cuda", generator=g)
+    y = torch.randn(32, 8, device="cuda", generator=g)
+
+    def build(staged):
+        m = _opt_mlp("cuda")
+        sched = pt.optimizer.lr.ExponentialDecay(args[0], gamma=0.7)
+        opt = getattr(pt.optimizer, cls)(sched, parameters=m.parameters(),
+                                         **kw)
+
+        def train_step(xb, yb):
+            loss = ((m(xb) - yb) ** 2).mean()
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+
+        step = pt.jit.to_static(train_step, capture=(m, opt),
+                                full_graph=True) if staged else train_step
+        return m, sched, step
+
+    (sm, ss, sstep), (em, es, estep) = build(True), build(False)
+    for _ in range(6):
+        ls, le = sstep(x, y), estep(x, y)
+        ss.step()
+        es.step()
+        assert torch.equal(ls, le.detach())
+    for a, b in zip(sm.parameters(), em.parameters()):
+        assert torch.equal(a, b)
+    st = sstep.stats()
+    assert st["graph_breaks"] == 0 and st["replays"] == 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw,side", [
+    ("shufflenet_v2_x0_25", {}, 64), ("mobilenet_v3_small", {}, 64),
+    ("squeezenet1_1", {}, 64), ("mobilenet_v2", dict(scale=0.5), 64),
+    ("googlenet", {}, 64), ("inception_v3", {}, 75)])
+def test_zoo_forward_on_card_matches_cpu(name, kw, side):
+    """A zoo model's eval logits on the card (cuDNN, depthwise and
+    grouped convolutions, concat, channel shuffle) against the port's CPU
+    forward of the same weights, within 2e-3 + 2e-3 |cpu|."""
+    _need_cuda()
+    import paddle_tpu_torch as pt
+    zoo = pt.vision.models
+    torch.backends.cudnn.allow_tf32 = False
+    model = getattr(zoo, name)(num_classes=10, seed=0, **kw).eval()
+    cpu = getattr(zoo, name)(num_classes=10, device="cpu", seed=None, **kw)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu.eval()
+    x = torch.randn(4, 3, side, side, generator=torch.Generator()
+                    .manual_seed(6))
+    with torch.no_grad():
+        got = model(x.cuda()).cpu()
+        want = cpu(x)
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
