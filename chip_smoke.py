@@ -232,8 +232,12 @@ exit code:
     224 x 224 random images and labels from numpy seed 0,
     ``decorate(level="O2", dtype="float16")``, ``Momentum(0.1, 0.9,
     L2Decay(1e-4), multi_precision=True)``, ``GradScaler(2**15)``: 2
-    warm-up and 10 timed steps; losses finite and falling, every
-    BatchNorm statistic finite and moved; images/s, step ms, peak memory,
+    warm-up and 10 timed steps; the first step's loss and update against
+    the same step in f32 from the same weights (loss within 1e-2
+    relative, each group's update norm within 10%, the classifier's
+    update within 10%), losses finite and the
+    lowest of steps 1-3 below step 0's, every BatchNorm statistic finite
+    and moved; images/s, step ms, peak memory,
     the scale, a profiled step (convolution, batch norm, GEMM and
     elementwise families, busy share); then O1 bf16 on f32 weights.
 20. **BERT-base** — (a) a 2-layer f32 ``BertForMaskedLM`` at
@@ -308,6 +312,30 @@ exit code:
     centered RMSProp, eager, staged and against the CPU, and LBFGS with
     the strong-Wolfe search against the CPU.
 
+24. **the high-level API** — (a) the hapi quick-start: ``Model(LeNet())``
+    with ``Adam(1e-3)``, ``CrossEntropyLoss`` and ``Accuracy(topk=(1,
+    5))`` fits 8192 MNIST-shaped images (labels a fixed function of the
+    image, numpy seed 0) for 2 epochs at B 64 three times, through
+    ``DataLoader(num_workers=0)`` without and with the buffered reader and
+    with 2 workers (cuDNN deterministic): batches equal, losses bit-equal,
+    one graph, 0 breaks, one AdamW launch a step; ``evaluate``,
+    ``predict``, ``save`` and a fresh ``Model.load`` evaluating to the
+    same; (b) BERT-base fine-tuning through ``Model.fit`` on the BERT
+    paper's GLUE recipe (``BertForSequenceClassification(bert_base(
+    dropout=0.0))``, B 32 x S 128, ``AdamW`` wd 0.01 at 2e-5 with a 10%
+    ``LinearWarmup`` and linear decay stepped by
+    ``callbacks.LRScheduler``, ``amp_configs="O1"``, ``Accuracy()``, 3200
+    sequences through ``DataLoader(num_workers=2)``, 100 steps, telemetry
+    on), then ``evaluate`` on 640: losses equal a hand-written
+    ``to_static`` loop's within 1e-3 with the same moving lrs, one
+    capture, 0 breaks, launches exact (flash 12 / 12 / 12, LayerNorm 25,
+    AdamW 1 a replayed step; flash 12 and LayerNorm 25 an evaluate
+    batch); steps/s, samples/s, tokens/s, ``bert_train_step_mfu`` beside
+    telemetry's ``mfu_pct``, the data-wait share, peak memory, eval
+    accuracy, ``pt.summary`` / ``pt.flops``; the flash trio at [32, 128,
+    12, 64] bf16 (phase 6's limits), LayerNorm at [4096, 768] f32 and
+    fused AdamW's f32 mode over the model's tensors, checked and timed.
+
 The lines before the last carry the ``{"kernels": [...]}`` JSON (all eight
 kernels; the ``fused_adamw`` entry adds the master and bf16-moment modes'
 numbers and phase 13's launches, and its ``max_abs_err`` is the largest of
@@ -324,7 +352,10 @@ and to every entry ``to_static_launches``, the kernel's launches over the
 replayed timed steps of 22a-22d, with ``to_static_parts`` by part;
 phase 23 adds ``lamb_launches``, each kernel's launches over 23c's
 replayed steps, and to ``fused_adamw`` the ``bert_lamb_*`` step times;
-every ``max_abs_err`` is the largest of its entry's errors) and the
+phase 24 adds to every entry ``hapi_launches`` (its launches over 24a's
+three fits and 24b's fit and evaluate) and to the flash entries,
+``layer_norm`` and ``fused_adamw`` the ``s128_*`` numbers at 24b's
+shapes; every ``max_abs_err`` is the largest of its entry's errors) and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the repository beside it, the script exits
 non-zero and prints no result.
@@ -338,6 +369,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -367,22 +399,52 @@ def _device_events(prof):
     return [e for e in prof.events() if e.device_type == cuda]
 
 
+def queued_ms(fn, iters, host_ms):
+    """Device ms per call with the host's launch overhead hidden: a sleep
+    kernel holds the stream for ten times ``host_ms`` (the host's time to
+    issue the ``iters`` calls), and 20 ms at least, while the host queues
+    them, so CUDA events around the calls time the card alone, the gaps
+    between its launches included. None when the card reached the calls
+    before the host had queued them all (``fn`` waits on the card, or the
+    sleep was short): then the events would count host time."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(max(10 * host_ms, 20) * 2e6))  # ~2e6 cycles a ms
+    a.record()
+    for _ in range(iters):
+        fn()
+    queued = not a.query()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters if queued else None
+
+
 def time_ms(fn, iters=20, warmup=3):
     """-> ``(ms, wall_ms, source)`` per call. ``ms`` is device time: the
     summed duration of every GPU kernel and copy the ``iters`` calls
-    launched, from a ``torch.profiler`` trace, over ``iters`` (CUDA events
-    around the loop when the trace holds no device events). ``wall_ms`` is
-    CUDA-event time around the loop over ``iters``: it also counts the
-    host's launch overhead whenever the host is slower than the card."""
+    launched, from a ``torch.profiler`` trace, over ``iters``. A trace can
+    lose device events late in a long process (it read a kernel at a third
+    of its byte bound's time, and a multi-tensor AdamW under its bound):
+    when the trace's sum falls short of :func:`queued_ms`'s time of the
+    same calls by more than a tenth of that time plus 4 us a traced
+    kernel (the gaps between queued launches: 2.4-3.2 us a launch on an
+    H100 80GB HBM3 where the trace was whole), ``ms`` is the queued time
+    instead (``source`` says which); a function that waits on the card
+    keeps the trace's sum. ``wall_ms`` is CUDA-event time around
+    the loop over ``iters``: it also counts the host's launch overhead
+    whenever the host is slower than the card."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
     a.record()
     for _ in range(iters):
         fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
     b.record()
     b.synchronize()
     wall_ms = a.elapsed_time(b) / iters
@@ -391,10 +453,14 @@ def time_ms(fn, iters=20, warmup=3):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    dev_us = sum(e.time_range.elapsed_us() for e in _device_events(prof))
-    if dev_us <= 0:
-        return wall_ms, wall_ms, "cuda events"
-    return dev_us / 1e3 / iters, wall_ms, "profiler"
+    events = _device_events(prof)
+    dev_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3 / iters
+    queued = queued_ms(fn, iters, host_ms)
+    if queued is not None and \
+            dev_ms < 0.9 * queued - 4e-3 * len(events) / iters:
+        return queued, wall_ms, "cuda events (queued; the trace lost " \
+            f"device events: {dev_ms:.4f} ms)"
+    return dev_ms, wall_ms, "profiler"
 
 
 def check_close(name, got, want, rtol, atol, norm_tol=None):
@@ -2832,6 +2898,85 @@ MODEL_FLASH_SHAPES = [(2, 512, 512, 12, 64), (2, 1, 1, 12, 64),
                       (4, 7, 11, 4, 16), (2, 300, 77, 4, 32)]
 
 
+def flash_timing(K, tag, B, S, H, D, seed):
+    """The flash forward, dQ and dK/dV at ``[B, S, H, D]`` bf16
+    non-causal: held against their plain versions with phase 6's limits,
+    then timed beside their bounds, their plain versions and
+    ``F.scaled_dot_product_attention``'s forward / backward (the library
+    call, timed here only). -> {kernel: {ms, plain_ms, bound_ms, bound_by,
+    library_ms, max_abs_err}}"""
+    scale = 1.0 / math.sqrt(D)
+    q, k, v, do = cross_inputs(B, S, S, H, D, torch.bfloat16, seed)
+    errs = check_flash(K, f"bf16 [{B}, {S}, {H}, {D}] full", q, k, v, do,
+                       scale, False, FLASH_BF16_TOL, FLASH_BF16_NORM_TOL)
+    o, lse = K.flash_fwd(q, k, v, scale, False)
+    delta = K.flash_delta(o, do)
+    bargs = lambda: [_bhsd(x) for x in (q, k, v, do)] + [  # noqa: E731
+        lse.reshape(B * H, S), delta.reshape(B * H, S), scale, False]
+    kern = {"flash_fwd": lambda: K.flash_fwd(q, k, v, scale, False),
+            "flash_bwd_dq": lambda: K.flash_bwd_dq(q, k, v, do, lse, delta,
+                                                   scale, False),
+            "flash_bwd_dkv": lambda: K.flash_bwd_dkv(q, k, v, do, lse,
+                                                     delta, scale, False)}
+    plain = {"flash_fwd": lambda: K.flash_fwd_reference(
+        _bhsd(q), _bhsd(k), _bhsd(v), scale, False),
+        "flash_bwd_dq": lambda: K.flash_bwd_dq_reference(*bargs()),
+        "flash_bwd_dkv": lambda: K.flash_bwd_dkv_reference(*bargs())}
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ot = sdpa(qt, kt, vt)
+    lib_fwd, _, _ = time_ms(lambda: sdpa(qt, kt, vt))
+    lib_bwd, _, _ = time_ms(lambda: torch.autograd.grad(
+        ot, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
+    work = flash_work(B, S, S, H, D, False)
+    out = {}
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        ms, wall, src = time_ms(kern[name])
+        plain_ms, _, _ = time_ms(plain[name], iters=3, warmup=1)
+        lib = lib_fwd if name == "flash_fwd" else lib_bwd
+        nbytes, flops = work[name]
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        log(f"[{tag}] {name} [{B}, {S}, {H}, {D}] bf16 full: "
+            f"kernel {ms:.4f} ms ({src}; {wall:.4f} ms per call with "
+            f"launch) plain {plain_ms:.4f} ms library {lib:.4f} ms bound "
+            f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP) = {100 * b_ms / ms:.1f}% of bound")
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": lib,
+                     "max_abs_err": errs[name]}
+    del q, k, v, do, o, lse, delta, qt, kt, vt, ot
+    torch.cuda.empty_cache()
+    return out
+
+
+def layer_norm_timing(K, tag, rows, H, dtype, eps, seed):
+    """LayerNorm at ``[rows, H]`` in ``dtype``: held against its plain
+    version (f32 within 1e-4, bf16 within 2e-2), then timed beside its
+    bound, its plain version and ``F.layer_norm`` (timed here only).
+    -> {ms, plain_ms, bound_ms, bound_by, library_ms, max_abs_err}"""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(rows, H, device="cuda", generator=g) * 2 + 1).to(dtype)
+    w = (1 + 0.1 * torch.randn(H, device="cuda", generator=g)).to(dtype)
+    b = (0.1 * torch.randn(H, device="cuda", generator=g)).to(dtype)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    name = f"layer_norm [{rows}, {H}] {str(dtype)[6:]}"
+    err = check_close(name, K.layer_norm(x, w, b, eps),
+                      K.layer_norm_reference(x, w, b, eps), tol, tol)
+    ms, wall, src = time_ms(lambda: K.layer_norm(x, w, b, eps))
+    plain_ms, _, _ = time_ms(lambda: K.layer_norm_reference(x, w, b, eps))
+    lib_ms, _, _ = time_ms(lambda: torch.nn.functional.layer_norm(
+        x, (H,), w, b, eps))
+    el = x.element_size()
+    b_ms, b_by = bound(2 * x.numel() * el + 2 * H * el, 8 * x.numel(),
+                       F32_FLOPS_PER_S)
+    log(f"[{tag}] {name}: kernel {ms:.4f} ms ({src}; {wall:.4f} ms per "
+        f"call with launch) plain {plain_ms:.4f} ms F.layer_norm "
+        f"{lib_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms, "max_abs_err": err}
+
+
 def models_kernel_parity(K):
     """Phase 17: the kernels at the other models' shapes against their
     plain versions — the flash trio (:data:`MODEL_FLASH_SHAPES`, f32
@@ -2922,66 +3067,16 @@ def models_kernel_parity(K):
     out["layer_norm"] = {"h768_max_abs_err": ln_err}
     out["fused_adamw"] = {"f16_master_max_abs_err": f16_err}
     # timing at BERT-base's training shape
-    B, S, H, D = 16, 512, 12, 64
-    scale = 1.0 / math.sqrt(D)
-    q, k, v, do = cross_inputs(B, S, S, H, D, torch.bfloat16, 19)
-    errs = check_flash(K, f"bf16 [{B}, {S}, {H}, {D}] full (BERT-base)",
-                       q, k, v, do, scale, False, FLASH_BF16_TOL,
-                       FLASH_BF16_NORM_TOL)
-    o, lse = K.flash_fwd(q, k, v, scale, False)
-    delta = K.flash_delta(o, do)
-    bargs = lambda: [_bhsd(x) for x in (q, k, v, do)] + [  # noqa: E731
-        lse.reshape(B * H, S), delta.reshape(B * H, S), scale, False]
-    kern = {"flash_fwd": lambda: K.flash_fwd(q, k, v, scale, False),
-            "flash_bwd_dq": lambda: K.flash_bwd_dq(q, k, v, do, lse, delta,
-                                                   scale, False),
-            "flash_bwd_dkv": lambda: K.flash_bwd_dkv(q, k, v, do, lse,
-                                                     delta, scale, False)}
-    plain = {"flash_fwd": lambda: K.flash_fwd_reference(
-        _bhsd(q), _bhsd(k), _bhsd(v), scale, False),
-        "flash_bwd_dq": lambda: K.flash_bwd_dq_reference(*bargs()),
-        "flash_bwd_dkv": lambda: K.flash_bwd_dkv_reference(*bargs())}
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
-                  for x in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    ot = sdpa(qt, kt, vt)
-    lib_fwd, _, _ = time_ms(lambda: sdpa(qt, kt, vt))
-    lib_bwd, _, _ = time_ms(lambda: torch.autograd.grad(
-        ot, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
-    work = flash_work(B, S, S, H, D, False)
-    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-        ms, wall, src = time_ms(kern[name])
-        plain_ms, _, _ = time_ms(plain[name], iters=3, warmup=1)
-        lib = lib_fwd if name == "flash_fwd" else lib_bwd
-        nbytes, flops = work[name]
-        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
-        log(f"[models timing] {name} [{B}, {S}, {H}, {D}] bf16 full: "
-            f"kernel {ms:.4f} ms ({src}; {wall:.4f} ms per call with "
-            f"launch) plain {plain_ms:.4f} ms library {lib:.4f} ms bound "
-            f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.1f} MB, "
-            f"{flops / 1e9:.2f} GFLOP) = {100 * b_ms / ms:.1f}% of bound")
-        out[name].update({
-            "d64_ms": ms, "d64_plain_ms": plain_ms, "d64_bound_ms": b_ms,
-            "d64_bound_by": b_by, "d64_library_ms": lib,
-            "d64_max_abs_err": max(out[name]["d64_max_abs_err"],
-                                   errs[name])})
-    del q, k, v, do, o, lse, delta, qt, kt, vt, ot
-    x = torch.randn(8192, 768, device="cuda", generator=g).bfloat16()
-    w = (1 + 0.1 * torch.randn(768, device="cuda", generator=g)).bfloat16()
-    b = (0.1 * torch.randn(768, device="cuda", generator=g)).bfloat16()
-    ms, wall, src = time_ms(lambda: K.layer_norm(x, w, b, 1e-12))
-    plain_ms, _, _ = time_ms(lambda: K.layer_norm_reference(x, w, b, 1e-12))
-    lib_ms, _, _ = time_ms(lambda: torch.nn.functional.layer_norm(
-        x, (768,), w, b, 1e-12))
-    b_ms, b_by = bound(2 * x.numel() * 2 + 2 * 768 * 2, 8 * x.numel(),
-                       F32_FLOPS_PER_S)
-    log(f"[models timing] layer_norm [8192, 768] bf16: kernel {ms:.4f} ms "
-        f"({src}; {wall:.4f} ms per call with launch) plain "
-        f"{plain_ms:.4f} ms F.layer_norm {lib_ms:.4f} ms bound {b_ms:.4f} "
-        f"ms ({b_by})")
-    out["layer_norm"].update({"h768_ms": ms, "h768_plain_ms": plain_ms,
-                              "h768_bound_ms": b_ms, "h768_bound_by": b_by,
-                              "h768_library_ms": lib_ms})
+    for name, t in flash_timing(K, "models timing", 16, 512, 12, 64,
+                                19).items():
+        out[name].update({f"d64_{k}": v for k, v in t.items()
+                          if k != "max_abs_err"})
+        out[name]["d64_max_abs_err"] = max(out[name]["d64_max_abs_err"],
+                                           t["max_abs_err"])
+    t = layer_norm_timing(K, "models timing", 8192, 768, torch.bfloat16,
+                          1e-12, 18)
+    out["layer_norm"].update({f"h768_{k}": v for k, v in t.items()
+                              if k != "max_abs_err"})
     torch.cuda.empty_cache()
     return out
 
@@ -3006,13 +3101,18 @@ def timed_steps(step, warmup, steps):
     return losses, times, K.launch_counts(), torch.cuda.max_memory_allocated()
 
 
-def check_training(tag, losses, warmup, launches, want):
+def check_training(tag, losses, warmup, launches, want, falls="last"):
     """Fails unless the losses are finite and fall and the launches are
-    exactly ``want`` (zero for every kernel it does not name)."""
+    exactly ``want`` (zero for every kernel it does not name). ``falls``:
+    ``"last"`` holds the last loss below the first, ``"early"`` the lowest
+    of steps 1-3 below step 0's (a run whose later steps are chaotic)."""
     log(f"  losses: " + " ".join(f"{x:.4f}" for x in losses)
         + f" (first {warmup} are warm-up)")
-    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
-        fail(f"{tag}: losses not finite or not falling: {losses}")
+    fell = losses[-1] < losses[0] if falls == "last" else \
+        min(losses[1:4]) < losses[0]
+    if not all(math.isfinite(x) for x in losses) or not fell:
+        fail(f"{tag}: losses not finite or not falling ({falls}): "
+             f"{losses}")
     full = {name: 0 for name in launches}
     full.update(want)
     log(f"  launches over the timed steps: {launches}")
@@ -3077,6 +3177,97 @@ def lenet_phase(pt, warmup=5, steps=30, B=64):
                            "last_loss": losses[-1]}))
 
 
+def update_gaps(names, base, other):
+    """-> {group: (relative error, norm ratio)} of the updates ``other``
+    against ``base`` over each :func:`_param_group` and over ``all``."""
+    acc = {}
+    for name, d, e in zip(names, base, other):
+        for g in (_param_group(name), "all"):
+            v = acc.setdefault(g, [0.0, 0.0, 0.0])
+            v[0] += float((e - d).norm()) ** 2
+            v[1] += float(d.norm()) ** 2
+            v[2] += float(e.norm()) ** 2
+    return {g: (math.sqrt(v[0] / v[1]), math.sqrt(v[2] / v[1]))
+            for g, v in acc.items()}
+
+
+def _param_group(name):
+    if name.startswith("fc."):
+        return "fc"
+    return "batch norm" if ".bn" in f".{name}" or "downsample.1" in name \
+        else "conv"
+
+
+def resnet_first_step_f32(pt, x, y):
+    """Phase 19's reference: one step of ``resnet50(num_classes=1000,
+    seed=SEED)`` in f32 (``Momentum(0.1, 0.9, L2Decay(1e-4))``, no AMP, no
+    scaler) on the phase's batch, from its weights rounded to float16
+    (the weights the O2 model and its f32 masters start from); then the
+    same step from those weights times ``1 + 2^-11 u`` (``u`` uniform in
+    [-1, 1], a float16 rounding's size), whose update's distance from the
+    first measures how well-conditioned the step is. -> (the weights,
+    each parameter's update, the loss, the noisy step's
+    :func:`update_gaps`), the first two lists f32 tensors on the card"""
+    F = pt.nn.functional
+    model = pt.resnet50(num_classes=1000, seed=SEED)
+    names = [n for n, _ in model.named_parameters()]
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(p.half().float())
+    w0 = [p.detach().clone() for p in model.parameters()]
+    g = torch.Generator(device=w0[0].device).manual_seed(SEED + 19)
+    noisy = [w * (1 + 2.0 ** -11 * (2 * torch.rand(
+        w.shape, device=w.device, generator=g) - 1)) for w in w0]
+    updates, losses = [], []
+    for start in (w0, noisy):
+        with torch.no_grad():
+            for p, w in zip(model.parameters(), start):
+                p.copy_(w)
+        opt = pt.Momentum(0.1, 0.9, parameters=model.parameters(),
+                          weight_decay=pt.regularizer.L2Decay(1e-4))
+        loss = F.cross_entropy(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        updates.append([p.detach() - w for p, w in
+                        zip(model.parameters(), start)])
+        losses.append(loss.item())
+    spread = update_gaps(names, updates[0], updates[1])
+    del model, opt, loss, noisy, updates[1]
+    free()
+    return w0, updates[0], losses[0], spread
+
+
+def check_first_o2_step(opt, params, loss16, w0, d32, loss32, spread):
+    """Phase 19's first O2 float16 step against the f32 step from the same
+    (float16-rounded) weights, within float16 limits: the loss within
+    1e-2 relative; the update (each f32 master's change) of the whole
+    model and of each group (convolutions, batch norms, the classifier)
+    within 10% of the f32 update's norm; and the classifier's update
+    within 10% of it in direction too. The convolutions' and batch norms'
+    directions are not held: at initialisation they are ill-conditioned,
+    so only their size is; ``spread`` (the f32 step from weights with a
+    float16 rounding's noise, :func:`resnet_first_step_f32`) is printed
+    beside them to show it."""
+    names = [p.param_name for p in params]
+    gaps = update_gaps(names, d32, [opt._master_of(p) - w
+                                    for p, w in zip(params, w0)])
+    loss_rel = abs(loss16 - loss32) / abs(loss32)
+    ok = math.isfinite(loss16) and loss_rel <= 1e-2
+    parts = []
+    for name, (rel, ratio) in gaps.items():
+        ok = ok and abs(ratio - 1) <= 0.1 and (name != "fc" or rel <= 0.1)
+        parts.append(f"{name}: norm ratio {ratio:.4f}, relative error "
+                     f"{rel:.3e} (the f32 step from weights with 2^-11 "
+                     f"noise: {spread[name][1]:.4f}, {spread[name][0]:.3e})")
+    log(f"  first O2 f16 step vs f32 from the same weights: loss "
+        f"{loss16:.5f} vs {loss32:.5f} (relative {loss_rel:.2e}, tolerance "
+        f"1e-2); updates (norm ratio within 10%; the classifier's error "
+        f"within 10%): " + "; ".join(parts))
+    if not ok:
+        fail("resnet: the first O2 float16 step disagrees with f32")
+
+
 def resnet_phase(pt, warmup=2, steps=10, B=128):
     """Phase 19: ResNet-50 at full depth and width (``resnet50(
     num_classes=1000)``) under AMP O2 float16, BASELINE config 2 on one
@@ -3084,15 +3275,21 @@ def resnet_phase(pt, warmup=2, steps=10, B=128):
     0, ``decorate(level="O2", dtype="float16")``, ``Momentum(0.1, 0.9,
     weight_decay=L2Decay(1e-4), multi_precision=True)``,
     ``GradScaler(init_loss_scaling=2**15)``; 2 warm-up and 10 timed
-    steps. Checks: losses finite and falling, every BatchNorm's running
-    statistics finite and moved, no hand kernel launched (none is on this
-    path). Prints images/s, step ms, peak memory, the scaler's scale and
-    one profiled step; then one O1 bf16 step on f32 weights for
-    comparison."""
+    steps. Checks: the first step's loss and parameter updates (its f32
+    masters' change) against the same step in f32 from the same weights
+    (:func:`resnet_first_step_f32`, :func:`check_first_o2_step`); losses
+    finite and
+    the lowest of steps 1-3 below step 0's (at lr 0.1 and momentum 0.9 on
+    one batch the later steps are chaotic: both tie-gradient rules rise
+    again after step 3), every BatchNorm's running statistics finite and
+    moved, no hand kernel launched (none is on this path). Prints
+    images/s, step ms, peak memory, the scaler's scale and one profiled
+    step; then one O1 bf16 step on f32 weights for comparison."""
     F = pt.nn.functional
     rng = np.random.RandomState(SEED)
     x = torch.from_numpy(rng.randn(B, 3, 224, 224).astype(np.float32)).cuda()
     y = torch.from_numpy(rng.randint(0, 1000, B)).cuda()
+    w0, d32, loss32, spread = resnet_first_step_f32(pt, x, y)
     t0 = time.perf_counter()
     model = pt.resnet50(num_classes=1000, seed=SEED)
     opt = pt.Momentum(0.1, 0.9, parameters=model.parameters(),
@@ -3118,8 +3315,13 @@ def resnet_phase(pt, warmup=2, steps=10, B=128):
         opt.clear_grad()
         return loss.item()
 
-    losses, times, launches, peak = timed_steps(step, warmup, steps)
-    check_training("resnet", losses, warmup, launches, {})
+    first = step()
+    check_first_o2_step(opt, list(model.parameters()), first, w0, d32,
+                        loss32, spread)
+    del w0, d32
+    losses, times, launches, peak = timed_steps(step, warmup - 1, steps)
+    losses = [first] + losses
+    check_training("resnet", losses, warmup, launches, {}, falls="early")
     if any(p.dtype != torch.float16 for p in model.parameters()):
         fail("resnet: a parameter is not float16 under O2")
     moved = 0
@@ -4515,6 +4717,401 @@ def zoo_optimizer_phases(pt):
     return extra
 
 
+# ------------------------------------------------------------- phase 24
+# 24a's three loaders: (label, DataLoader keywords)
+HAPI_LOADERS = (("in process", dict(num_workers=0, use_buffer_reader=False)),
+                ("buffered reader", dict(num_workers=0)),
+                ("2 workers", dict(num_workers=2, timeout=120)))
+
+
+def array_dataset(pt, x, y):
+    """A map-style ``pt.io.Dataset`` over the numpy arrays ``x``, ``y``:
+    sample ``i`` is ``(x[i], y[i])``."""
+    class ArrayDataset(pt.io.Dataset):
+        def __getitem__(self, i):
+            return x[i], y[i]
+
+        def __len__(self):
+            return len(x)
+
+    return ArrayDataset()
+
+
+def mnist_like(pt, n, seed):
+    """``n`` MNIST-shaped [1, 28, 28] f32 images from numpy ``seed``: one
+    of ten fixed random templates (numpy seed 1000) plus unit noise, each
+    labelled by the template it correlates with most, a fixed function of
+    the image, so accuracy means something."""
+    rng = np.random.RandomState(seed)
+    templates = np.random.RandomState(1000).randn(10, 784)
+    x = templates[rng.randint(0, 10, n)] + rng.randn(n, 784)
+    y = (x @ templates.T).argmax(1).astype(np.int64)
+    return array_dataset(pt, x.reshape(n, 1, 28, 28).astype(np.float32), y)
+
+
+def token_sequences(pt, n, S, vocab, seed):
+    """``n`` token sequences of length ``S`` from numpy ``seed``, labelled
+    1 when the first token lies in the lower half of the vocabulary."""
+    ids = np.random.RandomState(seed).randint(0, vocab, (n, S))
+    return array_dataset(pt, ids, (ids[:, 0] < vocab // 2).astype(np.int64))
+
+
+def batch_recorder(pt, K, opt=None):
+    """A callback keeping each train step's logged loss, the host clock at
+    its end, the optimizer's lr it ran with (read before the
+    ``LRScheduler`` callback after it steps) and the launch counts at the
+    end of step 0 (the warm-up step)."""
+    class Recorder(pt.hapi.callbacks.Callback):
+        def __init__(self):
+            self.losses, self.ends, self.lrs, self.counts = [], [], [], None
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(logs["loss"])
+            self.ends.append(time.perf_counter())
+            if opt is not None:
+                self.lrs.append(opt.get_lr())
+            if self.counts is None:
+                self.counts = K.launch_counts()
+
+    return Recorder()
+
+
+def hapi_lenet(pt, K, n=8192, n_eval=1024, B=64, epochs=2):
+    """Phase 24a: the hapi quick-start. ``Model(LeNet())`` with
+    ``prepare(Adam(1e-3), CrossEntropyLoss(), Accuracy(topk=(1, 5)))`` fits
+    :func:`mnist_like`'s 8192 images for 2 epochs at B 64, in order, three
+    times: through ``DataLoader(num_workers=0)`` without and with the
+    buffered reader and with 2 workers (cuDNN's deterministic algorithms).
+    Checks: the three loaders' batches equal, the logged losses and the
+    histories bit-equal, one graph captured, 0 breaks, exactly one AdamW
+    launch a step and no other kernel; then ``evaluate`` and ``predict``
+    on 1024 held-out images (top-1 of the predictions equals evaluate's),
+    ``save`` and a fresh ``Model.load``, which must evaluate to the same
+    loss and accuracy. -> (launches over the three fits, numbers)"""
+    train, held = mnist_like(pt, n, SEED), mnist_like(pt, n_eval, SEED + 1)
+    steps = epochs * n // B
+    log(f"[hapi lenet] Model(LeNet()).fit: {n} MNIST-shaped images, B={B}, "
+        f"{epochs} epochs ({steps} steps), Adam(1e-3), Accuracy(topk=(1, "
+        f"5)); three loaders")
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    total = {name: 0 for name in K.launch_counts()}
+    runs, first = [], None
+    try:
+        for label, kw in HAPI_LOADERS:
+            loader = pt.io.DataLoader(train, batch_size=B, shuffle=False,
+                                      **kw)
+            batches = [(x.clone(), y.clone()) for x, y in loader]
+            if first is None:
+                first = batches
+            elif len(batches) != len(first) or not all(
+                    torch.equal(a, c) and torch.equal(b, d)
+                    for (a, b), (c, d) in zip(batches, first)):
+                fail(f"hapi lenet: the {label} loader's batches differ from "
+                     f"the in-process loader's")
+            del batches
+            net = pt.LeNet(seed=SEED)
+            model = pt.Model(net)
+            model.prepare(pt.Adam(1e-3, parameters=net.parameters()),
+                          pt.nn.CrossEntropyLoss(),
+                          pt.metric.Accuracy(topk=(1, 5)))
+            rec = batch_recorder(pt, K)
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            hist = model.fit(loader, epochs=epochs, verbose=0,
+                             callbacks=[rec])
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            launches = K.launch_counts()
+            stats = model._step_fn.stats()
+            want = {name: 0 for name in launches}
+            want["fused_adamw"] = steps
+            if launches != want:
+                fail(f"hapi lenet ({label}): launches {launches} != {want}")
+            if stats["graphs"] != 1 or stats["graph_breaks"] or \
+                    stats["eager_calls"] or len(rec.losses) != steps:
+                fail(f"hapi lenet ({label}): staging {stats}, "
+                     f"{len(rec.losses)} steps")
+            if not all(math.isfinite(v) for v in rec.losses):
+                fail(f"hapi lenet ({label}): a loss is not finite")
+            for k, v in launches.items():
+                total[k] += v
+            gaps = np.diff(rec.ends[1:]) * 1e3
+            log(f"  {label}: history {hist['loss']}, fit {fit_s:.2f} s, "
+                f"{1e3 / float(np.median(gaps)):.1f} steps/s (median step "
+                f"{float(np.median(gaps)):.3f} ms), staging {stats}, "
+                f"launches {launches}")
+            runs.append({"label": label, "losses": rec.losses,
+                         "hist": hist["loss"], "fit_s": fit_s,
+                         "steps_per_s": 1e3 / float(np.median(gaps)),
+                         "model": model})
+        for r in runs[1:]:
+            if r["losses"] != runs[0]["losses"] or \
+                    r["hist"] != runs[0]["hist"]:
+                d = max(abs(a - b) for a, b in zip(r["losses"],
+                                                   runs[0]["losses"]))
+                fail(f"hapi lenet: the {r['label']} run's losses differ "
+                     f"from the in-process run's by up to {d:.3e}")
+        log(f"  the three loaders' batches equal and their {steps} losses "
+            f"bit-equal: first {runs[0]['losses'][0]:.4f}, last "
+            f"{runs[0]['losses'][-1]:.4f}")
+        model = runs[-1]["model"]
+        ev = model.evaluate(held, batch_size=256, verbose=0)
+        pred = model.predict(held, batch_size=256, stack_outputs=True)[0]
+        labels = np.asarray([held[i][1] for i in range(n_eval)])
+        top1 = float((pred.argmax(1) == labels).mean())
+        if pred.shape != (n_eval, 10) or not np.isfinite(pred).all() or \
+                abs(top1 - ev["acc"][0]) > 1e-12:
+            fail(f"hapi lenet: predict {pred.shape} top-1 {top1} vs "
+                 f"evaluate {ev}")
+        net = pt.LeNet(seed=None)
+        fresh = pt.Model(net)
+        fresh.prepare(pt.Adam(1e-3, parameters=net.parameters()),
+                      pt.nn.CrossEntropyLoss(),
+                      pt.metric.Accuracy(topk=(1, 5)))
+        with tempfile.TemporaryDirectory() as d:
+            model.save(os.path.join(d, "lenet"))
+            fresh.load(os.path.join(d, "lenet"))
+        ev2 = fresh.evaluate(held, batch_size=256, verbose=0)
+        if ev2["loss"] != ev["loss"] or list(ev2["acc"]) != list(ev["acc"]):
+            fail(f"hapi lenet: the reloaded model evaluates to {ev2}, the "
+                 f"trained one to {ev}")
+        log(f"  evaluate on {n_eval} held-out images: {ev}; predict "
+            f"{pred.shape}, top-1 {top1:.4f}; save + a fresh Model.load "
+            f"evaluates to the same")
+    finally:
+        torch.backends.cudnn.deterministic = det
+    out = {"eval_loss": ev["loss"], "eval_acc": [float(a) for a in ev["acc"]],
+           "steps_per_s": {r["label"]: r["steps_per_s"] for r in runs}}
+    del runs, model, fresh, first
+    free()
+    return total, out
+
+
+def adamw_f32_timing(K, model, tag):
+    """Fused AdamW's f32 mode (f32 w, g, m, v: no ``decorate``) in one
+    launch over ``model``'s tensors, against the plain version (within
+    1e-6 + 1e-6 |plain|), then timed over a prebuilt table beside its
+    bound (28 bytes a parameter), its plain version and
+    ``torch._fused_adamw_`` (timed here only). -> {ms, plain_ms, bound_ms,
+    bound_by, library_ms, max_abs_err}"""
+    params = list(model.parameters())
+    n_t, n = len(params), sum(p.numel() for p in params)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    ws = [p.detach().clone() for p in params]
+    gs = [1e-3 * torch.randn(p.shape, device="cuda", generator=g)
+          for p in params]
+    ms_ = [1e-4 * torch.randn(p.shape, device="cuda", generator=g)
+           for p in params]
+    vs_ = [1e-6 * torch.rand(p.shape, device="cuda", generator=g)
+           for p in params]
+    c1, c2 = 1 / (1 - 0.9 ** 23), 1 / (1 - 0.999 ** 23)
+    args = (ws, gs, ms_, vs_, [1e-4] * n_t, 0.9, 0.999, 1e-8, [0.01] * n_t,
+            [c1] * n_t, [c2] * n_t, None)
+    before = [(w.clone(), m.clone(), v.clone())
+              for w, m, v in zip(ws, ms_, vs_)]
+    K.fused_adamw(*args[:-1])
+    torch.cuda.synchronize()
+    err = check_update(K, before, gs, (ws, ms_, vs_), c1, c2, 1e-6,
+                       f"fused_adamw f32 mode ({tag})")
+    del before
+    ms = launch_ms(args)
+    plain_ms, _, _ = time_ms(lambda: [K.fused_adamw_reference(
+        w, gr, m, v, 1e-4, 0.9, 0.999, 1e-8, 0.01, c1, c2)
+        for w, gr, m, v in zip(ws, gs, ms_, vs_)], iters=2, warmup=1)
+    steps_t = [torch.tensor(23.0, device="cuda") for _ in params]
+    lib_ms, _, _ = time_ms(lambda: torch._fused_adamw_(
+        ws, gs, ms_, vs_, [], steps_t, lr=1e-4, beta1=0.9, beta2=0.999,
+        weight_decay=0.01, eps=1e-8, amsgrad=False, maximize=False),
+        iters=10)
+    b_ms, b_by = bound(28 * n, 12 * n, F32_FLOPS_PER_S)
+    log(f"[{tag}] fused_adamw f32 mode over {n_t} tensors ({n / 1e6:.2f} M "
+        f"params): max abs err {err:.3e}; kernel {ms:.4f} ms (one launch "
+        f"over a prebuilt table) = {100 * b_ms / ms:.1f}% of bound "
+        f"{b_ms:.4f} ms ({b_by}: 28 B/param); plain {plain_ms:.4f} ms; "
+        f"torch._fused_adamw_ {lib_ms:.4f} ms")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms, "max_abs_err": err}
+
+
+def hapi_bert(pt, K, n=3200, n_eval=640, B=32, S=128):
+    """Phase 24b: BERT-base fine-tuning through ``Model.fit``, the BERT
+    paper's GLUE recipe: ``BertForSequenceClassification(bert_base(
+    dropout=0.0), num_classes=2)`` in f32 from seed 0, B 32 x S 128,
+    ``AdamW(weight_decay=0.01)`` at lr 2e-5 under ``LinearWarmup`` over
+    the first 10% of the steps and a linear decay after
+    (``PolynomialDecay``), stepped by ``callbacks.LRScheduler(by_step=
+    True)``; ``amp_configs="O1"`` (bf16), ``Accuracy()``; 3200 sequences
+    (:func:`token_sequences`) read by ``DataLoader(num_workers=2)``, one
+    epoch of 100 steps, with metrics on (telemetry); then ``evaluate`` on
+    640 held-out sequences. Checks: the losses finite and equal within
+    1e-3 to a hand-written loop over the same batches from the same
+    weights through ``pt.jit.to_static`` (its scheduler stepped after
+    each step), the lrs equal and moving; one capture, 0 breaks; launches
+    over the 99 replayed steps exactly 12 of each flash kernel, 25
+    LayerNorm and 1 AdamW a step; each evaluate batch 12 flash forwards
+    and 25 LayerNorms. Then one more replay of the hand loop's step
+    profiled (device busy share, time by family), and the flash trio at
+    this shape ([32, 128, 12, 64] bf16 non-causal), LayerNorm at [4096,
+    768] f32 and fused AdamW's f32 mode over the model's tensors, checked
+    and timed.
+    -> (launches over the fit and evaluate, numbers a kernel adds)"""
+    cfg = pt.bert_base(dropout=0.0)
+    L, h, V = cfg.num_layers, cfg.hidden_size, cfg.vocab_size
+    steps, warm = n // B, n // B // 10
+    train = token_sequences(pt, n, S, V, SEED)
+    held = token_sequences(pt, n_eval, S, V, SEED + 1)
+
+    def build():
+        net = pt.BertForSequenceClassification(cfg, num_classes=2, seed=SEED)
+        lr = pt.optimizer.lr
+        sched = lr.LinearWarmup(lr.PolynomialDecay(2e-5, steps - warm, 0.0),
+                                warm, 0.0, 2e-5)
+        opt = pt.AdamW(sched, parameters=net.parameters(),
+                       weight_decay=0.01)
+        return net, sched, opt
+
+    net, sched, opt = build()
+    n_params = sum(p.numel() for p in net.parameters())
+    info = pt.summary(net, (B, S), dtypes="int64")
+    fwd_flops = pt.flops(net, [B, S])
+    log(f"[hapi bert] BertForSequenceClassification(bert_base) f32, "
+        f"{n_params / 1e6:.3f} M params; pt.summary {info}; pt.flops "
+        f"{fwd_flops / 1e9:.2f} GFLOP a forward at [{B}, {S}]; fit: {n} "
+        f"sequences, B={B} S={S}, {steps} steps, AdamW(wd 0.01) at 2e-5 "
+        f"with {warm} warm-up steps, O1 bf16, DataLoader(num_workers=2)")
+    model = pt.Model(net)
+    model.prepare(opt, pt.nn.CrossEntropyLoss(), pt.metric.Accuracy(),
+                  amp_configs="O1")
+    loader = pt.io.DataLoader(train, batch_size=B, shuffle=False,
+                              num_workers=2, timeout=120)
+    rec = batch_recorder(pt, K, opt)
+    metrics = pt.observability.metrics
+    reg = metrics.enable()
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        model.fit(loader, epochs=1, verbose=0, callbacks=[
+            rec, pt.hapi.callbacks.LRScheduler(by_step=True)])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        snap = reg.snapshot()
+    finally:
+        metrics.disable()
+    after = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    stats = model._step_fn.stats()
+    replayed = {k: after[k] - rec.counts[k] for k in after}
+    check_replay_launches("hapi bert", replayed, steps - 1, {
+        "flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+        "layer_norm": 2 * L + 1, "fused_adamw": 1})
+    if stats["graphs"] != 1 or stats["graph_breaks"] or \
+            stats["eager_calls"] or stats["replays"] != steps - 1:
+        fail(f"hapi bert: staging {stats}")
+    if len(rec.losses) != steps or not all(math.isfinite(v)
+                                           for v in rec.losses):
+        fail(f"hapi bert: losses {rec.losses}")
+    nb = n_eval // B
+    t0 = time.perf_counter()
+    ev = model.evaluate(held, batch_size=B, verbose=0)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    total = K.launch_counts()
+    ev_launches = {k: total[k] - after[k] for k in total}
+    want = {k: 0 for k in total}
+    want.update({"flash_fwd": L * nb, "layer_norm": (2 * L + 1) * nb})
+    if ev_launches != want:
+        fail(f"hapi bert: evaluate launched {ev_launches} != {want}")
+    gaps = np.diff(rec.ends[1:]) * 1e3
+    step_ms = float(np.median(gaps))
+    tokens = B * S
+    mfu = (6 * n_params * tokens + 12 * L * B * S * S * h) / \
+        (step_ms / 1e3) / BF16_FLOPS_PER_S
+    hs = snap["histograms"]
+    numbers = {
+        "steps_per_s": 1e3 / step_ms, "step_ms_median": step_ms,
+        "step_ms_min": float(gaps.min()), "samples_per_s": B * 1e3 / step_ms,
+        "tokens_per_s": tokens * 1e3 / step_ms, "fit_s": fit_s,
+        "bert_train_step_mfu": mfu,
+        "telemetry_mfu_pct": snap["gauges"].get("mfu_pct"),
+        "telemetry_tokens_per_sec": snap["gauges"].get("tokens_per_sec"),
+        "telemetry_steps": snap["counters"].get("steps_total"),
+        "data_wait_share": hs["data_wait_ms"]["sum"]
+        / hs["step_time_ms"]["sum"],
+        "data_wait_ms_mean": hs["data_wait_ms"]["sum"]
+        / hs["data_wait_ms"]["count"],
+        "step_time_ms_mean": hs["step_time_ms"]["sum"]
+        / hs["step_time_ms"]["count"],
+        "max_memory_allocated_gb": peak / 1e9, "eval_loss": ev["loss"],
+        "eval_acc": float(ev["acc"]), "eval_s": eval_s,
+        "summary_total_params": info["total_params"],
+        "flops_forward": fwd_flops, "staging": stats,
+        "first_loss": rec.losses[0], "last_loss": rec.losses[-1]}
+    log(f"  replayed {steps - 1} steps; launches a replayed step exact; "
+        f"evaluate on {n_eval} sequences ({nb} batches): {ev}, launches "
+        f"exact")
+    log("  " + json.dumps(numbers))
+    fit_losses, fit_lrs = rec.losses, rec.lrs
+    del model, net, opt, sched, rec, loader
+    free()
+    # the same batches from the same weights through a hand-written loop
+    net, sched, opt = build()
+    F = pt.nn.functional
+
+    def train_step(x, y):
+        with pt.auto_cast(level="O1", dtype="bfloat16"):
+            loss = F.cross_entropy(net(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    step = pt.jit.to_static(train_step, capture=(net, opt))
+    hand, hand_lrs = [], []
+    for x, y in pt.io.DataLoader(train, batch_size=B, shuffle=False):
+        hand_lrs.append(opt.get_lr())
+        hand.append(float(step(x, y)))
+        sched.step()
+    d = max(abs(a - b) for a, b in zip(fit_losses, hand))
+    log(f"  Model.fit vs the hand-written staged loop: losses differ by at "
+        f"most {d:.3e} over {steps} steps (tolerance 1e-3); lr "
+        f"{fit_lrs[0]:.3g} -> {max(fit_lrs):.3g} -> {fit_lrs[-1]:.3g}; "
+        f"losses " + " ".join(f"{v:.4f}" for v in fit_losses[::10]))
+    if len(hand) != steps or d > 1e-3:
+        fail(f"hapi bert: Model.fit's losses differ from the hand loop's by "
+             f"{d:.3e}")
+    if fit_lrs != hand_lrs or len(set(fit_lrs)) < steps // 2:
+        fail("hapi bert: the lrs fit ran with differ from the hand loop's "
+             "or did not move")
+    numbers["max_loss_diff_vs_hand_loop"] = d
+    # where the replayed step's time goes (one more replay, profiled)
+    report_profile("hapi bert", lambda: float(step(x, y)))
+    out = {name: {f"s128_{k}": v for k, v in t.items()} for name, t in
+           flash_timing(K, "hapi timing", B, S, cfg.num_heads,
+                        h // cfg.num_heads, 24).items()}
+    out["layer_norm"] = {f"s128_{k}": v for k, v in layer_norm_timing(
+        K, "hapi timing", B * S, h, torch.float32, 1e-5, 25).items()}
+    out["fused_adamw"] = {f"s128_{k}": v for k, v in adamw_f32_timing(
+        K, net, "hapi timing").items()}
+    del net, opt, sched, step
+    free()
+    return total, numbers, out
+
+
+def hapi_phases(pt, K):
+    """Phase 24: the high-level API on the card (24a, 24b). -> ({kernel:
+    the numbers it adds to its JSON entry}, the phase's numbers)"""
+    lenet_launches, lenet = hapi_lenet(pt, K)
+    bert_launches, bert, extra = hapi_bert(pt, K)
+    for name in lenet_launches:
+        extra.setdefault(name, {})["hapi_launches"] = \
+            lenet_launches[name] + bert_launches[name]
+    return extra, {"lenet": lenet, "bert": bert}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -4885,6 +5482,11 @@ def main():
 
     # ------------------------------- phase 23: the zoo, the optimizers
     for name, numbers in zoo_optimizer_phases(pt).items():
+        next(e for e in kernels if e["name"] == name).update(numbers)
+
+    # ------------------------------------- phase 24: the high-level API
+    hapi, _ = hapi_phases(pt, K)
+    for name, numbers in hapi.items():
         next(e for e in kernels if e["name"] == name).update(numbers)
     for e in kernels:
         e["max_abs_err"] = max([e["max_abs_err"]] + [

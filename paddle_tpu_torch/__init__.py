@@ -89,16 +89,37 @@ MobileNetV2 with the paper's RMSProp::
 same configuration from a JAX model's ``state_dict()`` arrays
 (BatchNorm's running statistics included).
 
+The high-level API trains through ``pt.Model`` (``hapi``): ``fit`` stages
+the step with ``jit.to_static``, reads batches through ``pt.io``'s
+``DataLoader`` (worker processes, the native buffered reader), keeps
+``pt.metric``'s metrics and the callbacks, and ``save`` / ``load`` write
+the JAX package's file format (``pt.save`` / ``pt.load``)::
+
+    model = pt.Model(pt.BertForSequenceClassification(
+        pt.bert_base(dropout=0.0), num_classes=2))
+    sched = pt.optimizer.lr.LinearWarmup(2e-5, 10, 0.0, 2e-5)
+    model.prepare(pt.AdamW(sched, parameters=model.parameters(),
+                           weight_decay=0.01),
+                  pt.nn.CrossEntropyLoss(), pt.metric.Accuracy(),
+                  amp_configs="O1")
+    loader = pt.io.DataLoader(dataset, batch_size=32, num_workers=2)
+    model.fit(loader, epochs=1, verbose=0,
+              callbacks=[pt.hapi.callbacks.LRScheduler(by_step=True)])
+    model.evaluate(eval_dataset, batch_size=32)
+    model.save("ckpt/final")
+
 Entry points run on ``cuda`` unless given ``device="cpu"`` and raise when
 CUDA is absent (:mod:`.device`). The package imports neither ``jax`` nor
 ``paddle_tpu``.
 """
-from . import (amp, distributed, jit, models, nn, optimizer, regularizer,
-               vision)
+from . import (amp, distributed, framework, hapi, io, jit, metric, models,
+               nn, optimizer, regularizer, vision)
 from .amp import auto_cast
 from .convert import (opt_state_from_paddle_tpu, opt_state_to_numpy,
                       params_from_paddle_tpu, params_to_numpy)
 from .device import resolve_device
+from .framework import load, save
+from .hapi import Model, flops, summary
 from .models import (BertConfig, BertForMaskedLM,
                      BertForSequenceClassification, BertModel, GPTConfig,
                      GPTForCausalLM, GPTPretrainingCriterion, LeNet, ResNet,
@@ -124,4 +145,5 @@ __all__ = ["GPTConfig", "GPTForCausalLM", "GPTPretrainingCriterion",
            "resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
            "resnext50_32x4d", "wide_resnet50_2", "BertConfig", "BertModel",
            "BertForSequenceClassification", "BertForMaskedLM", "bert_base",
-           "bert_tiny", "Seq2SeqTransformer"]
+           "bert_tiny", "Seq2SeqTransformer", "Model", "summary", "flops",
+           "save", "load", "framework", "hapi", "io", "metric"]

@@ -27,10 +27,13 @@ engine uses, kept as the port's own copy (stdlib only):
    :func:`preempted` polls it, :func:`exit_preempted` leaves with 75 and
    :class:`preemption_scope` installs and restores the handler around a
    block.
+4. **Atomic writes** — :func:`atomic_write` / :func:`atomic_write_bytes`
+   (``fault.py:495-517``), which ``framework/io.py``'s ``save`` publishes
+   through.
 
 The JAX module's other kinds (checkpoint, store, collective, router and
-linear-algebra sites), its backoff, atomic writes and checkpoint lineage
-are not ported.
+linear-algebra sites), its backoff and checkpoint lineage are not
+ported.
 """
 from __future__ import annotations
 
@@ -47,7 +50,7 @@ __all__ = [
     "FaultEntry", "parse_fault_spec", "set_fault_spec", "maybe_inject",
     "fault_rank",
     "install_preemption_handler", "preempted", "exit_preempted",
-    "preemption_scope",
+    "preemption_scope", "atomic_write", "atomic_write_bytes",
 ]
 
 EXIT_FAULT = 43      # injected crash — a real failure, consumes a restart
@@ -276,6 +279,33 @@ def maybe_inject(site: str):
         else:
             result = e.kind
     return result
+
+
+# ----------------------------------------------------------- atomic write
+
+def atomic_write(path, write_fn) -> None:
+    """Durable atomic file publish: ``write_fn(f)`` streams into a
+    same-dir temp file, then flush+fsync+rename — a kill at any point
+    leaves either the old file or the complete new one, never a torn
+    write."""
+    path = str(path)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    try:
+        with open(tmp, "wb") as f:
+            write_fn(f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+
+
+def atomic_write_bytes(path, data) -> None:
+    atomic_write(path, lambda f: f.write(data))
 
 
 # ------------------------------------------------------------- preemption

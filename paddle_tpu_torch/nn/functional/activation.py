@@ -5,9 +5,12 @@ type. ``softplus``, ``softmax`` and ``log_softmax`` are on the black list
 it. Each is the JAX expression written with torch ops, so
 ``hardsigmoid``'s default slope is ``0.1666667`` (not torch's 1/6) and
 ``hardswish`` is ``x * clip(x + 3, 0, 6) / 6``. At a tie the gradients
-are torch's: ``relu``'s is 0 at an input of exactly 0 and a clip passes
-it whole at a bound, where JAX's ``maximum`` and ``jnp.clip`` split it
-in half. ``gumbel_softmax`` is not ported (it waits for the port of
+are JAX's: at an input of exactly 0 (or a bound) half the gradient
+passes, as ``jnp.maximum`` splits it, where ``torch.relu`` passes none
+and ``torch.clamp`` all of it. ``relu`` is ``maximum(x, 0)`` with that
+gradient as ``heaviside(x, 0.5)``; the clips are ``minimum(maximum(x,
+lo), hi)`` (``jnp.clip``) against 0-d tensors of the input's type.
+``gumbel_softmax`` is not ported (it waits for the port of
 ``random_ops``)."""
 from __future__ import annotations
 
@@ -37,20 +40,52 @@ def _dtype(dtype):
     return _DTYPES[str(dtype).replace("paddle.", "")]
 
 
+def _clip(x, lo=None, hi=None):
+    """``jnp.clip``'s ``minimum(maximum(x, lo), hi)``: its gradient at a
+    tie is split in half, as JAX's."""
+    if lo is not None:
+        x = torch.maximum(x, torch.tensor(lo, dtype=x.dtype))
+    if hi is not None:
+        x = torch.minimum(x, torch.tensor(hi, dtype=x.dtype))
+    return x
+
+
+class _Relu(torch.autograd.Function):
+    """``maximum(x, 0)`` with JAX's gradient, ``heaviside(x, 0.5)`` of the
+    incoming one (half of it at an input of exactly 0), in two passes of
+    the backward where ``torch.maximum``'s takes five; in place on ``x``
+    for ``relu_``."""
+
+    @staticmethod
+    def forward(ctx, x, inplace):
+        if ctx.needs_input_grad[0]:
+            ctx.save_for_backward(
+                torch.heaviside(x, torch.tensor(0.5, dtype=x.dtype)))
+        if inplace:
+            ctx.mark_dirty(x)
+            return torch.relu_(x)
+        return torch.relu(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (w,) = ctx.saved_tensors
+        return g * w, None
+
+
 def relu(x, name=None):
     (x,) = _amp_cast("relu", x)
-    return torch.relu(x)
+    return _Relu.apply(x, False)
 
 
 def relu_(x, name=None):
     """In place on ``x``, in its own type (the JAX package rebinds ``x``
-    to ``relu(x)``)."""
-    return torch.relu_(x)
+    to ``relu(x)``), with ``relu``'s gradient."""
+    return _Relu.apply(x, True)
 
 
 def relu6(x, name=None):
     (x,) = _amp_cast("relu6", x)
-    return torch.clamp(x, 0.0, 6.0)
+    return _clip(x, 0.0, 6.0)
 
 
 def gelu(x, approximate=False, name=None):
@@ -103,17 +138,17 @@ def celu(x, alpha=1.0, name=None):
 
 def hardtanh(x, min=-1.0, max=1.0, name=None):  # noqa: A002
     (x,) = _amp_cast("hardtanh", x)
-    return torch.clamp(x, min, max)
+    return _clip(x, min, max)
 
 
 def hardsigmoid(x, slope=0.1666667, offset=0.5, name=None):
     (x,) = _amp_cast("hardsigmoid", x)
-    return torch.clamp(x * slope + offset, 0.0, 1.0)
+    return _clip(x * slope + offset, 0.0, 1.0)
 
 
 def hardswish(x, name=None):
     (x,) = _amp_cast("hardswish", x)
-    return x * torch.clamp(x + 3.0, 0.0, 6.0) / 6.0
+    return x * _clip(x + 3.0, 0.0, 6.0) / 6.0
 
 
 def hardshrink(x, threshold=0.5, name=None):

@@ -8,17 +8,20 @@
   (``PADDLE_TPU_TRACE=1``).
 * :mod:`.trace_report` — per-request phase attribution over exported
   traces, and its CLI.
+* :mod:`.telemetry` — the per-step training clock ``hapi.Model.fit``
+  attaches (step time split into data wait, compute and sync; tokens/s;
+  MFU against :func:`.metrics.peak_flops`).
 
 The serving engine feeds the same registry and trace buffer. Disabled
 (the default), every hook in the hot paths is a constant-time no-op. The
-launcher report (``report.py``) and training telemetry (``telemetry.py``)
-of the JAX package are not ported.
+launcher report (``report.py``) of the JAX package is not ported.
 """
 from . import metrics  # noqa: F401
+from . import telemetry  # noqa: F401
 from . import trace_report  # noqa: F401
 from . import tracing  # noqa: F401
 from .metrics import MetricsRegistry, get_registry  # noqa: F401
 from .tracing import span  # noqa: F401
 
-__all__ = ["metrics", "tracing", "trace_report", "MetricsRegistry",
-           "get_registry", "span"]
+__all__ = ["metrics", "tracing", "trace_report", "telemetry",
+           "MetricsRegistry", "get_registry", "span"]

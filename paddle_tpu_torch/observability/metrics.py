@@ -17,8 +17,12 @@ The port of ``paddle_tpu/observability/metrics.py`` (stdlib only):
   ``counters``, ``gauges`` and ``histograms``, as the JAX package writes
   them.
 
-The collective and replication helpers and the peak-rate table of the JAX
-module are not ported.
+* :func:`peak_flops` — the card's dense bf16 peak for training
+  telemetry's MFU: NVIDIA's data sheet for the H100 SXM (989 TFLOP/s) and
+  PCIe (756 TFLOP/s) parts; ``PADDLE_TPU_PEAK_FLOPS`` overrides. The JAX
+  module's TPU entries are not carried over: an unknown card gives no MFU.
+
+The collective and replication helpers of the JAX module are not ported.
 """
 from __future__ import annotations
 
@@ -33,7 +37,8 @@ import time
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "env_rank",
            "exp_buckets", "get_registry", "enabled", "enable", "disable",
            "metric_key", "parse_metric_key", "counter", "gauge",
-           "histogram", "observe", "flush", "hist_quantile", "hist_mean"]
+           "histogram", "observe", "flush", "hist_quantile", "hist_mean",
+           "peak_flops"]
 
 
 def env_rank() -> int:
@@ -383,3 +388,24 @@ def observe(name, value, **labels):
 def flush():
     reg = _REG if _loaded else _load()
     return reg.flush() if reg is not None else None
+
+
+# ---------------------------------------------------------- hardware table
+
+def peak_flops(device_kind=""):
+    """Dense bf16 peak FLOP/s of the card named ``device_kind`` (as
+    ``torch.cuda.get_device_name()`` gives it), or None for a card the
+    table does not hold. ``PADDLE_TPU_PEAK_FLOPS`` overrides (CPU plumbing
+    runs)."""
+    env = os.environ.get("PADDLE_TPU_PEAK_FLOPS")
+    if env:
+        try:
+            return float(env)
+        except ValueError:
+            pass
+    kind = str(device_kind).lower()
+    if "h100" in kind and "pcie" in kind:
+        return 756e12
+    if "h100" in kind and ("hbm3" in kind or "sxm" in kind):
+        return 989e12
+    return None

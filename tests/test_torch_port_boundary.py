@@ -65,6 +65,12 @@ def test_every_port_module_imports_without_cuda():
         importlib.import_module(name)
 
 
+def _saved_file(directory):
+    path = os.path.join(directory, "w.pdparams")
+    paddle_tpu_torch.save({"w": torch.ones(2)}, path)
+    return path
+
+
 def _tiny_weights():
     cfg = paddle_tpu_torch.gpt_tiny()
     m = paddle_tpu_torch.GPTForCausalLM(cfg, device="cpu")
@@ -73,8 +79,9 @@ def _tiny_weights():
 
 @pytest.mark.parametrize("entry", ["resolve_device", "model", "convert",
                                    "kv_cache", "train_model",
-                                   "rms_norm_model"])
-def test_entry_points_default_to_cuda_and_raise_without_it(entry):
+                                   "rms_norm_model", "dataloader", "load",
+                                   "hapi_model"])
+def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device is usable")
     from paddle_tpu_torch.serving import PagedKVCache
@@ -91,6 +98,13 @@ def test_entry_points_default_to_cuda_and_raise_without_it(entry):
         # the bucketed serving slice's model
         "rms_norm_model": lambda: paddle_tpu_torch.GPTForCausalLM(
             paddle_tpu_torch.gpt_1p3b(use_rms_norm=True, dropout=0.0)),
+        # the high-level API's: batches land on cuda, loads go to cuda,
+        # and Model.fit trains a model built on the default device
+        "dataloader": lambda: paddle_tpu_torch.io.DataLoader(
+            paddle_tpu_torch.io.TensorDataset([torch.zeros(4, 2)])),
+        "load": lambda: paddle_tpu_torch.load(_saved_file(tmp_path)),
+        "hapi_model": lambda: paddle_tpu_torch.Model(
+            paddle_tpu_torch.LeNet()),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

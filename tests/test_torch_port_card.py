@@ -1519,3 +1519,123 @@ def test_zoo_forward_on_card_matches_cpu(name, kw, side):
         got = model(x.cuda()).cpu()
         want = cpu(x)
     torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+
+
+def _token_set(n, S, vocab, seed):
+    import paddle_tpu_torch as pt
+    ids = np.random.RandomState(seed).randint(0, vocab, (n, S))
+    y = (ids[:, 0] < vocab // 2).astype(np.int64)
+
+    class Tokens(pt.io.Dataset):
+        def __getitem__(self, i):
+            return ids[i], y[i]
+
+        def __len__(self):
+            return n
+
+    return Tokens()
+
+
+@pytest.mark.cuda
+def test_hapi_fit_equals_a_hand_loop_on_card():
+    """``Model.fit`` of ``BertForSequenceClassification(bert_tiny())`` at
+    S 64 (O1 bf16, ``AdamW`` under ``LinearWarmup`` stepped by the
+    ``LRScheduler`` callback, batches from two worker processes) gives
+    a hand-written ``to_static`` loop's losses over the same batches from
+    the same weights (within 1e-3), with one capture, no break, and
+    exact launches: the flash trio once a layer, LayerNorm 2L + 1 and
+    AdamW once a replayed step; flash forward L and LayerNorm 2L + 1 an
+    evaluate batch."""
+    _need_cuda()
+    import paddle_tpu_torch as pt
+    cfg = pt.bert_tiny(dropout=0.0)
+    L, B, S, steps = cfg.num_layers, 8, 64, 6
+    data = _token_set(B * steps, S, cfg.vocab_size, 3)
+
+    def build():
+        net = pt.BertForSequenceClassification(cfg, seed=4)
+        lr = pt.optimizer.lr
+        sched = lr.LinearWarmup(1e-3, 2, 0.0, 1e-3)
+        return net, sched, pt.AdamW(sched, parameters=net.parameters(),
+                                    weight_decay=0.01)
+
+    net, sched, opt = build()
+    model = pt.Model(net)
+    model.prepare(opt, pt.nn.CrossEntropyLoss(), pt.metric.Accuracy(),
+                  amp_configs="O1")
+    seen = {"losses": [], "counts": None}
+
+    class Rec(pt.hapi.callbacks.Callback):
+        def on_train_batch_end(self, step, logs=None):
+            seen["losses"].append(logs["loss"])
+            if seen["counts"] is None:
+                seen["counts"] = K.launch_counts()
+
+    loader = pt.io.DataLoader(data, batch_size=B, num_workers=2, timeout=60)
+    model.fit(loader, epochs=1, verbose=0,
+              callbacks=[Rec(), pt.hapi.callbacks.LRScheduler()])
+    after = K.launch_counts()
+    replayed = {k: after[k] - seen["counts"][k] for k in after}
+    want = {k: 0 for k in after}
+    n = steps - 1
+    want.update({"flash_fwd": n * L, "flash_bwd_dq": n * L,
+                 "flash_bwd_dkv": n * L, "layer_norm": n * (2 * L + 1),
+                 "fused_adamw": n})
+    assert replayed == want
+    st = model._step_fn.stats()
+    assert st["graphs"] == 1 and st["graph_breaks"] == 0
+    before = K.launch_counts()
+    model.evaluate(_token_set(2 * B, S, cfg.vocab_size, 5), batch_size=B)
+    after = K.launch_counts()
+    assert after["flash_fwd"] - before["flash_fwd"] == 2 * L
+    assert after["layer_norm"] - before["layer_norm"] == 2 * (2 * L + 1)
+    net, sched, opt = build()
+
+    def train_step(x, y):
+        with pt.auto_cast(level="O1", dtype="bfloat16"):
+            loss = pt.nn.functional.cross_entropy(net(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    step = pt.jit.to_static(train_step, capture=(net, opt))
+    hand = []
+    for x, y in pt.io.DataLoader(data, batch_size=B):
+        hand.append(float(step(x, y)))
+        sched.step()
+    assert len(hand) == steps
+    np.testing.assert_allclose(seen["losses"], hand, rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("workers", [0, 2])
+def test_dataloader_places_batches_on_card(workers):
+    """Batches land on the card by default (through pinned memory); a
+    TensorDataset of card tensors is snapshotted to the host before the
+    workers fork, so the workers never touch CUDA."""
+    _need_cuda()
+    import paddle_tpu_torch as pt
+    xs = torch.arange(24, dtype=torch.float32, device="cuda").reshape(12, 2)
+    ys = torch.arange(12, device="cuda")
+    loader = pt.io.DataLoader(pt.io.TensorDataset([xs, ys]), batch_size=5,
+                              num_workers=workers, timeout=60)
+    got = list(loader)
+    assert [tuple(x.shape) for x, _ in got] == [(5, 2), (5, 2), (2, 2)]
+    assert all(x.device.type == "cuda" and y.device.type == "cuda"
+               for x, y in got)
+    assert torch.equal(torch.cat([x for x, _ in got]), xs)
+    assert torch.equal(torch.cat([y for _, y in got]), ys)
+
+
+@pytest.mark.cuda
+def test_save_load_bf16_round_trip_on_card(tmp_path):
+    _need_cuda()
+    import paddle_tpu_torch as pt
+    w = torch.randn(3, 5, device="cuda").bfloat16()
+    pt.save({"w": w, "n": [torch.ones(2, device="cuda")]},
+            str(tmp_path / "x.pdparams"))
+    got = pt.load(str(tmp_path / "x.pdparams"))
+    assert got["w"].device.type == "cuda" and got["w"].dtype == w.dtype
+    assert torch.equal(got["w"], w)
+    assert torch.equal(got["n"][0], torch.ones(2, device="cuda"))

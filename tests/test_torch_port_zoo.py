@@ -28,6 +28,7 @@ width the CPU runs quickly.
 
 Tolerances: f32 ``rtol 1e-4 / atol 1e-5`` unless a case says otherwise.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -196,21 +197,29 @@ def test_prelu_broadcasts_over_the_channel_axis(data_format, shape, n):
     _close(tl(_t(x)), jl(_j(x)))
 
 
-def test_relu_and_clip_gradients_at_a_tie_are_torchs():
-    """A deliberate difference (``ROADMAP.md`` Queue 3): at an input of
-    exactly 0 the port's ``relu`` passes no gradient and its clips pass
-    all of it at a bound, as torch's ops do, where JAX's ``maximum`` and
-    ``jnp.clip`` pass half; everywhere else the gradients agree."""
-    x = np.array([-1.0, 0.0, 2.0, 6.0, 7.0], np.float32)
-    for name, want_port, want_jax in (
-            ("relu", [0, 0, 1, 1, 1], [0, 0.5, 1, 1, 1]),
-            ("relu6", [0, 1, 1, 1, 0], [0, 0.5, 1, 0.5, 0])):
+def test_relu_and_clip_gradients_at_a_tie_are_jaxs():
+    """At an input of exactly 0 (``relu``) or at a clip's bound half the
+    gradient passes, as ``jnp.maximum`` / ``jnp.clip`` split it: each
+    function's gradient at its ties and around them equals ``jax.grad``
+    of the JAX function, and ``relu_`` (in place on a non-leaf) gives
+    ``relu``'s."""
+    x = np.array([-7, -3, -2, -1, 0, 1, 2, 3, 6, 7], np.float32)
+    for name, kw in (("relu", {}), ("relu_", {}), ("relu6", {}),
+                     ("hardtanh", {}), ("hardtanh", {"min": -2.0,
+                                                     "max": 6.0}),
+                     ("hardsigmoid", {"slope": 0.25}),
+                     ("hardswish", {})):
+        jname = "relu" if name == "relu_" else name
+        want = jax.grad(lambda a: getattr(JF, jname)(
+            Tensor(a), **kw)._data.sum())(jnp.asarray(x))
         tx = _t(x).requires_grad_(True)
-        getattr(F, name)(tx).sum().backward()
-        jx = Tensor(jnp.asarray(x), stop_gradient=False)
-        getattr(JF, name)(jx).sum().backward()
-        np.testing.assert_array_equal(_np(tx.grad), want_port)
-        np.testing.assert_array_equal(_np(jx.grad), want_jax)
+        getattr(F, name)(tx * 1.0, **kw).sum().backward()
+        np.testing.assert_array_equal(_np(tx.grad), np.asarray(want),
+                                      err_msg=f"{name} {kw}")
+    # the ties are there: half of the gradient passes at each
+    tx = _t(x).requires_grad_(True)
+    F.relu6(tx).sum().backward()
+    assert _np(tx.grad)[[4, 8]].tolist() == [0.5, 0.5]
 
 
 def test_relu_in_place():
