@@ -335,6 +335,25 @@ exit code:
     accuracy, ``pt.summary`` / ``pt.flops``; the flash trio at [32, 128,
     12, 64] bf16 (phase 6's limits), LayerNorm at [4096, 768] f32 and
     fused AdamW's f32 mode over the model's tensors, checked and timed.
+25. **op surface** — (a) every case of the CPU parity table
+    (``tests/torch_surface_cases.py``: the ``paddle.*`` creation, math,
+    manipulation, logic, search and linalg ops) on the card against the
+    same port call on CPU tensors: ints and bools exact, f32 within
+    1e-5, f64 1e-10, factorised f32 linear algebra 1e-4, decompositions
+    by their invariants; each output on the card with the CPU's dtype
+    and shape; (b) one ``gpt_1p3b`` decoder block in bf16 at B 8 x S 1024
+    through ``GPTBlock.forward`` and written against the surface
+    (``pt.matmul`` + ``pt.add``, heads by ``pt.reshape`` /
+    ``pt.transpose`` / ``pt.split``, flash attention through
+    ``scaled_dot_product_attention``, the block's LayerNorms): outputs and
+    every gradient within a relative L2 of 1e-2, the flash trio and
+    LayerNorm launched (counters and a ``torch.profiler`` trace), host ms
+    of both ways, ``pt.grad`` against ``backward``; (c)
+    ``top_p_sampling`` at [16, 50304] (ids in their nucleus, repeatable
+    under ``pt.seed``, total variation at most 0.05 over 4096 draws),
+    ``multinomial`` without replacement, ``topk`` against the CPU; (d)
+    host us a call of ``pt.add`` / ``reshape`` / ``matmul`` / ``sum``
+    against bare torch.
 
 The lines before the last carry the ``{"kernels": [...]}`` JSON (all eight
 kernels; the ``fused_adamw`` entry adds the master and bf16-moment modes'
@@ -355,7 +374,9 @@ replayed steps, and to ``fused_adamw`` the ``bert_lamb_*`` step times;
 phase 24 adds to every entry ``hapi_launches`` (its launches over 24a's
 three fits and 24b's fit and evaluate) and to the flash entries,
 ``layer_norm`` and ``fused_adamw`` the ``s128_*`` numbers at 24b's
-shapes; every ``max_abs_err`` is the largest of its entry's errors) and the
+shapes; phase 25 adds to every entry ``surface_launches``, its launches
+over 25b's one surface forward and backward; every ``max_abs_err`` is
+the largest of its entry's errors) and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the repository beside it, the script exits
 non-zero and prints no result.
@@ -5112,6 +5133,377 @@ def hapi_phases(pt, K):
     return extra, {"lenet": lenet, "bert": bert}
 
 
+# ------------------------------------------------------------- phase 25
+# 25a's tolerances by family (tests/torch_surface_cases.py's FAMILIES):
+# ints and bools exact, f32 rtol/atol 1e-5 (TF32 off), f64 1e-10, f32
+# linear algebra through a factorisation 1e-4
+def _surface_cases():
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import torch_surface_cases as C
+    return C
+
+
+def _leaf_err(C, case, cpu, dev, where="cuda"):
+    """-> the max abs error of one output pair (CPU vs card), after
+    checking dtype, shape and that the card's output lies on the card."""
+    rtol, atol = C.FAMILIES[case.fam]
+    if not isinstance(dev, torch.Tensor):
+        if cpu != dev:
+            fail(f"[surface] {case.id}: {dev!r} on the card != {cpu!r}")
+        return 0.0
+    if dev.device.type != where:
+        fail(f"[surface] {case.id}: output on {dev.device}, not {where}")
+    if dev.dtype != cpu.dtype or dev.shape != cpu.shape:
+        fail(f"[surface] {case.id}: {dev.dtype} {list(dev.shape)} on the "
+             f"card != {cpu.dtype} {list(cpu.shape)}")
+    a, b = dev.detach().cpu(), cpu.detach()
+    if a.is_complex():
+        a, b = torch.view_as_real(a), torch.view_as_real(b)
+    if not a.numel():
+        return 0.0
+    if not (a.is_floating_point()):
+        if not torch.equal(a, b):
+            fail(f"[surface] {case.id}: the card's {a.tolist()} != "
+                 f"{b.tolist()}")
+        return 0.0
+    a64, b64 = a.double(), b.double()
+    both_nan = torch.isnan(a64) & torch.isnan(b64)
+    err = torch.where(both_nan, torch.zeros_like(a64), (a64 - b64).abs())
+    ok = bool((err <= atol + rtol * b64.abs()).all())
+    if not ok:
+        fail(f"[surface] {case.id}: max abs err {float(err.max()):.3e} "
+             f"over rtol {rtol:g} / atol {atol:g}")
+    return float(err.max())
+
+
+def surface_sweep(pt, cases=None, where="cuda"):
+    """Phase 25a: every case of the CPU parity table
+    (``tests/torch_surface_cases.py``) on the card against the same port
+    call on CPU tensors: values within the family's tolerance, dtype and
+    shape equal, every output on the card. Decompositions are held by
+    their invariants (reconstruction, singular / eigen values) on both
+    sides. -> {family: worst error}, ops, cases."""
+    C = _surface_cases()
+    cases = cases or [c for t in C.ALL_TABLES.values() for c in t]
+    worst, ops = {}, set()
+    t0 = time.perf_counter()
+    for case in cases:
+        raw = [m(np.random.RandomState(0)) for m in case.make]
+        pt.set_device("cpu")
+        cpu = C.invoke(pt, case, [C.to_torch(v) for v in raw])
+        pt.set_device(where)
+        args = [C.to_torch(v) for v in raw]
+        args = [[a.to(where) if isinstance(a, torch.Tensor) else a
+                 for a in v] if isinstance(v, list) else
+                v.to(where) if isinstance(v, torch.Tensor) else v
+                for v in args]
+        dev = C.invoke(pt, case, args)
+        ops.add(case.op)
+        fam = case.fam
+        if case.check is not None:
+            got, want = case.check(dev, raw[0])
+            got_c, _ = case.check(cpu, raw[0])
+            got = C._np(got)
+            tol = max(C.FAMILIES[fam][0], 1e-8)
+            for name, g, w in (("invariant", got, want),
+                               ("cpu", got, C._np(got_c))):
+                if not np.allclose(g, w, rtol=tol, atol=tol):
+                    fail(f"[surface] {case.id}: {name} check off by "
+                         f"{float(np.abs(g - w).max()):.3e}")
+            for a, b in zip(C._leaves(cpu), C._leaves(dev)):
+                if b.device.type != where or a.dtype != b.dtype or \
+                        a.shape != b.shape:
+                    fail(f"[surface] {case.id}: {b.device} {b.dtype} "
+                         f"{list(b.shape)} vs {a.dtype} {list(a.shape)}")
+            err = float(np.abs(got - want).max())
+        else:
+            lc, ld = C._leaves(cpu), C._leaves(dev)
+            if len(lc) != len(ld):
+                fail(f"[surface] {case.id}: {len(ld)} outputs != {len(lc)}")
+            err = max([_leaf_err(C, case, a, b, where)
+                       for a, b in zip(lc, ld)] or [0.0])
+        worst[fam] = max(worst.get(fam, 0.0), err)
+    pt.set_device(where)
+    log(f"[surface 25a] {len(ops)} ops, {len(cases)} cases on the card vs "
+        f"the CPU in {time.perf_counter() - t0:.2f} s; worst error by "
+        f"family: " + ", ".join(f"{k} {v:.3e} (tolerance "
+                                f"{C.FAMILIES[k][0]:g})"
+                                for k, v in sorted(worst.items())))
+    return worst, len(ops), len(cases)
+
+
+def surface_block_forward(pt, blk, x):
+    """One ``gpt_1p3b`` decoder block written against the public surface
+    with the block's own parameters: the projections as ``pt.matmul`` +
+    ``pt.add``, the heads through ``pt.reshape`` / ``pt.transpose`` /
+    ``pt.split``, attention through
+    ``pt.nn.functional.scaled_dot_product_attention`` (the flash
+    kernels), the norms as the block's own ``ln_1`` / ``ln_2`` (the
+    LayerNorm kernel)."""
+    F = pt.nn.functional
+    b, s, h = x.shape
+    H = blk.attn.num_heads
+    Dh = h // H
+    at, mlp = blk.attn, blk.mlp
+    a = blk.ln_1(x)
+    qkv = pt.add(pt.matmul(a, at.qkv_proj.weight), at.qkv_proj.bias)
+    qkv = pt.transpose(pt.reshape(qkv, [b, s, 3, H, Dh]), [2, 0, 1, 3, 4])
+    q, k, v = (pt.reshape(t, [b, s, H, Dh]) for t in pt.split(qkv, 3, 0))
+    o = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                       dropout_p=0.0, training=False)
+    o = pt.add(pt.matmul(pt.reshape(o, [b, s, h]), at.out_proj.weight),
+               at.out_proj.bias)
+    x1 = pt.add(x, o)
+    f = pt.add(pt.matmul(blk.ln_2(x1), mlp.fc1.weight), mlp.fc1.bias)
+    f = F.gelu(f, approximate=True)
+    f = pt.add(pt.matmul(f, mlp.fc2.weight), mlp.fc2.bias)
+    return pt.add(x1, f)
+
+
+def _rel_l2(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def surface_block(pt, K, B=8, S=1024, warmup=2, iters=10, dev="cuda"):
+    """Phase 25b: a ``gpt_1p3b`` decoder block in bf16 at B x S, through
+    its own ``forward`` and written against the public surface; outputs,
+    the input's and every parameter's gradient held within a relative L2
+    error of 1e-2; the surface way's launches of the flash trio and
+    LayerNorm from the counters (zeroed just before one forward and
+    backward; a ``torch.profiler`` trace of one more is logged); host ms
+    of both (median of ``iters`` after ``warmup``); ``pt.grad`` against
+    ``backward``; the LayerNorm kernel at the block's [B * S, hidden]
+    bf16 against its plain version, timed beside its bound, its plain
+    version and ``F.layer_norm``. -> numbers"""
+    from paddle_tpu_torch.models.gpt import GPTBlock
+    cfg = pt.gpt_1p3b(dropout=0.0)
+    g = torch.Generator(device=dev).manual_seed(SEED + 25)
+    blk = GPTBlock(cfg, device=dev, dtype=torch.bfloat16, generator=g)
+    blk.eval()
+    with torch.no_grad():
+        for name, p in blk.named_parameters():
+            if name.endswith("bias"):
+                p.normal_(0.0, 0.02, generator=g)
+    x = torch.randn(B, S, cfg.hidden_size, device=dev, generator=g,
+                    dtype=torch.float32).to(torch.bfloat16)
+    dy = torch.randn(B, S, cfg.hidden_size, device=dev, generator=g,
+                     dtype=torch.float32).to(torch.bfloat16)
+    params = dict(blk.named_parameters())
+
+    def run(way):
+        xi = x.detach().clone().requires_grad_(True)
+        for p in params.values():
+            p.grad = None
+        out = blk(xi) if way == "forward" else surface_block_forward(
+            pt, blk, xi)
+        out.backward(dy)
+        return out.detach(), xi.grad, {n: p.grad for n, p in params.items()}
+
+    for _ in range(warmup):
+        run("forward")
+        run("surface")
+    torch.cuda.synchronize()
+    out_a, gx_a, gp_a = run("forward")
+    K.reset_launch_counts()
+    out_b, gx_b, gp_b = run("surface")
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    log(f"[surface 25b] gpt_1p3b block bf16 at [{B}, {S}, "
+        f"{cfg.hidden_size}], one surface forward + backward: launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    want = {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
+            "layer_norm": 2}
+    for name, n in want.items():
+        if launches[name] != n:
+            fail(f"[surface 25b] {name} launched {launches[name]} times on "
+                 f"the surface block's path, not {n}")
+    worst = {"out": _rel_l2(out_b, out_a), "x.grad": _rel_l2(gx_b, gx_a)}
+    for n in params:
+        worst[n] = _rel_l2(gp_b[n], gp_a[n])
+    log("  relative L2 error, surface vs GPTBlock.forward (tolerance "
+        "1e-2): " + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+    if max(worst.values()) > 1e-2 or not bool(torch.isfinite(
+            out_b.float()).all()):
+        fail(f"[surface 25b] the surface block disagrees: {worst}")
+    # one trace, logged: a trace late in this long process can lose device
+    # events (PERF.md), so the counters above are what the run is held to
+    from torch.profiler import ProfilerActivity, profile
+    marks = {"flash_fwd": "flash_fwd_sm90", "flash_bwd_dq":
+             "flash_bwd_dq_sm90", "flash_bwd_dkv": "flash_bwd_dkv_sm90",
+             "layer_norm": "layer_norm_fwd"}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run("surface")
+        torch.cuda.synchronize()
+    names = [e.name for e in _device_events(prof)]
+    traced = {k: sum(m in n for n in names) for k, m in marks.items()}
+    log(f"  torch.profiler device kernels of one surface forward + "
+        f"backward: {traced}")
+    # pt.grad against backward on the surface way
+    xi = x.detach().clone().requires_grad_(True)
+    loss = pt.sum(pt.multiply(surface_block_forward(pt, blk, xi).float(),
+                              dy.float()))
+    (gx,) = pt.grad(loss, [xi])
+    grad_err = _rel_l2(gx, gx_b)
+    log(f"  pt.grad(loss, [x]) vs x.grad from backward(): relative L2 "
+        f"{grad_err:.2e} (tolerance 1e-2)")
+    if grad_err > 1e-2:
+        fail(f"[surface 25b] pt.grad disagrees with backward: {grad_err}")
+    times = {}
+    for way in ("forward", "surface", "forward", "surface"):
+        ts = []
+        for i in range(warmup + iters):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(way)
+            torch.cuda.synchronize()
+            if i >= warmup:
+                ts.append((time.perf_counter() - t0) * 1e3)
+        times.setdefault(way, []).append(float(np.median(ts)))
+    fwd_ms, surf_ms = min(times["forward"]), min(times["surface"])
+    log(f"  host ms a forward + backward (median of {iters} after "
+        f"{warmup}, two turns each): GPTBlock.forward "
+        f"{times['forward']}, surface {times['surface']}; the surface's "
+        f"own cost {surf_ms - fwd_ms:+.3f} ms")
+    # LayerNorm at the block's rows, against its plain version and timed
+    ln = layer_norm_timing(K, "surface 25b", B * S, cfg.hidden_size,
+                           torch.bfloat16, cfg.layer_norm_epsilon, SEED + 27)
+    return {"launches": launches, "traced": traced, "rel_l2": worst,
+            "grad_rel_l2": grad_err, "forward_ms": times["forward"],
+            "surface_ms": times["surface"], "layer_norm": ln}
+
+
+def surface_sampling(pt, slots=16, vocab=50304, draws=4096, ps=0.9,
+                     dev="cuda"):
+    """Phase 25c: serving-shaped sampling at gpt_1p3b's vocabulary:
+    ``top_p_sampling`` at ``ps`` (every id in its row's nucleus; the same
+    ``seed`` repeats the ids; over ``draws`` draws of one row the total-
+    variation distance to the renormalised nucleus at most 0.05),
+    ``multinomial`` without replacement (no id repeats in a row), and
+    ``topk`` equal to the CPU's. Each row puts most of its mass on 8
+    tokens, as a trained model's next-token distribution does."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 26)
+    logits = torch.randn(slots, vocab, device=dev, generator=g)
+    hot = torch.randint(0, vocab, (slots, 8), device=dev, generator=g)
+    logits.scatter_(1, hot, 12.0 + torch.randn(slots, 8, device=dev,
+                                                generator=g))
+    probs = torch.softmax(logits, -1)
+    psv = torch.full((slots,), ps, device=dev)
+    t0 = time.perf_counter()
+    pt.seed(3)
+    scores, ids = pt.top_p_sampling(probs, psv)
+    pt.seed(3)
+    _, ids2 = pt.top_p_sampling(probs, psv)
+    torch.cuda.synchronize()
+    if not torch.equal(ids, ids2):
+        fail("[surface 25c] the same seed gave other ids")
+    sp, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    keep = (torch.cumsum(sp, -1) - sp) < ps
+    keep[:, 0] = True
+    nucleus = [set(order[r][keep[r]].tolist()) for r in range(slots)]
+    bad = [r for r in range(slots) if int(ids[r, 0]) not in nucleus[r]]
+    if bad or ids.device.type != dev or ids.dtype != torch.int64:
+        fail(f"[surface 25c] ids outside their nucleus in rows {bad}")
+    if not torch.equal(scores, torch.gather(probs, 1, ids)):
+        fail("[surface 25c] scores are not the chosen ids' probabilities")
+    row = probs[:1].expand(draws, vocab).contiguous()
+    _, many = pt.top_p_sampling(row, torch.full((draws,), ps, device=dev))
+    counts = torch.bincount(many[:, 0], minlength=vocab).double() / draws
+    target = torch.zeros(vocab, dtype=torch.float64, device=dev)
+    kept = order[0][keep[0]]
+    target[kept] = probs[0, kept].double()
+    target /= target.sum()
+    tv = 0.5 * float((counts - target).abs().sum())
+    log(f"[surface 25c] top_p_sampling [{slots}, {vocab}] ps {ps}: every "
+        f"id in its nucleus (sizes {sorted(len(n) for n in nucleus)}); "
+        f"{draws} draws of row 0: total variation {tv:.4f} (limit 0.05)")
+    if tv > 0.05:
+        fail(f"[surface 25c] total variation {tv} over 0.05")
+    m = pt.multinomial(probs, 32)
+    if any(len(set(r)) != 32 for r in m.tolist()):
+        fail("[surface 25c] multinomial without replacement repeated an id")
+    vals, idx = pt.topk(probs, 50)
+    cv, ci = pt.topk(probs.cpu(), 50)
+    if not (torch.equal(vals.cpu(), cv) and torch.equal(idx.cpu(), ci)):
+        fail("[surface 25c] topk on the card differs from the CPU's")
+    torch.cuda.synchronize()
+    log(f"  multinomial [{slots}, 32] without replacement: no repeats; "
+        f"topk(50) equal to the CPU's; phase 25c in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return {"tv": tv, "nucleus_sizes": sorted(len(n) for n in nucleus)}
+
+
+def surface_overhead(pt, n=20000):
+    """Phase 25d: host us a call of ``pt.add`` (tensor and Python-number
+    operands, f32 and bf16), ``pt.multiply`` and ``pt.clip`` with
+    numbers, ``pt.add_``,
+    ``pt.reshape``, ``pt.matmul`` and ``pt.sum`` against the bare torch
+    call on a small CUDA tensor (the wrapper's own cost: the AMP lookup,
+    the dtype handling, a number's fill on the device); two turns each,
+    the lower taken."""
+    x = torch.randn(64, 64, device="cuda")
+    y = torch.randn(64, 64, device="cuda")
+    z = torch.randn(64, 64, device="cuda")
+    xb = x.to(torch.bfloat16)
+    pairs = {
+        "add": (lambda: pt.add(x, y), lambda: torch.add(x, y)),
+        "add(x, 1.0)": (lambda: pt.add(x, 1.0), lambda: torch.add(x, 1.0)),
+        "add(bf16 x, 1.0)": (lambda: pt.add(xb, 1.0),
+                             lambda: torch.add(xb, 1.0)),
+        "multiply(x, 0.5)": (lambda: pt.multiply(x, 0.5),
+                             lambda: torch.mul(x, 0.5)),
+        "clip(x, 0.0, 6.0)": (lambda: pt.clip(x, 0.0, 6.0),
+                              lambda: torch.clamp(x, 0.0, 6.0)),
+        "add_": (lambda: pt.add_(z, y), lambda: z.add_(y)),
+        "reshape": (lambda: pt.reshape(x, [32, 128]),
+                    lambda: torch.reshape(x, (32, 128))),
+        "matmul": (lambda: pt.matmul(x, y), lambda: torch.matmul(x, y)),
+        "sum": (lambda: pt.sum(x), lambda: torch.sum(x)),
+    }
+    out = {}
+    for name, (ours, bare) in pairs.items():
+        res = {"pt": [], "torch": []}
+        for _ in range(2):
+            for label, fn in (("pt", ours), ("torch", bare)):
+                for _ in range(200):
+                    fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    fn()
+                res[label].append((time.perf_counter() - t0) * 1e6 / n)
+                torch.cuda.synchronize()
+        out[name] = {"pt_us": min(res["pt"]), "torch_us": min(res["torch"])}
+    log("[surface 25d] host us a call on a [64, 64] CUDA tensor (pt vs "
+        "bare torch, lower of two turns of "
+        f"{n}): " + "; ".join(f"{k} {v['pt_us']:.2f} vs "
+                              f"{v['torch_us']:.2f} "
+                              f"(+{v['pt_us'] - v['torch_us']:.2f})"
+                              for k, v in out.items()))
+    return out
+
+
+def surface_phases(pt, K):
+    """Phase 25: the tensor op surface on the card (25a-25d). -> ({kernel:
+    numbers for its JSON entry}, the phase's numbers)"""
+    t0 = time.perf_counter()
+    worst, n_ops, n_cases = surface_sweep(pt)
+    blk = surface_block(pt, K)
+    gc.collect()
+    torch.cuda.empty_cache()
+    samp = surface_sampling(pt)
+    over = surface_overhead(pt)
+    log(f"[surface] phase 25 in {time.perf_counter() - t0:.1f} s")
+    extra = {name: {"surface_launches": blk["launches"][name]}
+             for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                          "layer_norm")}
+    extra["layer_norm"].update(
+        {f"surface_{k}": v for k, v in blk["layer_norm"].items()})
+    return extra, {"sweep": worst, "ops": n_ops, "cases": n_cases,
+                   "block": blk, "sampling": samp, "overhead": over}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -5488,6 +5880,12 @@ def main():
     hapi, _ = hapi_phases(pt, K)
     for name, numbers in hapi.items():
         next(e for e in kernels if e["name"] == name).update(numbers)
+    # ------------------------------------------- phase 25: the op surface
+    surface, _ = surface_phases(pt, K)
+    for name, numbers in surface.items():
+        next(e for e in kernels if e["name"] == name).update(numbers)
+    for e in kernels:
+        e.setdefault("surface_launches", 0)
     for e in kernels:
         e["max_abs_err"] = max([e["max_abs_err"]] + [
             v for k, v in e.items() if k.endswith("_max_abs_err")])

@@ -108,17 +108,47 @@ the JAX package's file format (``pt.save`` / ``pt.load``)::
     model.evaluate(eval_dataset, batch_size=32)
     model.save("ckpt/final")
 
+The tensor op surface of ``import paddle`` is the port's too, as plain
+functions over ``torch.Tensor`` (``ops/``; no method is bound onto
+torch's class) with the JAX package's names, defaults and output
+dtypes, and the core API they stand on (dtypes, ``set_device``,
+``seed``, ``to_tensor``, ``grad``)::
+
+    import paddle_tpu_torch as paddle
+    paddle.seed(0)
+    x = paddle.to_tensor([[1.0, 2.0], [3.0, 4.0]], stop_gradient=False)
+    y = paddle.matmul(x, x, transpose_y=True)
+    a, b = paddle.split(y, 2, axis=-1)
+    loss = paddle.sum(paddle.clip(a, 0.5) * b)
+    (gx,) = paddle.grad(loss, [x])
+    vals, idx = paddle.topk(paddle.rand([4, 8]), 3)
+    q, r = paddle.linalg.qr(paddle.randn([5, 3]))
+
 Entry points run on ``cuda`` unless given ``device="cpu"`` and raise when
 CUDA is absent (:mod:`.device`). The package imports neither ``jax`` nor
 ``paddle_tpu``.
 """
-from . import (amp, distributed, framework, hapi, io, jit, metric, models,
-               nn, optimizer, regularizer, vision)
+import torch
+
+from . import (amp, distributed, framework, hapi, io, jit, linalg, metric,
+               models, nn, ops, optimizer, regularizer, vision)
 from .amp import auto_cast
 from .convert import (opt_state_from_paddle_tpu, opt_state_to_numpy,
                       params_from_paddle_tpu, params_to_numpy)
-from .device import resolve_device
+from .core.autograd import (enable_grad, grad, is_grad_enabled, no_grad,
+                            set_grad_enabled)
+from .core.dtype import (bfloat16, complex64, complex128, convert_dtype,
+                         float16, float32, float64, get_default_dtype, int8,
+                         int16, int32, int64, set_default_dtype, uint8)
+from .core.dtype import bool_ as bool8
+from .core.random import (get_cuda_rng_state, get_rng_state, seed,
+                          set_cuda_rng_state, set_rng_state)
+from .core.tensor import Tensor, to_tensor
+from .device import (CPUPlace, CUDAPlace, Place, device_count, get_device,
+                     is_compiled_with_tpu, resolve_device, set_device)
 from .framework import load, save
+from .framework.dtype_info import (finfo, iinfo, is_complex,
+                                   is_floating_point, is_integer)
 from .hapi import Model, flops, summary
 from .models import (BertConfig, BertForMaskedLM,
                      BertForSequenceClassification, BertModel, GPTConfig,
@@ -131,6 +161,49 @@ from .ops.kernels import flash_attention_bshd
 from .optimizer import (LBFGS, SGD, Adadelta, Adagrad, Adam, Adamax, AdamW,
                         Lamb, Momentum, RMSProp, Rprop)
 from .serving.engine import ServingEngine
+
+
+def in_dynamic_mode():
+    """Always True: the port runs eagerly (``jit.to_static`` stages)."""
+    return True
+
+
+def set_printoptions(precision=None, threshold=None, edgeitems=None,
+                     sci_mode=None, linewidth=None):
+    """Tensor print options (torch's ``set_printoptions``)."""
+    torch.set_printoptions(precision=precision, threshold=threshold,
+                           edgeitems=edgeitems, linewidth=linewidth,
+                           sci_mode=sci_mode)
+
+
+def disable_signal_handler():
+    """Nothing to disable: the port installs no signal handler."""
+    return None
+
+
+def is_compiled_with_cuda():
+    return True
+
+
+def is_compiled_with_xpu():
+    return False
+
+
+def is_compiled_with_cinn():
+    return False
+
+
+def is_compiled_with_rocm():
+    return torch.version.hip is not None
+
+
+def is_compiled_with_custom_device(device_type="gpu"):
+    return False
+
+
+def is_grad_enabled_():
+    return is_grad_enabled()
+
 
 __all__ = ["GPTConfig", "GPTForCausalLM", "GPTPretrainingCriterion",
            "ServingEngine", "SGD", "Momentum", "Adam", "AdamW", "Adagrad",
@@ -146,4 +219,26 @@ __all__ = ["GPTConfig", "GPTForCausalLM", "GPTPretrainingCriterion",
            "resnext50_32x4d", "wide_resnet50_2", "BertConfig", "BertModel",
            "BertForSequenceClassification", "BertForMaskedLM", "bert_base",
            "bert_tiny", "Seq2SeqTransformer", "Model", "summary", "flops",
-           "save", "load", "framework", "hapi", "io", "metric"]
+           "save", "load", "framework", "hapi", "io", "metric", "linalg",
+           "ops",
+           # the core API (dtypes, device, RNG, autograd, to_tensor)
+           "Tensor", "to_tensor", "bfloat16", "bool", "bool8", "complex64",
+           "complex128", "float16", "float32", "float64", "int8", "int16",
+           "int32", "int64", "uint8", "get_default_dtype", "convert_dtype",
+           "set_default_dtype", "finfo", "iinfo", "is_complex",
+           "is_floating_point", "is_integer", "Place", "CPUPlace",
+           "CUDAPlace", "set_device", "get_device", "device_count",
+           "is_compiled_with_tpu", "seed", "get_rng_state", "set_rng_state",
+           "get_cuda_rng_state", "set_cuda_rng_state", "grad", "no_grad",
+           "enable_grad", "is_grad_enabled", "set_grad_enabled",
+           "in_dynamic_mode", "set_printoptions", "disable_signal_handler",
+           "is_compiled_with_cuda", "is_compiled_with_xpu",
+           "is_compiled_with_cinn", "is_compiled_with_rocm",
+           "is_compiled_with_custom_device", "is_grad_enabled_"]
+
+# The op surface last: it holds ``sum``, ``max``, ``min``, ``abs``,
+# ``round``, ``pow``, ``all``, ``any`` (and ``bool`` the dtype), which
+# shadow the builtins from here on in this module.
+__all__ += ops.__all__
+globals().update({_n: getattr(ops, _n) for _n in ops.__all__})
+bool = bool8  # noqa: A001

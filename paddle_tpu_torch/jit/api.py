@@ -21,9 +21,10 @@ as in JAX:
   device scalars (the lr tensors and the AdamW launch table, from
   ``get_lr()``: a scheduler's new lr reaches the graph, as the JAX step
   takes ``lrs`` as an input), replays, and returns clones of the static
-  outputs. Explicit CUDA generators of the captured layers (the models'
-  dropout generators) are registered with the graph, so every replay
-  draws a fresh mask, as JAX derives a fresh key per call
+  outputs. The framework generator (``paddle.seed``'s, which the random
+  ops draw from) and the explicit CUDA generators of the captured layers
+  (the models' dropout generators) are registered with the graph, so
+  every replay draws a fresh mask, as JAX derives a fresh key per call
   (``api.py:528-531``); the default generator is the graph's own. As in
   JAX, the parameters' ``.grad`` are None after a staged step.
 * **forward staging** (``to_static(layer)`` or ``to_static(fn)``,
@@ -258,10 +259,14 @@ def _amp_key():
     return amp_key()
 
 
-def _generators(layers):
-    """The explicit CUDA generators the layers' modules hold (dropout's
+def _generators(layers, dev):
+    """The explicit CUDA generators a capture on ``dev`` registers: the
+    framework generator of ``dev`` (``paddle.rand``, ``bernoulli``, ...
+    draw from it) and those the layers' modules hold (dropout's
     ``generator``, attention's ``dropout_generator``)."""
-    out = {}
+    from ..core import random as prandom
+    g = prandom.generator(dev)
+    out = {id(g): g}
     for layer in layers:
         for m in layer.modules():
             for v in vars(m).values():
@@ -563,7 +568,7 @@ class StaticFunction:
         t0 = time.perf_counter()
         dev = _cuda_device(params + buffers + arg_tensors)
         stream, pool = capture_stream(dev), self._graph_pool()
-        gens = _generators(layers)
+        gens = _generators(layers, dev)
         static = [a.detach().clone().requires_grad_(a.requires_grad)
                   for a in arg_tensors]
         if grad:
@@ -777,7 +782,7 @@ class StaticFunction:
                 captured = capture(step, self._graph_pool(),
                                    capture_stream(dev), warm_up=False,
                                    grad=torch.is_grad_enabled(),
-                                   generators=_generators(layers))
+                                   generators=_generators(layers, dev))
         finally:
             for p, g in zip(params, grads):
                 p.grad = g

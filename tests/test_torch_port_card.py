@@ -1639,3 +1639,162 @@ def test_save_load_bf16_round_trip_on_card(tmp_path):
     assert got["w"].device.type == "cuda" and got["w"].dtype == w.dtype
     assert torch.equal(got["w"], w)
     assert torch.equal(got["n"][0], torch.ones(2, device="cuda"))
+
+
+# ---------------------------------------------------- the op surface
+def _surface_card_cases():
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_surface_cases as C
+    want = {"unary": ("exp", "log", "tanh", "erfinv", "lgamma", "round"),
+            "binary": ("add", "divide", "pow", "atan2", "remainder",
+                       "bitwise_right_shift"),
+            "reduce": ("sum", "median", "var", "cummax", "logsumexp",
+                       "quantile"),
+            "creation": ("arange", "linspace", "eye", "diag", "to_tensor"),
+            "logic": ("equal", "isclose", "allclose", "logical_xor"),
+            "search": ("sort", "argsort", "topk", "mode", "nonzero"),
+            "manip": ("split", "gather_nd", "scatter", "take_along_axis",
+                      "put_along_axis", "unique", "masked_select",
+                      "histogramdd"),
+            "linalg": ("matmul", "svd", "qr", "cholesky", "solve", "lstsq",
+                       "eigh", "linalg.lu_unpack")}
+    return C, [c for fam, names in want.items()
+               for c in C.ALL_TABLES[fam] if c.op in names]
+
+
+@pytest.mark.cuda
+def test_surface_sweep_on_card_matches_cpu():
+    """A handful of each family's parity cases on the card against the same
+    port call on CPU tensors (the tolerances of
+    ``tests/torch_surface_cases.py``; decompositions by invariants)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import chip_smoke as cs
+    import paddle_tpu_torch as pt
+    C, cases = _surface_card_cases()
+    try:
+        worst, n_ops, n_cases = cs.surface_sweep(pt, cases)
+    finally:
+        pt.set_device("gpu")
+    assert n_cases == len(cases) and n_ops >= 40
+    assert worst["int"] == 0.0 and worst["f32"] <= 1e-4
+
+
+@pytest.mark.cuda
+def test_top_p_sampling_on_card():
+    """Nucleus sampling on CUDA: ids inside the row's nucleus, int64 on the
+    card, repeatable under ``seed``, the first token always kept."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import paddle_tpu_torch as pt
+    probs = torch.softmax(torch.randn(8, 1000, device="cuda") * 4, -1)
+    ps = torch.full((8,), 0.8, device="cuda")
+    pt.seed(5)
+    s1, i1 = pt.top_p_sampling(probs, ps)
+    pt.seed(5)
+    s2, i2 = pt.top_p_sampling(probs, ps)
+    assert torch.equal(i1, i2) and i1.device.type == "cuda"
+    assert i1.dtype == torch.int64 and list(i1.shape) == [8, 1]
+    sp, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    keep = (torch.cumsum(sp, -1) - sp) < 0.8
+    for r in range(8):
+        assert int(i1[r]) in set(order[r][keep[r]].tolist())
+    tiny = torch.full((8,), 1e-9, device="cuda")
+    assert torch.equal(pt.top_p_sampling(probs, tiny)[1][:, 0], order[:, 0])
+
+
+@pytest.mark.cuda
+def test_to_static_step_with_nonzero_graph_breaks_on_card():
+    """A staged step that calls ``pt.nonzero`` (a data-dependent shape)
+    graph-breaks and runs eagerly, with the eager values."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import paddle_tpu_torch as pt
+    w = torch.nn.Parameter(torch.randn(4, 4, device="cuda"))
+    opt = pt.SGD(learning_rate=0.1, parameters=[w])
+
+    def step(x):
+        y = pt.matmul(x, w)
+        n = pt.nonzero(y > 0).shape[0]
+        loss = pt.mean(y * y) + 0.0 * n
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    staged = pt.jit.to_static(step, capture=(opt,))
+    x = torch.randn(3, 4, device="cuda")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        losses = [float(staged(x)) for _ in range(3)]
+    assert staged.stats()["graph_breaks"] >= 1
+    assert staged.stats()["graphs"] == 0
+    assert losses[2] < losses[0]
+
+
+@pytest.mark.cuda
+def test_to_static_step_with_scalar_operands_stages_on_card():
+    """A train step written against the surface with Python-number
+    operands (``multiply(h, 0.5)``, ``add``, ``clip``, ``where``,
+    ``masked_fill``, ``scale``) stages as one CUDA graph with no graph
+    break, and its losses equal the eager step's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import paddle_tpu_torch as pt
+    init = torch.randn(4, 4, device="cuda")
+
+    def make():
+        w = torch.nn.Parameter(init.clone())
+        opt = pt.SGD(learning_rate=0.1, parameters=[w])
+
+        def step(x):
+            h = pt.multiply(pt.matmul(x, w), 0.5)
+            h = pt.clip(pt.add(h, 1.0), 0.0, 6.0)
+            h = pt.where(h > 3.0, h, 0.0)
+            h = pt.masked_fill(h, h > 5.0, -1.0)
+            loss = pt.mean(pt.scale(h * h, 2.0, 0.5))
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+        return step, opt
+
+    x = torch.randn(8, 4, device="cuda") * 3
+    step, _ = make()
+    eager = [float(step(x)) for _ in range(4)]
+    step, opt = make()
+    staged = pt.jit.to_static(step, capture=(opt,))
+    got = [float(staged(x)) for _ in range(4)]
+    assert staged.stats()["graph_breaks"] == 0
+    assert staged.stats()["graphs"] == 1
+    np.testing.assert_allclose(got, eager, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_to_static_draws_fresh_random_numbers_each_replay_on_card():
+    """A staged function that calls ``pt.rand`` draws from the framework
+    generator, which the capture registers with the graph: every replay
+    draws anew, and ``pt.seed`` makes the replays repeat."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import paddle_tpu_torch as pt
+
+    def draw(x):
+        return pt.add(x, pt.rand([64]))
+
+    staged = pt.jit.to_static(draw)
+    x = torch.zeros(64, device="cuda")
+    with torch.no_grad():
+        staged(x)
+        staged(x)
+        pt.seed(11)
+        a = [staged(x) for _ in range(3)]
+        pt.seed(11)
+        b = [staged(x) for _ in range(3)]
+    assert staged.stats()["graphs"] == 1
+    assert staged.stats()["graph_breaks"] == 0
+    assert not torch.equal(a[0], a[1]) and not torch.equal(a[1], a[2])
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
