@@ -354,6 +354,30 @@ exit code:
     ``multinomial`` without replacement, ``topk`` against the CPU; (d)
     host us a call of ``pt.add`` / ``reshape`` / ``matmul`` / ``sum``
     against bare torch.
+26. **nn.Layer, initializers, ParamAttr** — (a) a BERT-base classifier
+    written as a user writes it, a subclass of ``pt.nn.Layer``
+    (:func:`user_bert`: ``nn.Embedding(30522, 768, padding_idx=0)`` at
+    half the rate, a frozen position table from ``create_parameter``,
+    12 ``nn.TransformerEncoderLayer`` (768, 12 heads, FFN 3072, GELU)
+    drawn from ``TruncatedNormal(std=0.02)`` in an
+    ``nn.TransformerEncoder``, ``nn.LayerNorm(768, epsilon=1e-12)``, a
+    head ``nn.Linear(768, 2)`` at ten times the rate with a bias the clip
+    passes through), B 32 x S 128 (the BERT paper's GLUE recipe, as 24b),
+    O1 bf16 on f32 weights, ``AdamW(2e-5, weight_decay=0.01)`` with
+    ``ClipGradByGlobalNorm(1.0)``, eager (2 + 5 steps) and staged by
+    ``to_static`` (2 + 20): 1 graph, 0 breaks, launches exact (the flash
+    trio 12, LayerNorm 25, AdamW 1 a replay), losses falling, the frozen
+    table and the padding row bit-unchanged, one replay's update of the
+    head weight and of an embedding row equal to ``torch.optim.AdamW``'s
+    at the scaled rate (and not the unscaled one); (b) the step-0 state
+    through ``pt.save`` / ``pt.load`` and ``set_state_dict`` between
+    replays: the next replay's loss the eager step 0's, a wrong shape a
+    ``ValueError``, missing and unexpected keys returned; (c) each
+    initializer at [768, 3072] from a CUDA generator by its support and
+    moments, ``QQ^T = I`` for ``Orthogonal``, draws repeated by
+    ``pt.seed``; (d) host us a call of ``pt.nn.Linear(768, 768)``'s
+    ``layer(x)`` and ``layer.forward(x)`` on [32, 128, 768] bf16 beside
+    a bare ``torch.nn.Linear``'s.
 
 The lines before the last carry the ``{"kernels": [...]}`` JSON (all eight
 kernels; the ``fused_adamw`` entry adds the master and bf16-moment modes'
@@ -375,7 +399,9 @@ phase 24 adds to every entry ``hapi_launches`` (its launches over 24a's
 three fits and 24b's fit and evaluate) and to the flash entries,
 ``layer_norm`` and ``fused_adamw`` the ``s128_*`` numbers at 24b's
 shapes; phase 25 adds to every entry ``surface_launches``, its launches
-over 25b's one surface forward and backward; every ``max_abs_err`` is
+over 25b's one surface forward and backward; phase 26 adds to every
+entry ``layer_launches``, its launches over 26a's 20 replayed steps;
+every ``max_abs_err`` is
 the largest of its entry's errors) and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the repository beside it, the script exits
@@ -4593,7 +4619,11 @@ def bert_lamb(pt, warmup=2, steps=10, B=16, S=512):
 # staged-vs-eager loss and weight tolerances where eager runs differ)
 LENET_OPTIMIZERS = [
     ("adagrad", "Adagrad", (0.005,), {}, 1e-5),
-    ("adadelta", "Adadelta", (1.0,), {}, 1e-5),
+    # lr 1.0 on the JAX layers' initial weights overshoots (the loss
+    # rises at step 8 on the card and the CPU alike) and a 1e-6 gap grows
+    # 100x a step: 257x the tolerance by step 9; 0.2 keeps it at the
+    # other optimizers' level
+    ("adadelta", "Adadelta", (0.2,), {}, 1e-5),
     ("adamax", "Adamax", (0.002,), {}, 1e-5),
     ("rprop", "Rprop", (0.001,), {}, 1e-5),
     # sqrt(ms - mg^2 + eps) and momentum 0.9 magnify a 2e-6 difference of
@@ -5504,6 +5534,360 @@ def surface_phases(pt, K):
                    "block": blk, "sampling": samp, "overhead": over}
 
 
+# ------------------------------------------------------------- phase 26
+def user_bert(pt, vocab=30522, hidden=768, layers=12, heads=12, ffn=3072,
+              max_len=512, num_classes=2):
+    """Phase 26's model: a BERT-base classifier as a Paddle user writes it,
+    a subclass of ``pt.nn.Layer`` built from the port's layers with
+    per-parameter attributes: the word embeddings at half the rate with a
+    padding row, a frozen position table of its own
+    (``create_parameter`` with ``trainable=False``), encoder layers drawn
+    from ``TruncatedNormal(std=0.02)``, and a head at ten times the rate
+    whose bias the global clip passes through (``need_clip=False``)."""
+    nn, init = pt.nn, pt.nn.initializer
+
+    class UserBert(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.word = nn.Embedding(
+                vocab, hidden, padding_idx=0,
+                weight_attr=pt.ParamAttr(learning_rate=0.5))
+            self.pos = self.create_parameter(
+                [max_len, hidden], attr=pt.ParamAttr(trainable=False),
+                default_initializer=init.TruncatedNormal(std=0.02))
+            layer = nn.TransformerEncoderLayer(
+                hidden, heads, ffn, dropout=0.0, activation="gelu",
+                weight_attr=pt.ParamAttr(
+                    initializer=init.TruncatedNormal(std=0.02)))
+            self.encoder = nn.TransformerEncoder(layer, layers)
+            self.norm = nn.LayerNorm(hidden, epsilon=1e-12)
+            self.head = nn.Linear(
+                hidden, num_classes,
+                weight_attr=pt.ParamAttr(learning_rate=10.0),
+                bias_attr=pt.ParamAttr(need_clip=False))
+
+        def forward(self, ids):
+            x = self.norm(pt.add(self.word(ids), self.pos[:ids.shape[1]]))
+            return self.head(self.encoder(x)[:, 0])
+
+    return UserBert()
+
+
+def user_bert_batch(pt, B, S, vocab, seed=SEED):
+    """A batch of B token sequences of length S on the current device:
+    ids from numpy ``seed`` whose last S / 8 tokens are padding (id 0),
+    labelled by the parity of the second token."""
+    ids = np.random.RandomState(seed).randint(1, vocab, (B, S))
+    ids[:, S - S // 8:] = 0
+    labels = (ids[:, 1] % 2).astype(np.int64)
+    dev = pt.resolve_device(None)
+    return (torch.from_numpy(ids).to(dev),
+            torch.from_numpy(labels).to(dev))
+
+
+def adamw_reference(w, g, m, v, t, lr, wd, beta1=0.9, beta2=0.999,
+                    eps=1e-8):
+    """``torch.optim.AdamW``'s update of a copy of ``w`` with gradient
+    ``g`` from moments ``m``, ``v`` after ``t - 1`` steps, at rate ``lr``
+    -> the new value."""
+    w = w.detach().clone().requires_grad_(True)
+    opt = torch.optim.AdamW([w], lr=lr, betas=(beta1, beta2), eps=eps,
+                            weight_decay=wd, foreach=False, fused=False)
+    opt.state[w] = {"step": torch.tensor(float(t - 1)),
+                    "exp_avg": m.clone(), "exp_avg_sq": v.clone()}
+    w.grad = g.clone()
+    opt.step()
+    return w.detach()
+
+
+def check_scaled_update(tag, before, after, lr, wd, scale, t):
+    """One replayed step's update of one tensor (``before`` and ``after``:
+    its value, first and second moments) against
+    :func:`adamw_reference` at ``lr * scale``. The step's gradient (after
+    the clip) is recovered from the moments, ``g = (m' - b1 m) / (1 -
+    b1)``. The update must match the scaled rate's within 1e-3 of its
+    size, and miss the unscaled rate's. -> the largest difference"""
+    w0, m0, v0 = before
+    w1, m1, v1 = after
+    g = (m1 - 0.9 * m0) / 0.1
+    want = adamw_reference(w0, g, m0, v0, t, lr * scale, wd)
+    plain = adamw_reference(w0, g, m0, v0, t, lr, wd)
+    step, ref = (w1 - w0).abs().max(), (want - w0).abs().max()
+    err = float((w1 - want).abs().max())
+    miss = float((w1 - plain).abs().max())
+    tol = 1e-3 * float(ref) + 1e-7
+    log(f"  [{tag}] replayed update at lr x {scale:g}: max |dw| "
+        f"{float(step):.3e}, against torch's AdamW at the scaled rate "
+        f"{err:.3e} (tolerance {tol:.3e}), at the unscaled rate {miss:.3e}")
+    if not err <= tol or not miss > 10 * tol or float(step) == 0.0:
+        fail(f"layer {tag}: the replayed update is not AdamW's at lr x "
+             f"{scale:g} (error {err:.3e}, unscaled {miss:.3e}, tolerance "
+             f"{tol:.3e})")
+    return err
+
+
+def layer_staged(pt, K, B=32, S=128, steps=20, dims=None):
+    """Phase 26a and 26b: :func:`user_bert` (BERT-base widths by default,
+    f32 weights) trained on one batch (:func:`user_bert_batch`) under O1
+    bf16 with ``AdamW(2e-5, weight_decay=0.01)`` and
+    ``ClipGradByGlobalNorm(1.0)``, eager and through ``pt.jit.to_static``
+    (whole step): 1 graph and 0 breaks; launches over ``steps`` replays
+    exactly the flash trio once a layer, LayerNorm once a ``LayerNorm`` of
+    the model and fused AdamW once a step; losses finite and falling; the
+    frozen position table and the padding row bit-unchanged; one more
+    replay's update of the head weight (rate x 10) and of an embedding row
+    (x 0.5) against torch's AdamW at the scaled rate. Then 26b: the
+    step-0 state saved and loaded with ``pt.save`` / ``pt.load`` and set
+    into the staged model between replays: the next replay's loss is the
+    eager run's step-0 loss; a wrong shape raises ``ValueError``; missing
+    and unexpected keys are returned. -> (launches over the replays,
+    numbers)"""
+    dims = dims or {}
+    vocab = dims.get("vocab", 30522)
+    F = pt.nn.functional
+    ids, labels = user_bert_batch(pt, B, S, vocab)
+    init = {}
+
+    def build():
+        pt.seed(SEED)
+        model = user_bert(pt, **dims)
+        init["pos"] = model.pos.detach().clone()
+        init["pad"] = model.word.weight[0].detach().clone()
+        init["state"] = {k: v.detach().clone()
+                         for k, v in model.state_dict().items()}
+        opt = pt.AdamW(2e-5, parameters=model.parameters(),
+                       weight_decay=0.01,
+                       grad_clip=pt.nn.ClipGradByGlobalNorm(1.0))
+
+        def train_step(x, y):
+            with pt.auto_cast(level="O1", dtype="bfloat16"):
+                loss = F.cross_entropy(model(x), y)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+
+        return model, opt, None, train_step, (ids, labels)
+
+    eager = train_run(pt, build, False, 2, 5)
+    eager_loss0 = eager["losses"][0]
+    del eager["model"], eager["opt"], eager["step"]
+    free()
+    staged = train_run(pt, build, True, 2, steps)
+    model, opt, step = staged["model"], staged["opt"], staged["step"]
+    L = len(model.encoder.layers)
+    n_ln = sum(isinstance(m, pt.nn.LayerNorm) for m in model.sublayers())
+    stats = step.stats()
+    n_all = sum(p.numel() for p in model.parameters())
+    n_frozen = sum(p.numel() for p in model.parameters() if not p.trainable)
+    log(f"[layer] user-written BERT-base nn.Layer: {L} layers, "
+        f"{n_all / 1e6:.3f} M parameters ({n_frozen / 1e6:.3f} M frozen), "
+        f"{n_ln} LayerNorms; staging {stats}")
+    if stats["graphs"] != 1 or stats["graph_breaks"] or \
+            stats["eager_calls"]:
+        fail(f"layer: staging {stats}")
+    check_training("layer", staged["losses"], 2, staged["launches"], {
+        "flash_fwd": steps * L, "flash_bwd_dq": steps * L,
+        "flash_bwd_dkv": steps * L, "layer_norm": steps * n_ln,
+        "fused_adamw": steps})
+    if not torch.equal(model.pos.detach(), init["pos"]) or \
+            not torch.equal(model.word.weight[0].detach(), init["pad"]):
+        fail("layer: the frozen position table or the padding row moved")
+    if float(init["pad"].abs().max()) != 0.0:
+        fail("layer: the padding row was not zeroed at creation")
+    log(f"  frozen position table and padding row bit-unchanged after "
+        f"{steps + 3} staged steps ({steps + 1} replays)")
+    # one more replay, its update held against torch's AdamW
+    row = int(ids[0, 1])
+    tensors = {"head.weight": (model.head.weight, 10.0, slice(None)),
+               f"word.weight[{row}]": (model.word.weight, 0.5, row)}
+    acc = opt._accumulators
+    snap = {}
+    for name, (p, scale, idx) in tensors.items():
+        snap[name] = [t[idx].detach().clone() for t in (
+            p, acc["moment1"][p], acc["moment2"][p])]
+    t = acc["beta_pow"][model.head.weight] + 1
+    loss_t = float(step(ids, labels))
+    update_err = {}
+    for name, (p, scale, idx) in tensors.items():
+        after = [t_[idx].detach().clone() for t_ in (
+            p, acc["moment1"][p], acc["moment2"][p])]
+        update_err[name] = check_scaled_update(
+            name, snap[name], after, opt.get_lr(), 0.01, scale, t)
+    # 26b: the step-0 state through pt.save / pt.load, into the staged model
+    with tempfile.TemporaryDirectory() as work:
+        path = os.path.join(work, "user_bert.pdparams")
+        pt.save(init["state"], path)
+        state = pt.load(path)
+        saved_bytes = os.path.getsize(path)
+    ptrs = [p.data_ptr() for p in model.parameters()]
+    missing, unexpected = model.set_state_dict(state)
+    if missing or unexpected or ptrs != [p.data_ptr()
+                                         for p in model.parameters()]:
+        fail(f"layer: set_state_dict missing {missing}, unexpected "
+             f"{unexpected}, or a parameter's storage moved")
+    loss_load = float(step(ids, labels))
+    spread = abs(eager_loss0 - staged["losses"][0])
+    tol = max(spread, 2e-5 * abs(eager_loss0))
+    log(f"  [set_state_dict] step-0 state saved ({saved_bytes} bytes) "
+        f"and loaded between replays: next replay's loss "
+        f"{loss_load:.6f} vs the eager run's step 0 {eager_loss0:.6f} "
+        f"(diff {abs(loss_load - eager_loss0):.3e}; eager vs eager "
+        f"step 0 {spread:.3e}; tolerance {tol:.3e}); the replay before "
+        f"the load {loss_t:.6f}")
+    if abs(loss_load - eager_loss0) > tol:
+        fail(f"layer: the replay after set_state_dict gave {loss_load} "
+             f"where the eager step 0 gave {eager_loss0}")
+    try:
+        model.set_state_dict({"head.weight": torch.zeros(3, 3)})
+        fail("layer: a wrong shape did not raise")
+    except ValueError as e:
+        log(f"  [set_state_dict] a wrong shape raises ValueError: {e}")
+    partial = dict(state)
+    del partial["head.bias"]
+    partial["head.extra"] = torch.zeros(1)
+    got = model.set_state_dict(partial)
+    if got != (["head.bias"], ["head.extra"]):
+        fail(f"layer: set_state_dict returned {got}")
+    log(f"  [set_state_dict] missing / unexpected keys returned: {got}")
+    numbers = report_pair("layer", eager, staged, {
+        "losses": staged["losses"], "update_err": update_err,
+        "loss_after_load": loss_load, "eager_loss0": eager_loss0})
+    launches = staged["launches"]
+    del model, opt, step, staged, eager
+    free()
+    return launches, numbers
+
+
+def layer_initializers(pt, shape=(768, 3072), dev="cuda"):
+    """Phase 26c: each initializer at ``shape`` drawn on the card from a
+    CUDA generator and held by its support and moments (five standard
+    errors): Xavier and Kaiming standard deviations from the fans,
+    TruncatedNormal within its bounds, Uniform's, ``QQ^T = I`` for
+    Orthogonal within 1e-4, Constant and Assign exact; ``pt.seed`` and a
+    generator repeat a draw. -> {name: (mean, std)}"""
+    I = pt.nn.initializer
+    rows, cols = shape
+    n = rows * cols
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    xn = math.sqrt(2.0 / (rows + cols))
+    xu = math.sqrt(6.0 / (rows + cols))
+    kn = math.sqrt(2.0 / rows)
+    ku = math.sqrt(2.0) * math.sqrt(3.0 / rows)
+    pdf = lambda v: math.exp(-v * v / 2) / math.sqrt(2 * math.pi)  # noqa
+    z = math.erf(2 / math.sqrt(2))
+    tn_std = 0.02 * math.sqrt(1 - 2 * 2 * pdf(2) / z)
+    inf = math.inf
+    cases = {
+        "Normal": (I.Normal(0.0, 0.02), 0.0, 0.02, -inf, inf),
+        "TruncatedNormal": (I.TruncatedNormal(std=0.02), 0.0, tn_std,
+                            -0.04, 0.04),
+        "Uniform": (I.Uniform(-0.1, 0.3), 0.1, 0.4 / math.sqrt(12), -0.1,
+                    0.3),
+        "XavierNormal": (I.XavierNormal(), 0.0, xn, -inf, inf),
+        "XavierUniform": (I.XavierUniform(), 0.0, xu / math.sqrt(3), -xu,
+                          xu),
+        "KaimingNormal": (I.KaimingNormal(), 0.0, kn, -inf, inf),
+        "KaimingUniform": (I.KaimingUniform(), 0.0, ku / math.sqrt(3), -ku,
+                           ku)}
+    out = {}
+    t0 = time.perf_counter()
+    for name, (init, mean, std, lo, hi) in cases.items():
+        x = init(shape, generator=g)
+        if x.device.type != dev or x.dtype != torch.float32:
+            fail(f"layer initializers: {name} gave {x.dtype} on {x.device}")
+        m, s = float(x.mean()), float(x.std())
+        lo_x, hi_x = float(x.min()), float(x.max())
+        out[name] = (m, s)
+        if abs(m - mean) > 5 * std / math.sqrt(n) or \
+                abs(s - std) > 5 * std / math.sqrt(n / 2) or \
+                lo_x < lo - 1e-7 or hi_x > hi + 1e-7:
+            fail(f"layer initializers: {name} mean {m:.4e} std {s:.4e} "
+                 f"range [{lo_x:.4e}, {hi_x:.4e}] against mean {mean:.4e} "
+                 f"std {std:.4e} support [{lo}, {hi}]")
+        log(f"  [26c] {name} {list(shape)}: mean {m:+.3e} (want {mean:+.3e}"
+            f"), std {s:.5e} (want {std:.5e}), range [{lo_x:.4e}, "
+            f"{hi_x:.4e}]")
+    q = I.Orthogonal()(shape, generator=g)
+    gram_err = float((q @ q.T - torch.eye(rows, device=dev)).abs().max())
+    log(f"  [26c] Orthogonal {list(shape)}: max |QQ^T - I| {gram_err:.3e}")
+    if gram_err > 1e-4:
+        fail(f"layer initializers: Orthogonal's QQ^T is off I by "
+             f"{gram_err:.3e}")
+    c = I.Constant(0.125)(shape, "bfloat16")
+    a = I.Assign(q)(shape)
+    if not bool((c == 0.125).all()) or c.dtype != torch.bfloat16 or \
+            not torch.equal(a, q) or a.data_ptr() == q.data_ptr():
+        fail("layer initializers: Constant or Assign")
+    pt.seed(5)
+    d1 = I.XavierUniform()(shape)
+    pt.seed(5)
+    d2 = I.XavierUniform()(shape)
+    g.manual_seed(9)
+    e1 = I.TruncatedNormal(std=0.02)(shape, generator=g)
+    g.manual_seed(9)
+    e2 = I.TruncatedNormal(std=0.02)(shape, generator=g)
+    if not torch.equal(d1, d2) or not torch.equal(e1, e2) or \
+            d1.device.type != dev:
+        fail("layer initializers: pt.seed or a generator did not repeat a "
+             "draw")
+    torch.cuda.synchronize()
+    log(f"  [26c] Constant and Assign exact, pt.seed and a CUDA generator "
+        f"repeat their draws; {time.perf_counter() - t0:.2f} s")
+    out["orthogonal_gram_err"] = gram_err
+    return out
+
+
+def layer_call_overhead(pt, n=500, reps=8, B=32, S=128, H=768,
+                        dev="cuda"):
+    """Phase 26d: host us a call of ``layer(x)`` and ``layer.forward(x)``
+    for ``pt.nn.Linear(H, H)`` on [B, S, H] bf16, beside the same for a
+    bare ``torch.nn.Linear`` (the median of ``reps`` loops of ``n`` calls
+    each, the four taken in a rotated order each time; the card keeps up
+    with these launches, so the host sets the pace). -> {"<which>_us": us
+    a call, "port_gap_us", "torch_gap_us"}"""
+    x = torch.randn(B, S, H, device=dev, dtype=torch.bfloat16)
+    port = pt.nn.Linear(H, H, dtype=torch.bfloat16)
+    bare = torch.nn.Linear(H, H, device=dev, dtype=torch.bfloat16)
+    fns = {"port_call": lambda: port(x), "port_forward":
+           lambda: port.forward(x), "torch_call": lambda: bare(x),
+           "torch_forward": lambda: bare.forward(x)}
+    us = {k: [] for k in fns}
+    order = list(fns)
+    with torch.no_grad():
+        for r in range(reps):
+            for k in order[r % 4:] + order[:r % 4]:
+                fn = fns[k]
+                for _ in range(20):
+                    fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    fn()
+                us[k].append((time.perf_counter() - t0) * 1e6 / n)
+                torch.cuda.synchronize()
+    out = {f"{k}_us": float(np.median(v)) for k, v in us.items()}
+    out["port_gap_us"] = out["port_call_us"] - out["port_forward_us"]
+    out["torch_gap_us"] = out["torch_call_us"] - out["torch_forward_us"]
+    log(f"  [26d] host us a call, Linear({H}, {H}) on [{B}, {S}, {H}] "
+        f"bf16: " + ", ".join(f"{k} {v:.2f}" for k, v in out.items()))
+    return out
+
+
+def layer_phases(pt, K):
+    """Phase 26: ``nn.Layer``, ``nn.initializer`` and ``ParamAttr`` on the
+    card (26a-26d). -> ({kernel: numbers for its JSON entry}, the phase's
+    numbers)"""
+    t0 = time.perf_counter()
+    launches, staged = layer_staged(pt, K)
+    inits = layer_initializers(pt)
+    over = layer_call_overhead(pt)
+    log(f"[layer] phase 26 in {time.perf_counter() - t0:.1f} s")
+    extra = {name: {"layer_launches": n} for name, n in launches.items()}
+    return extra, {"staged": staged, "initializers": inits,
+                   "overhead": over}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -5886,6 +6270,12 @@ def main():
         next(e for e in kernels if e["name"] == name).update(numbers)
     for e in kernels:
         e.setdefault("surface_launches", 0)
+    # ------------------------------------- phase 26: nn.Layer, ParamAttr
+    layer, _ = layer_phases(pt, K)
+    for name, numbers in layer.items():
+        next(e for e in kernels if e["name"] == name).update(numbers)
+    for e in kernels:
+        e.setdefault("layer_launches", 0)
     for e in kernels:
         e["max_abs_err"] = max([e["max_abs_err"]] + [
             v for k, v in e.items() if k.endswith("_max_abs_err")])

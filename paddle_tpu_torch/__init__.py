@@ -130,8 +130,8 @@ CUDA is absent (:mod:`.device`). The package imports neither ``jax`` nor
 """
 import torch
 
-from . import (amp, distributed, framework, hapi, io, jit, linalg, metric,
-               models, nn, ops, optimizer, regularizer, vision)
+from . import (amp, distributed, framework, hapi, incubate, io, jit, linalg,
+               metric, models, nn, ops, optimizer, regularizer, vision)
 from .amp import auto_cast
 from .convert import (opt_state_from_paddle_tpu, opt_state_to_numpy,
                       params_from_paddle_tpu, params_to_numpy)
@@ -143,10 +143,12 @@ from .core.dtype import (bfloat16, complex64, complex128, convert_dtype,
 from .core.dtype import bool_ as bool8
 from .core.random import (get_cuda_rng_state, get_rng_state, seed,
                           set_cuda_rng_state, set_rng_state)
-from .core.tensor import Tensor, to_tensor
+from .core.tensor import Parameter, Tensor, to_tensor
 from .device import (CPUPlace, CUDAPlace, Place, device_count, get_device,
                      is_compiled_with_tpu, resolve_device, set_device)
 from .framework import load, save
+from .framework.compat import LazyGuard, batch, check_shape, create_parameter
+from .framework.param_attr import ParamAttr
 from .framework.dtype_info import (finfo, iinfo, is_complex,
                                    is_floating_point, is_integer)
 from .hapi import Model, flops, summary
@@ -219,8 +221,9 @@ __all__ = ["GPTConfig", "GPTForCausalLM", "GPTPretrainingCriterion",
            "resnext50_32x4d", "wide_resnet50_2", "BertConfig", "BertModel",
            "BertForSequenceClassification", "BertForMaskedLM", "bert_base",
            "bert_tiny", "Seq2SeqTransformer", "Model", "summary", "flops",
-           "save", "load", "framework", "hapi", "io", "metric", "linalg",
-           "ops",
+           "save", "load", "framework", "hapi", "incubate", "io", "metric",
+           "linalg", "ops", "ParamAttr", "Parameter", "create_parameter",
+           "LazyGuard", "batch", "check_shape",
            # the core API (dtypes, device, RNG, autograd, to_tensor)
            "Tensor", "to_tensor", "bfloat16", "bool", "bool8", "complex64",
            "complex128", "float16", "float32", "float64", "int8", "int16",

@@ -1,11 +1,23 @@
-"""``to_tensor`` (``paddle_tpu/core/tensor.py:456``) and ``Tensor``.
+"""``to_tensor`` (``paddle_tpu/core/tensor.py:456``), ``Tensor`` and
+``Parameter`` (``:427-440``).
 
 The port's tensors are ``torch.Tensor`` itself; no Paddle method is bound
 onto torch's class (``transpose(perm)`` or ``sum(axis=...)`` would change
 torch's own methods for every module). ``stop_gradient=False`` is
 ``requires_grad=True``.
+
+A :class:`Parameter` is a ``torch.nn.Parameter`` that carries the JAX
+package's attributes: ``trainable`` (``requires_grad``), ``optimize_attr``
+(``{"learning_rate": scale}``, which the optimizers multiply into the
+parameter's rate), ``regularizer``, ``need_clip``, ``is_distributed`` and
+``name``. To torch it stays a parameter like any other: its storage, its
+``data_ptr`` (which the kernels and CUDA graphs hold), ``state_dict`` and
+``torch.save`` see no difference, and its arithmetic returns plain
+tensors.
 """
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -13,9 +25,62 @@ import torch
 from ..device import resolve_device
 from .dtype import convert_dtype, get_default_dtype
 
-__all__ = ["Tensor", "to_tensor", "as_array"]
+__all__ = ["Tensor", "Parameter", "to_tensor", "as_array"]
 
 Tensor = torch.Tensor
+
+_param_counter = [0]
+
+
+class Parameter(torch.nn.Parameter):
+    """``Parameter(data, dtype=None, trainable=True, name=None)``: a
+    trainable tensor made from ``data`` (a tensor, kept on its device, or
+    array-like data, put on the current device). An unnamed parameter is
+    named ``generated_tensor_<n>``, as the JAX package names it."""
+
+    def __new__(cls, data=None, dtype=None, trainable=True, name=None):
+        t = data.detach() if torch.is_tensor(data) else as_array(data)
+        dt = convert_dtype(dtype)
+        if dt is not None and t.dtype != dt:
+            t = t.to(dt)
+        return super().__new__(cls, t, bool(trainable))
+
+    def __init__(self, data=None, dtype=None, trainable=True, name=None):
+        if name is None:
+            _param_counter[0] += 1
+            name = f"generated_tensor_{_param_counter[0]}"
+        self._name = name
+        self.optimize_attr = {"learning_rate": 1.0}
+        self.regularizer = None
+        self.need_clip = True
+        self.is_distributed = False
+
+    # torch's ``Tensor.name`` is a read-only slot; a parameter's is its own
+    @property
+    def name(self):
+        return self._name
+
+    @name.setter
+    def name(self, value):
+        self._name = value
+
+    @property
+    def trainable(self):
+        return self.requires_grad
+
+    @trainable.setter
+    def trainable(self, value):
+        self.requires_grad_(bool(value))
+
+    def __deepcopy__(self, memo):
+        if id(self) in memo:
+            return memo[id(self)]
+        out = type(self)(self.data.clone(memory_format=torch.preserve_format),
+                         trainable=self.requires_grad, name=self._name)
+        memo[id(self)] = out
+        for key, value in self.__dict__.items():
+            out.__dict__[key] = copy.deepcopy(value, memo)
+        return out
 
 
 def as_array(data, dtype=None, device=None) -> torch.Tensor:

@@ -1,6 +1,10 @@
 """paddle_tpu_torch.framework — ``save`` / ``load`` (``paddle_tpu/
-framework/io.py``) and ``dtype_info`` (``finfo``, ``iinfo``, the dtype
-predicates); the flags and ``ParamAttr`` are not ported yet."""
+framework/io.py``), ``seed``, ``ParamAttr`` (``param_attr.py``), the
+helpers of ``compat.py`` (``create_parameter``, ``LazyGuard``, ``batch``,
+``check_shape``) and ``dtype_info`` (``finfo``, ``iinfo``, the dtype
+predicates); the flags are not ported yet."""
+from ..core.random import seed  # noqa: F401
 from .io import load, save  # noqa: F401
+from .param_attr import ParamAttr  # noqa: F401
 
-__all__ = ["save", "load"]
+__all__ = ["save", "load", "seed", "ParamAttr"]

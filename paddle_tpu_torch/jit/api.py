@@ -41,10 +41,12 @@ The **static key** is the arguments' skeleton (non-tensor arguments are
 part of it), every tensor's shape, dtype and device, the layers'
 ``training`` flags, the AMP state (``amp.auto_cast.amp_key``) and the
 mode. The walk of the captured state is cached and guarded by a
-structural version that torch's global registration hooks bump whenever
-any module gains a parameter, buffer or submodule (:meth:`invalidate`
-for edits they cannot see), and steady whole-step calls dispatch through
-a memo on the arguments' signature (``api.py:451-467``).
+structural version (``nn.layer.layers.STRUCT_VERSION``) that torch's
+global registration hooks bump whenever any module gains a parameter,
+buffer or submodule, and ``Layer.__delattr__`` whenever a layer loses
+one (:meth:`invalidate` for edits neither can see), and steady
+whole-step calls dispatch through a memo on the arguments' signature
+(``api.py:451-467``).
 
 **Graph breaks** (``api.py:81-121``, ``:326-371``): a host sync — an
 ``.item()``, ``bool()`` / ``float()`` / ``int()`` of a tensor, a copy
@@ -100,17 +102,8 @@ class _EagerFallback(Exception):
 
 
 # ---------------------------------------------------- structural version
-_STRUCT_VERSION = [0]
-
-
-def _bump(*_args):
-    _STRUCT_VERSION[0] += 1
-
-
-_nn_module = torch.nn.modules.module
-_nn_module.register_module_parameter_registration_hook(_bump)
-_nn_module.register_module_buffer_registration_hook(_bump)
-_nn_module.register_module_module_registration_hook(_bump)
+# moved by torch's global registration hooks and by ``Layer.__delattr__``
+from ..nn.layer.layers import STRUCT_VERSION as _STRUCT_VERSION  # noqa: E402
 
 
 # ------------------------------------------------------------- breaks

@@ -1,7 +1,9 @@
 """What every model of the port does with its ``device`` and ``seed``
-arguments: parameters drawn from one generator seeded with ``seed``
-(uninitialised when ``seed`` is None, for a load), each parameter named by
-its structured name (``param_name``, the optimizers' state keys), and the
+arguments: parameters drawn from the JAX layers' default initialisers
+(``Layer.create_parameter``) out of one generator seeded with ``seed``
+(left uninitialised when ``seed`` is None, for a load: the one way to
+build a model without initialising it), each parameter named by its
+structured name (``param_name``, the optimizers' state keys), and the
 dropouts drawing from a generator of the model's own seeded from
 ``seed + 1`` (the default generator when ``seed`` is None)."""
 from __future__ import annotations
@@ -10,16 +12,18 @@ import torch
 
 from ..device import resolve_device
 from ..nn import Dropout, MultiHeadAttention
+from ..nn.layer.layers import UNINITIALIZED
 
 __all__ = ["init_generator", "finish_model"]
 
 
 def init_generator(device, seed):
     """-> ``(device, generator)``: the resolved device and the
-    initialisation generator (None when ``seed`` is None)."""
+    initialisation generator its layers take (``UNINITIALIZED`` when
+    ``seed`` is None)."""
     dev = resolve_device(device)
     if seed is None:
-        return dev, None
+        return dev, UNINITIALIZED
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
     return dev, gen

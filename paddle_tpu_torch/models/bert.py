@@ -17,7 +17,6 @@ weights uninitialised for a load).
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from .. import nn as pnn
 from ..amp import amp_cast
@@ -55,7 +54,7 @@ def bert_tiny(**kw):
                                 dropout=0.0), **kw})
 
 
-class BertEmbeddings(nn.Module):
+class BertEmbeddings(pnn.Layer):
     def __init__(self, config, **kw):
         super().__init__()
         h = config.hidden_size
@@ -84,7 +83,7 @@ def _additive_mask(attention_mask):
     return ((1.0 - m.float()) * -1e30)[:, None, None, :]
 
 
-class BertModel(nn.Module):
+class BertModel(pnn.Layer):
     """``BertModel(config, device=None, dtype=torch.float32, seed=0)`` ->
     ``(sequence_output [B, S, h], pooled [B, h])``. The heads pass their
     own init ``generator``, so one stream initialises the whole model."""
@@ -113,7 +112,7 @@ class BertModel(nn.Module):
         return seq, F.tanh(self.pooler(seq[:, 0]))
 
 
-class BertForSequenceClassification(nn.Module):
+class BertForSequenceClassification(pnn.Layer):
     def __init__(self, config, num_classes=2, device=None,
                  dtype=torch.float32, seed=0):
         super().__init__()
@@ -130,7 +129,7 @@ class BertForSequenceClassification(nn.Module):
         return self.classifier(self.dropout(pooled))
 
 
-class BertForMaskedLM(nn.Module):
+class BertForMaskedLM(pnn.Layer):
     def __init__(self, config, device=None, dtype=torch.float32, seed=0):
         super().__init__()
         dev, gen = init_generator(device, seed)

@@ -95,15 +95,14 @@ are not ported yet.
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from .. import nn as pnn
 from ..amp import amp_cast
-from ..device import resolve_device
 from ..distributed.fleet.recompute import recompute
 from ..nn import functional as F
 from ..ops.kernels import (paged_attention, paged_prefill_reference,
                            ragged_paged_attention, ragged_row_index)
+from ._seeding import init_generator
 from .generate import DecodePrograms, generate_compiled
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTBlock", "GPTModel",
@@ -244,7 +243,7 @@ def _pool_write(pool, new, index):
     return pool
 
 
-class GPTAttention(nn.Module):
+class GPTAttention(pnn.Layer):
     def __init__(self, config, device=None, dtype=None, generator=None):
         super().__init__()
         self.num_heads = config.num_heads
@@ -343,7 +342,7 @@ class GPTAttention(nn.Module):
         return self.out_proj(out.reshape(b, s, h))
 
 
-class GPTMLP(nn.Module):
+class GPTMLP(pnn.Layer):
     def __init__(self, config, device=None, dtype=None, generator=None):
         super().__init__()
         h, ffn = config.hidden_size, config.intermediate_size
@@ -356,7 +355,7 @@ class GPTMLP(nn.Module):
         return self.dropout(self.fc2(F.gelu(self.fc1(x), approximate=True)))
 
 
-class GPTBlock(nn.Module):
+class GPTBlock(pnn.Layer):
     def __init__(self, config, device=None, dtype=None, generator=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype, generator=generator)
@@ -373,7 +372,7 @@ class GPTBlock(nn.Module):
         return _add(x, self.mlp(self.ln_2(x)))
 
 
-class GPTModel(nn.Module):
+class GPTModel(pnn.Layer):
     """Decoder stack -> final norm."""
 
     def __init__(self, config, device=None, dtype=None, generator=None):
@@ -384,7 +383,7 @@ class GPTModel(nn.Module):
         self.wpe = pnn.Embedding(config.max_seq_len, config.hidden_size,
                                  **kw)
         self.drop = pnn.Dropout(config.dropout)
-        self.h = nn.ModuleList([GPTBlock(config, **kw)
+        self.h = pnn.LayerList([GPTBlock(config, **kw)
                                 for _ in range(config.num_layers)])
         norm = pnn.RMSNorm if config.use_rms_norm else pnn.LayerNorm
         self.ln_f = norm(config.hidden_size,
@@ -436,35 +435,32 @@ class GPTModel(nn.Module):
         return self.ln_f(x)
 
 
-class GPTForCausalLM(nn.Module):
+class GPTForCausalLM(pnn.Layer):
     """LM head over :class:`GPTModel`, weight-tied by default.
 
     ``GPTForCausalLM(config, device=None, dtype=torch.float32, seed=0)``
     builds the model on ``device`` (``cuda`` unless ``"cpu"`` is passed)
-    with random weights drawn from ``seed``; ``seed=None`` leaves them
-    uninitialised for a load (:func:`~paddle_tpu_torch.convert.
-    params_from_paddle_tpu`). Dropout masks and :meth:`generate`'s
-    samples draw from generators of the model's own, seeded from
-    ``seed`` (the default generator when it is None)."""
+    with the JAX layers' initial distributions drawn from ``seed``;
+    ``seed=None`` leaves the weights uninitialised for a load
+    (:func:`~paddle_tpu_torch.convert.params_from_paddle_tpu`). Dropout
+    masks and :meth:`generate`'s samples draw from generators of the
+    model's own, seeded from ``seed`` (the default generator when it is
+    None)."""
 
     def __init__(self, config, device=None, dtype=torch.float32, seed=0):
-        super().__init__()
         if config.tensor_parallel or config.sequence_parallel:
             raise NotImplementedError(
                 "tensor/sequence-parallel GPT is not ported yet")
-        dev = resolve_device(device)
-        gen = None
+        super().__init__()
+        dev, gen = init_generator(device, seed)
         self.sample_generator = None
         self.decode_programs = DecodePrograms()
-        if seed is not None:
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(int(seed))
         kw = dict(device=dev, dtype=dtype, generator=gen)
         self.config = config
         self.gpt = GPTModel(config, **kw)
         if not config.tie_word_embeddings:
             self.lm_head = pnn.Linear(config.hidden_size, config.vocab_size,
-                                      bias=False, **kw)
+                                      bias_attr=False, **kw)
         for name, p in self.named_parameters():
             p.param_name = name
         if seed is not None:
@@ -596,7 +592,7 @@ def _sample(last, temperature, top_k, generator):
     return (z + gumbel).argmax(dim=-1, keepdim=True)
 
 
-class GPTPretrainingCriterion(nn.Module):
+class GPTPretrainingCriterion(pnn.Layer):
     """Mean token cross-entropy of the LM logits (``gpt.py:704-727``):
     ``criterion(logits [B, S, V], labels [B, S], loss_mask=None)``, the
     mean over every token, or over the tokens ``loss_mask`` marks. Labels

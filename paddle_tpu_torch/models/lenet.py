@@ -3,7 +3,6 @@
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from .. import nn as pnn
 from ._seeding import finish_model, init_generator
@@ -11,7 +10,7 @@ from ._seeding import finish_model, init_generator
 __all__ = ["LeNet"]
 
 
-class LeNet(nn.Module):
+class LeNet(pnn.Layer):
     """``LeNet(num_classes=10, device=None, dtype=torch.float32, seed=0)``
     on 1 x 28 x 28 inputs; ``seed=None`` leaves the weights uninitialised
     for a load."""

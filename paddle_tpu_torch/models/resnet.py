@@ -12,7 +12,6 @@ norm output back to the AMP dtype as the JAX package does.
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from .. import nn as pnn
 from ..ops.math import add
@@ -25,7 +24,7 @@ __all__ = ["BasicBlock", "BottleneckBlock", "ResNet", "resnet18",
            "resnext152_32x4d", "resnext152_64x4d"]
 
 
-class BasicBlock(nn.Module):
+class BasicBlock(pnn.Layer):
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
@@ -50,7 +49,7 @@ class BasicBlock(nn.Module):
         return self.relu(add(out, identity))
 
 
-class BottleneckBlock(nn.Module):
+class BottleneckBlock(pnn.Layer):
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
@@ -79,7 +78,7 @@ class BottleneckBlock(nn.Module):
         return self.relu(add(out, identity))
 
 
-class ResNet(nn.Module):
+class ResNet(pnn.Layer):
     """``ResNet(block, depth_cfg, num_classes=1000, in_channels=3,
     groups=1, width_per_group=64, device=None, dtype=torch.float32,
     seed=0)``."""

@@ -16,7 +16,6 @@ from __future__ import annotations
 import math
 
 import torch
-from torch import nn
 
 from .. import nn as pnn
 from ..ops.math import add, multiply
@@ -25,7 +24,7 @@ from ._seeding import finish_model, init_generator
 __all__ = ["Seq2SeqTransformer"]
 
 
-class Seq2SeqTransformer(nn.Module):
+class Seq2SeqTransformer(pnn.Layer):
     """``Seq2SeqTransformer(src_vocab, tgt_vocab, d_model=128, nhead=4,
     num_encoder_layers=2, num_decoder_layers=2, dim_feedforward=256,
     dropout=0.0, max_len=256, bos_id=0, eos_id=1, device=None,

@@ -14,7 +14,6 @@ norm output is cast back to the AMP dtype as in the JAX package.
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from .. import nn as pnn
 from ..ops.math import add
@@ -50,7 +49,7 @@ def _vgg_features(cfg, batch_norm=False, **kw):
     return pnn.Sequential(*layers)
 
 
-class VGG(nn.Module):
+class VGG(pnn.Layer):
     """``VGG(features, num_classes=1000, with_pool=True, batch_norm=False,
     device=None, dtype=torch.float32, seed=0)``: ``features`` is a module,
     or a configuration key of ``_VGG_CFGS`` ("A" 11, "B" 13, "D" 16, "E"
@@ -107,7 +106,7 @@ def vgg19(pretrained=False, batch_norm=False, **kw):
     return _vgg("E", pretrained, batch_norm, kw)
 
 
-class _ConvBNReLU(nn.Module):
+class _ConvBNReLU(pnn.Layer):
     def __init__(self, in_c, out_c, k, stride=1, padding=0, groups=1,
                  relu6=False, device=None, dtype=None, generator=None):
         super().__init__()
@@ -122,7 +121,7 @@ class _ConvBNReLU(nn.Module):
         return self.act(self.bn(self.conv(x)))
 
 
-class MobileNetV1(nn.Module):
+class MobileNetV1(pnn.Layer):
     """Reference: vision/models/mobilenetv1.py (depthwise separable)."""
 
     def __init__(self, scale=1.0, num_classes=1000, with_pool=True,
@@ -160,7 +159,7 @@ class MobileNetV1(nn.Module):
         return x
 
 
-class _InvertedResidual(nn.Module):
+class _InvertedResidual(pnn.Layer):
     def __init__(self, in_c, out_c, stride, expand, device=None, dtype=None,
                  generator=None):
         super().__init__()
@@ -183,7 +182,7 @@ class _InvertedResidual(nn.Module):
         return add(x, out) if self.use_res else out
 
 
-class MobileNetV2(nn.Module):
+class MobileNetV2(pnn.Layer):
     """Reference: vision/models/mobilenetv2.py (inverted residuals)."""
 
     def __init__(self, scale=1.0, num_classes=1000, with_pool=True,
@@ -227,7 +226,7 @@ class MobileNetV2(nn.Module):
         return x
 
 
-class AlexNet(nn.Module):
+class AlexNet(pnn.Layer):
     """Reference: vision/models/alexnet.py."""
 
     def __init__(self, num_classes=1000, device=None, dtype=torch.float32,

@@ -16,7 +16,6 @@ residual adds through ``add`` and the gate through ``multiply``, so under
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from .. import nn as pnn
 from ..nn import functional as F
@@ -50,7 +49,7 @@ def _conv_bn(cin, cout, k, stride=1, padding=0, groups=1, act="relu",
 
 
 # ---------------------------------------------------------------- DenseNet
-class _DenseLayer(nn.Module):
+class _DenseLayer(pnn.Layer):
     def __init__(self, cin, growth, bn_size, device=None, dtype=None,
                  generator=None):
         super().__init__()
@@ -68,7 +67,7 @@ class _DenseLayer(nn.Module):
         return concat([x, out], axis=1)
 
 
-class DenseNet(nn.Module):
+class DenseNet(pnn.Layer):
     """Reference: vision/models/densenet.py DenseNet. Every layer of a
     block concatenates its ``growth`` channels onto its input, so a
     block's activations grow with the square of its depth."""
@@ -137,7 +136,7 @@ def densenet264(**kw):
 
 
 # --------------------------------------------------------------- GoogLeNet
-class _Inception(nn.Module):
+class _Inception(pnn.Layer):
     def __init__(self, cin, c1, c3r, c3, c5r, c5, proj, device=None,
                  dtype=None, generator=None):
         super().__init__()
@@ -155,7 +154,7 @@ class _Inception(nn.Module):
                       axis=1)
 
 
-class GoogLeNet(nn.Module):
+class GoogLeNet(pnn.Layer):
     """Reference: vision/models/googlenet.py (inception v1); in training
     returns ``(out, aux1, aux2)``, in eval ``out``."""
 
@@ -208,7 +207,7 @@ def googlenet(**kw):
 
 
 # ------------------------------------------------------------- InceptionV3
-class _InceptionA(nn.Module):
+class _InceptionA(pnn.Layer):
     def __init__(self, cin, pool_feat, device=None, dtype=None,
                  generator=None):
         super().__init__()
@@ -227,7 +226,7 @@ class _InceptionA(nn.Module):
                       axis=1)
 
 
-class _ReductionA(nn.Module):
+class _ReductionA(pnn.Layer):
     def __init__(self, cin, device=None, dtype=None, generator=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype, generator=generator)
@@ -241,7 +240,7 @@ class _ReductionA(nn.Module):
         return concat([self.b3(x), self.b33(x), self.pool(x)], axis=1)
 
 
-class _InceptionB(nn.Module):
+class _InceptionB(pnn.Layer):
     def __init__(self, cin, c7, device=None, dtype=None, generator=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype, generator=generator)
@@ -264,7 +263,7 @@ class _InceptionB(nn.Module):
                       axis=1)
 
 
-class _ReductionB(nn.Module):
+class _ReductionB(pnn.Layer):
     """InceptionD in the reference naming: 768 -> 1280."""
 
     def __init__(self, cin, device=None, dtype=None, generator=None):
@@ -283,7 +282,7 @@ class _ReductionB(nn.Module):
         return concat([self.b3(x), self.b7(x), self.pool(x)], axis=1)
 
 
-class _InceptionC(nn.Module):
+class _InceptionC(pnn.Layer):
     """InceptionE in the reference naming: split 3x3 branches concat to
     2048 channels."""
 
@@ -309,7 +308,7 @@ class _InceptionC(nn.Module):
                        self.b33_a(h33), self.b33_b(h33), self.bp(x)], axis=1)
 
 
-class InceptionV3(nn.Module):
+class InceptionV3(pnn.Layer):
     """Reference: vision/models/inceptionv3.py — stem -> 3 A ->
     reduction A -> 4 B -> reduction B -> 2 C -> head (channels
     192-256-288-288-768-768 x 4-1280-2048-2048), on 3 x 299 x 299."""
@@ -353,7 +352,7 @@ def inception_v3(**kw):
 
 
 # ------------------------------------------------------------- MobileNetV3
-class _SE(nn.Module):
+class _SE(pnn.Layer):
     """Squeeze-excite: ``x * hardsigmoid(fc2(relu(fc1(pool(x)))))``."""
 
     def __init__(self, c, r=4, device=None, dtype=None, generator=None):
@@ -368,7 +367,7 @@ class _SE(nn.Module):
         return multiply(x, F.hardsigmoid(self.fc2(s)))
 
 
-class _MBV3Block(nn.Module):
+class _MBV3Block(pnn.Layer):
     def __init__(self, cin, exp, cout, k, stride, se, act, device=None,
                  dtype=None, generator=None):
         super().__init__()
@@ -408,7 +407,7 @@ _V3_SMALL = [
     (5, 576, 96, True, "hardswish", 1)]
 
 
-class _MobileNetV3(nn.Module):
+class _MobileNetV3(pnn.Layer):
     def __init__(self, cfg, last_c, num_classes=1000, scale=1.0, device=None,
                  dtype=torch.float32, seed=0):
         super().__init__()
@@ -474,7 +473,7 @@ def mobilenet_v2(**kw):
 
 
 # ------------------------------------------------------------ ShuffleNetV2
-class _ShuffleUnit(nn.Module):
+class _ShuffleUnit(pnn.Layer):
     def __init__(self, cin, cout, stride, act, device=None, dtype=None,
                  generator=None):
         super().__init__()
@@ -514,7 +513,7 @@ _SHUFFLE_CFG = {
     1.5: [24, 176, 352, 704, 1024], 2.0: [24, 244, 488, 976, 2048]}
 
 
-class ShuffleNetV2(nn.Module):
+class ShuffleNetV2(pnn.Layer):
     """Reference: vision/models/shufflenetv2.py."""
 
     def __init__(self, scale=1.0, act="relu", num_classes=1000,
@@ -574,7 +573,7 @@ def shufflenet_v2_swish(**kw):
 
 
 # -------------------------------------------------------------- SqueezeNet
-class _Fire(nn.Module):
+class _Fire(pnn.Layer):
     def __init__(self, cin, squeeze, e1, e3, device=None, dtype=None,
                  generator=None):
         super().__init__()
@@ -588,7 +587,7 @@ class _Fire(nn.Module):
         return concat([F.relu(self.e1(s)), F.relu(self.e3(s))], axis=1)
 
 
-class SqueezeNet(nn.Module):
+class SqueezeNet(pnn.Layer):
     """Reference: vision/models/squeezenet.py (1.0 and 1.1 variants)."""
 
     def __init__(self, version="1.0", num_classes=1000, with_pool=True,

@@ -1,11 +1,11 @@
-"""Neural-network layers and functionals of the port, and gradient
-clipping (``paddle_tpu/nn``)."""
-from . import functional, layer
+"""Neural-network layers (``Layer`` and every ported layer), functionals,
+initializers and gradient clipping of the port (``paddle_tpu/nn``)."""
+from . import functional, initializer, layer
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
                    clip_grad_norm_)
 from .layer import *  # noqa: F401,F403  (every layer, as in JAX)
 from .layer import __all__ as _layers
 
 __all__ = list(_layers) + [
-    "functional", "layer", "ClipGradByValue", "ClipGradByNorm",
+    "functional", "initializer", "layer", "ClipGradByValue", "ClipGradByNorm",
     "ClipGradByGlobalNorm", "clip_grad_norm_"]

@@ -1,6 +1,7 @@
 """Functional ops of the port, laid out as ``paddle_tpu/nn/functional/``:
-``common`` (dropout, attention), ``activation``, ``loss``, ``extra``
-(``channel_shuffle``), ``conv``, ``pooling`` and ``norm``.
+``common`` (linear, embedding, dropout, attention), ``activation``,
+``loss``, ``extra`` (``channel_shuffle``), ``conv``, ``pooling`` and
+``norm``.
 
 Every functional casts its inputs under ``auto_cast`` through this
 package's ``amp_cast``, looked up when it runs (``common._amp_cast``), so
@@ -12,7 +13,8 @@ from .activation import (celu, elu, gelu, glu, hardshrink, hardsigmoid,
                          log_softmax, mish, prelu, relu, relu6, relu_,
                          selu, sigmoid, silu, softmax, softplus, softshrink,
                          softsign, swish, tanh, tanhshrink)
-from .common import NEG_INF, dropout, scaled_dot_product_attention
+from .common import (NEG_INF, dropout, embedding, linear,
+                     scaled_dot_product_attention)
 from .conv import conv2d
 from .extra import channel_shuffle
 from .loss import (binary_cross_entropy, binary_cross_entropy_with_logits,
@@ -26,7 +28,8 @@ __all__ = ["relu", "relu_", "relu6", "gelu", "sigmoid", "silu", "swish",
            "tanh", "leaky_relu", "elu", "selu", "celu", "hardtanh",
            "hardsigmoid", "hardswish", "hardshrink", "softshrink",
            "tanhshrink", "softplus", "softsign", "mish", "log_sigmoid",
-           "prelu", "glu", "softmax", "log_softmax", "dropout",
+           "prelu", "glu", "softmax", "log_softmax", "linear", "embedding",
+           "dropout",
            "scaled_dot_product_attention", "cross_entropy",
            "softmax_with_cross_entropy", "mse_loss", "l1_loss", "nll_loss",
            "binary_cross_entropy", "binary_cross_entropy_with_logits",

@@ -1,5 +1,18 @@
-"""Dropout and attention (``paddle_tpu/nn/functional/common.py``); the
-losses are in :mod:`.loss`."""
+"""Linear, embedding, dropout and attention
+(``paddle_tpu/nn/functional/common.py``); the losses are in :mod:`.loss`.
+
+* :func:`linear` keeps Paddle's ``[in, out]`` weight layout, ``x @ W +
+  b``: a plain ``torch.addmm`` / ``torch.matmul`` (the JAX package leaves
+  these products to XLA outside any Pallas kernel); under ``auto_cast``
+  O1 it computes in the AMP dtype (``linear`` is on the white list).
+* :func:`embedding` is a row gather of the ``[num, dim]`` table (cast as
+  ``embedding`` says under ``auto_cast``); ids equal to ``padding_idx``
+  give zero rows, so the padding row gets no gradient.
+* :func:`dropout` keeps each element (or, with ``axis``, each slice along
+  those axes, its mask shared along the others) with probability ``1 -
+  p``; its mask draws from ``generator``, a keyword-only extra of the
+  port (the default generator when None, which ``paddle.seed`` seeds).
+"""
 from __future__ import annotations
 
 import math
@@ -9,7 +22,8 @@ import torch
 
 from ...ops.kernels import flash_attention_bshd
 
-__all__ = ["dropout", "scaled_dot_product_attention", "NEG_INF"]
+__all__ = ["linear", "embedding", "dropout", "scaled_dot_product_attention",
+           "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -28,18 +42,53 @@ def _amp_cast(op_name, *tensors):
     return sys.modules[__package__].amp_cast(op_name, *tensors)
 
 
-def dropout(x, p=0.5, training=True, generator=None):
-    """Upscale-in-train dropout (``nn/functional/common.py:42``): in
-    training each element is kept with probability ``1 - p`` and scaled by
-    ``1 / (1 - p)``; the identity when ``p == 0`` or not training. The keep
-    mask draws from ``generator`` (the default generator when None)."""
-    if p == 0.0 or not training:
+def linear(x, weight, bias=None, name=None):
+    """``x @ weight + bias`` with ``weight`` ``[in, out]``
+    (``common.py:27``)."""
+    x, w, b = _amp_cast("linear", x, weight, bias)
+    x2 = x.reshape(-1, x.shape[-1])
+    y = torch.addmm(b, x2, w) if b is not None else torch.matmul(x2, w)
+    return y.reshape(*x.shape[:-1], y.shape[-1])
+
+
+def embedding(x, weight, padding_idx=None, sparse=False, name=None):
+    """The rows of ``weight`` at the ids ``x`` (``common.py:122-131``);
+    where an id equals ``padding_idx`` the row is zero and passes no
+    gradient. ``sparse`` is accepted, as in JAX: the gradient is dense."""
+    (w,) = _amp_cast("embedding", weight)
+    out = w[x.long()]
+    if padding_idx is not None:
+        out = out.masked_fill((x == padding_idx).unsqueeze(-1), 0.0)
+    return out
+
+
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
+            name=None, *, generator=None):
+    """Dropout as ``common.py:42-63``: in training each element is kept
+    with probability ``1 - p``, and scaled by ``1 / (1 - p)`` under
+    ``mode="upscale_in_train"``; with ``axis`` (an int or a list) the keep
+    mask has the input's size on those axes and 1 on the others, so it is
+    shared along them. Outside training ``upscale_in_train`` is the
+    identity and ``downscale_in_infer`` scales by ``1 - p``."""
+    if mode not in ("upscale_in_train", "downscale_in_infer"):
+        raise ValueError(f"dropout mode {mode!r}: upscale_in_train or "
+                         f"downscale_in_infer")
+    if p == 0.0 or (not training and mode == "upscale_in_train"):
         return x
+    if not training:
+        return x * (1.0 - p)
     if p == 1.0:
         return x * 0
-    keep = torch.rand(x.shape, device=x.device,
-                      generator=generator) < 1.0 - p
-    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+    shape = list(x.shape)
+    if axis is not None:
+        axes = [axis] if isinstance(axis, int) else list(axis)
+        if min(axes) < 0 or max(axes) >= x.dim():
+            raise ValueError(f"dropout axis {axis} out of range for a "
+                             f"{x.dim()}-d input")
+        shape = [s if i in axes else 1 for i, s in enumerate(shape)]
+    keep = torch.rand(shape, device=x.device, generator=generator) < 1.0 - p
+    kept = x / (1.0 - p) if mode == "upscale_in_train" else x
+    return torch.where(keep, kept, 0.0)
 
 
 def _flash_eligible(query, attn_mask, dropout_p, training):
@@ -57,7 +106,8 @@ def _flash_eligible(query, attn_mask, dropout_p, training):
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
-                                 training=True, generator=None):
+                                 training=True, name=None, *,
+                                 generator=None):
     """Attention on ``[B, S, H, D]`` tensors (paddle's layout; ``Sq`` and
     ``Sk`` may differ). Eligible configurations run the flash kernels
     (:func:`flash_attention_bshd`); the others the plain chain of
@@ -83,5 +133,6 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         else:
             scores = scores + attn_mask.float()
     probs = torch.softmax(scores, dim=-1)
-    probs = dropout(probs, dropout_p, training, generator)
+    probs = dropout(probs, dropout_p, training=training,
+                    generator=generator)
     return (probs @ vt).transpose(1, 2).to(query.dtype)

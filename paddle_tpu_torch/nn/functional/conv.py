@@ -46,7 +46,7 @@ def _padding(padding, size, kernel, stride, dilation):
 
 
 def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
-           data_format="NCHW"):
+           data_format="NCHW", name=None):
     """``x`` [N, C, H, W] (``data_format="NHWC"``: [N, H, W, C]) conv
     ``weight`` [O, C / groups, kh, kw] (+ ``bias`` [O]) in x's layout, on
     the AMP white list (``conv2d``)."""

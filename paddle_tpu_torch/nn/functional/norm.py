@@ -10,7 +10,7 @@ from .common import _amp_cast
 __all__ = ["rms_norm", "batch_norm"]
 
 
-def rms_norm(x, weight=None, epsilon=1e-6):
+def rms_norm(x, weight=None, epsilon=1e-6, name=None):
     """RMSNorm over the last axis (``nn/functional/norm.py:42``): f32
     statistics, output in x's type, in f32 under ``auto_cast``
     (``rms_norm`` is on the black list). Runs
@@ -30,7 +30,7 @@ def _channel_axis(data_format, ndim):
 
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                training=False, momentum=0.9, epsilon=1e-5,
-               data_format="NCHW", use_global_stats=None):
+               data_format="NCHW", use_global_stats=None, name=None):
     """Batch norm over every axis but the channel's, to
     ``norm.py:56-110``: statistics and output in f32, returned in x's
     type (f32 under ``auto_cast``: ``batch_norm`` is on the black list).

@@ -47,7 +47,7 @@ def _back(y, data_format):
 
 
 def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
-               ceil_mode=False, data_format="NCHW"):
+               ceil_mode=False, data_format="NCHW", name=None):
     """Max over each window; padding never wins (``-inf``)."""
     if return_mask:
         raise NotImplementedError("return_mask is not ported (the JAX "
@@ -61,7 +61,8 @@ def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
 
 
 def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
-               exclusive=True, divisor_override=None, data_format="NCHW"):
+               exclusive=True, divisor_override=None, data_format="NCHW",
+               name=None):
     """Mean over each window, summed in f32 and returned in x's type."""
     if divisor_override is not None:
         raise NotImplementedError("divisor_override is not ported (the "
@@ -80,7 +81,7 @@ def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
     return _back(out.to(x.dtype), data_format)
 
 
-def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
+def adaptive_avg_pool2d(x, output_size, data_format="NCHW", name=None):
     """Mean over ``output_size`` cells, cell ``i`` of an axis of ``n``
     covering ``[floor(i n / out), ceil((i + 1) n / out))``
     (``pooling.py:146``), in x's type."""

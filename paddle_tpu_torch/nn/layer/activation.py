@@ -6,10 +6,9 @@ from __future__ import annotations
 
 import inspect
 
-from torch import nn
-
 from .. import functional as F
-from .common import _param
+from .. import initializer as I
+from .layers import Layer
 
 __all__ = ["ReLU", "ReLU6", "GELU", "Sigmoid", "Tanh", "Softmax",
            "LogSoftmax", "LeakyReLU", "ELU", "SELU", "CELU", "Hardtanh",
@@ -21,14 +20,14 @@ __all__ = ["ReLU", "ReLU6", "GELU", "Sigmoid", "Tanh", "Softmax",
 def _simple(name, fn_name):
     """A layer class that calls ``F.<fn_name>(x, **its arguments)``."""
     def __init__(self, *args, name=None, **kw):  # noqa: N807
-        nn.Module.__init__(self)
+        Layer.__init__(self)
         keys = list(inspect.signature(getattr(F, fn_name)).parameters)[1:]
         self._kw = dict(zip(keys, args), **kw)
 
     def forward(self, x):
         return getattr(F, fn_name)(x, **self._kw)
 
-    return type(name, (nn.Module,), {"__init__": __init__,
+    return type(name, (Layer,), {"__init__": __init__,
                                      "forward": forward,
                                      "__module__": __name__})
 
@@ -59,16 +58,18 @@ Swish = _simple("Swish", "swish")
 GLU = _simple("GLU", "glu")
 
 
-class PReLU(nn.Module):
+class PReLU(Layer):
     """A trainable slope ``weight`` of ``num_parameters`` entries (one, or
-    one a channel), filled with ``init``."""
+    one a channel), filled with ``init`` unless ``weight_attr`` names
+    another initializer."""
 
     def __init__(self, num_parameters=1, init=0.25, weight_attr=None,
-                 data_format="NCHW", name=None, device=None, dtype=None):
-        super().__init__()
+                 data_format="NCHW", name=None, *, device=None, dtype=None):
+        super().__init__(dtype=dtype, device=device)
         self._data_format = data_format
-        self.weight = _param((num_parameters,), device, dtype, None)
-        self.weight.data.fill_(init)
+        self.weight = self.create_parameter(
+            shape=[num_parameters], attr=weight_attr,
+            default_initializer=I.Constant(init))
 
     def forward(self, x):
         return F.prelu(x, self.weight, self._data_format)

@@ -1,34 +1,29 @@
 """Linear, Embedding, Dropout, Identity and Flatten
-(``paddle_tpu/nn/layer/common.py``).
+(``paddle_tpu/nn/layer/common.py``), on :class:`~.layers.Layer` with the
+JAX package's arguments in its order; the port's ``device``, ``dtype``
+and ``generator`` are keyword-only extras.
 
 * :class:`Linear` keeps Paddle's ``[in, out]`` weight layout and computes
-  ``x @ W + b`` — no transpose at load time. The product is a plain
-  ``torch.addmm``/``torch.matmul``: the JAX package leaves these products
-  to XLA outside any Pallas kernel. Under ``auto_cast`` O1 it computes in
-  the AMP dtype (``linear`` is on the white list).
-* :class:`Embedding` is a row gather of its ``[num, dim]`` table (its
-  table cast as ``embedding`` says under ``auto_cast``: the AMP dtype
-  under O2).
-* :class:`Dropout` is upscale-in-train dropout drawing from its own
-  ``torch.Generator``.
-
-Random initialisation (normal(0, 0.02) weights, zero biases, unit norm
-scales) draws from a ``torch.Generator`` on the parameters' device; pass
-``generator=None`` to leave the storage uninitialised for a load.
+  :func:`~..functional.linear`; XavierUniform weight, zero bias (none
+  with ``bias_attr=False``).
+* :class:`Embedding` gathers rows of its ``[num, dim]`` XavierUniform
+  table (:func:`~..functional.embedding`); the ``padding_idx`` row (a
+  negative index counts from the end) is zeroed at creation and gets no
+  gradient.
+* :class:`Dropout` is :func:`~..functional.dropout` with the layer's
+  ``training`` flag, drawing from its ``generator`` (the default
+  generator when None).
 """
 from __future__ import annotations
 
 import sys
 
 import torch
-from torch import nn
 
 from .. import functional as F
+from .layers import Layer
 
-__all__ = ["Linear", "Embedding", "Dropout", "Identity", "Flatten",
-           "INIT_STD"]
-
-INIT_STD = 0.02
+__all__ = ["Linear", "Embedding", "Dropout", "Identity", "Flatten"]
 
 
 def _amp_cast(op_name, *tensors):
@@ -37,60 +32,66 @@ def _amp_cast(op_name, *tensors):
     return sys.modules[__package__].amp_cast(op_name, *tensors)
 
 
-def _param(shape, device, dtype, generator, fill=None, std=INIT_STD):
-    """A trainable parameter: normal(0, ``std``) or ``fill`` drawn from
-    ``generator``, uninitialised when ``generator`` is None."""
-    t = torch.empty(shape, device=device, dtype=dtype)
-    if generator is not None:
-        if fill is None:
-            t.normal_(0.0, std, generator=generator)
-        else:
-            t.fill_(fill)
-    return nn.Parameter(t)
-
-
-class Linear(nn.Module):
-    def __init__(self, in_features, out_features, bias=True, device=None,
-                 dtype=None, generator=None):
-        super().__init__()
-        self.weight = _param((in_features, out_features), device, dtype,
-                             generator)
-        self.bias = _param((out_features,), device, dtype, generator,
-                           fill=0.0) if bias else None
+class Linear(Layer):
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 bias_attr=None, name=None, *, device=None, dtype=None,
+                 generator=None):
+        super().__init__(dtype=dtype, device=device, generator=generator)
+        self._in_features = in_features
+        self._out_features = out_features
+        self.weight = self.create_parameter(
+            shape=[in_features, out_features], attr=weight_attr)
+        self.bias = self.create_parameter(
+            shape=[out_features], attr=bias_attr, is_bias=True)
 
     def forward(self, x):
-        x, w, b = _amp_cast("linear", x, self.weight, self.bias)
-        x2 = x.reshape(-1, x.shape[-1])
-        y = torch.addmm(b, x2, w) if b is not None else torch.matmul(x2, w)
-        return y.reshape(*x.shape[:-1], y.shape[-1])
+        return F.linear(x, self.weight, self.bias)
+
+    def extra_repr(self):
+        return (f"in_features={self._in_features}, "
+                f"out_features={self._out_features}")
 
 
-class Embedding(nn.Module):
-    def __init__(self, num_embeddings, embedding_dim, device=None,
+class Embedding(Layer):
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 sparse=False, weight_attr=None, name=None, *, device=None,
                  dtype=None, generator=None):
+        super().__init__(dtype=dtype, device=device, generator=generator)
+        self._num_embeddings = num_embeddings
+        self._embedding_dim = embedding_dim
+        self._padding_idx = padding_idx if padding_idx is None or \
+            padding_idx >= 0 else num_embeddings + padding_idx
+        self.weight = self.create_parameter(
+            shape=[num_embeddings, embedding_dim], attr=weight_attr)
+        if self._padding_idx is not None:
+            with torch.no_grad():
+                self.weight[self._padding_idx] = 0
+
+    def forward(self, x):
+        return F.embedding(x, self.weight, padding_idx=self._padding_idx)
+
+    def extra_repr(self):
+        return f"{self._num_embeddings}, {self._embedding_dim}"
+
+
+class Dropout(Layer):
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None,
+                 *, generator=None):
         super().__init__()
-        self.weight = _param((num_embeddings, embedding_dim), device, dtype,
-                             generator)
-
-    def forward(self, ids):
-        (w,) = _amp_cast("embedding", self.weight)
-        return w[ids.long()]
-
-
-class Dropout(nn.Module):
-    """``Dropout(p, generator=None)``: :func:`~..functional.dropout` in
-    training mode, the identity in eval mode."""
-
-    def __init__(self, p=0.5, generator=None):
-        super().__init__()
-        self.p = float(p)
+        self.p = p
+        self.axis = axis
+        self.mode = mode
         self.generator = generator
 
     def forward(self, x):
-        return F.dropout(x, self.p, self.training, self.generator)
+        return F.dropout(x, self.p, self.axis, self.training, self.mode,
+                         generator=self.generator)
+
+    def extra_repr(self):
+        return f"p={self.p}, mode={self.mode}"
 
 
-class Identity(nn.Module):
+class Identity(Layer):
     def __init__(self, *args, **kwargs):
         super().__init__()
 
@@ -98,7 +99,7 @@ class Identity(nn.Module):
         return x
 
 
-class Flatten(nn.Module):
+class Flatten(Layer):
     """Flattens axes ``start_axis`` .. ``stop_axis`` into one."""
 
     def __init__(self, start_axis=1, stop_axis=-1):

@@ -3,14 +3,13 @@
 ported yet."""
 from __future__ import annotations
 
-from torch import nn
-
 from .. import functional as F
+from .layers import Layer
 
 __all__ = ["ChannelShuffle"]
 
 
-class ChannelShuffle(nn.Module):
+class ChannelShuffle(Layer):
     def __init__(self, groups, data_format="NCHW", name=None):
         super().__init__()
         self.groups, self.data_format = groups, data_format

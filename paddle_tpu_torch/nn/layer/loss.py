@@ -2,16 +2,15 @@
 :mod:`..functional.loss`."""
 from __future__ import annotations
 
-from torch import nn
-
 from .. import functional as F
+from .layers import Layer
 
 __all__ = ["CrossEntropyLoss", "MSELoss", "L1Loss", "NLLLoss", "BCELoss",
            "BCEWithLogitsLoss", "SmoothL1Loss", "KLDivLoss",
            "MarginRankingLoss"]
 
 
-class CrossEntropyLoss(nn.Module):
+class CrossEntropyLoss(Layer):
     def __init__(self, weight=None, ignore_index=-100, reduction="mean",
                  soft_label=False, axis=-1, use_softmax=True,
                  label_smoothing=0.0, name=None):
@@ -32,7 +31,7 @@ class CrossEntropyLoss(nn.Module):
             label_smoothing=self.label_smoothing)
 
 
-class MSELoss(nn.Module):
+class MSELoss(Layer):
     def __init__(self, reduction="mean"):
         super().__init__()
         self.reduction = reduction
@@ -41,7 +40,7 @@ class MSELoss(nn.Module):
         return F.mse_loss(input, label, self.reduction)
 
 
-class L1Loss(nn.Module):
+class L1Loss(Layer):
     def __init__(self, reduction="mean", name=None):
         super().__init__()
         self.reduction = reduction
@@ -50,7 +49,7 @@ class L1Loss(nn.Module):
         return F.l1_loss(input, label, self.reduction)
 
 
-class NLLLoss(nn.Module):
+class NLLLoss(Layer):
     def __init__(self, weight=None, ignore_index=-100, reduction="mean",
                  name=None):
         super().__init__()
@@ -63,7 +62,7 @@ class NLLLoss(nn.Module):
                           self.reduction)
 
 
-class BCELoss(nn.Module):
+class BCELoss(Layer):
     def __init__(self, weight=None, reduction="mean", name=None):
         super().__init__()
         self.weight = weight
@@ -74,7 +73,7 @@ class BCELoss(nn.Module):
                                       self.reduction)
 
 
-class BCEWithLogitsLoss(nn.Module):
+class BCEWithLogitsLoss(Layer):
     def __init__(self, weight=None, reduction="mean", pos_weight=None,
                  name=None):
         super().__init__()
@@ -87,7 +86,7 @@ class BCEWithLogitsLoss(nn.Module):
             logit, label, self.weight, self.reduction, self.pos_weight)
 
 
-class SmoothL1Loss(nn.Module):
+class SmoothL1Loss(Layer):
     def __init__(self, reduction="mean", delta=1.0, name=None):
         super().__init__()
         self.reduction = reduction
@@ -97,7 +96,7 @@ class SmoothL1Loss(nn.Module):
         return F.smooth_l1_loss(input, label, self.reduction, self.delta)
 
 
-class KLDivLoss(nn.Module):
+class KLDivLoss(Layer):
     def __init__(self, reduction="mean", name=None):
         super().__init__()
         self.reduction = reduction
@@ -106,7 +105,7 @@ class KLDivLoss(nn.Module):
         return F.kl_div(input, label, self.reduction)
 
 
-class MarginRankingLoss(nn.Module):
+class MarginRankingLoss(Layer):
     def __init__(self, margin=0.0, reduction="mean", name=None):
         super().__init__()
         self.margin = margin

@@ -2,16 +2,16 @@
 (``paddle_tpu/nn/layer/pooling.py``) over :mod:`..functional.pooling`."""
 from __future__ import annotations
 
-from torch import nn
-
 from .. import functional as F
+from .layers import Layer
 
 __all__ = ["MaxPool2D", "AvgPool2D", "AdaptiveAvgPool2D"]
 
 
-class MaxPool2D(nn.Module):
+class MaxPool2D(Layer):
     def __init__(self, kernel_size, stride=None, padding=0,
-                 return_mask=False, ceil_mode=False, data_format="NCHW"):
+                 return_mask=False, ceil_mode=False, data_format="NCHW",
+                 name=None):
         super().__init__()
         self.ksize, self.stride, self.padding = kernel_size, stride, padding
         self.return_mask, self.ceil_mode = return_mask, ceil_mode
@@ -23,9 +23,10 @@ class MaxPool2D(nn.Module):
                             self.data_format)
 
 
-class AvgPool2D(nn.Module):
+class AvgPool2D(Layer):
     def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False,
-                 exclusive=True, divisor_override=None, data_format="NCHW"):
+                 exclusive=True, divisor_override=None, data_format="NCHW",
+                 name=None):
         super().__init__()
         self.ksize, self.stride, self.padding = kernel_size, stride, padding
         self.ceil_mode, self.exclusive = ceil_mode, exclusive
@@ -37,8 +38,8 @@ class AvgPool2D(nn.Module):
                             self.data_format)
 
 
-class AdaptiveAvgPool2D(nn.Module):
-    def __init__(self, output_size, data_format="NCHW"):
+class AdaptiveAvgPool2D(Layer):
+    def __init__(self, output_size, data_format="NCHW", name=None):
         super().__init__()
         self.output_size, self.data_format = output_size, data_format
 

@@ -10,22 +10,25 @@ decoder stacks deep-copy their first layer, as the JAX package does, so
 every layer starts from the same weights. Residual adds are the ``add``
 op (:func:`~...ops.math.add`), so they cast as ``auto_cast`` says.
 
-Every layer takes ``device``, ``dtype`` and ``generator`` for its
-parameters (``generator=None`` leaves them uninitialised for a load);
-attention dropout draws from ``MultiHeadAttention.dropout_generator``
-(None: the default generator).
+Every layer is a :class:`~.layers.Layer` with the JAX package's
+arguments; ``weight_attr`` / ``bias_attr`` reach every ``Linear`` of the
+layer, as in JAX (``bias_attr=False`` drops their biases), and the
+port's ``device``, ``dtype`` and ``generator`` (keyword-only) every
+parameter. A deep copy keeps each parameter's attributes
+(``core.tensor.Parameter.__deepcopy__``). Attention dropout draws from
+``MultiHeadAttention.dropout_generator`` (None: the default generator).
 """
 from __future__ import annotations
 
 import copy
 
 import torch
-from torch import nn
 
 from ...ops.math import add
 from .. import functional as F
 from .common import Dropout, Linear
 from .container import LayerList
+from .layers import Layer
 from .norm import LayerNorm
 
 __all__ = ["MultiHeadAttention", "TransformerEncoderLayer",
@@ -45,11 +48,11 @@ def generate_square_subsequent_mask(length, device=None):
     return torch.where(keep, 0.0, -1e9).to(torch.float32)
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(Layer):
     def __init__(self, embed_dim, num_heads, dropout=0.0, kdim=None,
                  vdim=None, need_weights=False, weight_attr=None,
-                 bias_attr=None, device=None, dtype=None, generator=None):
-        super().__init__()
+                 bias_attr=None, *, device=None, dtype=None, generator=None):
+        super().__init__(dtype=dtype, device=device, generator=generator)
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} does not divide into "
                              f"{num_heads} heads")
@@ -57,19 +60,16 @@ class MultiHeadAttention(nn.Module):
             raise NotImplementedError("need_weights: the attention weights "
                                       "are not returned (nor are they by "
                                       "the JAX package)")
-        if weight_attr is not None:
-            raise NotImplementedError("weight_attr: ParamAttr is not ported "
-                                      "(pass generator= for the init)")
         self.embed_dim, self.num_heads = embed_dim, num_heads
         self.head_dim = embed_dim // num_heads
         self.dropout = dropout
         self.dropout_generator = None
-        kw = dict(bias=bias_attr is not False, device=device, dtype=dtype,
-                  generator=generator)
-        self.q_proj = Linear(embed_dim, embed_dim, **kw)
-        self.k_proj = Linear(kdim or embed_dim, embed_dim, **kw)
-        self.v_proj = Linear(vdim or embed_dim, embed_dim, **kw)
-        self.out_proj = Linear(embed_dim, embed_dim, **kw)
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        attrs = (weight_attr, bias_attr)
+        self.q_proj = Linear(embed_dim, embed_dim, *attrs, **kw)
+        self.k_proj = Linear(kdim or embed_dim, embed_dim, *attrs, **kw)
+        self.v_proj = Linear(vdim or embed_dim, embed_dim, *attrs, **kw)
+        self.out_proj = Linear(embed_dim, embed_dim, *attrs, **kw)
 
     def forward(self, query, key=None, value=None, attn_mask=None,
                 cache=None):
@@ -94,22 +94,23 @@ class MultiHeadAttention(nn.Module):
         return (out, cache) if cache is not None else out
 
 
-class TransformerEncoderLayer(nn.Module):
+class TransformerEncoderLayer(Layer):
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
                  normalize_before=False, weight_attr=None, bias_attr=None,
-                 device=None, dtype=None, generator=None):
-        super().__init__()
+                 *, device=None, dtype=None, generator=None):
+        super().__init__(dtype=dtype, device=device, generator=generator)
         attn_dropout = dropout if attn_dropout is None else attn_dropout
         act_dropout = dropout if act_dropout is None else act_dropout
         kw = dict(device=device, dtype=dtype, generator=generator)
         attn = dict(weight_attr=weight_attr, bias_attr=bias_attr, **kw)
-        bias = bias_attr is not False
         self.normalize_before = normalize_before
         self.self_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
                                             **attn)
-        self.linear1 = Linear(d_model, dim_feedforward, bias, **kw)
-        self.linear2 = Linear(dim_feedforward, d_model, bias, **kw)
+        self.linear1 = Linear(d_model, dim_feedforward, weight_attr,
+                              bias_attr, **kw)
+        self.linear2 = Linear(dim_feedforward, d_model, weight_attr,
+                              bias_attr, **kw)
         self.norm1 = LayerNorm(d_model, **kw)
         self.norm2 = LayerNorm(d_model, **kw)
         self.dropout = Dropout(act_dropout)
@@ -135,7 +136,7 @@ class TransformerEncoderLayer(nn.Module):
         return src
 
 
-class TransformerEncoder(nn.Module):
+class TransformerEncoder(Layer):
     def __init__(self, encoder_layer, num_layers, norm=None):
         super().__init__()
         self.layers = LayerList(
@@ -151,24 +152,25 @@ class TransformerEncoder(nn.Module):
         return self.norm(out) if self.norm is not None else out
 
 
-class TransformerDecoderLayer(nn.Module):
+class TransformerDecoderLayer(Layer):
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
                  normalize_before=False, weight_attr=None, bias_attr=None,
-                 device=None, dtype=None, generator=None):
-        super().__init__()
+                 *, device=None, dtype=None, generator=None):
+        super().__init__(dtype=dtype, device=device, generator=generator)
         attn_dropout = dropout if attn_dropout is None else attn_dropout
         act_dropout = dropout if act_dropout is None else act_dropout
         kw = dict(device=device, dtype=dtype, generator=generator)
         attn = dict(weight_attr=weight_attr, bias_attr=bias_attr, **kw)
-        bias = bias_attr is not False
         self.normalize_before = normalize_before
         self.self_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
                                             **attn)
         self.cross_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
                                              **attn)
-        self.linear1 = Linear(d_model, dim_feedforward, bias, **kw)
-        self.linear2 = Linear(dim_feedforward, d_model, bias, **kw)
+        self.linear1 = Linear(d_model, dim_feedforward, weight_attr,
+                              bias_attr, **kw)
+        self.linear2 = Linear(dim_feedforward, d_model, weight_attr,
+                              bias_attr, **kw)
         self.norm1 = LayerNorm(d_model, **kw)
         self.norm2 = LayerNorm(d_model, **kw)
         self.norm3 = LayerNorm(d_model, **kw)
@@ -204,7 +206,7 @@ class TransformerDecoderLayer(nn.Module):
         return tgt
 
 
-class TransformerDecoder(nn.Module):
+class TransformerDecoder(Layer):
     def __init__(self, decoder_layer, num_layers, norm=None):
         super().__init__()
         self.layers = LayerList(
@@ -221,14 +223,14 @@ class TransformerDecoder(nn.Module):
         return self.norm(out) if self.norm is not None else out
 
 
-class Transformer(nn.Module):
+class Transformer(Layer):
     def __init__(self, d_model=512, nhead=8, num_encoder_layers=6,
                  num_decoder_layers=6, dim_feedforward=2048, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
                  normalize_before=False, weight_attr=None, bias_attr=None,
-                 custom_encoder=None, custom_decoder=None, device=None,
+                 custom_encoder=None, custom_decoder=None, *, device=None,
                  dtype=None, generator=None):
-        super().__init__()
+        super().__init__(dtype=dtype, device=device, generator=generator)
         kw = dict(device=device, dtype=dtype, generator=generator)
         args = (d_model, nhead, dim_feedforward, dropout, activation,
                 attn_dropout, act_dropout, normalize_before, weight_attr,
@@ -254,5 +256,5 @@ class Transformer(nn.Module):
                             memory_mask=memory_mask)
 
     def generate_square_subsequent_mask(self, length):
-        device = next(self.parameters()).device
+        device = self.parameters()[0].device
         return generate_square_subsequent_mask(length, device)

@@ -9,7 +9,10 @@ applied to each param group's ``[(param, grad)]`` before its update; a
 float, :class:`~..regularizer.L2Decay` or :class:`~..regularizer.L1Decay`
 as ``weight_decay``, folded into the gradient; a ``step`` that skips
 parameters with no gradient (or with ``requires_grad=False``) and counts
-``_global_step``; ``clear_grad``, ``backward`` and ``minimize``; and
+``_global_step``; ``clear_grad``, ``backward`` and ``minimize``; each
+parameter's rate scaled by its ``ParamAttr(learning_rate=)``
+(:func:`lr_scale`), a parameter with ``trainable=False``
+(``requires_grad=False``) never updated; and
 per-parameter accumulators by name (``moment1``, ``moment2``,
 ``beta_pow``, ... as the JAX optimizers name them).
 
@@ -58,7 +61,15 @@ import torch
 from ..regularizer import L1Decay, L2Decay
 from .lr import LRScheduler
 
-__all__ = ["Optimizer"]
+__all__ = ["Optimizer", "lr_scale"]
+
+
+def lr_scale(p):
+    """``p``'s learning-rate scale: ``ParamAttr(learning_rate=)``, kept in
+    ``p.optimize_attr`` (``optimizer.py:141-142``); 1 for a parameter
+    without one."""
+    attr = getattr(p, "optimize_attr", None)
+    return float(attr.get("learning_rate", 1.0)) if attr else 1.0
 
 
 class Optimizer:
@@ -180,8 +191,8 @@ class Optimizer:
             if self._grad_clip is not None:
                 params_grads = self._grad_clip(params_grads)
             lr = self.get_lr() * float(group.get("learning_rate", 1.0))
-            items += [(p, g, lr, group) for p, g in params_grads
-                      if g is not None]
+            items += [(p, g, lr * lr_scale(p), group)
+                      for p, g in params_grads if g is not None]
         if items:
             self._apply(items)
         self._global_step += 1

@@ -15,7 +15,8 @@ through its f32 master (an f32 velocity too) and write it back rounded.
 ``step`` makes **one launch** of the fused AdamW kernel
 (:func:`~..ops.kernels.fused_adamw`, the port of
 ``paddle_tpu/ops/pallas/fused_adamw.py:60``) over every floating parameter
-that has a gradient, carrying each tensor's own learning rate, decoupled
+that has a gradient, carrying each tensor's own learning rate (the
+group's times the parameter's ``ParamAttr`` scale), decoupled
 decay ``wd`` and bias corrections ``bc1 = 1/(1-b1^t)``,
 ``bc2 = 1/(1-b2^t)`` from its ``beta_pow`` step count. The JAX package
 sends only parameters of at least ``_FUSED_MIN_SIZE`` (16384) elements to
@@ -43,7 +44,8 @@ elementwise ``where`` chain a tensor; :class:`LBFGS` runs on the host
 through a closure, as in JAX.
 
 In a staged step (``jit.to_static``) the multi-tensor optimizers multiply
-by a 0-d lr tensor per param group and Adam/AdamW launch from a static
+by a 0-d lr tensor per param group and rate scale, and Adam/AdamW launch
+from a static
 table, each rewritten before every replay (``optimizer.py``'s staging
 notes); Adamax's ``beta1_pow`` and Lamb's ``beta_pow`` are 0-d device
 tensors that the step itself advances, and Lamb's trust ratios stay on
@@ -63,7 +65,7 @@ import torch
 
 from ..ops.kernels import fused_adamw
 from ..ops.kernels.fused_adamw import AdamWTable
-from .optimizer import Optimizer
+from .optimizer import Optimizer, lr_scale
 
 __all__ = ["SGD", "Momentum", "Adam", "AdamW", "Adagrad", "RMSProp",
            "Adadelta", "Adamax", "Lamb", "Rprop", "LBFGS"]
@@ -79,10 +81,11 @@ class _MultiTensor(Optimizer):
         then each 16-bit parameter written as its master rounded."""
         groups = {}
         for p, g, lr, group in items:
-            groups.setdefault(id(group), (group, lr, [], []))
-            groups[id(group)][2].append(p)
-            groups[id(group)][3].append(g)
-        for group, lr, ps, gs in groups.values():
+            key = (id(group), lr_scale(p))
+            groups.setdefault(key, (group, key[1], lr, [], []))
+            groups[key][3].append(p)
+            groups[key][4].append(g)
+        for group, scale, lr, ps, gs in groups.values():
             ws = [self._master_of(p) if self._use_master(p) else p
                   for p in ps]
             gs = [g.to(w.dtype) for g, w in zip(gs, ws)]
@@ -93,7 +96,7 @@ class _MultiTensor(Optimizer):
                 gs = torch._foreach_add(gs, torch._foreach_mul(
                     torch._foreach_sign(ws), l1))
             if self._staged is not None:
-                lr = self._lr_tensor(group, lr, ws[0].device)
+                lr = self._lr_tensor(group, scale, lr, ws[0].device)
             self._update(ps, ws, gs, lr)
             masters = [(p, w) for p, w in zip(ps, ws) if w is not p]
             if masters:
@@ -106,22 +109,25 @@ class _MultiTensor(Optimizer):
         or a 0-d tensor in a staged step). Subclasses implement."""
         raise NotImplementedError
 
-    def _lr_tensor(self, group, lr, device):
-        """The staged step's 0-d f32 lr of ``group``: made at the step's
-        eager first call and written with ``lr`` there; under a capture
-        only read (each replay's value comes from :meth:`_replay_scalars`)."""
+    def _lr_tensor(self, group, scale, lr, device):
+        """The staged step's 0-d f32 lr of ``group``'s parameters whose
+        rate scale is ``scale``: made at the step's eager first call and
+        written with ``lr`` there; under a capture only read (each
+        replay's value comes from :meth:`_replay_scalars`)."""
         bufs = self._staged.setdefault("lr", {})
-        if id(group) not in bufs:
-            bufs[id(group)] = (group, torch.empty((), dtype=torch.float32,
-                                                  device=device))
-        buf = bufs[id(group)][1]
+        key = (id(group), scale)
+        if key not in bufs:
+            bufs[key] = (group, scale, torch.empty(
+                (), dtype=torch.float32, device=device))
+        buf = bufs[key][2]
         if not (buf.is_cuda and torch.cuda.is_current_stream_capturing()):
             buf.fill_(lr)
         return buf
 
     def _replay_scalars(self, store):
-        for group, buf in store.get("lr", {}).values():
-            buf.fill_(self.get_lr() * float(group.get("learning_rate", 1.0)))
+        for group, scale, buf in store.get("lr", {}).values():
+            buf.fill_(self.get_lr() * float(group.get("learning_rate", 1.0))
+                      * scale)
 
 
 class SGD(_MultiTensor):
@@ -240,7 +246,8 @@ class Adam(Optimizer):
         base = self.get_lr()
         for table, rows in store.get("adamw", []):
             scalars = [self._scalars(p, group, base * float(
-                group.get("learning_rate", 1.0))) for p, group in rows]
+                group.get("learning_rate", 1.0)) * lr_scale(p))
+                for p, group in rows]
             table.set_scalars(*zip(*scalars))
             table.upload()
 

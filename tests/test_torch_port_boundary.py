@@ -32,7 +32,8 @@ PKG = os.path.join(REPO, "paddle_tpu_torch")
 def _port_sources():
     out = [os.path.join(REPO, f) for f in ("chip_smoke.py",
                                            "flash_variants.py",
-                                           "paged_splits.py")]
+                                           "paged_splits.py",
+                                           "layer_overhead.py")]
     for root, _, files in os.walk(PKG):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)

@@ -1798,3 +1798,91 @@ def test_to_static_draws_fresh_random_numbers_each_replay_on_card():
     assert not torch.equal(a[0], a[1]) and not torch.equal(a[1], a[2])
     for u, v in zip(a, b):
         assert torch.equal(u, v)
+
+
+# ------------------------------------- nn.Layer, initializers, ParamAttr
+@pytest.mark.cuda
+def test_layers_initialise_on_the_card_by_default():
+    """A layer built with no device lands on the card with the JAX
+    layers' defaults: ``Linear``'s XavierUniform weight and zero bias,
+    ``Embedding``'s zero padding row, ``LayerNorm``'s ones and zeros;
+    ``LayerNorm`` over two trailing axes launches the Triton kernel and
+    equals its plain version on the CPU."""
+    _need_cuda()
+    import paddle_tpu_torch as pt
+    pt.seed(1)
+    lin = pt.nn.Linear(4, 8)
+    assert lin.weight.device.type == "cuda" and lin.bias.device.type == "cuda"
+    w = lin.weight.detach().cpu()
+    assert float(w.abs().max()) <= math.sqrt(6 / 12) and float(w.std()) > 0.2
+    assert float(lin.bias.abs().max()) == 0.0
+    emb = pt.nn.Embedding(10, 6, padding_idx=3)
+    assert float(emb.weight[3].abs().max()) == 0.0
+    ln = pt.nn.LayerNorm([4, 8])
+    with torch.no_grad():
+        ln.weight.normal_()
+        ln.bias.normal_()
+    x = torch.randn(5, 4, 8, device="cuda")
+    before = K.layer_norm.launches
+    out = ln(x)
+    torch.cuda.synchronize()
+    assert K.layer_norm.launches == before + 1
+    ref = K.layer_norm_reference(x.cpu().reshape(5, 32),
+                                 ln.weight.detach().cpu().reshape(32),
+                                 ln.bias.detach().cpu().reshape(32))
+    torch.testing.assert_close(out.cpu(), ref.reshape(5, 4, 8), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_staged_per_parameter_rates_on_card_equal_eager():
+    """A model with a weight at 10x the rate, a frozen bias and a weight
+    at half the rate, staged through ``to_static`` with AdamW and a global
+    clip: 1 graph, 0 breaks, one fused AdamW launch a replay; the frozen
+    bias bit-unchanged; the weights within 1e-6 of the same steps run
+    eagerly (the kernel's per-tensor rate carries each scale)."""
+    _need_cuda()
+    import paddle_tpu_torch as pt
+
+    def build():
+        pt.seed(4)
+        m = pt.nn.Sequential(
+            pt.nn.Linear(32, 64, weight_attr=pt.ParamAttr(learning_rate=10.),
+                         bias_attr=pt.ParamAttr(trainable=False)),
+            pt.nn.Tanh(),
+            pt.nn.Linear(64, 8, weight_attr=pt.ParamAttr(learning_rate=0.5),
+                         bias_attr=pt.ParamAttr(need_clip=False)))
+        opt = pt.AdamW(1e-3, parameters=m.parameters(), weight_decay=0.01,
+                       grad_clip=pt.nn.ClipGradByGlobalNorm(1.0))
+
+        def step(x, y):
+            loss = ((m(x) - y) ** 2).mean()
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+
+        return m, opt, step
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(16, 32, device="cuda", generator=g)
+    y = torch.randn(16, 8, device="cuda", generator=g)
+    runs = []
+    for staged in (False, True):
+        m, opt, step = build()
+        frozen = m[0].bias.detach().clone()
+        fn = pt.jit.to_static(step, capture=(m, opt)) if staged else step
+        for _ in range(2):
+            float(fn(x, y))
+        K.reset_launch_counts()
+        losses = [float(fn(x, y)) for _ in range(5)]
+        launches = K.launch_counts()["fused_adamw"]
+        assert torch.equal(m[0].bias.detach(), frozen)
+        runs.append((losses, [p.detach().clone() for p in m.parameters()],
+                     launches, fn))
+    (el, ew, _, _), (sl, sw, sn, fn) = runs
+    st = fn.stats()
+    assert st["graphs"] == 1 and st["graph_breaks"] == 0 and sn == 5
+    np.testing.assert_allclose(sl, el, rtol=1e-6, atol=1e-7)
+    for a, b in zip(sw, ew):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)

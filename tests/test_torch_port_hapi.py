@@ -23,6 +23,7 @@ import paddle_tpu as paddle
 import paddle_tpu.hapi.callbacks as jcb
 import paddle_tpu.io as jio
 from paddle_tpu.core.tensor import Tensor
+from paddle_tpu.distributed import env as jax_dist_env
 from paddle_tpu.models import BertForSequenceClassification as JaxCls
 from paddle_tpu.models import LeNet as JaxLeNet
 from paddle_tpu.models import bert_tiny as jax_bert_tiny
@@ -31,6 +32,7 @@ from paddle_tpu.models import resnet18 as jax_resnet18
 import paddle_tpu_torch as pt
 import paddle_tpu_torch.hapi.callbacks as tcb
 import paddle_tpu_torch.io as tio
+from paddle_tpu_torch import device as port_device
 from paddle_tpu_torch.hapi.model import Model as PortModel
 from paddle_tpu_torch.observability import metrics as tmetrics
 from paddle_tpu_torch.observability import telemetry as ttelemetry
@@ -40,9 +42,18 @@ RTOL, ATOL = 1e-4, 1e-5
 
 
 @pytest.fixture(autouse=True)
-def _reset_port_observability():
-    """The port's process-wide metrics and tracing state, reset around
-    each test (``tests/conftest.py`` resets the JAX package's)."""
+def _reset_process_state(monkeypatch):
+    """The process state these tests read, reset around each test: the
+    port's metrics and tracing (``tests/conftest.py`` resets the JAX
+    package's), its current device (the CPU here, for layers built
+    without one), and the JAX package's parallel environment. A JAX test
+    that ran ``init_parallel_env`` earlier on the same worker leaves it
+    initialised over the 8 CPU devices, and ``paddle_tpu``'s ``Model``
+    then wraps its network in ``DataParallel`` and shards every batch
+    over them, which a last batch of 4 cannot take."""
+    monkeypatch.setattr(jax_dist_env, "_initialized", False)
+    monkeypatch.setattr(jax_dist_env, "_world_mesh", None)
+    monkeypatch.setattr(port_device, "DEFAULT_DEVICE", "cpu")
     tmetrics._reset_state()
     ttracing._reset_state()
     yield

@@ -43,8 +43,20 @@ from paddle_tpu.models import gpt_tiny as jax_gpt_tiny
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.jit import GraphBreak, InputSpec, to_static
 from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch import device as port_device
 
 RTOL, ATOL, EPS = 1e-4, 1e-5, 1e-6
+
+
+
+@pytest.fixture(autouse=True)
+def _port_device():
+    """Layers built without a device go to the CPU (the port's default is
+    the card); the device is put back after each test."""
+    before = port_device.DEFAULT_DEVICE
+    port_device.DEFAULT_DEVICE = "cpu"
+    yield
+    port_device.DEFAULT_DEVICE = before
 
 
 def _np(t):
@@ -647,8 +659,8 @@ def test_optimizer_staging_hooks_advance_once_a_replay():
     opt.step()
     opt._staged = None
     torch.testing.assert_close(p.detach(), torch.full((3,), 0.5))
-    (group, buf), = store["lr"].values()
-    assert float(buf) == 0.5 and store["steps"] == 1
+    (group, scale, buf), = store["lr"].values()
+    assert float(buf) == 0.5 and store["steps"] == 1 and scale == 1.0
     sched.step()
     opt._replay_step(store)
     assert float(buf) == pytest.approx(0.05) and opt._global_step == 2

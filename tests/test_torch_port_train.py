@@ -271,14 +271,17 @@ def test_criterion_and_cross_entropy_match_jax(use_mask):
 
 def test_dropout_scales_in_training_and_draws_from_its_generator():
     x = torch.ones(4000)
-    a = port_F.dropout(x, 0.25, True, torch.Generator().manual_seed(1))
-    b = port_F.dropout(x, 0.25, True, torch.Generator().manual_seed(1))
+    a = port_F.dropout(x, 0.25, training=True,
+                       generator=torch.Generator().manual_seed(1))
+    b = port_F.dropout(x, 0.25, training=True,
+                       generator=torch.Generator().manual_seed(1))
     assert torch.equal(a, b)
     kept = a != 0
     torch.testing.assert_close(a[kept], torch.full_like(a[kept], 1 / 0.75))
     assert abs(kept.float().mean().item() - 0.75) < 0.03
-    assert port_F.dropout(x, 0.25, False) is x
-    layer = pt.nn.Dropout(0.5, torch.Generator().manual_seed(2)).eval()
+    assert port_F.dropout(x, 0.25, training=False) is x
+    layer = pt.nn.Dropout(0.5,
+                          generator=torch.Generator().manual_seed(2)).eval()
     assert layer(x) is x
 
 

@@ -27,10 +27,22 @@ from paddle_tpu.models import resnet18 as jax_resnet18
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.amp import amp_lists
 from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch import device as port_device
 
 amp_mod = importlib.import_module("paddle_tpu_torch.amp.auto_cast")
 
 RTOL, ATOL = 1e-4, 1e-5
+
+
+
+@pytest.fixture(autouse=True)
+def _port_device():
+    """Layers built without a device go to the CPU (the port's default is
+    the card); the device is put back after each test."""
+    before = port_device.DEFAULT_DEVICE
+    port_device.DEFAULT_DEVICE = "cpu"
+    yield
+    port_device.DEFAULT_DEVICE = before
 
 
 def _np(t):

@@ -49,8 +49,20 @@ import paddle_tpu_torch.models.vision_zoo as TZ
 import paddle_tpu_torch.models.vision_zoo2 as TZ2
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.ops.manipulation import concat
+from paddle_tpu_torch import device as port_device
 
 RTOL, ATOL = 1e-4, 1e-5
+
+
+
+@pytest.fixture(autouse=True)
+def _port_device():
+    """Layers built without a device go to the CPU (the port's default is
+    the card); the device is put back after each test."""
+    before = port_device.DEFAULT_DEVICE
+    port_device.DEFAULT_DEVICE = "cpu"
+    yield
+    port_device.DEFAULT_DEVICE = before
 
 
 @pytest.fixture(autouse=True, scope="module")
