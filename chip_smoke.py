@@ -378,6 +378,32 @@ exit code:
     ``pt.seed``; (d) host us a call of ``pt.nn.Linear(768, 768)``'s
     ``layer(x)`` and ``layer.forward(x)`` on [32, 128, 768] bf16 beside
     a bare ``torch.nn.Linear``'s.
+27. **the rest of nn** — (a) every case of ``tests/torch_nn_cases.py``
+    (each functional and layer the ``nn`` slice added: the convolutions
+    and transposed ones, the 1-D / 3-D and adaptive pools and the
+    unpools, ``pad`` in its four modes, ``interpolate``, ``grid_sample``,
+    ``fold``, the norms, the RNN cells and layers, CTC, RNN-T and the
+    long-tail losses, ``nn.utils``' reparameterisations) on the card
+    against the same call on CPU tensors: outputs and every gradient
+    within rtol 1e-4 / atol 1e-5 (f32, TF32 off), the worst error per
+    op; (b) the flash trio at the Conformer-M shape [16, 255, 4, 64]
+    bf16 non-causal (255 is no multiple of the tiles) against its plain
+    versions and timed beside its bound and sdpa, LayerNorm at
+    [4080, 256] f32 and fused AdamW's f32 mode over the model; then a
+    Conformer-Transducer written as a user writes it
+    (:func:`conformer_transducer`; Conformer-M of Gulati et al. 2020,
+    Table 1: 16 blocks, d 256, 4 heads, FFN 1024, conv kernel 32, an
+    LSTM(640) predictor, V 1024) on 80-bin features of 1024 frames, B
+    16, labels of 32-64 tokens (U + 1 = 65), O1 bf16, ``AdamW(beta 0.9 /
+    0.98, eps 1e-9, weight_decay 1e-6)`` on ``NoamDecay(256, 10000)``
+    from its peak, eager (2 + 3 steps) and staged by ``to_static`` (2 +
+    10): 1 graph, 0 breaks, launches exact (the flash trio 16, LayerNorm
+    80, AdamW 1 a replay), losses falling, the staged step-0 loss the
+    eager one's, the profiled replay's largest kernels; RNN-T and CTC
+    alone at the model's shapes, eager and replayed from a graph; (c)
+    beam search (``BeamSearchDecoder`` + ``dynamic_decode``, beam 4, 16
+    steps) over the trained predictor's ``LSTMCell`` on the card and on
+    a CPU copy: the same ids.
 
 The lines before the last carry the ``{"kernels": [...]}`` JSON (all eight
 kernels; the ``fused_adamw`` entry adds the master and bf16-moment modes'
@@ -401,7 +427,10 @@ three fits and 24b's fit and evaluate) and to the flash entries,
 shapes; phase 25 adds to every entry ``surface_launches``, its launches
 over 25b's one surface forward and backward; phase 26 adds to every
 entry ``layer_launches``, its launches over 26a's 20 replayed steps;
-every ``max_abs_err`` is
+phase 27 adds to every entry ``nn_launches``, its launches over 27b's
+10 replayed Conformer steps, and the flash entries' ``t255_*`` and
+``layer_norm``'s / ``fused_adamw``'s ``conformer_*`` numbers at 27b's
+shapes; every ``max_abs_err`` is
 the largest of its entry's errors) and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the repository beside it, the script exits
@@ -3840,7 +3869,8 @@ def train_run(pt, build, staged, warmup, steps, track=None):
            "peak_allocated_gb": peak / 1e9, "reserved_gb": reserved / 1e9,
            "profiled_host_ms": host_ms, "profiled_busy_ms": busy_ms,
            "device_busy_pct": 100 * busy_ms / host_ms,
-           "families": families, "built_s": built_s, "warmup_s": warm_s,
+           "families": families, "top": top, "built_s": built_s,
+           "warmup_s": warm_s,
            "model": model, "opt": opt, "step": step}
     if staged:
         out["stats"] = step.stats()
@@ -5888,6 +5918,386 @@ def layer_phases(pt, K):
                    "overhead": over}
 
 
+# ------------------------------------------------------------- phase 27
+def _nn_cases():
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import torch_nn_cases as C
+    return C
+
+
+def nn_sweep(pt, where="cuda"):
+    """Phase 27a: every case of ``tests/torch_nn_cases.py`` on the card
+    against the same call on CPU tensors: each output on the card with
+    the CPU's dtype and shape, values and every gradient within the
+    table's f32 tolerance. -> {op: worst error}"""
+    C = _nn_cases()
+    worst = {}
+    t0 = time.perf_counter()
+    for case in C.CASES:
+        cpu, cpu_g, _ = C.run(pt, case, "cpu")
+        dev, dev_g, where_out = C.run(pt, case, where)
+        if any(d != where for d in where_out):
+            fail(f"[nn 27a] {case[0]}: outputs on {where_out}")
+        if len(cpu) != len(dev) or len(cpu_g) != len(dev_g):
+            fail(f"[nn 27a] {case[0]}: {len(dev)} outputs / {len(dev_g)} "
+                 f"gradients on the card, {len(cpu)} / {len(cpu_g)} on "
+                 f"the CPU")
+        err = 0.0
+        for a, b in zip(cpu + cpu_g, dev + dev_g):
+            if a is None or b is None:
+                if (a is None) != (b is None):
+                    fail(f"[nn 27a] {case[0]}: a gradient missing on one "
+                         f"side")
+                continue
+            if a.dtype != b.dtype or a.shape != b.shape:
+                fail(f"[nn 27a] {case[0]}: {b.dtype} {list(b.shape)} on "
+                     f"the card != {a.dtype} {list(a.shape)}")
+            if not a.is_floating_point():
+                if not torch.equal(a, b):
+                    fail(f"[nn 27a] {case[0]}: integer outputs differ")
+                continue
+            d = (a.double() - b.double()).abs()
+            if not bool((d <= C.ATOL + C.RTOL * a.double().abs()).all()):
+                fail(f"[nn 27a] {case[0]}: max abs err {float(d.max()):.3e}"
+                     f" over rtol {C.RTOL:g} / atol {C.ATOL:g}")
+            err = max(err, float(d.max()) if d.numel() else 0.0)
+        worst[case[0]] = err
+    pt.set_device(where)
+    top = sorted(worst.items(), key=lambda kv: -kv[1])
+    log(f"[nn 27a] {len(C.CASES)} cases on the card vs the CPU in "
+        f"{time.perf_counter() - t0:.2f} s (rtol {C.RTOL:g} / atol "
+        f"{C.ATOL:g}); worst errors: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in top[:12]))
+    log("  every case's worst error: " + json.dumps(
+        {k: float(f"{v:.3e}") for k, v in worst.items()}))
+    return worst
+
+
+def sinusoid(n, d):
+    """The Transformer's sinusoidal position table [n, d], made with numpy."""
+    pos = np.arange(n)[:, None] / np.power(
+        10000.0, 2 * (np.arange(d)[None, :] // 2) / d)
+    return np.where(np.arange(d) % 2 == 0, np.sin(pos),
+                    np.cos(pos)).astype(np.float32)
+
+
+def conformer_transducer(pt, d_model=256, heads=4, blocks=16, ffn=1024,
+                         kernel=32, n_mels=80, pred=640, vocab=1024,
+                         dropout=0.1, max_frames=1024, ctc_weight=0.3):
+    """Phase 27's model: a Conformer-Transducer written as a Paddle user
+    writes it, against ``pt.nn`` / ``pt.nn.functional`` (Conformer-M of
+    Gulati et al. 2020, arXiv:2005.08100, Table 1, by default). ``pt`` is
+    the port here; ``tests/test_torch_port_conformer.py`` builds this body
+    at tiny widths over both packages. The
+    subsampling is ``Conv2D(1, d, 3, 2)``, ReLU, ``Conv2D(d, d, 3, 2)``,
+    ReLU and ``Linear(d * F', d)`` plus a sinusoidal table: the paper's
+    relative positions are not in the JAX package's ``nn``, so the
+    positions are absolute. Each block: half-step feed-forward, attention
+    (``MultiHeadAttention``, dropout on its output), the convolution
+    module (pointwise ``Conv1D`` to 2d, ``glu``, ``pad`` of the even
+    kernel [15, 16], depthwise ``Conv1D`` without bias, since the
+    ``BatchNorm1D`` after it cancels one, ``swish``, pointwise
+    ``Conv1D``), half-step feed-forward, and ``F.layer_norm``. The
+    predictor embeds the blank-prefixed labels into ``LSTM(pred,
+    pred)``; the joint sums ``Linear(d, pred)`` and ``Linear(pred,
+    pred)`` over [B, T, U + 1, pred], then tanh and ``Linear(pred,
+    vocab)``. The loss is ``rnnt_loss`` + ``ctc_weight`` x ``ctc_loss``
+    of a ``Linear(d, vocab)`` head's log-softmax."""
+    nn, F = pt.nn, pt.nn.functional
+
+    class FeedForward(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.norm = nn.LayerNorm(d_model)
+            self.fc1 = nn.Linear(d_model, ffn)
+            self.drop = nn.Dropout(dropout)
+            self.fc2 = nn.Linear(ffn, d_model)
+
+        def forward(self, x):
+            return self.fc2(self.drop(F.swish(self.fc1(self.norm(x)))))
+
+    class ConvModule(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.norm = nn.LayerNorm(d_model)
+            self.pw1 = nn.Conv1D(d_model, 2 * d_model, 1)
+            self.dw = nn.Conv1D(d_model, d_model, kernel, groups=d_model,
+                                bias_attr=False)
+            self.bn = nn.BatchNorm1D(d_model)
+            self.pw2 = nn.Conv1D(d_model, d_model, 1)
+            self.drop = nn.Dropout(dropout)
+
+        def forward(self, x):
+            y = pt.transpose(self.norm(x), [0, 2, 1])
+            y = F.glu(self.pw1(y), axis=1)
+            y = F.pad(y, [(kernel - 1) // 2, kernel // 2], data_format="NCL")
+            y = F.swish(self.bn(self.dw(y)))
+            return pt.transpose(self.drop(self.pw2(y)), [0, 2, 1])
+
+    class Block(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.ff1 = FeedForward()
+            self.attn_norm = nn.LayerNorm(d_model)
+            self.attn = nn.MultiHeadAttention(d_model, heads, dropout=0.0)
+            self.attn_drop = nn.Dropout(dropout)
+            self.conv = ConvModule()
+            self.ff2 = FeedForward()
+            self.out_w = self.create_parameter(
+                [d_model], default_initializer=nn.initializer.Constant(1.0))
+            self.out_b = self.create_parameter([d_model], is_bias=True)
+
+        def forward(self, x):
+            x = x + 0.5 * self.ff1(x)
+            h = self.attn_norm(x)
+            x = x + self.attn_drop(self.attn(h, h, h))
+            x = x + self.conv(x)
+            x = x + 0.5 * self.ff2(x)
+            return F.layer_norm(x, [d_model], self.out_w, self.out_b)
+
+    class ConformerTransducer(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.sub1 = nn.Conv2D(1, d_model, 3, 2)
+            self.sub2 = nn.Conv2D(d_model, d_model, 3, 2)
+            f = ((n_mels - 1) // 2 - 1) // 2
+            self.proj = nn.Linear(d_model * f, d_model)
+            self.register_buffer("pos", pt.to_tensor(
+                sinusoid(max_frames, d_model)), persistable=False)
+            self.blocks = nn.LayerList([Block() for _ in range(blocks)])
+            self.ctc_head = nn.Linear(d_model, vocab)
+            self.embed = nn.Embedding(vocab, pred)
+            self.lstm = nn.LSTM(pred, pred)
+            self.joint_enc = nn.Linear(d_model, pred)
+            self.joint_pred = nn.Linear(pred, pred)
+            self.joint_out = nn.Linear(pred, vocab)
+
+        def encode(self, feats):
+            x = F.relu(self.sub1(pt.unsqueeze(feats, 1)))
+            x = F.relu(self.sub2(x))
+            b, c, t, f = x.shape
+            x = pt.reshape(pt.transpose(x, [0, 2, 1, 3]), [b, t, c * f])
+            x = self.proj(x) + self.pos[:t]
+            for blk in self.blocks:
+                x = blk(x)
+            return x
+
+        def forward(self, feats, labels, label_lengths):
+            enc = self.encode(feats)
+            b, t = enc.shape[0], enc.shape[1]
+            enc_len = pt.full([b], t, dtype="int64")
+            ids = pt.concat([pt.zeros([b, 1], dtype="int64"), labels], axis=1)
+            g, _ = self.lstm(self.embed(ids))
+            joint = pt.tanh(pt.unsqueeze(self.joint_enc(enc), 2)
+                            + pt.unsqueeze(self.joint_pred(g), 1))
+            rnnt = F.rnnt_loss(self.joint_out(joint), labels, enc_len,
+                               label_lengths)
+            lp = pt.transpose(F.log_softmax(self.ctc_head(enc), -1),
+                              [1, 0, 2])
+            ctc = F.ctc_loss(lp, labels, enc_len, label_lengths)
+            return rnnt + ctc_weight * ctc
+
+    return ConformerTransducer()
+
+
+def conformer_batch(pt, B, frames, n_mels, U, vocab, seed=SEED):
+    """B utterances of ``frames`` 80-bin log-mel-like frames (numpy
+    normals, every utterance full length: a length-bucketed batch) and
+    labels of 32-64 random word-piece ids (1..vocab-1; 0 is the blank)
+    padded to ``U``, on the current device."""
+    rng = np.random.RandomState(seed)
+    feats = rng.randn(B, frames, n_mels).astype(np.float32)
+    labels = rng.randint(1, vocab, (B, U)).astype(np.int64)
+    lens = rng.randint(U // 2, U + 1, (B,)).astype(np.int64)
+    dev = pt.resolve_device(None)
+    return tuple(torch.from_numpy(a).to(dev) for a in (feats, labels, lens))
+
+
+def nn_conformer(pt, K, B=16, frames=1024, U=64, warmup=2, steps=10,
+                 eager_steps=3, dims=None):
+    """Phase 27b. The flash trio at the model's attention shape (held
+    against the plain versions, timed), LayerNorm at its rows, then the
+    Conformer-Transducer trained eager and staged (the module's doc).
+    The schedule starts at its peak (``last_epoch=9999``, a run resumed
+    at the end of its 10000 warm-up steps), where a dozen steps move the
+    loss. -> (launches over the replays, kernel numbers, the phase's
+    numbers, the trained model)"""
+    dims = dims or {}
+    d = dims.get("d_model", 256)
+    heads = dims.get("heads", 4)
+    T = ((frames - 1) // 2 - 1) // 2
+    kern = {}
+    for name, numbers in flash_timing(K, "nn 27b", B, T, heads, d // heads,
+                                      SEED + 27).items():
+        kern[name] = {f"t255_{k}": v for k, v in numbers.items()}
+    ln = layer_norm_timing(K, "nn 27b", B * T, d, torch.float32, 1e-5,
+                           SEED + 28)
+    kern["layer_norm"] = {f"conformer_{k}": v for k, v in ln.items()}
+    feats, labels, lens = conformer_batch(
+        pt, B, frames, dims.get("n_mels", 80), U, dims.get("vocab", 1024))
+
+    def build():
+        pt.seed(SEED)
+        model = conformer_transducer(pt, **dims)
+        sched = pt.optimizer.lr.NoamDecay(d_model=d, warmup_steps=10000,
+                                          last_epoch=9999)
+        opt = pt.AdamW(learning_rate=sched, beta1=0.9, beta2=0.98,
+                       epsilon=1e-9, weight_decay=1e-6,
+                       parameters=model.parameters())
+
+        def train_step(x, y, n):
+            with pt.auto_cast(level="O1", dtype="bfloat16"):
+                loss = model(x, y, n)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+
+        return model, opt, sched, train_step, (feats, labels, lens)
+
+    eager = train_run(pt, build, False, warmup, eager_steps)
+    eager_loss0 = eager["losses"][0]
+    kern["fused_adamw"] = {f"conformer_{k}": v for k, v in
+                           adamw_f32_timing(K, eager["model"],
+                                            "nn 27b").items()}
+    del eager["model"], eager["opt"], eager["step"]
+    free()
+    staged = train_run(pt, build, True, warmup, steps)
+    model, step = staged["model"], staged["step"]
+    L = len(model.blocks)
+    n_ln = sum(isinstance(m, pt.nn.LayerNorm) for m in model.sublayers()) \
+        + L
+    stats = step.stats()
+    n_all = sum(p.numel() for p in model.parameters())
+    log(f"[nn 27b] user-written Conformer-Transducer: {L} blocks, "
+        f"{n_all / 1e6:.3f} M parameters, {n_ln} LayerNorms a forward "
+        f"(F.layer_norm included); B {B} x {frames} frames -> T {T}, "
+        f"U + 1 = {U + 1}; staging {stats}")
+    if stats["graphs"] != 1 or stats["graph_breaks"] or \
+            stats["eager_calls"]:
+        fail(f"nn conformer: staging {stats}")
+    check_training("nn conformer", staged["losses"], warmup,
+                   staged["launches"], {
+                       "flash_fwd": steps * L, "flash_bwd_dq": steps * L,
+                       "flash_bwd_dkv": steps * L,
+                       "layer_norm": steps * n_ln, "fused_adamw": steps})
+    diff = abs(staged["losses"][0] - eager_loss0)
+    log(f"  [nn 27b] staged step-0 loss {staged['losses'][0]:.6f} vs the "
+        f"eager run's {eager_loss0:.6f} (diff {diff:.3e}; tolerance "
+        f"{1e-4 * abs(eager_loss0):.3e}); eager losses "
+        + " ".join(f"{x:.4f}" for x in eager["losses"]))
+    if diff > 1e-4 * abs(eager_loss0):
+        fail(f"nn conformer: staged step 0 {staged['losses'][0]} vs eager "
+             f"{eager_loss0}")
+    numbers = report_pair("nn conformer", eager, staged, {
+        "losses": staged["losses"], "eager_losses": eager["losses"],
+        "params_m": n_all / 1e6, "T": T, "U1": U + 1})
+    for (fam, name), ms in staged["top"][:8]:
+        log(f"    [nn 27b] staged, profiled step: {ms:.3f} ms  [{fam}] "
+            f"{name[:90]}")
+    numbers["losses_alone"] = nn_loss_timing(pt, B, T, U,
+                                             dims.get("vocab", 1024))
+    launches = staged["launches"]
+    del staged["opt"], staged["step"], eager
+    return launches, kern, numbers, model
+
+
+def nn_loss_timing(pt, B, T, U, V, seed=SEED + 30):
+    """RNN-T and CTC alone at the model's shapes (bf16 joint logits [B, T,
+    U + 1, V]; f32 log-probabilities [T, B, V]; labels of 32-64 tokens),
+    forward and backward: eager (device ms from the trace, host ms a call)
+    and replayed from a CUDA graph captured here (device ms). -> numbers"""
+    F = pt.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    logits = torch.randn(B, T, U + 1, V, device="cuda", generator=g) \
+        .bfloat16().requires_grad_(True)
+    lp = torch.randn(T, B, V, device="cuda", generator=g) \
+        .log_softmax(-1).requires_grad_(True)
+    lab = torch.randint(1, V, (B, U), device="cuda", generator=g)
+    in_len = torch.full((B,), T, device="cuda", dtype=torch.int64)
+    lab_len = torch.randint(U // 2, U + 1, (B,), device="cuda", generator=g)
+    calls = {"rnnt_loss": lambda: torch.autograd.grad(
+        F.rnnt_loss(logits, lab, in_len, lab_len), logits),
+        "ctc_loss": lambda: torch.autograd.grad(
+            F.ctc_loss(lp, lab, in_len, lab_len), lp)}
+    out = {}
+    for name, fn in calls.items():
+        ms, wall, src = time_ms(fn, iters=1, warmup=1)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        g_ms, g_wall, g_src = time_ms(graph.replay, iters=3, warmup=1)
+        log(f"[nn 27b] {name} forward + backward alone: eager {ms:.3f} ms "
+            f"of device time ({src}), {wall:.3f} ms a call on the host; "
+            f"replayed from one CUDA graph {g_ms:.3f} ms ({g_src}), "
+            f"{g_wall:.3f} ms a replay")
+        out[name] = {"eager_device_ms": ms, "eager_wall_ms": wall,
+                     "graph_ms": g_ms, "graph_wall_ms": g_wall}
+        del graph
+    del logits, lp
+    free()
+    return out
+
+
+def nn_beam(pt, model, B=4, beam=4, steps=16, seed=SEED + 29, dev="cuda"):
+    """Phase 27c: beam search over the trained predictor's ``LSTMCell``
+    (the blank as the start token, token 1 as the end, the joint's
+    predictor path as the output projection) from random states, on the
+    card and on a CPU copy of the same layers: the ids must be equal and
+    the scores within 1e-4. -> numbers"""
+    import copy
+    parts = (model.embed, model.lstm._cells_fw[0], model.joint_pred,
+             model.joint_out)
+    H = parts[1].hidden_size
+    rng = np.random.RandomState(seed)
+    h0 = [torch.from_numpy(0.5 * rng.randn(B, H).astype(np.float32))
+          for _ in range(2)]
+    out = {}
+    for where, key in ((dev, "card"), ("cpu", "cpu")):
+        emb, cell, jp, jo = (parts if key == "card" else
+                             [copy.deepcopy(p).to("cpu") for p in parts])
+        dec = pt.nn.BeamSearchDecoder(
+            cell, 0, 1, beam, embedding_fn=emb,
+            output_fn=lambda h, jp=jp, jo=jo: jo(pt.tanh(jp(h))))
+        t0 = time.perf_counter()
+        ids, scores = pt.nn.dynamic_decode(
+            dec, tuple(h.to(where) for h in h0), max_step_num=steps)
+        torch.cuda.synchronize()
+        out[key] = (ids.cpu(), scores.cpu(), time.perf_counter() - t0)
+    (ids_d, sc_d, t_d), (ids_c, sc_c, t_c) = out["card"], out["cpu"]
+    err = float((sc_d - sc_c).abs().max())
+    log(f"[nn 27c] beam search (beam {beam}, {steps} steps, B {B}) over the "
+        f"trained LSTMCell: ids {list(ids_d.shape)} equal to the CPU's: "
+        f"{torch.equal(ids_d, ids_c)}; scores max abs diff {err:.3e}; "
+        f"{t_d:.3f} s on the card, {t_c:.3f} s on the CPU")
+    if not torch.equal(ids_d, ids_c) or err > 1e-4:
+        fail(f"nn beam: the card's ids / scores differ from the CPU's "
+             f"(score err {err:.3e})")
+    return {"ids_shape": list(ids_d.shape), "score_err": err,
+            "card_s": t_d, "cpu_s": t_c}
+
+
+def nn_phases(pt, K):
+    """Phase 27: the rest of ``nn`` on the card (27a-27c). -> ({kernel:
+    numbers for its JSON entry}, the phase's numbers)"""
+    t0 = time.perf_counter()
+    sweep = nn_sweep(pt)
+    launches, kern, numbers, model = nn_conformer(pt, K)
+    beam = nn_beam(pt, model)
+    del model
+    free()
+    log(f"[nn] phase 27 in {time.perf_counter() - t0:.1f} s")
+    extra = {name: dict(kern.get(name, {}), nn_launches=n)
+             for name, n in launches.items()}
+    return extra, {"sweep_worst": max(sweep.values()),
+                   "conformer": numbers, "beam": beam}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -6276,6 +6686,12 @@ def main():
         next(e for e in kernels if e["name"] == name).update(numbers)
     for e in kernels:
         e.setdefault("layer_launches", 0)
+    # ---------------------------------------- phase 27: the rest of nn
+    nn_extra, _ = nn_phases(pt, K)
+    for name, numbers in nn_extra.items():
+        next(e for e in kernels if e["name"] == name).update(numbers)
+    for e in kernels:
+        e.setdefault("nn_launches", 0)
     for e in kernels:
         e["max_abs_err"] = max([e["max_abs_err"]] + [
             v for k, v in e.items() if k.endswith("_max_abs_err")])

@@ -10,8 +10,10 @@ passes, as ``jnp.maximum`` splits it, where ``torch.relu`` passes none
 and ``torch.clamp`` all of it. ``relu`` is ``maximum(x, 0)`` with that
 gradient as ``heaviside(x, 0.5)``; the clips are ``minimum(maximum(x,
 lo), hi)`` (``jnp.clip``) against 0-d tensors of the input's type.
-``gumbel_softmax`` is not ported (it waits for the port of
-``random_ops``)."""
+``gumbel_softmax`` draws its noise from ``generator`` (a keyword-only
+extra; the default generator when None) as ``uniform[1e-10, 1)``, and
+its hard form is the one-hot of the argmax plus ``y - y.detach()``, as
+``activation.py:165-180``."""
 from __future__ import annotations
 
 import torch
@@ -23,7 +25,7 @@ __all__ = [
     "leaky_relu", "elu", "selu", "celu", "hardtanh", "hardsigmoid",
     "hardswish", "hardshrink", "softshrink", "tanhshrink", "softplus",
     "softsign", "mish", "log_sigmoid", "prelu", "glu", "softmax",
-    "log_softmax",
+    "log_softmax", "gumbel_softmax",
 ]
 
 _F = torch.nn.functional
@@ -222,3 +224,20 @@ def log_softmax(x, axis=-1, dtype=None, name=None):
     if dtype is not None:
         x = x.to(_dtype(dtype))
     return torch.log_softmax(x, dim=axis)
+
+
+def gumbel_softmax(x, temperature=1.0, hard=False, axis=-1, name=None, *,
+                   generator=None):
+    """``softmax((x + g) / temperature)`` with Gumbel noise ``g = -log(-log(
+    u + 1e-10))``; ``hard`` gives the one-hot of its argmax, with the soft
+    sample's gradient."""
+    (x,) = _amp_cast("gumbel_softmax", x)
+    u = torch.rand(x.shape, device=x.device, generator=generator) * \
+        (1.0 - 1e-10) + 1e-10
+    g = -torch.log(-torch.log(u + 1e-10))
+    y = torch.softmax((x + g.to(x.dtype)) / temperature, axis)
+    if hard:
+        hot = torch.zeros_like(y).scatter(
+            axis, y.argmax(axis, keepdim=True), 1.0)
+        y = hot + y - y.detach()
+    return y

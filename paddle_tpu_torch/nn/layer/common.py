@@ -12,7 +12,11 @@ and ``generator`` are keyword-only extras.
   gradient.
 * :class:`Dropout` is :func:`~..functional.dropout` with the layer's
   ``training`` flag, drawing from its ``generator`` (the default
-  generator when None).
+  generator when None); :class:`Dropout2D`, :class:`Dropout3D` and
+  :class:`AlphaDropout` likewise.
+* :class:`Pad1D` / :class:`Pad2D` / :class:`Pad3D`, :class:`Upsample`
+  (and its nearest and bilinear forms) and :class:`CosineSimilarity`
+  hold their arguments and call the functional.
 """
 from __future__ import annotations
 
@@ -23,7 +27,10 @@ import torch
 from .. import functional as F
 from .layers import Layer
 
-__all__ = ["Linear", "Embedding", "Dropout", "Identity", "Flatten"]
+__all__ = ["Linear", "Dropout", "Dropout2D", "Dropout3D", "AlphaDropout",
+           "Embedding", "Flatten", "Identity", "Pad1D", "Pad2D", "Pad3D",
+           "Upsample", "UpsamplingBilinear2D", "UpsamplingNearest2D",
+           "CosineSimilarity"]
 
 
 def _amp_cast(op_name, *tensors):
@@ -108,3 +115,101 @@ class Flatten(Layer):
 
     def forward(self, x):
         return x.flatten(self.start_axis, self.stop_axis)
+
+
+class Dropout2D(Layer):
+    def __init__(self, p=0.5, data_format="NCHW", name=None, *,
+                 generator=None):
+        super().__init__()
+        self.p, self.data_format, self.generator = p, data_format, generator
+
+    def forward(self, x):
+        return F.dropout2d(x, self.p, self.training, self.data_format,
+                           generator=self.generator)
+
+
+class Dropout3D(Layer):
+    def __init__(self, p=0.5, data_format="NCDHW", name=None, *,
+                 generator=None):
+        super().__init__()
+        self.p, self.data_format, self.generator = p, data_format, generator
+
+    def forward(self, x):
+        return F.dropout3d(x, self.p, self.training, self.data_format,
+                           generator=self.generator)
+
+
+class AlphaDropout(Layer):
+    def __init__(self, p=0.5, name=None, *, generator=None):
+        super().__init__()
+        self.p, self.generator = p, generator
+
+    def forward(self, x):
+        return F.alpha_dropout(x, self.p, self.training,
+                               generator=self.generator)
+
+
+class _PadNd(Layer):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCHW", name=None):
+        super().__init__()
+        self._pad, self._mode = padding, mode
+        self._value, self._data_format = value, data_format
+
+    def forward(self, x):
+        return F.pad(x, self._pad, mode=self._mode, value=self._value,
+                     data_format=self._data_format)
+
+
+class Pad1D(_PadNd):
+    def __init__(self, padding, mode="constant", value=0.0, data_format="NCL",
+                 name=None):
+        super().__init__(padding, mode, value, data_format, name)
+
+
+class Pad2D(_PadNd):
+    pass
+
+
+class Pad3D(_PadNd):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCDHW", name=None):
+        super().__init__(padding, mode, value, data_format, name)
+
+
+class Upsample(Layer):
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False, align_mode=0, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self.size, self.scale_factor, self.mode = size, scale_factor, mode
+        self.align_corners, self.align_mode = align_corners, align_mode
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.interpolate(x, self.size, self.scale_factor, self.mode,
+                             self.align_corners, self.align_mode,
+                             self.data_format)
+
+
+class UpsamplingNearest2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "nearest",
+                         data_format=data_format)
+
+
+class UpsamplingBilinear2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "bilinear", align_corners=True,
+                         data_format=data_format)
+
+
+class CosineSimilarity(Layer):
+    def __init__(self, axis=1, eps=1e-8):
+        super().__init__()
+        self.axis, self.eps = axis, eps
+
+    def forward(self, x1, x2):
+        return F.cosine_similarity(x1, x2, axis=self.axis, eps=self.eps)

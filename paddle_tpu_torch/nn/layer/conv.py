@@ -1,44 +1,159 @@
-"""Conv2D (``paddle_tpu/nn/layer/conv.py``), on :class:`~.layers.Layer`:
-weight ``[out_c, in_c / groups, kh, kw]`` drawn by default, as the JAX
-package's is (``conv.py:50``), from ``Normal(0, sqrt(2 / (kh * kw *
-in_c)))``; bias zeros, or none with ``bias_attr=False``."""
+"""The convolution layers (``paddle_tpu/nn/layer/conv.py``), on
+:class:`~.layers.Layer`, with the JAX package's arguments in its order.
+A convolution's weight is ``[out_c, in_c / groups, k...]``, drawn by
+default, as the JAX package's is (``conv.py:50``), from ``Normal(0,
+sqrt(2 / (prod(k) * in_c)))``; a transposed one's is ``[in_c, out_c /
+groups, k...]`` with the default XavierUniform. Biases are zeros. As in
+JAX, ``padding_mode`` is kept and the padding is zeros whatever it says,
+and ``bias_attr=False`` is passed to ``create_parameter``, which then
+makes no bias."""
 from __future__ import annotations
 
 import math
 
 from .. import functional as F
 from .. import initializer as I
-from ..functional.common import _pair
+from ..functional.common import _ntuple
 from .layers import Layer
 
-__all__ = ["Conv2D"]
+__all__ = ["Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose", "Conv2DTranspose",
+           "Conv3DTranspose"]
 
 
-class Conv2D(Layer):
+class _ConvNd(Layer):
+    def __init__(self, nd, in_channels, out_channels, kernel_size, stride,
+                 padding, dilation, groups, padding_mode, weight_attr,
+                 bias_attr, data_format, transposed=False, output_padding=0,
+                 device=None, dtype=None, generator=None):
+        super().__init__(dtype=dtype, device=device, generator=generator)
+        if in_channels % groups:
+            raise ValueError("in_channels must be divisible by groups")
+        self._in_channels = in_channels
+        self._out_channels = out_channels
+        self._kernel_size = _ntuple(kernel_size, nd)
+        self._stride = stride
+        self._padding = padding
+        self._dilation = dilation
+        self._groups = groups
+        self._padding_mode = padding_mode
+        self._data_format = data_format
+        self._transposed = transposed
+        self._output_padding = output_padding
+        if transposed:
+            shape = [in_channels, out_channels // groups, *self._kernel_size]
+            init = None
+        else:
+            shape = [out_channels, in_channels // groups, *self._kernel_size]
+            fan = math.prod(self._kernel_size) * in_channels
+            init = I.Normal(0.0, (2.0 / fan) ** 0.5)
+        self.weight = self.create_parameter(
+            shape=shape, attr=weight_attr, default_initializer=init)
+        self.bias = self.create_parameter(
+            shape=[out_channels], attr=bias_attr, is_bias=True)
+
+    def extra_repr(self):
+        return (f"{self._in_channels}, {self._out_channels}, "
+                f"kernel_size={self._kernel_size}, stride={self._stride}, "
+                f"padding={self._padding}")
+
+
+class Conv1D(_ConvNd):
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, dilation=1, groups=1, padding_mode="zeros",
+                 weight_attr=None, bias_attr=None, data_format="NCL", *,
+                 device=None, dtype=None, generator=None):
+        super().__init__(1, in_channels, out_channels, kernel_size, stride,
+                         padding, dilation, groups, padding_mode, weight_attr,
+                         bias_attr, data_format, device=device, dtype=dtype,
+                         generator=generator)
+
+    def forward(self, x):
+        return F.conv1d(x, self.weight, self.bias, self._stride,
+                        self._padding, self._dilation, self._groups,
+                        self._data_format)
+
+
+class Conv2D(_ConvNd):
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
                  padding=0, dilation=1, groups=1, padding_mode="zeros",
                  weight_attr=None, bias_attr=None, data_format="NCHW", *,
                  device=None, dtype=None, generator=None):
-        super().__init__(dtype=dtype, device=device, generator=generator)
-        if in_channels % groups or out_channels % groups:
-            raise ValueError(f"channels {in_channels} -> {out_channels} do "
-                             f"not divide into {groups} groups")
-        if padding_mode != "zeros":
-            raise NotImplementedError(f"padding_mode {padding_mode!r}: "
-                                      f"only 'zeros' is ported")
-        self._kernel_size = _pair(kernel_size)
-        self._stride, self._padding = stride, padding
-        self._dilation, self._groups = dilation, groups
-        self._data_format = data_format
-        fan = math.prod(self._kernel_size) * in_channels
-        self.weight = self.create_parameter(
-            shape=[out_channels, in_channels // groups, *self._kernel_size],
-            attr=weight_attr,
-            default_initializer=I.Normal(0.0, math.sqrt(2.0 / fan)))
-        self.bias = self.create_parameter(
-            shape=[out_channels], attr=bias_attr, is_bias=True)
+        super().__init__(2, in_channels, out_channels, kernel_size, stride,
+                         padding, dilation, groups, padding_mode, weight_attr,
+                         bias_attr, data_format, device=device, dtype=dtype,
+                         generator=generator)
 
     def forward(self, x):
         return F.conv2d(x, self.weight, self.bias, self._stride,
                         self._padding, self._dilation, self._groups,
                         self._data_format)
+
+
+class Conv3D(_ConvNd):
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, dilation=1, groups=1, padding_mode="zeros",
+                 weight_attr=None, bias_attr=None, data_format="NCDHW", *,
+                 device=None, dtype=None, generator=None):
+        super().__init__(3, in_channels, out_channels, kernel_size, stride,
+                         padding, dilation, groups, padding_mode, weight_attr,
+                         bias_attr, data_format, device=device, dtype=dtype,
+                         generator=generator)
+
+    def forward(self, x):
+        return F.conv3d(x, self.weight, self.bias, self._stride,
+                        self._padding, self._dilation, self._groups,
+                        self._data_format)
+
+
+class Conv1DTranspose(_ConvNd):
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, output_padding=0, groups=1, dilation=1,
+                 weight_attr=None, bias_attr=None, data_format="NCL", *,
+                 device=None, dtype=None, generator=None):
+        super().__init__(1, in_channels, out_channels, kernel_size, stride,
+                         padding, dilation, groups, "zeros", weight_attr,
+                         bias_attr, data_format, transposed=True,
+                         output_padding=output_padding, device=device,
+                         dtype=dtype, generator=generator)
+
+    def forward(self, x, output_size=None):
+        return F.conv1d_transpose(x, self.weight, self.bias, self._stride,
+                                  self._padding, self._output_padding,
+                                  self._groups, self._dilation, output_size,
+                                  self._data_format)
+
+
+class Conv2DTranspose(_ConvNd):
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, output_padding=0, dilation=1, groups=1,
+                 weight_attr=None, bias_attr=None, data_format="NCHW", *,
+                 device=None, dtype=None, generator=None):
+        super().__init__(2, in_channels, out_channels, kernel_size, stride,
+                         padding, dilation, groups, "zeros", weight_attr,
+                         bias_attr, data_format, transposed=True,
+                         output_padding=output_padding, device=device,
+                         dtype=dtype, generator=generator)
+
+    def forward(self, x, output_size=None):
+        return F.conv2d_transpose(x, self.weight, self.bias, self._stride,
+                                  self._padding, self._output_padding,
+                                  self._groups, self._dilation,
+                                  self._data_format, output_size)
+
+
+class Conv3DTranspose(_ConvNd):
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, output_padding=0, dilation=1, groups=1,
+                 weight_attr=None, bias_attr=None, data_format="NCDHW", *,
+                 device=None, dtype=None, generator=None):
+        super().__init__(3, in_channels, out_channels, kernel_size, stride,
+                         padding, dilation, groups, "zeros", weight_attr,
+                         bias_attr, data_format, transposed=True,
+                         output_padding=output_padding, device=device,
+                         dtype=dtype, generator=generator)
+
+    def forward(self, x, output_size=None):
+        return F.conv3d_transpose(x, self.weight, self.bias, self._stride,
+                                  self._padding, self._output_padding,
+                                  self._groups, self._dilation,
+                                  self._data_format, output_size)

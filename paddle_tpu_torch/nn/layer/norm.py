@@ -18,24 +18,33 @@ on :class:`~.layers.Layer`; parameters through ``create_parameter``
   ``_variance`` (ones), Paddle's ``state_dict`` keys
   (``norm.py:74-77``); ``train()`` normalises by the batch and updates
   them, ``eval()`` normalises by them. The buffers follow the module's
-  dtype and ``amp.decorate``'s casts.
+  dtype and ``amp.decorate``'s casts. :class:`BatchNorm3D` is the same
+  over ``NCDHW``; :class:`SyncBatchNorm` is a BatchNorm at world size 1
+  (``norm.py:131-152``), and ``convert_sync_batchnorm`` swaps it in for
+  every BatchNorm of a model, keeping their parameters and buffers.
+* :class:`GroupNorm` and :class:`InstanceNorm2D` run their functionals
+  with unit-initialised scales; :class:`LocalResponseNorm` divides by
+  ``(k + alpha * window sum of squares)^beta``, the JAX layer's own
+  expression (``norm.py:173-194``), which, unlike
+  :func:`~..functional.local_response_norm`, does not divide ``alpha``
+  by ``size``. :class:`SpectralNorm` raises ``NotImplementedError``, as
+  the JAX layer does (``norm.py:197-201``); ``nn.utils.spectral_norm``
+  is ported.
 """
 from __future__ import annotations
 
 import torch
-import math
-
-import torch
 
 from ...device import resolve_device
-from ...ops.kernels import LayerNormFunction
 from .. import functional as F
 from .. import initializer as I
+from ..functional.norm import layer_norm_rows
 from .common import _amp_cast
 from .layers import Layer
 
-__all__ = ["LayerNorm", "RMSNorm", "BatchNorm", "BatchNorm1D",
-           "BatchNorm2D"]
+__all__ = ["LayerNorm", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
+           "BatchNorm3D", "SyncBatchNorm", "GroupNorm", "InstanceNorm2D",
+           "RMSNorm", "LocalResponseNorm", "SpectralNorm"]
 
 
 class LayerNorm(Layer):
@@ -55,15 +64,7 @@ class LayerNorm(Layer):
 
     def forward(self, x):
         x, w, b = _amp_cast("layer_norm", x, self.weight, self.bias)
-        k = len(self._normalized_shape)
-        if k == 1:
-            return LayerNormFunction.apply(x, w, b, self.epsilon)
-        n = math.prod(self._normalized_shape)
-        rows = x.reshape(*x.shape[:-k], n)
-        y = LayerNormFunction.apply(
-            rows, None if w is None else w.reshape(n),
-            None if b is None else b.reshape(n), self.epsilon)
-        return y.reshape(x.shape)
+        return layer_norm_rows(x, self._normalized_shape, w, b, self.epsilon)
 
     def extra_repr(self):
         return f"normalized_shape={self._normalized_shape}"
@@ -132,3 +133,94 @@ class BatchNorm1D(BatchNorm):
 
 class BatchNorm2D(BatchNorm):
     pass
+
+
+class BatchNorm3D(BatchNorm):
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCDHW",
+                 use_global_stats=None, name=None, *, device=None,
+                 dtype=None, generator=None):
+        super().__init__(num_features, momentum, epsilon, weight_attr,
+                         bias_attr, data_format, use_global_stats, name,
+                         device=device, dtype=dtype, generator=generator)
+
+
+class SyncBatchNorm(BatchNorm):
+    @classmethod
+    def convert_sync_batchnorm(cls, layer):
+        """``layer`` with every BatchNorm in it (itself included) replaced
+        by a :class:`SyncBatchNorm` holding the same parameters and
+        buffers."""
+        if isinstance(layer, BatchNorm) and not isinstance(layer, cls):
+            converted = cls(layer._num_features, layer._momentum,
+                            layer._epsilon, weight_attr=False,
+                            bias_attr=False,
+                            data_format=layer._data_format,
+                            use_global_stats=layer._use_global_stats,
+                            device=layer._mean.device,
+                            dtype=layer._mean.dtype)
+            converted.weight, converted.bias = layer.weight, layer.bias
+            converted._mean, converted._variance = \
+                layer._mean, layer._variance
+            converted.train(layer.training)
+            return converted
+        for name, sub in list(layer._modules.items()):
+            if sub is not None:
+                setattr(layer, name, cls.convert_sync_batchnorm(sub))
+        return layer
+
+
+class GroupNorm(Layer):
+    def __init__(self, num_groups, num_channels, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None, *, device=None, dtype=None, generator=None):
+        super().__init__(dtype=dtype, device=device, generator=generator)
+        self._num_groups, self._num_channels = num_groups, num_channels
+        self._epsilon, self._data_format = epsilon, data_format
+        self.weight = None if weight_attr is False else self.create_parameter(
+            shape=[num_channels], attr=weight_attr,
+            default_initializer=I.Constant(1.0))
+        self.bias = None if bias_attr is False else self.create_parameter(
+            shape=[num_channels], attr=bias_attr, is_bias=True)
+
+    def forward(self, x):
+        return F.group_norm(x, self._num_groups, self._epsilon, self.weight,
+                            self.bias, self._data_format)
+
+
+class InstanceNorm2D(Layer):
+    def __init__(self, num_features, epsilon=1e-5, momentum=0.9,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None, *, device=None, dtype=None, generator=None):
+        super().__init__(dtype=dtype, device=device, generator=generator)
+        self._epsilon = epsilon
+        self.weight = None if weight_attr is False else self.create_parameter(
+            shape=[num_features], attr=weight_attr,
+            default_initializer=I.Constant(1.0))
+        self.bias = None if bias_attr is False else self.create_parameter(
+            shape=[num_features], attr=bias_attr, is_bias=True)
+
+    def forward(self, x):
+        return F.instance_norm(x, weight=self.weight, bias=self.bias,
+                               eps=self._epsilon)
+
+
+class LocalResponseNorm(Layer):
+    def __init__(self, size, alpha=1e-4, beta=0.75, k=1.0,
+                 data_format="NCHW", name=None):
+        super().__init__()
+        self.size, self.alpha, self.beta, self.k = size, alpha, beta, k
+
+    def forward(self, x):
+        # the functional divides alpha by size; this layer does not
+        return F.local_response_norm(x, self.size, self.alpha * self.size,
+                                     self.beta, self.k)
+
+
+class SpectralNorm(Layer):
+    def __init__(self, weight_shape, axis=0, power_iters=1, epsilon=1e-12,
+                 name=None):
+        super().__init__()
+        raise NotImplementedError(
+            "SpectralNorm is not implemented (as in the JAX package); "
+            "nn.utils.spectral_norm reparameterises a layer's weight")

@@ -1,20 +1,40 @@
-"""MaxPool2D, AvgPool2D and AdaptiveAvgPool2D
-(``paddle_tpu/nn/layer/pooling.py``) over :mod:`..functional.pooling`."""
+"""The pooling layers (``paddle_tpu/nn/layer/pooling.py``) over
+:mod:`..functional.pooling`, with the JAX package's arguments: the 1-D
+and 3-D pools take ``(kernel_size, stride=None, padding=0,
+ceil_mode=False, **kwargs)`` as JAX's ``_PoolNd`` does."""
 from __future__ import annotations
 
 from .. import functional as F
 from .layers import Layer
 
-__all__ = ["MaxPool2D", "AvgPool2D", "AdaptiveAvgPool2D"]
+__all__ = ["MaxPool1D", "MaxPool2D", "MaxPool3D", "AvgPool1D", "AvgPool2D",
+           "AvgPool3D", "AdaptiveAvgPool1D", "AdaptiveAvgPool2D",
+           "AdaptiveMaxPool1D", "AdaptiveMaxPool2D"]
 
 
-class MaxPool2D(Layer):
+class _PoolNd(Layer):
+    def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False,
+                 **kwargs):
+        super().__init__()
+        self.ksize = kernel_size
+        self.stride = stride
+        self.padding = padding
+        self.ceil_mode = ceil_mode
+        self.kwargs = kwargs
+
+
+class MaxPool1D(_PoolNd):
+    def forward(self, x):
+        return F.max_pool1d(x, self.ksize, self.stride, self.padding,
+                            ceil_mode=self.ceil_mode)
+
+
+class MaxPool2D(_PoolNd):
     def __init__(self, kernel_size, stride=None, padding=0,
                  return_mask=False, ceil_mode=False, data_format="NCHW",
                  name=None):
-        super().__init__()
-        self.ksize, self.stride, self.padding = kernel_size, stride, padding
-        self.return_mask, self.ceil_mode = return_mask, ceil_mode
+        super().__init__(kernel_size, stride, padding, ceil_mode)
+        self.return_mask = return_mask
         self.data_format = data_format
 
     def forward(self, x):
@@ -23,14 +43,26 @@ class MaxPool2D(Layer):
                             self.data_format)
 
 
-class AvgPool2D(Layer):
+class MaxPool3D(_PoolNd):
+    def forward(self, x):
+        return F.max_pool3d(x, self.ksize, self.stride, self.padding,
+                            ceil_mode=self.ceil_mode)
+
+
+class AvgPool1D(_PoolNd):
+    def forward(self, x):
+        return F.avg_pool1d(x, self.ksize, self.stride, self.padding,
+                            ceil_mode=self.ceil_mode)
+
+
+class AvgPool2D(_PoolNd):
     def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False,
                  exclusive=True, divisor_override=None, data_format="NCHW",
                  name=None):
-        super().__init__()
-        self.ksize, self.stride, self.padding = kernel_size, stride, padding
-        self.ceil_mode, self.exclusive = ceil_mode, exclusive
-        self.divisor, self.data_format = divisor_override, data_format
+        super().__init__(kernel_size, stride, padding, ceil_mode)
+        self.exclusive = exclusive
+        self.divisor = divisor_override
+        self.data_format = data_format
 
     def forward(self, x):
         return F.avg_pool2d(x, self.ksize, self.stride, self.padding,
@@ -38,10 +70,46 @@ class AvgPool2D(Layer):
                             self.data_format)
 
 
+class AvgPool3D(_PoolNd):
+    def forward(self, x):
+        return F.avg_pool3d(x, self.ksize, self.stride, self.padding,
+                            ceil_mode=self.ceil_mode)
+
+
+class AdaptiveAvgPool1D(Layer):
+    def __init__(self, output_size, name=None):
+        super().__init__()
+        self.output_size = output_size
+
+    def forward(self, x):
+        return F.adaptive_avg_pool1d(x, self.output_size)
+
+
 class AdaptiveAvgPool2D(Layer):
     def __init__(self, output_size, data_format="NCHW", name=None):
         super().__init__()
-        self.output_size, self.data_format = output_size, data_format
+        self.output_size = output_size
+        self.data_format = data_format
 
     def forward(self, x):
         return F.adaptive_avg_pool2d(x, self.output_size, self.data_format)
+
+
+class AdaptiveMaxPool1D(Layer):
+    def __init__(self, output_size, return_mask=False, name=None):
+        super().__init__()
+        self.output_size = output_size
+        self.return_mask = return_mask
+
+    def forward(self, x):
+        return F.adaptive_max_pool1d(x, self.output_size, self.return_mask)
+
+
+class AdaptiveMaxPool2D(Layer):
+    def __init__(self, output_size, return_mask=False, name=None):
+        super().__init__()
+        self.output_size = output_size
+        self.return_mask = return_mask
+
+    def forward(self, x):
+        return F.adaptive_max_pool2d(x, self.output_size, self.return_mask)

@@ -1886,3 +1886,197 @@ def test_staged_per_parameter_rates_on_card_equal_eager():
     np.testing.assert_allclose(sl, el, rtol=1e-6, atol=1e-7)
     for a, b in zip(sw, ew):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+# ------------------------------------- the rest of nn (Conformer slice)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape,affine", [
+    ("bfloat16", [256], True), ("float32", [256], False),
+    ("float32", [4, 64], True)])
+def test_functional_layer_norm_launches_the_kernel_on_card(dtype, shape,
+                                                           affine):
+    """``F.layer_norm`` on a CUDA tensor launches the LayerNorm kernel
+    once (over the flattened trailing axes) and matches its plain version
+    (f32: atol 1e-4; bf16: rtol/atol 2e-2)."""
+    _need_cuda()
+    from paddle_tpu_torch.nn import functional as PF
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = (torch.randn(16 * 255, *shape, device="cuda", generator=g) * 2
+         + 1).to(dt)
+    w = (1 + 0.1 * torch.randn(*shape, device="cuda", generator=g)).to(dt) \
+        if affine else None
+    b = (0.1 * torch.randn(*shape, device="cuda", generator=g)).to(dt) \
+        if affine else None
+    before = K.layer_norm.launches
+    got = PF.layer_norm(x, shape, w, b)
+    torch.cuda.synchronize()
+    assert K.layer_norm.launches == before + 1
+    n = math.prod(shape)
+    want = K.layer_norm_reference(
+        x.reshape(-1, n), None if w is None else w.reshape(n),
+        None if b is None else b.reshape(n)).reshape(x.shape)
+    tol = 1e-4 if dt == torch.float32 else 2e-2
+    assert got.dtype == dt
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_trio_at_t255_d64_matches_plain_on_card():
+    """The Conformer-M attention shape, [16, 255, 4, 64] bf16 non-causal
+    (255 is no multiple of the 64/128 tiles): forward, dQ, dK and dV of
+    the kernels, one launch each, against autograd through the plain
+    chain in f32 on the same values (rtol/atol 2e-2 elementwise and 1e-2
+    on the error's norm)."""
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v = (torch.randn(16, 255, 4, 64, device="cuda", generator=g)
+               .bfloat16().requires_grad_(True) for _ in range(3))
+    ct = torch.randn(16, 255, 4, 64, device="cuda", generator=g).bfloat16()
+    before = K.launch_counts()
+    out = K.flash_attention_bshd(q, k, v, causal=False)
+    got = torch.autograd.grad((out.float() * ct.float()).sum(), (q, k, v))
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert after[name] == before[name] + 1, name
+    ref = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    sc = torch.einsum("bqhd,bkhd->bhqk", ref[0], ref[1]) / 8.0
+    o = torch.einsum("bhqk,bkhd->bqhd", sc.softmax(-1), ref[2])
+    want = torch.autograd.grad((o * ct.float()).sum(), ref)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), (out,) + got,
+                          (o,) + want):
+        torch.testing.assert_close(a.float(), b.detach(), rtol=2e-2,
+                                   atol=2e-2, msg=name)
+        err = float((a.float() - b.detach()).norm() / b.detach().norm())
+        assert err <= 1e-2, (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [13, 14, 15, 16])
+def test_rnnt_and_ctc_losses_on_card_match_cpu(seed):
+    """``rnnt_loss`` at [2, T 255, U + 1 = 65, V 32] and ``ctc_loss`` at
+    [T 255, 2, 32] on the card against the same calls on the CPU: losses
+    within rtol 1e-5; the scores' gradients (entries up to ~0.5) within
+    rtol / atol 1e-5. Both losses carry their lattices (sums to |ll| ~
+    900) in f64, so the order each device's scans sum in does not show;
+    what differs is the f32 log-softmax, a few ulps. Each case prints its
+    loss and gradient errors."""
+    _need_cuda()
+    from paddle_tpu_torch.nn import functional as PF
+    rng = np.random.RandomState(seed)
+    x = rng.randn(2, 255, 65, 32).astype(np.float32)
+    y = rng.randn(255, 2, 32).astype(np.float32)
+    lab = torch.from_numpy(rng.randint(1, 32, (2, 64)))
+    in_len, lab_len = torch.tensor([255, 201]), torch.tensor([64, 40])
+    for fn, arr in ((PF.rnnt_loss, x), (PF.ctc_loss, y)):
+        outs = []
+        for dev in ("cpu", "cuda"):
+            t = torch.from_numpy(arr).to(dev).requires_grad_(True)
+            loss = fn(t, lab.to(dev), in_len.to(dev), lab_len.to(dev))
+            (grad,) = torch.autograd.grad(loss, t)
+            outs.append((float(loss.detach()), grad.cpu()))
+        (l_c, g_c), (l_d, g_d) = outs
+        g_err = float((g_d - g_c).abs().max())
+        msg = (f"seed {seed} {fn.__name__}: loss {l_d!r} on the card vs "
+               f"{l_c!r}, gradient max abs err {g_err:.3e}")
+        print(msg)
+        assert l_d == pytest.approx(l_c, rel=1e-5), msg
+        torch.testing.assert_close(g_d, g_c, rtol=1e-5, atol=1e-5, msg=msg)
+
+
+@pytest.mark.cuda
+def test_nn_sweep_on_card_matches_cpu():
+    """Every case of ``tests/torch_nn_cases.py`` on the card against the
+    CPU: outputs on the card, dtypes and shapes equal, values and every
+    gradient within the table's f32 tolerance (TF32 off)."""
+    _need_cuda()
+    import os
+    import sys
+    import paddle_tpu_torch as pt
+    sys.path.insert(0, os.path.dirname(__file__))
+    import torch_nn_cases as C
+    tf32 = torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for case in C.CASES:
+            cpu, cpu_g, _ = C.run(pt, case, "cpu")
+            dev, dev_g, where = C.run(pt, case, "cuda")
+            assert set(where) == {"cuda"}, case[0]
+            for a, b in zip(cpu + cpu_g, dev + dev_g):
+                assert (a is None) == (b is None), case[0]
+                if a is None:
+                    continue
+                assert a.dtype == b.dtype and a.shape == b.shape, case[0]
+                torch.testing.assert_close(b, a, rtol=C.RTOL, atol=C.ATOL,
+                                           msg=case[0])
+    finally:
+        pt.set_device("cuda")
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+
+
+@pytest.mark.cuda
+def test_resize_pad_and_sparse_attention_stage_on_card():
+    """``Upsample`` (bilinear and nearest), ``Pad2D`` in its reflect,
+    replicate and circular modes and ``sparse_attention`` over a CSR
+    pattern on the card make their indices, resize weights and mask on the
+    device: a train step through them stages with ``to_static`` as 1 graph
+    with 0 breaks, and its losses equal the eager step's (rtol 1e-5)."""
+    _need_cuda()
+    import paddle_tpu_torch as pt
+    S = 12
+    cols = [list(range(max(0, r - 2), r + 1)) + ([S - 1] if r < S - 1
+                                                 else []) for r in range(S)]
+    off = torch.tensor(np.cumsum([0] + [len(c) for c in cols]),
+                       dtype=torch.int32, device="cuda").reshape(1, 1, -1)
+    col = torch.tensor([c for cs in cols for c in cs], dtype=torch.int32,
+                       device="cuda").reshape(1, 1, -1)
+
+    def build():
+        pt.seed(3)
+        conv = pt.nn.Conv2D(3, 4, 3)
+        layers = pt.nn.Sequential(
+            conv, pt.nn.Upsample(scale_factor=2, mode="bilinear"),
+            pt.nn.Upsample(size=[10, 16]),
+            pt.nn.Pad2D([1, 2, 1, 0], mode="reflect"),
+            pt.nn.Pad2D([0, 1, 0, 1], mode="replicate"),
+            pt.nn.Pad2D([1, 1, 0, 0], mode="circular"))
+        opt = pt.SGD(learning_rate=0.05, parameters=conv.parameters())
+
+        def step(x):
+            h = layers(x)                                  # [2, 4, 12, 22]
+            out = pt.nn.functional.sparse_attention(h, h, h, off, col)
+            loss = (out * out).mean()
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+
+        return conv, opt, step
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(2, 3, 8, 8, device="cuda", generator=g)
+    runs = []
+    for staged in (False, True):
+        conv, opt, step = build()
+        fn = pt.jit.to_static(step, capture=(conv, opt)) if staged else step
+        runs.append(([float(fn(x)) for _ in range(5)], fn))
+    (eager, _), (got, fn) = runs
+    st = fn.stats()
+    assert st["graphs"] == 1 and st["graph_breaks"] == 0, st
+    assert got[-1] < got[0]
+    np.testing.assert_allclose(got, eager, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_sequence_mask_of_a_list_lands_on_the_card():
+    """A list of lengths goes to the current device, as every entry point's
+    input does: ``sequence_mask([3, 5])`` returns a card tensor."""
+    _need_cuda()
+    from paddle_tpu_torch.nn import functional as PF
+    got = PF.sequence_mask([3, 5])
+    assert got.device.type == "cuda"
+    assert got.cpu().tolist() == [[1, 1, 1, 0, 0], [1, 1, 1, 1, 1]]
