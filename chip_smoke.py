@@ -404,6 +404,36 @@ exit code:
     beam search (``BeamSearchDecoder`` + ``dynamic_decode``, beam 4, 16
     steps) over the trained predictor's ``LSTMCell`` on the card and on
     a CPU copy: the same ids.
+28. **the core runtime modules and the incubate fused surface** — (a)
+    every case of ``tests/torch_incubate_cases.py`` (each function of
+    ``incubate`` and ``incubate.nn.functional`` and each ``incubate.nn``
+    layer) on the card against the CPU as 27a, then the kernel-backed
+    ones in bf16 against their kernels' plain versions, each launching
+    its kernel once: ``incubate.flash_attention`` at [8, 1024, 16, 128]
+    causal, ``fused_layer_norm`` and ``fused_rms_norm`` at [8192, 2048],
+    ``block_multihead_attention`` over 16 decode rows of a page-16 pool;
+    (b) a decoder written as a Paddle LLM user writes it
+    (:func:`rope_decoder`, ``gpt_1p3b(use_rms_norm=True)``'s widths and
+    depth: ``fused_rms_norm``, ``fused_rotary_position_embedding``,
+    ``incubate.flash_attention`` and a user ``PyLayer`` GELU), trained O2
+    bf16 with ``AdamW`` masters at B 8 x S 1024, eager (2 steps) and
+    staged by ``to_static`` (2 + 10): 1 graph, 0 breaks, launches exact
+    (the flash trio 24, RMSNorm 49, AdamW 1 a replay), losses falling,
+    the staged step-0 loss the eager one's, the peak memory through
+    ``pt.device.max_memory_allocated`` equal to torch's, and one batch
+    loaded on a side ``Stream`` under ``stream_guard`` giving a loss
+    bit-equal to the default stream's; (c) the trained model decodes 16
+    rows of 128-token prompts greedily, the prefill through the flash
+    path and 63 steps through ``block_multihead_attention`` on the paged
+    kernel (exact launches; every token the argmax of a no-cache forward
+    within phase 15's tolerance; ms a decode step; the paged kernel at
+    that shape beside its bound); (d) ``FusedMultiTransformer`` at the
+    same widths (2 layers, [4, 512]) in bf16 on the card against an f32
+    copy on the CPU, the tensor checker raising on an Inf on the card,
+    the operator statistics, a step staged under the enabled checker
+    capturing as 1 graph, ``FLAGS_use_flash_attention=False`` refused on
+    a CUDA tensor, ``utils.run_check``, and ``jacobian`` / ``hessian`` /
+    ``vjp`` / ``jvp`` of a small MLP equal on the card and the CPU.
 
 The lines before the last carry the ``{"kernels": [...]}`` JSON (all eight
 kernels; the ``fused_adamw`` entry adds the master and bf16-moment modes'
@@ -430,7 +460,10 @@ entry ``layer_launches``, its launches over 26a's 20 replayed steps;
 phase 27 adds to every entry ``nn_launches``, its launches over 27b's
 10 replayed Conformer steps, and the flash entries' ``t255_*`` and
 ``layer_norm``'s / ``fused_adamw``'s ``conformer_*`` numbers at 27b's
-shapes; every ``max_abs_err`` is
+shapes; phase 28 adds to every entry ``incubate_launches``, its launches
+over 28b's 10 replayed steps and 28c's prefill and decode steps, and to
+``paged_attention`` the ``incubate_*`` numbers at 28c's decode shape;
+every ``max_abs_err`` is
 the largest of its entry's errors) and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the repository beside it, the script exits
@@ -5919,52 +5952,59 @@ def layer_phases(pt, K):
 
 
 # ------------------------------------------------------------- phase 27
-def _nn_cases():
+def case_table(name):
+    """A JAX-free case table of ``tests/`` (``torch_nn_cases``,
+    ``torch_incubate_cases``)."""
     sys.path.insert(0, os.path.join(HERE, "tests"))
-    import torch_nn_cases as C
-    return C
+    return importlib.import_module(name)
 
 
 def nn_sweep(pt, where="cuda"):
     """Phase 27a: every case of ``tests/torch_nn_cases.py`` on the card
-    against the same call on CPU tensors: each output on the card with
-    the CPU's dtype and shape, values and every gradient within the
-    table's f32 tolerance. -> {op: worst error}"""
-    C = _nn_cases()
+    against the same call on CPU tensors (:func:`case_sweep`). -> {op:
+    worst error}"""
+    return case_sweep(pt, case_table("torch_nn_cases"), "nn 27a", where)
+
+
+def case_sweep(pt, C, tag, where="cuda"):
+    """Every case of the table ``C`` on the card against the same call on
+    CPU tensors: each output on the card with the CPU's dtype and shape,
+    values and every gradient within the table's f32 tolerance. -> {op:
+    worst error}"""
     worst = {}
     t0 = time.perf_counter()
     for case in C.CASES:
         cpu, cpu_g, _ = C.run(pt, case, "cpu")
         dev, dev_g, where_out = C.run(pt, case, where)
         if any(d != where for d in where_out):
-            fail(f"[nn 27a] {case[0]}: outputs on {where_out}")
+            fail(f"[{tag}] {case[0]}: outputs on {where_out}")
         if len(cpu) != len(dev) or len(cpu_g) != len(dev_g):
-            fail(f"[nn 27a] {case[0]}: {len(dev)} outputs / {len(dev_g)} "
+            fail(f"[{tag}] {case[0]}: {len(dev)} outputs / {len(dev_g)} "
                  f"gradients on the card, {len(cpu)} / {len(cpu_g)} on "
                  f"the CPU")
         err = 0.0
         for a, b in zip(cpu + cpu_g, dev + dev_g):
             if a is None or b is None:
                 if (a is None) != (b is None):
-                    fail(f"[nn 27a] {case[0]}: a gradient missing on one "
+                    fail(f"[{tag}] {case[0]}: a gradient missing on one "
                          f"side")
                 continue
             if a.dtype != b.dtype or a.shape != b.shape:
-                fail(f"[nn 27a] {case[0]}: {b.dtype} {list(b.shape)} on "
+                fail(f"[{tag}] {case[0]}: {b.dtype} {list(b.shape)} on "
                      f"the card != {a.dtype} {list(a.shape)}")
             if not a.is_floating_point():
                 if not torch.equal(a, b):
-                    fail(f"[nn 27a] {case[0]}: integer outputs differ")
+                    fail(f"[{tag}] {case[0]}: integer outputs differ")
                 continue
             d = (a.double() - b.double()).abs()
             if not bool((d <= C.ATOL + C.RTOL * a.double().abs()).all()):
-                fail(f"[nn 27a] {case[0]}: max abs err {float(d.max()):.3e}"
+                fail(f"[{tag}] {case[0]}: max abs err {float(d.max()):.3e}"
                      f" over rtol {C.RTOL:g} / atol {C.ATOL:g}")
             err = max(err, float(d.max()) if d.numel() else 0.0)
         worst[case[0]] = err
     pt.set_device(where)
     top = sorted(worst.items(), key=lambda kv: -kv[1])
-    log(f"[nn 27a] {len(C.CASES)} cases on the card vs the CPU in "
+    log(f"[{tag}] {len(C.CASES)} cases on the card vs the CPU in "
         f"{time.perf_counter() - t0:.2f} s (rtol {C.RTOL:g} / atol "
         f"{C.ATOL:g}); worst errors: " + ", ".join(
             f"{k} {v:.3e}" for k, v in top[:12]))
@@ -6296,6 +6336,612 @@ def nn_phases(pt, K):
              for name, n in launches.items()}
     return extra, {"sweep_worst": max(sweep.values()),
                    "conformer": numbers, "beam": beam}
+
+
+# ------------------------------------------------------------- phase 28
+def rope_tables(n, d):
+    """The neox RoPE tables [1, n, 1, d] (angles t / 10000^(2i/d) over
+    both halves), made with numpy: (sin, cos)."""
+    inv = 1.0 / (10000.0 ** (np.arange(0, d, 2, dtype=np.float64) / d))
+    emb = np.outer(np.arange(n, dtype=np.float64), inv)
+    emb = np.concatenate([emb, emb], axis=-1)[None, :, None, :]
+    return np.sin(emb).astype(np.float32), np.cos(emb).astype(np.float32)
+
+
+def rope_decoder(P, vocab=50304, hidden=2048, layers=24, heads=16,
+                 ffn=8192, max_len=1024, eps=1e-6):
+    """Phase 28's model: a decoder written as a Paddle LLM user writes it
+    against ``paddle.incubate`` (``gpt_1p3b(use_rms_norm=True)``'s widths
+    and depth by default, ``paddle_tpu/models/gpt.py:77``): each block is
+    ``incubate.nn.functional.fused_rms_norm``, one ``Linear`` to q, k and
+    v, ``fused_rotary_position_embedding`` on q and k with tables from
+    numpy, ``incubate.flash_attention`` (causal), the output ``Linear``,
+    ``fused_rms_norm`` and an MLP whose GELU (the tanh form) is the user's
+    own ``autograd.PyLayer`` with its own backward. Rotary positions take
+    the place of ``GPTForCausalLM``'s learned ones (user code, as phase
+    27's Conformer chose its positions); the head is tied to the
+    embedding. ``P`` is the port here; ``tests/test_torch_port_incubate
+    .py`` builds this body at tiny widths over both packages.
+    ``model(ids)`` gives the logits, ``model(ids, labels)`` the mean
+    cross-entropy."""
+    nn, F = P.nn, P.nn.functional
+    IF = P.incubate.nn.functional
+    hd = hidden // heads
+    c = math.sqrt(2.0 / math.pi)
+
+    class GELU(P.autograd.PyLayer):
+        @staticmethod
+        def forward(ctx, x):
+            ctx.save_for_backward(x)
+            return 0.5 * x * (1.0 + P.tanh(c * (x + 0.044715 * x * x * x)))
+
+        @staticmethod
+        def backward(ctx, dy):
+            x, = ctx.saved_tensor()
+            t = P.tanh(c * (x + 0.044715 * x * x * x))
+            return dy * (0.5 * (1.0 + t) + 0.5 * x * (1.0 - t * t) * c
+                         * (1.0 + 3 * 0.044715 * x * x))
+
+    class RMSNorm(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.weight = self.create_parameter(
+                [hidden], default_initializer=nn.initializer.Constant(1.0))
+
+        def forward(self, x):
+            return IF.fused_rms_norm(x, self.weight, None, eps)
+
+    class Block(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.ln1 = RMSNorm()
+            self.qkv = nn.Linear(hidden, 3 * hidden)
+            self.proj = nn.Linear(hidden, hidden)
+            self.ln2 = RMSNorm()
+            self.fc1 = nn.Linear(hidden, ffn)
+            self.fc2 = nn.Linear(ffn, hidden)
+
+        def qkv_rope(self, x, sin, cos):
+            b, s = x.shape[0], x.shape[1]
+            q, k, v = (P.reshape(t, [b, s, heads, hd]) for t in
+                       P.split(self.qkv(self.ln1(x)), 3, axis=-1))
+            q, k, _ = IF.fused_rotary_position_embedding(
+                q, k, None, sin=P.cast(sin, q.dtype), cos=P.cast(cos, q.dtype))
+            return q, k, v
+
+        def mlp(self, x):
+            return x + self.fc2(GELU.apply(self.fc1(self.ln2(x))))
+
+        def forward(self, x, sin, cos, cache=None):
+            b, s = x.shape[0], x.shape[1]
+            q, k, v = self.qkv_rope(x, sin, cos)
+            if cache is not None:
+                cache.append((k, v))
+            o, _ = P.incubate.flash_attention(q, k, v, causal=True)
+            return self.mlp(x + self.proj(P.reshape(o, [b, s, hidden])))
+
+    class RopeDecoder(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(vocab, hidden)
+            self.blocks = nn.LayerList([Block() for _ in range(layers)])
+            self.norm = RMSNorm()
+            sin, cos = rope_tables(max_len, hd)
+            self.register_buffer("rope_sin", P.to_tensor(sin),
+                                 persistable=False)
+            self.register_buffer("rope_cos", P.to_tensor(cos),
+                                 persistable=False)
+
+        def logits(self, h):
+            return P.matmul(self.norm(h), self.embed.weight, transpose_y=True)
+
+        def forward(self, ids, labels=None, cache=None):
+            s = ids.shape[1]
+            sin, cos = self.rope_sin[:, :s], self.rope_cos[:, :s]
+            h = self.embed(ids)
+            for blk in self.blocks:
+                h = blk(h, sin, cos, cache)
+            logits = self.logits(h)
+            if labels is None:
+                return logits
+            return F.cross_entropy(P.reshape(logits, [-1, vocab]),
+                                   P.reshape(labels, [-1]))
+
+    return RopeDecoder()
+
+
+def incubate_sweep(pt, where="cuda"):
+    """Phase 28a's table: every case of ``tests/torch_incubate_cases.py``
+    on the card against the CPU (:func:`case_sweep`). -> {op: worst
+    error}"""
+    return case_sweep(pt, case_table("torch_incubate_cases"),
+                      "incubate 28a", where)
+
+
+def incubate_kernel_cases(pt, K, seed=SEED + 28):
+    """Phase 28a's kernel-backed entry points in bf16 on the card against
+    their kernels' plain versions on the same inputs, each launching its
+    kernel once: ``incubate.flash_attention`` at [8, 1024, 16, 128]
+    causal (phase 6's bf16 limits), ``fused_layer_norm`` and
+    ``fused_rms_norm`` at [8192, 2048] (2e-2), ``block_multihead_attention``
+    over 16 decode rows of a page-16 pool with contexts 1-1024 (4e-3, phase
+    12's bf16 limit). -> {name: max abs error}"""
+    IF, inc = pt.incubate.nn.functional, pt.incubate
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    bf = torch.bfloat16
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(*shape, device="cuda", generator=g) * scale
+                + shift).to(bf)
+
+    def launched(name, fn):
+        K.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        n = K.launch_counts()[name]
+        if n != 1:
+            fail(f"[incubate 28a] {name}: {n} launches for one call")
+        return out
+
+    errs = {}
+    B, S, H, D = 8, 1024, 16, 128
+    q, k, v = (randn(B, S, H, D) for _ in range(3))
+    out, none = launched("flash_fwd", lambda: inc.flash_attention(
+        q, k, v, causal=True))
+    if none is not None:
+        fail("[incubate 28a] flash_attention returned a softmax")
+    ro, _ = K.flash_fwd_reference(_bhsd(q), _bhsd(k), _bhsd(v),
+                                  1.0 / math.sqrt(D), True)
+    errs["flash_attention"] = check_close(
+        f"[incubate 28a] incubate.flash_attention [{B}, {S}, {H}, {D}] bf16 "
+        f"causal", out, _bshd(ro, B, H), FLASH_BF16_TOL, FLASH_BF16_TOL,
+        FLASH_BF16_NORM_TOL)
+    del q, k, v, out, ro
+    x = randn(8192, 2048, scale=2.0, shift=1.0)
+    w, b = randn(2048, scale=0.1, shift=1.0), randn(2048, scale=0.1)
+    errs["fused_layer_norm"] = check_close(
+        "[incubate 28a] incubate.fused_layer_norm [8192, 2048] bf16",
+        launched("layer_norm", lambda: inc.fused_layer_norm(x, w, b, 1e-5)),
+        K.layer_norm_reference(x, w, b, 1e-5), 2e-2, 2e-2)
+    errs["fused_rms_norm"] = check_close(
+        "[incubate 28a] incubate.nn.functional.fused_rms_norm [8192, 2048] "
+        "bf16", launched("rms_norm", lambda: IF.fused_rms_norm(
+            x, w, None, 1e-6)),
+        K.rms_norm_reference(x, w, None, 1e-6), 2e-2, 2e-2)
+    del x
+    rows, page, max_pages = 16, 16, 64
+    ctx = torch.randint(1, max_pages * page + 1, (rows,), device="cuda",
+                        generator=g, dtype=torch.int32)
+    pools = [randn(rows * max_pages + 1, page, H, D) for _ in range(2)]
+    bt = (torch.randperm(rows * max_pages, device="cuda", generator=g)
+          .reshape(rows, max_pages) + 1).to(torch.int32)
+    q1 = randn(rows, H, D)
+    errs["block_multihead_attention"] = check_close(
+        f"[incubate 28a] block_multihead_attention ({rows} decode rows, "
+        f"page {page}, contexts {int(ctx.min())}-{int(ctx.max())}) bf16",
+        launched("paged_attention", lambda: IF.block_multihead_attention(
+            q1, *pools, None, ctx, None, block_tables=bt)),
+        K.paged_attention_reference(q1, *pools, bt, ctx), 4e-3, 4e-3)
+    return errs
+
+
+def rope_batch(pt, B, S, vocab, seed=SEED + 28):
+    """Phase 28b's fixed batch: token ids and next-token labels from
+    numpy, on the current device."""
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, vocab, (B, S + 1))
+    dev = pt.resolve_device(None)
+    return (torch.from_numpy(ids[:, :-1]).to(dev),
+            torch.from_numpy(ids[:, 1:]).to(dev))
+
+
+def rope_train(pt, K, B=8, S=1024, eager_steps=2, warmup=2, steps=10,
+               dims=None):
+    """Phase 28b: :func:`rope_decoder` trained O2 bf16 (``amp.decorate``,
+    ``AdamW(1e-4, weight_decay 0.01, multi_precision)`` with f32 masters)
+    on one fixed batch of B x S, eager for ``eager_steps`` and staged by
+    ``to_static`` (``warmup`` + ``steps``): 1 graph, 0 breaks, launches
+    exact a replay (the flash trio one a layer, RMSNorm 2 a layer + 1,
+    AdamW 1), losses falling, the staged step-0 loss the eager one's, the
+    peak memory through ``pt.device`` equal to torch's; then one batch
+    loaded on a side ``Stream`` under ``stream_guard`` after
+    ``wait_stream`` gives a loss bit-equal to the default stream's. ->
+    (launches over the replays, the phase's numbers, the trained model)"""
+    dims = dict(dims or {})
+    L = dims.get("layers", 24)
+    ids, labels = rope_batch(pt, B, S, dims.get("vocab", 50304))
+
+    def build():
+        pt.seed(SEED)
+        model = rope_decoder(pt, max_len=S, **dims)
+        opt = pt.AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                       weight_decay=0.01, multi_precision=True)
+        model, opt = pt.amp.decorate(model, opt, level="O2",
+                                     dtype="bfloat16")
+
+        def train_step(x, y):
+            with pt.auto_cast(level="O2", dtype="bfloat16"):
+                loss = model(x, y)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+
+        return model, opt, None, train_step, (ids, labels)
+
+    eager = train_run(pt, build, False, 0, eager_steps)
+    eager_loss0 = eager["losses"][0]
+    del eager["model"], eager["opt"], eager["step"]
+    free()
+    staged = train_run(pt, build, True, warmup, steps)
+    peak_port = pt.device.max_memory_allocated()
+    peak_torch = torch.cuda.max_memory_allocated()
+    model, step = staged["model"], staged["step"]
+    stats = step.stats()
+    n_all = sum(p.numel() for p in model.parameters())
+    log(f"[incubate 28b] user-written RMSNorm/RoPE decoder: {L} layers, "
+        f"{n_all / 1e9:.4f} B parameters, B {B} x S {S}, O2 bf16; staging "
+        f"{stats}")
+    if stats["graphs"] != 1 or stats["graph_breaks"] or \
+            stats["eager_calls"]:
+        fail(f"incubate decoder: staging {stats}")
+    check_training("incubate decoder", staged["losses"], warmup,
+                   staged["launches"], {
+                       "flash_fwd": steps * L, "flash_bwd_dq": steps * L,
+                       "flash_bwd_dkv": steps * L,
+                       "rms_norm": steps * (2 * L + 1),
+                       "fused_adamw": steps})
+    diff = abs(staged["losses"][0] - eager_loss0)
+    log(f"  [incubate 28b] staged step-0 loss {staged['losses'][0]:.6f} vs "
+        f"the eager run's {eager_loss0:.6f} (diff {diff:.3e}; tolerance "
+        f"{1e-4 * abs(eager_loss0):.3e}); eager losses "
+        + " ".join(f"{x:.4f}" for x in eager["losses"]))
+    if diff > 1e-4 * abs(eager_loss0):
+        fail(f"incubate decoder: staged step 0 {staged['losses'][0]} vs "
+             f"eager {eager_loss0}")
+    log(f"  [incubate 28b] peak allocated over the staged run: "
+        f"pt.device.max_memory_allocated() {peak_port} B, "
+        f"torch.cuda.max_memory_allocated() {peak_torch} B; "
+        f"memory_stats {pt.device.memory_stats()}")
+    if peak_port != peak_torch:
+        fail("incubate decoder: pt.device.max_memory_allocated disagrees "
+             "with torch.cuda.max_memory_allocated")
+    flops = train_flops(n_all, B, S, L, dims.get("hidden", 2048))
+    numbers = report_pair("incubate decoder", eager, staged, {
+        "losses": staged["losses"], "eager_losses": eager["losses"],
+        "params_b": n_all / 1e9, "peak_port_bytes": peak_port,
+        "peak_torch_bytes": peak_torch,
+        "staged_mfu": flops / (staged["step_ms_median"] / 1e3)
+        / BF16_FLOPS_PER_S})
+    launches = staged["launches"]
+    del staged["opt"], staged["step"], step, eager
+    free()
+    numbers["side_stream"] = side_stream_loss(pt, model, ids, labels)
+    return launches, numbers, model
+
+
+def side_stream_loss(pt, model, ids, labels):
+    """The batch copied from pinned host memory on a side stream under
+    ``stream_guard``, the default stream made to ``wait_stream`` for it,
+    then the model's loss: bit-equal to the loss of the same batch
+    copied on the default stream. -> numbers"""
+    dev, where = pt.device, ids.device
+    host = [t.cpu() for t in (ids, labels)]
+    if where.type == "cuda":
+        host = [t.pin_memory() for t in host]
+    with torch.no_grad(), pt.auto_cast(level="O2", dtype="bfloat16"):
+        want = model(*[t.to(where) for t in host])
+        side = dev.Stream()
+        with dev.stream_guard(side):
+            if where.type == "cuda" and \
+                    torch.cuda.current_stream() != side.cuda_stream:
+                fail("incubate decoder: stream_guard did not make the side "
+                     "stream current")
+            moved = [t.to(where, non_blocking=True) for t in host]
+        dev.current_stream().wait_stream(side)
+        got = model(*moved)
+    dev.synchronize()
+    equal = bool(torch.equal(got, want))
+    log(f"  [incubate 28b] batch loaded on a side stream: loss "
+        f"{float(got):.6f} vs the default stream's {float(want):.6f}, "
+        f"bit-equal {equal}")
+    if not equal:
+        fail("incubate decoder: the side-stream batch's loss differs")
+    return {"loss": float(got), "bit_equal": equal}
+
+
+def rope_decode_step(pt, model, tok, pos, pools, bt, page=16):
+    """One greedy decode step of :func:`rope_decoder`, written as a user
+    writes it: each block's q, k, v at position ``pos`` (RoPE row
+    ``pos``), k and v written into the block's page pools, then
+    ``incubate.nn.functional.block_multihead_attention`` over the rows'
+    pages (contexts ``pos + 1``). -> the next token of each row"""
+    IF = pt.incubate.nn.functional
+    rows = tok.shape[0]
+    hidden = model.embed.weight.shape[1]
+    x = model.embed(tok[:, None])
+    sin = model.rope_sin[:, pos:pos + 1]
+    cos = model.rope_cos[:, pos:pos + 1]
+    lens = torch.full((rows,), pos + 1, dtype=torch.int32, device=tok.device)
+    page_i, slot = bt[:, pos // page], pos % page
+    for blk, (kp, vp) in zip(model.blocks, pools):
+        q, k, v = blk.qkv_rope(x, sin, cos)
+        kp[page_i, slot] = k[:, 0]
+        vp[page_i, slot] = v[:, 0]
+        o = IF.block_multihead_attention(q[:, 0], kp, vp, None, lens, None,
+                                         block_tables=bt)
+        x = blk.mlp(x + blk.proj(pt.reshape(o, [rows, 1, hidden])))
+    return model.logits(x)[:, -1].argmax(-1)
+
+
+def rope_decode(pt, K, model, rows=16, P=128, N=64, page=16,
+                seed=SEED + 31):
+    """Phase 28c: the trained model decodes greedily: ``rows`` prompts of P
+    tokens prefilled in one forward through the flash path (its k and v
+    written into one page pool a layer), then N - 1 steps of
+    :func:`rope_decode_step` on the paged decode kernel. Launches exact
+    (prefill: flash forward one a layer, RMSNorm 2 a layer + 1; a step:
+    paged attention one a layer, RMSNorm 2 a layer + 1), every greedy
+    token the argmax of a no-cache forward within phase 15's tolerance
+    (:func:`teacher_forced`); the paged kernel held against its plain
+    version and timed at the last step's shape beside its bound. ->
+    (launches, numbers)"""
+    L = len(model.blocks)
+    vocab, hidden = model.embed.weight.shape
+    hd = model.rope_sin.shape[-1]
+    heads = hidden // hd
+    dtype, dev = model.embed.weight.dtype, model.embed.weight.device
+    rng = np.random.RandomState(seed)
+    prompt = torch.from_numpy(rng.randint(0, vocab, (rows, P))).to(dev)
+    n_pages = -(-(P + N) // page)
+    pools = [tuple(torch.zeros(rows * n_pages + 1, page, heads, hd,
+                               dtype=dtype, device=dev) for _ in range(2))
+             for _ in range(L)]
+    bt = (torch.arange(rows * n_pages, dtype=torch.int32, device=dev)
+          .reshape(rows, n_pages) + 1)
+    model.eval()
+    with torch.no_grad(), pt.auto_cast(level="O2", dtype="bfloat16"):
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        cache = []
+        tok = model(prompt, cache=cache)[:, -1].argmax(-1)
+        pos = torch.arange(P, device=dev)
+        pages, slots = bt[:, pos // page], pos % page
+        for (kp, vp), (k, v) in zip(pools, cache):
+            kp[pages, slots] = k
+            vp[pages, slots] = v
+        del cache
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        prefill = K.launch_counts()
+        K.reset_launch_counts()
+        out, times = [tok], []
+        for i in range(N - 1):
+            t0 = time.perf_counter()
+            tok = rope_decode_step(pt, model, tok, P + i, pools, bt, page)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            out.append(tok)
+        decode = K.launch_counts()
+    steps = N - 1
+    for tag, got, want in (
+            ("prefill", prefill, {"flash_fwd": L, "rms_norm": 2 * L + 1}),
+            ("decode", decode, {"paged_attention": steps * L,
+                                "rms_norm": steps * (2 * L + 1)})):
+        full = {name: 0 for name in got}
+        full.update(want)
+        log(f"  [incubate 28c] {tag} launches: {got}")
+        if got != full:
+            fail(f"incubate decode: {tag} launches {got} != {full}")
+    ids = torch.cat([prompt, torch.stack(out, 1)], 1)
+
+    def no_cache(x):
+        with pt.auto_cast(level="O2", dtype="bfloat16"):
+            return model(x)
+
+    at_or_above, n, short, ok = teacher_forced(no_cache, ids, P)
+    med = float(np.median(times))
+    log(f"[incubate 28c] greedy decode, {rows} rows x {P}-token prompts "
+        f"(prefill {prefill_ms:.2f} ms) + {N} new tokens: {med:.3f} ms a "
+        f"decode step (median of {steps}; min {min(times):.3f}, max "
+        f"{max(times):.3f}); {at_or_above} of {n} tokens at or above the "
+        f"no-cache forward's largest logit, the largest shortfall "
+        f"{short:.4f}: {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail("incubate decode: a greedy token is not the no-cache argmax")
+    # kernel 5 at the last step's shape, on layer 0's pools
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(rows, heads, hd, device=dev, generator=g).to(dtype)
+    ctx = torch.full((rows,), P + N - 1, dtype=torch.int32, device=dev)
+    args = (q, pools[0][0], pools[0][1], bt, ctx)
+    err = check_close(f"[incubate 28c] paged_attention at the last decode "
+                      f"step ({rows} rows, context {P + N - 1}) bf16",
+                      K.paged_attention(*args),
+                      K.paged_attention_reference(*args), 4e-3, 4e-3)
+    ms, wall, src = time_ms(lambda: K.paged_attention(*args))
+    plain_ms, _, _ = time_ms(lambda: K.paged_attention_reference(*args),
+                             iters=5)
+    ctx_np = np.full(rows, P + N - 1)
+    nbytes, flops, _ = attention_work(
+        np.arange(rows), np.ones(rows, np.int64), ctx_np, bt.cpu().numpy(),
+        heads, heads, hd, page, 2, row_meta=1)
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+    log(f"[incubate 28c] paged_attention at the decode shape: kernel "
+        f"{ms:.4f} ms ({src}; {wall:.4f} ms per call with launch) plain "
+        f"{plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}: "
+        f"{nbytes / 1e6:.3f} MB) = {100 * b_ms / ms:.1f}% of bound")
+    launches = {name: prefill[name] + decode[name] for name in decode}
+    return launches, {
+        "decode_ms_median": med, "decode_ms_min": min(times),
+        "prefill_ms": prefill_ms, "tokens_at_or_above": at_or_above,
+        "tokens": n, "largest_shortfall": short,
+        "paged": {"ms": ms, "wall_ms": wall, "plain_ms": plain_ms,
+                  "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+                  "source": src}}
+
+
+def fused_multi_transformer_check(pt, B=4, S=512, hidden=2048, heads=16,
+                                  ffn=8192, layers=2, seed=SEED + 32):
+    """Phase 28d: ``FusedMultiTransformer`` at the decoder's widths, built
+    on the CPU from the seed, forward in bf16 on the card against an f32
+    copy on the CPU: relative L2 error within 2e-2 (bf16 products over
+    K 2048 and 8192). -> numbers"""
+    import copy
+    pt.set_device("cpu")
+    pt.seed(seed)
+    fmt = pt.incubate.nn.FusedMultiTransformer(hidden, heads, ffn,
+                                               num_layers=layers).eval()
+    pt.set_device("cuda")
+    x = np.random.RandomState(seed).randn(B, S, hidden).astype(np.float32)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want = fmt(torch.from_numpy(x))
+    cpu_s = time.perf_counter() - t0
+    card = copy.deepcopy(fmt).to("cuda", torch.bfloat16)
+    with torch.no_grad():
+        got = card(torch.from_numpy(x).cuda().bfloat16())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = card(torch.from_numpy(x).cuda().bfloat16())
+        torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    rel = _rel_l2(got.cpu(), want)
+    log(f"[incubate 28d] FusedMultiTransformer ({layers} layers, hidden "
+        f"{hidden}, {heads} heads, FFN {ffn}) on [{B}, {S}]: bf16 on the card "
+        f"{card_ms:.2f} ms vs f32 on the CPU {cpu_s:.2f} s; relative L2 "
+        f"{rel:.3e} (tolerance 2e-2), output {got.dtype} "
+        f"{list(got.shape)}")
+    if rel > 2e-2 or got.dtype != torch.bfloat16 or \
+            not bool(torch.isfinite(got).all()):
+        fail("incubate: FusedMultiTransformer on the card disagrees with "
+             "the CPU")
+    del card, got
+    free()
+    return {"rel_l2": rel, "card_ms": card_ms, "cpu_s": cpu_s}
+
+
+def runtime_checks(pt):
+    """Phase 28d's runtime modules on the card: the tensor checker raises
+    on an injected Inf (``CHECK_NAN_INF`` prints and carries on), the
+    operator statistics count, a step staged under the enabled checker
+    still captures as 1 graph with 0 breaks, ``FLAGS_use_flash_attention
+    =False`` refuses attention on a CUDA tensor, ``utils.run_check``
+    passes (it holds the RMSNorm kernel against its plain version), and
+    ``jacobian``, ``hessian``, ``vjp`` and ``jvp`` of a small MLP equal the
+    CPU's within 1e-5. -> numbers"""
+    from paddle_tpu_torch.amp import debugging as dbg
+    from paddle_tpu_torch.core import op_hook
+    out = {}
+    dbg.enable_tensor_checker(dbg.TensorCheckerConfig())
+    x = torch.ones(4, device="cuda")
+    try:
+        torch.log(x - 1.0)
+        fail("incubate: the tensor checker let -inf through on the card")
+    except FloatingPointError as e:
+        log(f"[incubate 28d] tensor checker on the card: {e}")
+    dbg.enable_tensor_checker(dbg.TensorCheckerConfig(
+        debug_mode=dbg.DebugMode.CHECK_NAN_INF))
+    torch.log(x - 1.0)              # prints, carries on
+    # a step staged under the checker: 1 graph, 0 breaks
+    pt.seed(SEED)
+    net = pt.nn.Sequential(pt.nn.Linear(64, 128), pt.nn.ReLU(),
+                           pt.nn.Linear(128, 8))
+    opt = pt.AdamW(1e-3, parameters=net.parameters())
+
+    def step(a, y):
+        loss = pt.nn.functional.mse_loss(net(a), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    staged = pt.jit.to_static(step, capture=(net, opt), full_graph=True)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    a = torch.randn(32, 64, device="cuda", generator=g)
+    y = torch.randn(32, 8, device="cuda", generator=g)
+    losses = [float(staged(a, y)) for _ in range(4)]
+    stats = staged.stats()
+    log(f"[incubate 28d] a step staged under the enabled checker: "
+        f"{stats}; losses {losses}")
+    if stats["graphs"] != 1 or stats["graph_breaks"] or stats["replays"] < 3:
+        fail(f"incubate: a staged step under the checker did not capture "
+             f"as one graph: {stats}")
+    dbg.disable_tensor_checker()
+    with dbg.collect_operator_stats():
+        step(a, y)
+        counts = dict(dbg._op_stats)
+    n_ops = sum(counts.values())
+    log(f"[incubate 28d] operator statistics of one eager step: {n_ops} "
+        f"ops, {len(counts)} (op, dtype) keys")
+    if not counts.get(("linear", "torch.float32")) and \
+            not any(k[0] in ("matmul", "addmm", "linear") for k in counts):
+        fail(f"incubate: operator statistics missed the step's products: "
+             f"{sorted(counts)}")
+    if op_hook.installed():
+        fail("incubate: the op seam stayed installed with nothing on")
+    out["staged_under_checker"] = stats
+    out["op_stats_ops"] = n_ops
+    pt.set_flags({"FLAGS_use_flash_attention": False})
+    try:
+        q = torch.randn(1, 16, 2, 64, device="cuda").bfloat16()
+        pt.incubate.flash_attention(q, q, q)
+        fail("incubate: FLAGS_use_flash_attention=False did not refuse "
+             "attention on the card")
+    except RuntimeError as e:
+        log(f"[incubate 28d] FLAGS_use_flash_attention=False: {e}")
+    finally:
+        pt.set_flags({"FLAGS_use_flash_attention": True})
+    pt.utils.run_check()
+    # the functional derivatives of a small MLP, card against CPU
+    rng = np.random.RandomState(SEED + 33)
+    w1, w2 = (torch.from_numpy(rng.randn(*s).astype(np.float32) * 0.5)
+              for s in ((6, 5), (5, 3)))
+    xs = torch.from_numpy(rng.randn(4, 6).astype(np.float32))
+    worst = 0.0
+    for name, call in (
+            ("jacobian", lambda f, x: pt.autograd.jacobian(f, x)),
+            ("hessian", lambda f, x: pt.autograd.hessian(
+                lambda z: f(z).sum(), x)),
+            ("vjp", lambda f, x: pt.autograd.vjp(f, x)[1]),
+            ("jvp", lambda f, x: pt.autograd.jvp(f, x)[1])):
+        res = []
+        for dev in ("cpu", "cuda"):
+            a1, a2 = w1.to(dev), w2.to(dev)
+            res.append(call(lambda z: torch.tanh(z @ a1) @ a2,
+                            xs.to(dev)).cpu())
+        err = float((res[0] - res[1]).abs().max())
+        worst = max(worst, err)
+        log(f"  [incubate 28d] {name} {list(res[1].shape)}: card vs CPU "
+            f"max abs {err:.3e}")
+        if err > 1e-5:
+            fail(f"incubate: {name} on the card differs from the CPU")
+    out["derivatives_worst"] = worst
+    return out
+
+
+def incubate_phases(pt, K):
+    """Phase 28: the core runtime modules and the incubate fused surface on
+    the card (28a-28d). -> ({kernel: numbers for its JSON entry}, the
+    phase's numbers)"""
+    t0 = time.perf_counter()
+    sweep = incubate_sweep(pt)
+    kern_errs = incubate_kernel_cases(pt, K)
+    t_launches, train, model = rope_train(pt, K)
+    d_launches, decode = rope_decode(pt, K, model)
+    del model
+    free()
+    fmt = fused_multi_transformer_check(pt)
+    rt = runtime_checks(pt)
+    log(f"[incubate] phase 28 in {time.perf_counter() - t0:.1f} s")
+    extra = {name: {"incubate_launches": t_launches[name] + d_launches[name]}
+             for name in t_launches}
+    p = decode["paged"]
+    extra["paged_attention"].update({
+        f"incubate_{k}": v for k, v in p.items()})
+    return extra, {"sweep_worst": max(sweep.values()), "kernels": kern_errs,
+                   "train": train, "decode": decode, "fmt": fmt,
+                   "runtime": rt, "train_launches": t_launches,
+                   "decode_launches": d_launches}
 
 
 def main():
@@ -6692,6 +7338,12 @@ def main():
         next(e for e in kernels if e["name"] == name).update(numbers)
     for e in kernels:
         e.setdefault("nn_launches", 0)
+    # ------------- phase 28: the core runtime modules, the incubate surface
+    inc_extra, _ = incubate_phases(pt, K)
+    for name, numbers in inc_extra.items():
+        next(e for e in kernels if e["name"] == name).update(numbers)
+    for e in kernels:
+        e.setdefault("incubate_launches", 0)
     for e in kernels:
         e["max_abs_err"] = max([e["max_abs_err"]] + [
             v for k, v in e.items() if k.endswith("_max_abs_err")])

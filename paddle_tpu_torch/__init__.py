@@ -124,14 +124,30 @@ dtypes, and the core API they stand on (dtypes, ``set_device``,
     vals, idx = paddle.topk(paddle.rand([4, 8]), 3)
     q, r = paddle.linalg.qr(paddle.randn([5, 3]))
 
+The core runtime modules are the JAX package's too: ``get_flags`` /
+``set_flags``, the device runtime (``device.synchronize``, the memory
+counters, ``Stream`` / ``Event`` / ``stream_guard``), ``autograd``
+(``PyLayer``, ``jacobian`` / ``hessian`` / ``vjp`` / ``jvp``),
+``amp.debugging`` (the tensor checker, operator statistics), ``utils``
+(``run_check``, ``custom_op``) and ``incubate``'s fused surface, which
+reaches the hand kernels as an LLM user's code calls them::
+
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    h = IF.fused_rms_norm(x, w, None, 1e-6)               # RMSNorm kernel
+    q, k, _ = IF.fused_rotary_position_embedding(q, k, None, sin=s, cos=c)
+    o, _ = pt.incubate.flash_attention(q, k, v, causal=True)  # flash
+    o = IF.block_multihead_attention(q1, k_pool, v_pool, None, lens, None,
+                                     block_tables=bt)     # paged decode
+
 Entry points run on ``cuda`` unless given ``device="cpu"`` and raise when
 CUDA is absent (:mod:`.device`). The package imports neither ``jax`` nor
 ``paddle_tpu``.
 """
 import torch
 
-from . import (amp, distributed, framework, hapi, incubate, io, jit, linalg,
-               metric, models, nn, ops, optimizer, regularizer, vision)
+from . import (amp, autograd, distributed, framework, hapi, incubate, io, jit,
+               linalg, metric, models, nn, ops, optimizer, regularizer,
+               utils, vision)
 from .amp import auto_cast
 from .convert import (opt_state_from_paddle_tpu, opt_state_to_numpy,
                       params_from_paddle_tpu, params_to_numpy)
@@ -144,9 +160,11 @@ from .core.dtype import bool_ as bool8
 from .core.random import (get_cuda_rng_state, get_rng_state, seed,
                           set_cuda_rng_state, set_rng_state)
 from .core.tensor import Parameter, Tensor, to_tensor
-from .device import (CPUPlace, CUDAPlace, Place, device_count, get_device,
-                     is_compiled_with_tpu, resolve_device, set_device)
+from .device import (CPUPlace, CUDAPlace, Place, TPUPlace, device_count,
+                     get_device, is_compiled_with_tpu, resolve_device,
+                     set_device)
 from .framework import load, save
+from .framework.flags import get_flags, set_flags
 from .framework.compat import LazyGuard, batch, check_shape, create_parameter
 from .framework.param_attr import ParamAttr
 from .framework.dtype_info import (finfo, iinfo, is_complex,
@@ -159,6 +177,9 @@ from .models import (BertConfig, BertForMaskedLM,
                      gpt_1p3b, gpt_small, gpt_tiny, resnet18, resnet34,
                      resnet50, resnet101, resnet152, resnext50_32x4d,
                      wide_resnet50_2)
+from .core import random as prandom
+from .ops import (creation, generated_root, inplace, logic, manipulation,
+                  math, random_ops, search)
 from .ops.kernels import flash_attention_bshd
 from .optimizer import (LBFGS, SGD, Adadelta, Adagrad, Adam, Adamax, AdamW,
                         Lamb, Momentum, RMSProp, Rprop)
@@ -237,7 +258,9 @@ __all__ = ["GPTConfig", "GPTForCausalLM", "GPTPretrainingCriterion",
            "in_dynamic_mode", "set_printoptions", "disable_signal_handler",
            "is_compiled_with_cuda", "is_compiled_with_xpu",
            "is_compiled_with_cinn", "is_compiled_with_rocm",
-           "is_compiled_with_custom_device", "is_grad_enabled_"]
+           "is_compiled_with_custom_device", "is_grad_enabled_",
+           # the core runtime modules
+           "autograd", "utils", "get_flags", "set_flags", "TPUPlace"]
 
 # The op surface last: it holds ``sum``, ``max``, ``min``, ``abs``,
 # ``round``, ``pow``, ``all``, ``any`` (and ``bool`` the dtype), which

@@ -172,6 +172,12 @@ class _break_key_scope:
 _tls = threading.local()
 
 
+def is_staging():
+    """True while this thread stages a function (its warm-up, staging or
+    capture call): host reads there would break the graph."""
+    return getattr(_tls, "depth", 0) > 0
+
+
 class _staging:
     """Marks the thread as staging: a StaticFunction called inside runs
     its function inline (nested ``jax.jit`` inlines too)."""

@@ -39,6 +39,7 @@ import sys
 import torch
 
 from ...core.dtype import float_of
+from ...framework.flags import flag
 from ...ops.kernels import flash_attention_bshd
 
 __all__ = [
@@ -148,10 +149,18 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     filled or an additive mask added, softmax, dropout on the
     probabilities from ``generator``), returned in the query's type. A
     floating mask is cast with q, k and v under ``auto_cast``, as the JAX
-    op's fourth input is."""
+    op's fourth input is. With ``FLAGS_use_flash_attention`` False an
+    eligible configuration raises (JAX takes its jnp chain then; the port
+    runs no plain version on the card's path)."""
     query, key, value, attn_mask = _amp_cast(
         "scaled_dot_product_attention", query, key, value, attn_mask)
     if _flash_eligible(query, attn_mask, dropout_p, training):
+        if not flag("FLAGS_use_flash_attention"):
+            raise RuntimeError(
+                "FLAGS_use_flash_attention is False: the JAX package then "
+                "takes its jnp chain, but the port runs no plain version on "
+                "the card; set the flag back to True (CPU tensors take the "
+                "plain chain either way)")
         return flash_attention_bshd(query, key, value, causal=is_causal)
     qt, kt, vt = (t.float().transpose(1, 2) for t in (query, key, value))
     scores = qt @ kt.transpose(-1, -2) * (1.0 / math.sqrt(query.shape[-1]))

@@ -2080,3 +2080,204 @@ def test_sequence_mask_of_a_list_lands_on_the_card():
     got = PF.sequence_mask([3, 5])
     assert got.device.type == "cuda"
     assert got.cpu().tolist() == [[1, 1, 1, 0, 0], [1, 1, 1, 1, 1]]
+
+
+@pytest.mark.cuda
+def test_incubate_sweep_on_card_matches_cpu():
+    """Every case of ``tests/torch_incubate_cases.py`` (the incubate
+    functions and the ``incubate.nn`` layers) on the card against the CPU:
+    outputs on the card, dtypes and shapes equal, values and every
+    gradient within the table's f32 tolerance (TF32 off)."""
+    _need_cuda()
+    import os
+    import sys
+    import paddle_tpu_torch as pt
+    sys.path.insert(0, os.path.dirname(__file__))
+    import torch_incubate_cases as C
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for case in C.CASES:
+            cpu, cpu_g, _ = C.run(pt, case, "cpu")
+            dev, dev_g, where = C.run(pt, case, "cuda")
+            assert set(where) == {"cuda"}, case[0]
+            for a, b in zip(cpu + cpu_g, dev + dev_g):
+                assert (a is None) == (b is None), case[0]
+                if a is None:
+                    continue
+                assert a.dtype == b.dtype and a.shape == b.shape, case[0]
+                torch.testing.assert_close(b, a, rtol=C.RTOL, atol=C.ATOL,
+                                           msg=case[0])
+    finally:
+        pt.set_device("cuda")
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.cuda
+def test_pylayer_and_custom_op_stage_as_one_graph_on_card():
+    """A train step through a user ``PyLayer`` (GELU, tanh form, with its
+    own backward) and a ``custom_op`` with a user ``vjp`` stages with
+    ``to_static`` as 1 graph with 0 breaks, on the RMSNorm kernel, and
+    its losses equal the eager step's (rtol 1e-5)."""
+    _need_cuda()
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.utils import cpp_extension as cpp
+
+    class Gelu(pt.autograd.PyLayer):
+        @staticmethod
+        def forward(ctx, x):
+            ctx.save_for_backward(x)
+            return torch.nn.functional.gelu(x, approximate="tanh")
+
+        @staticmethod
+        def backward(ctx, dy):
+            x, = ctx.saved_tensor()
+            with torch.enable_grad():
+                z = x.detach().requires_grad_(True)
+                g, = torch.autograd.grad(torch.nn.functional.gelu(
+                    z, approximate="tanh"), z, dy)
+            return g
+
+    sq = cpp._REGISTRY.get("card_scaled_sq") or cpp.custom_op(
+        name="card_scaled_sq", vjp=lambda ct, x, out=None: 2 * x * ct)(
+            lambda x: x * x)
+
+    def build():
+        pt.seed(4)
+        lin = pt.nn.Linear(64, 64)
+        w = pt.create_parameter([64], "float32", default_initializer=pt.nn
+                                .initializer.Constant(1.0))
+        opt = pt.AdamW(1e-2, parameters=lin.parameters() + [w])
+
+        def step(x):
+            h = pt.incubate.fused_rms_norm(Gelu.apply(lin(x)), w)
+            loss = sq(h).mean()
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+
+        return (lin, w, opt), step
+
+    x = torch.randn(16, 64, device="cuda")
+    runs = []
+    for staged in (False, True):
+        (lin, w, opt), step = build()
+        holder = pt.nn.Layer()
+        holder.lin, holder.w = lin, w
+        fn = pt.jit.to_static(step, capture=(holder, opt), full_graph=True) \
+            if staged else step
+        K.reset_launch_counts()
+        runs.append(([float(fn(x)) for _ in range(5)], fn,
+                     K.launch_counts()["rms_norm"]))
+    (eager, _, n_eager), (got, fn, _) = runs
+    st = fn.stats()
+    assert st["graphs"] == 1 and st["graph_breaks"] == 0, st
+    assert n_eager == 5 and got[-1] < got[0]
+    np.testing.assert_allclose(got, eager, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_flash_flag_refuses_attention_on_card():
+    """``FLAGS_use_flash_attention=False`` makes eligible attention on a
+    CUDA tensor raise (the port keeps no plain version on the card's
+    path); a masked call, which never took the kernels, runs."""
+    _need_cuda()
+    import paddle_tpu_torch as pt
+    q = torch.randn(2, 32, 2, 64, device="cuda", dtype=torch.bfloat16)
+    pt.set_flags({"FLAGS_use_flash_attention": False})
+    try:
+        with pytest.raises(RuntimeError, match="FLAGS_use_flash_attention"):
+            pt.incubate.flash_attention(q, q, q, causal=True)
+        with pytest.raises(RuntimeError, match="FLAGS_use_flash_attention"):
+            pt.nn.functional.scaled_dot_product_attention(q, q, q)
+        mask = torch.zeros(2, 1, 32, 32, device="cuda", dtype=torch.bfloat16)
+        out = pt.nn.functional.scaled_dot_product_attention(
+            q, q, q, attn_mask=mask)
+        assert out.shape == q.shape
+    finally:
+        pt.set_flags({"FLAGS_use_flash_attention": True})
+    before = K.flash_fwd.launches
+    pt.incubate.flash_attention(q, q, q, causal=True)
+    assert K.flash_fwd.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_stream_guard_and_wait_stream_order_work_on_card():
+    """Work queued under ``stream_guard(side)`` runs on the side stream
+    (queued behind a sleep there), and the default stream's
+    ``wait_stream(side)`` orders a read after it: the read sees the
+    side stream's writes. An ``Event`` recorded after them is done after
+    ``synchronize``."""
+    _need_cuda()
+    import paddle_tpu_torch as pt
+    D = pt.device
+    side = D.Stream()
+    assert side.cuda_stream is not None
+    x = torch.zeros(1 << 20, device="cuda")
+    side.wait_stream(D.current_stream())
+    with D.stream_guard(side):
+        assert torch.cuda.current_stream() == side.cuda_stream
+        torch.cuda._sleep(50_000_000)
+        x.fill_(3.0)
+    D.current_stream().wait_stream(side)
+    total = x.sum()
+    ev = D.Event()
+    ev.record(D.current_stream())
+    D.synchronize()
+    assert ev.query() and float(total) == 3.0 * x.numel()
+    assert D.current_stream().cuda_stream == torch.cuda.current_stream()
+
+
+@pytest.mark.cuda
+def test_memory_stats_keys_and_counters_on_card():
+    """``memory_stats`` holds the JAX key names filled from torch's
+    allocator; the counters equal torch's."""
+    _need_cuda()
+    import paddle_tpu_torch as pt
+    D = pt.device
+    torch.cuda.synchronize()
+    keep = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    s = D.memory_stats()
+    assert {"bytes_in_use", "peak_bytes_in_use", "bytes_reserved",
+            "bytes_limit"} <= set(s)
+    assert s["bytes_limit"] == torch.cuda.get_device_properties(0) \
+        .total_memory
+    assert D.memory_allocated() == torch.cuda.memory_allocated()
+    assert D.max_memory_allocated() == torch.cuda.max_memory_allocated()
+    assert D.memory_reserved() == torch.cuda.memory_reserved()
+    assert D.max_memory_reserved() == torch.cuda.max_memory_reserved()
+    assert D.cuda.memory_allocated() >= keep.numel()
+    assert D.cuda.get_device_properties()["platform"] == "gpu"
+    assert D.get_all_devices()[0] == torch.device("cuda", 0)
+    del keep
+
+
+@pytest.mark.cuda
+def test_tensor_checker_raises_on_card_and_stays_silent_in_capture():
+    """The checker raises at an eager op that makes an Inf on the card;
+    inside a CUDA graph capture it reads nothing back (the capture would
+    fail on a read), so the graph captures and its replay makes the Inf
+    unchecked, as a staged JAX program is."""
+    _need_cuda()
+    from paddle_tpu_torch.amp import debugging as dbg
+    from paddle_tpu_torch.core import op_hook
+    x = torch.full((8,), -1.0, device="cuda")
+    out = torch.empty(8, device="cuda")
+    dbg.enable_tensor_checker(dbg.TensorCheckerConfig())
+    try:
+        with pytest.raises(FloatingPointError, match="'log'"):
+            torch.log(x)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            with torch.cuda.graph(graph, stream=side):
+                out.copy_(torch.log(x))
+        torch.cuda.current_stream().wait_stream(side)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.isnan(out).all()
+    finally:
+        dbg.disable_tensor_checker()
+    assert not op_hook.installed()
