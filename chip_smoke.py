@@ -434,6 +434,36 @@ exit code:
     capturing as 1 graph, ``FLAGS_use_flash_attention=False`` refused on
     a CUDA tensor, ``utils.run_check``, and ``jacobian`` / ``hessian`` /
     ``vjp`` / ``jvp`` of a small MLP equal on the card and the CPU.
+29. **exported programs, the predictor, static mode and control flow** —
+    (a) BERT-base classification O2 bf16 exported by ``jit.save`` with
+    ``InputSpec([None, 128], "int64")``: the loaded program holds 12
+    ``paddle_tpu_torch::flash_fwd`` and 25 ``::layer_norm`` ops and no
+    plain attention or norm, and at batches 1, 8 and 32 each call (the
+    shape's warm-up, capture and a replay) launches 12 flash forwards and
+    25 LayerNorms and gives the eager logits within bf16 rounding;
+    ``gpt_1p3b(use_rms_norm=True)`` bf16 at [1, 1024] exported (its 2.6 GB
+    ``.pdiparams`` in a temporary directory) holds 24 ``flash_fwd`` and 49
+    ``rms_norm`` ops and matches eager; ``bert_tiny`` exported on the CPU
+    launches kernels 1 and 8 on the card; the host cost of a kernel op
+    over its bare wrapper; (b) ``create_predictor(Config(path))`` on the
+    BERT-base export (handle flow, direct run), then ``BatchingPredictor``
+    (buckets 1-32, ``max_wait_ms=2``, each bucket captured before the
+    load): 512 single-example requests of 128 tokens from 32 threads,
+    every row the eager model's, 12 + 25 launches a batch, requests/s,
+    latency p50 / p99 and the ms of a replay per bucket; (c) the
+    fit-a-line static script of ``tests/test_static_program.py:19``
+    unmodified, then a BERT-base-width ``TransformerEncoder`` (12 layers,
+    bf16) recorded on ``static.data([None, 128, 768])``: ``Executor.run``
+    launches 12 flash forwards and 24 LayerNorms and equals the eager
+    layers, and ``save_inference_model`` -> ``load_inference_model`` and
+    a ``Predictor`` give its output; (d) ``cond``, ``while_loop(max_steps)``,
+    ``scan_loop``, ``case`` and ``switch_case`` eager and staged on the
+    card against the CPU (an unbounded ``while_loop`` breaks the graph
+    and runs eagerly), then phase 22c's ``gpt_1p3b`` O2 step with a
+    z-loss behind a Python ``if z_weight > 0:`` that dy2static converts,
+    for ``z_weight`` 1e-4 and 0: 1 graph, 0 breaks, launches exact a
+    replay, the staged step-0 loss the eager one's, ms a step beside
+    phase 22c's.
 
 The lines before the last carry the ``{"kernels": [...]}`` JSON (all eight
 kernels; the ``fused_adamw`` entry adds the master and bf16-moment modes'
@@ -463,7 +493,9 @@ phase 27 adds to every entry ``nn_launches``, its launches over 27b's
 shapes; phase 28 adds to every entry ``incubate_launches``, its launches
 over 28b's 10 replayed steps and 28c's prefill and decode steps, and to
 ``paged_attention`` the ``incubate_*`` numbers at 28c's decode shape;
-every ``max_abs_err`` is
+phase 29 adds to every entry ``export_launches``, its launches through
+the exported programs of 29a-29c (loaded programs, the predictor, the
+saved static program); every ``max_abs_err`` is
 the largest of its entry's errors) and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the repository beside it, the script exits
@@ -492,6 +524,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12          # f32 outside the tensor cores
 SEED = 0
+NUMBERS = {}   # numbers a later phase prints beside its own
 
 
 def log(*a):
@@ -4147,6 +4180,7 @@ def gpt_o2_static(pt, warmup=2, steps=10, B=8, S=1024):
     flops = train_flops(n_params, B, S, L, cfg.hidden_size)
     mfu = {k: flops / (r["step_ms_median"] / 1e3) / BF16_FLOPS_PER_S
            for k, r in (("eager_mfu", eager), ("staged_mfu", staged))}
+    NUMBERS["gpt_o2_staged_ms"] = staged["step_ms_median"]
     out = report_pair("to_static gpt o2", eager, staged,
                       dict(cmp, max_delta_rel_diff=rel, **mfu,
                            tokens_per_s=B * S / staged["step_ms_median"]
@@ -6944,6 +6978,593 @@ def incubate_phases(pt, K):
                    "decode_launches": d_launches}
 
 
+# ------------------------------------------------------------- phase 29
+PLAIN_MARKERS = ("softmax", "aten.layer_norm", "aten.native_layer_norm",
+                 "aten.rms_norm", "aten._fused_rms_norm")
+
+
+def exported_ops(layer):
+    """-> {op target: count} of a loaded program's graph."""
+    out = {}
+    for n in layer._exported.graph.nodes:
+        if n.op == "call_function":
+            out[str(n.target)] = out.get(str(n.target), 0) + 1
+    return out
+
+
+def check_export_ops(tag, layer, want):
+    """The loaded program holds exactly ``want`` kernel ops ({"flash_fwd":
+    n, ...}) and no plain attention or norm chain. -> the kernel ops"""
+    ops = exported_ops(layer)
+    got = {k.split(".")[1]: v for k, v in ops.items()
+           if k.startswith("paddle_tpu_torch.")}
+    plain = sorted(k for k in ops if any(m in k for m in PLAIN_MARKERS))
+    log(f"  [{tag}] kernel ops in the program: {got}; plain attention or "
+        f"norm ops: {plain or 'none'}")
+    if got != want or plain:
+        fail(f"{tag}: the exported program holds {got} (want {want}) and "
+             f"plain ops {plain}")
+    return got
+
+
+def per_call_launches(K, tag, fn, want, calls):
+    """``calls`` calls of ``fn``, each launching exactly ``want`` -> the
+    launches of all of them."""
+    total = {}
+    for i in range(calls):
+        K.reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in K.launch_counts().items() if v}
+        if got != want:
+            fail(f"{tag}: call {i} launched {got}, want {want}")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def add_counts(acc, counts):
+    for k, v in counts.items():
+        acc[k] = acc.get(k, 0) + v
+
+
+def export_bert(pt, K, tmp, acc, batches=(1, 8, 32), S=128):
+    """29a: BERT-base classification (``bert_base()``, random weights from
+    the seed) decorated O2 bf16, exported by ``jit.save`` with
+    ``InputSpec([None, 128], "int64")``: 12 ``flash_fwd`` and 25
+    ``layer_norm`` ops and no plain chain; at each batch three calls (the
+    warm-up, the capture, a replay) of the loaded program, each launching
+    12 flash forwards and 25 LayerNorms, with logits equal to the eager
+    model's within bf16 rounding. -> (model, path, numbers)"""
+    model = pt.BertForSequenceClassification(pt.bert_base(), seed=SEED)
+    model.eval()
+    model = pt.amp.decorate(model, level="O2", dtype="bfloat16")
+    path = os.path.join(tmp, "bert_base")
+    t0 = time.perf_counter()
+    pt.jit.save(model, path, input_spec=[pt.jit.InputSpec([None, S],
+                                                          "int64")])
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    layer = pt.jit.load(path)
+    load_s = time.perf_counter() - t0
+    sizes = {ext: os.path.getsize(path + ext)
+             for ext in (".pdmodel", ".pdiparams", ".pdmeta")}
+    log(f"[export 29a] BERT-base O2 bf16 exported in {save_s:.2f} s, loaded "
+        f"in {load_s:.2f} s; file bytes {sizes}")
+    check_export_ops("bert export", layer, {"flash_fwd": 12,
+                                            "layer_norm": 25})
+    rng = np.random.RandomState(SEED + 29)
+    errs = {}
+    for b in batches:
+        ids = torch.from_numpy(rng.randint(0, 30522, (b, S))).cuda()
+        with torch.no_grad():
+            want = model(ids)
+        outs = []
+        add_counts(acc, per_call_launches(
+            K, f"bert export B={b}", lambda: outs.append(layer(ids)),
+            {"flash_fwd": 12, "layer_norm": 25}, 3))
+        for i, got in enumerate(outs):
+            errs[b] = max(errs.get(b, 0.0), check_close(
+                f"bert export B={b} call {i} vs eager", got, want, 2e-2,
+                2e-2, 1e-2))
+    st = layer.stats()
+    log(f"  [bert export] staging of the loaded program: {st}")
+    if st["graphs"] != len(batches) or st["graph_breaks"]:
+        fail(f"bert export: {st['graphs']} graphs for {len(batches)} "
+             f"shapes, {st['graph_breaks']} breaks")
+    return model, path, {"save_s": save_s, "load_s": load_s,
+                         "bytes": sizes, "max_abs_err": errs, "stats": st}
+
+
+def export_gpt(pt, K, acc, S=1024):
+    """29a: ``gpt_1p3b(use_rms_norm=True)`` bf16 (24 layers, random weights
+    from the seed) forward at [1, 1024], exported with its 2.6 GB
+    ``.pdiparams`` in a temporary directory (deleted): 24 ``flash_fwd``
+    and 49 ``rms_norm`` ops; two calls of the loaded program (warm-up and
+    capture) launch 24 and 49 each and equal the eager logits within bf16
+    rounding."""
+    cfg = pt.gpt_1p3b(use_rms_norm=True, dropout=0.0)
+    model = pt.GPTForCausalLM(cfg, dtype=torch.bfloat16, seed=SEED).eval()
+    ids = torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, (1, S))).cuda()
+    with torch.no_grad():
+        want = model(ids)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "gpt")
+        t0 = time.perf_counter()
+        pt.jit.save(model, path, input_spec=[pt.jit.InputSpec([1, S],
+                                                              "int64")])
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path + ".pdiparams")
+        t0 = time.perf_counter()
+        layer = pt.jit.load(path)
+        load_s = time.perf_counter() - t0
+    log(f"[export 29a] gpt_1p3b(use_rms_norm=True) bf16 exported in "
+        f"{save_s:.2f} s ({nbytes / 1e9:.2f} GB of .pdiparams, deleted), "
+        f"loaded in {load_s:.2f} s")
+    L = cfg.num_layers
+    check_export_ops("gpt export", layer, {"flash_fwd": L,
+                                           "rms_norm": 2 * L + 1})
+    outs = []
+    add_counts(acc, per_call_launches(
+        K, "gpt export", lambda: outs.append(layer(ids)),
+        {"flash_fwd": L, "rms_norm": 2 * L + 1}, 2))
+    err = max(check_close(f"gpt export call {i} vs eager", got, want, 2e-2,
+                          2e-2, 1e-2) for i, got in enumerate(outs))
+    del model, layer, outs, want
+    free()
+    return {"save_s": save_s, "load_s": load_s, "pdiparams_bytes": nbytes,
+            "max_abs_err": err}
+
+
+def export_cpu_to_card(pt, K, acc, tmp):
+    """29a: ``bert_tiny`` (the CPU tests' model) exported on the CPU and
+    loaded on the card: the program's ops launch kernels 1 and 8, and its
+    logits equal the CPU model's within f32 rounding."""
+    before = pt.device.DEFAULT_DEVICE
+    pt.device.DEFAULT_DEVICE = "cpu"
+    try:
+        model = pt.BertForSequenceClassification(pt.bert_tiny(),
+                                                 device="cpu", seed=SEED)
+        model.eval()
+        path = os.path.join(tmp, "bert_tiny_cpu")
+        pt.jit.save(model, path, input_spec=[pt.jit.InputSpec([None, 16],
+                                                              "int64")])
+    finally:
+        pt.device.DEFAULT_DEVICE = before
+    layer = pt.jit.load(path)
+    ids = np.random.RandomState(SEED + 1).randint(0, 1024, (4, 16))
+    outs = []
+    add_counts(acc, per_call_launches(
+        K, "cpu-exported bert_tiny on the card",
+        lambda: outs.append(layer(ids)),
+        {"flash_fwd": 2, "layer_norm": 5}, 3))
+    with torch.no_grad():
+        want = model(torch.from_numpy(ids))
+    err = max(check_close(f"cpu-exported bert_tiny call {i} vs the CPU",
+                          got.cpu(), want, 1e-4, 1e-4)
+              for i, got in enumerate(outs))
+    return {"max_abs_err": err}
+
+
+def op_overhead(K, n=20000):
+    """Host us a call of each kernel op against its bare wrapper on a
+    small CUDA tensor (the dispatcher's own cost; phase 25d's method: two
+    turns each, the lower taken)."""
+    lib = torch.ops.paddle_tpu_torch
+    x = torch.randn(8, 768, device="cuda", dtype=torch.bfloat16)
+    w = torch.ones(768, device="cuda", dtype=torch.bfloat16)
+    b = torch.zeros(768, device="cuda", dtype=torch.bfloat16)
+    q = torch.randn(1, 16, 2, 64, device="cuda", dtype=torch.bfloat16)
+    pairs = {
+        "layer_norm": (lambda: lib.layer_norm(x, w, b, 1e-5),
+                       lambda: K.layer_norm(x, w, b, 1e-5)),
+        "rms_norm": (lambda: lib.rms_norm(x, w, None, 1e-6),
+                     lambda: K.rms_norm(x, w, None, 1e-6)),
+        "flash_fwd": (lambda: lib.flash_fwd(q, q, q, 0.125, False),
+                      lambda: K.flash_fwd(q, q, q, 0.125, False)),
+    }
+    out = {}
+    for name, (op, bare) in pairs.items():
+        res = {"op": [], "wrapper": []}
+        for _ in range(2):
+            for label, fn in (("op", op), ("wrapper", bare)):
+                for _ in range(200):
+                    fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    fn()
+                res[label].append((time.perf_counter() - t0) * 1e6 / n)
+                torch.cuda.synchronize()
+        out[name] = {"op_us": min(res["op"]),
+                     "wrapper_us": min(res["wrapper"])}
+    log("[export 29a] host us a call, kernel op vs bare wrapper (lower of "
+        f"two turns of {n}): " + "; ".join(
+            f"{k} {v['op_us']:.2f} vs {v['wrapper_us']:.2f} "
+            f"(+{v['op_us'] - v['wrapper_us']:.2f})" for k, v in out.items()))
+    return out
+
+
+def serve_predictor(pt, K, model, path, acc, n_req=512, clients=32, S=128,
+                    buckets=(1, 2, 4, 8, 16, 32)):
+    """29b: ``create_predictor(Config(path))`` on the BERT-base export
+    (the handle flow, then a direct ``run``), then ``BatchingPredictor``
+    (buckets ``buckets``, ``max_wait_ms=2``): each bucket captured before
+    the load (its warm-up and capture calls), then ``n_req``
+    single-example requests of ``S`` tokens from ``clients`` threads.
+    Every result equals the eager model's row within bf16 rounding, no
+    bucket is captured again, and each batch launches 12 flash forwards
+    and 25 LayerNorms. -> numbers"""
+    import threading
+    from paddle_tpu_torch.inference import (BatchingPredictor, Config,
+                                            create_predictor)
+    pred = create_predictor(Config(path))
+    rng = np.random.RandomState(SEED + 30)
+    ids = rng.randint(0, 30522, (n_req, S)).astype("int64")
+    with torch.no_grad():
+        want = torch.cat([model(torch.from_numpy(ids[i:i + 32]).cuda())
+                          for i in range(0, n_req, 32)]).float().cpu()
+    h = pred.get_input_handle(pred.get_input_names()[0])
+    h.copy_from_cpu(ids[:8])
+    K.reset_launch_counts()
+    pred.run()
+    add_counts(acc, K.launch_counts())
+    got = pred.get_output_handle(pred.get_output_names()[0]).copy_to_cpu()
+    check_close("predictor handle flow B=8", torch.from_numpy(got), want[:8],
+                2e-2, 2e-2, 1e-2)
+    K.reset_launch_counts()
+    direct = pred.run([ids[8:16]])[0]
+    add_counts(acc, K.launch_counts())
+    check_close("predictor direct run B=8", torch.from_numpy(direct),
+                want[8:16], 2e-2, 2e-2, 1e-2)
+    layer = pred._layer
+    K.reset_launch_counts()
+    for b in buckets:
+        for _ in range(2):
+            pred.run([ids[:b]])
+    add_counts(acc, K.launch_counts())
+    st0 = layer.stats()
+    bp = BatchingPredictor(pred, max_batch_size=max(buckets), max_wait_ms=2,
+                           batch_buckets=list(buckets))
+    sizes = []
+    run = pred.run
+
+    def counted(inputs=None):
+        sizes.append(len(inputs[0]))
+        return run(inputs)
+
+    pred.run = counted
+    results, lat = [None] * n_req, [0.0] * n_req
+
+    def client(c):
+        for i in range(c, n_req, clients):
+            t0 = time.perf_counter()
+            results[i] = bp.predict(ids[i], timeout=120.0)
+            lat[i] = (time.perf_counter() - t0) * 1e3
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in K.launch_counts().items() if v}
+    bp.close()
+    pred.run = run
+    add_counts(acc, launches)
+    st = layer.stats()
+    if any(r is None for r in results):
+        fail("batching predictor: a request got no result")
+    err = check_close(f"batching predictor, {n_req} rows vs eager",
+                      torch.from_numpy(np.stack(results)), want, 2e-2, 2e-2,
+                      1e-2)
+    per_bucket = {b: sizes.count(b) for b in buckets}
+    want_l = {"flash_fwd": 12 * len(sizes), "layer_norm": 25 * len(sizes)}
+    if launches != want_l:
+        fail(f"batching predictor: {launches} over {len(sizes)} batches, "
+             f"want {want_l}")
+    if st["graphs"] != st0["graphs"] or st0["graphs"] != len(buckets) \
+            or st["warmups"] != st0["warmups"] or st["graph_breaks"]:
+        fail(f"batching predictor: staging before the load {st0}, after "
+             f"{st}: a bucket was captured again or never")
+    replay_ms = {}
+    for b in buckets:
+        x = torch.from_numpy(ids[:b]).cuda()
+        replay_ms[b], _, _ = time_ms(lambda: layer(x), iters=10)
+    numbers = {"requests_per_s": n_req / wall, "wall_s": wall,
+               "latency_p50_ms": float(np.percentile(lat, 50)),
+               "latency_p99_ms": float(np.percentile(lat, 99)),
+               "batches": len(sizes), "batches_per_bucket": per_bucket,
+               "replay_ms_per_bucket": replay_ms,
+               "launches_per_batch": {"flash_fwd": 12, "layer_norm": 25},
+               "max_abs_err": err, "stats": st}
+    log(f"[export 29b] BatchingPredictor: {json.dumps(numbers)}")
+    return numbers
+
+
+def fit_a_line(paddle):
+    """``tests/test_static_program.py:19``'s script, unmodified (its
+    ``CPUPlace`` too: the program runs where it was recorded, the card).
+    -> (losses, prediction error)"""
+    paddle.enable_static()
+
+    main = paddle.static.Program()
+    startup = paddle.static.Program()
+    with paddle.static.program_guard(main, startup):
+        x = paddle.static.data(name="x", shape=[None, 13], dtype="float32")
+        y = paddle.static.data(name="y", shape=[None, 1], dtype="float32")
+        pred = paddle.static.nn.fc(x, size=1)
+        cost = paddle.nn.functional.square_error_cost(input=pred, label=y)
+        avg_loss = paddle.mean(cost)
+        sgd = paddle.optimizer.SGD(learning_rate=0.05)
+        sgd.minimize(avg_loss)
+
+    exe = paddle.static.Executor(paddle.CPUPlace())
+    exe.run(startup)
+
+    rng = np.random.RandomState(0)
+    true_w = rng.randn(13, 1).astype("float32")
+    X = rng.randn(64, 13).astype("float32")
+    Y = X @ true_w
+
+    losses = []
+    for _ in range(60):
+        (loss_val,) = exe.run(main, feed={"x": X, "y": Y},
+                              fetch_list=[avg_loss])
+        losses.append(float(loss_val))
+    assert np.isfinite(losses).all()
+    assert losses[-1] < 0.05 * losses[0], (losses[0], losses[-1])
+
+    test_prog = main.clone(for_test=True)
+    (p_val,) = exe.run(test_prog, feed={"x": X, "y": Y},
+                       fetch_list=[pred])
+    assert p_val.shape == (64, 1)
+    np.testing.assert_allclose(p_val, Y, atol=0.6)
+    paddle.disable_static()
+    return losses, float(np.abs(p_val - Y).max())
+
+
+def static_programs(pt, K, tmp, acc, B=8, S=128, layers=12):
+    """29c: the fit-a-line script on the card; then a BERT-base-width
+    encoder recorded in static mode (``static.data([None, 128, 768],
+    "bfloat16")`` through ``TransformerEncoder``, 12 layers, 12 heads, no
+    mask): ``Executor.run`` launches 12 flash forwards and 24 LayerNorms
+    and equals the same layers run eagerly; ``save_inference_model`` ->
+    ``load_inference_model`` and a ``Predictor`` on the saved program give
+    the executor's output."""
+    from paddle_tpu_torch.inference import Config, create_predictor
+    t0 = time.perf_counter()
+    losses, p_err = fit_a_line(pt)
+    log(f"[static 29c] fit-a-line on the card: loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.6f} over 60 runs, |pred - Y| <= {p_err:.4f} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    pt.enable_static()
+    try:
+        main = pt.static.Program()
+        with pt.static.program_guard(main):
+            h = pt.static.data(name="h", shape=[None, S, 768],
+                               dtype="bfloat16")
+            layer = pt.nn.TransformerEncoderLayer(768, 12, 3072,
+                                                  dropout=0.0)
+            enc = pt.amp.decorate(pt.nn.TransformerEncoder(layer, layers),
+                                  level="O2", dtype="bfloat16")
+            enc.eval()
+            out = enc(h)
+        names = [getattr(n.func, "__name__", "?") for n in main._nodes]
+        counts = {k: names.count(k) for k in ("flash_fwd", "layer_norm")}
+        log(f"  [static 29c] encoder program: {len(names)} nodes, kernel "
+            f"ops {counts}, softmax nodes {names.count('softmax')}")
+        if counts != {"flash_fwd": layers, "layer_norm": 2 * layers} \
+                or "softmax" in names:
+            fail(f"static encoder: program kernel ops {counts}")
+        exe = pt.static.Executor()
+        H = torch.randn(B, S, 768, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(SEED)).to(torch.bfloat16)
+        K.reset_launch_counts()
+        (got,) = exe.run(main, feed={"h": H}, fetch_list=[out],
+                         return_numpy=False)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in K.launch_counts().items() if v}
+        path = os.path.join(tmp, "encoder")
+        pt.static.save_inference_model(path, [h], [out], exe)
+    finally:
+        pt.disable_static()
+    want_l = {"flash_fwd": layers, "layer_norm": 2 * layers}
+    log(f"  [static 29c] Executor.run launches {launches}")
+    if launches != want_l:
+        fail(f"static encoder: Executor.run launched {launches}, want "
+             f"{want_l}")
+    with torch.no_grad():
+        eager = enc(H)
+    err = check_close("static encoder vs the layers run eagerly", got,
+                      eager, 2e-2, 2e-2, 1e-2)
+    loaded = pt.static.load_inference_model(path)
+    K.reset_launch_counts()
+    again = loaded(H)
+    add_counts(acc, K.launch_counts())
+    check_close("saved encoder program vs Executor.run", again, got, 2e-2,
+                2e-2, 1e-2)
+    pred = create_predictor(Config(path))
+    K.reset_launch_counts()
+    (p_out,) = pred.run([H])
+    add_counts(acc, K.launch_counts())
+    check_close("Predictor on the saved encoder vs Executor.run",
+                torch.from_numpy(p_out), got.float().cpu(), 2e-2, 2e-2, 1e-2)
+    del enc, loaded, pred
+    free()
+    return {"fit_a_line_losses": [losses[0], losses[-1]],
+            "fit_a_line_pred_err": p_err, "encoder_max_abs_err": err,
+            "encoder_launches": launches}
+
+
+def zloss_training(pt, K, eager_steps=2, warmup=2, steps=10, B=8, S=1024,
+                   z=1e-4):
+    """29d: phase 22c's ``gpt_1p3b`` O2 step with a z-loss behind a Python
+    ``if z_weight > 0:`` on a device tensor, which dy2static converts:
+    for ``z_weight`` = ``z`` and 0, eager (``eager_steps``) and staged by
+    ``to_static`` (``warmup`` + ``steps``) from the same weights: 1 graph,
+    0 breaks, a replay launching the flash trio 24 each, LayerNorm 49 and
+    AdamW 1 (both branches run; only the model launches kernels), and the
+    staged step-0 loss the eager one's. -> numbers"""
+    cfg = pt.gpt_1p3b(dropout=0.0)
+    rng = np.random.RandomState(SEED)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, S))).cuda()
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, S))).cuda()
+    L = cfg.num_layers
+    out = {}
+    for zw in (z, 0.0):
+        flag = torch.full((), zw, device="cuda")
+
+        def build():
+            model, opt, sched = o2_model(pt, cfg)
+            crit = pt.GPTPretrainingCriterion(cfg)
+
+            def zloss_step(x, y, z_weight):
+                with pt.auto_cast(level="O2", dtype="bfloat16"):
+                    logits = model(x)
+                    loss = crit(logits, y)
+                if z_weight > 0:
+                    loss = loss + z_weight * torch.logsumexp(
+                        logits.float(), -1).pow(2).mean()
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+                return loss
+            return model, opt, sched, zloss_step, (ids, labels, flag)
+
+        eager = train_run(pt, build, False, 0, eager_steps)
+        loss0 = eager["losses"][0]
+        del eager["model"], eager["opt"], eager["step"]
+        free()
+        staged = train_run(pt, build, True, warmup, steps)
+        st = staged["stats"]
+        log(f"[control flow 29d] z_weight {zw}: staging {st}")
+        if st["graphs"] != 1 or st["graph_breaks"] or st["eager_calls"]:
+            fail(f"z-loss step z_weight={zw}: staging {st}")
+        check_training(f"z-loss step z_weight={zw}", staged["losses"],
+                       warmup, staged["launches"], {
+                           "flash_fwd": steps * L,
+                           "flash_bwd_dq": steps * L,
+                           "flash_bwd_dkv": steps * L,
+                           "layer_norm": steps * (2 * L + 1),
+                           "fused_adamw": steps})
+        diff = abs(staged["losses"][0] - loss0)
+        log(f"  [control flow 29d] staged step-0 loss "
+            f"{staged['losses'][0]:.6f} vs eager {loss0:.6f} (diff "
+            f"{diff:.3e}); staged {staged['step_ms_median']:.2f} ms a step "
+            f"vs phase 22c's staged O2 step "
+            f"{NUMBERS.get('gpt_o2_staged_ms', float('nan')):.2f} ms")
+        if diff > 1e-4 * abs(loss0):
+            fail(f"z-loss step z_weight={zw}: staged step 0 "
+                 f"{staged['losses'][0]} vs eager {loss0}")
+        out[zw] = {"step_ms_median": staged["step_ms_median"],
+                   "step0_diff": diff, "losses": staged["losses"],
+                   "launches": staged["launches"],
+                   "device_busy_pct": staged["device_busy_pct"]}
+        del staged["model"], staged["opt"], staged["step"], staged
+        free()
+    out["phase22c_staged_ms"] = NUMBERS.get("gpt_o2_staged_ms")
+    return out
+
+
+def control_flow_cases(pt):
+    """29d at small sizes: ``cond``, ``while_loop(max_steps=...)``,
+    ``scan_loop``, ``case`` and ``switch_case`` on the card, eager and
+    staged (warm-up, capture, replays; 1 graph, 0 breaks), against the
+    same calls on the CPU; an unbounded ``while_loop`` staged breaks the
+    graph and runs eagerly with the CPU's values. -> the worst error"""
+    from paddle_tpu_torch.jit import (case, cond, scan_loop, switch_case,
+                                      while_loop)
+
+    def f_cond(x, a):
+        return cond(a > 0, lambda: x * 2 + 1, lambda: x.sin())
+
+    def f_while(x, a):
+        i = torch.zeros((), dtype=torch.int32, device=x.device)
+        return while_loop(lambda i, y: y.abs().sum() < 100.0 * a.abs(),
+                          lambda i, y: [i + 1, y * 2.0], [i, x],
+                          max_steps=16)[1]
+
+    def f_scan(x, a):
+        return scan_loop(lambda i, y: y * 0.5 + i.float() * a, x, 5)
+
+    def f_case(x, a):
+        return case([(a > 1, lambda: x * 3), (a > 0, lambda: x * 2)],
+                    default=lambda: x - 1)
+
+    def f_switch(x, a):
+        idx = (a > 0).long() + (a > 1).long()
+        return switch_case(idx, {0: lambda: x * 1.0, 1: lambda: x * 2.0,
+                                 2: lambda: x.cos()})
+
+    x = torch.from_numpy(np.random.RandomState(SEED).randn(4, 8).astype(
+        "float32"))
+    worst, args = 0.0, [torch.tensor(v) for v in (2.0, -1.0, 0.5, 3.0)]
+    for fn in (f_cond, f_while, f_scan, f_case, f_switch):
+        staged = pt.jit.to_static(fn, full_graph=True)
+        for a in args:
+            want = fn(x, a)
+            for got in (fn(x.cuda(), a.cuda()), staged(x.cuda(), a.cuda())):
+                worst = max(worst, check_close(
+                    f"{fn.__name__} a={float(a)} card vs CPU", got.cpu(),
+                    want, 1e-5, 1e-5))
+        st = staged.stats()
+        if st["graphs"] != 1 or st["graph_breaks"] or \
+                st["replays"] != len(args) - 1:
+            fail(f"{fn.__name__}: staging {st}")
+
+    def f_unbounded(x, n):
+        i = torch.zeros((), dtype=torch.int32, device=x.device)
+        return while_loop(lambda i, y: i < n, lambda i, y: [i + 1, y * 2.0],
+                          [i, x])[1]
+
+    staged = pt.jit.to_static(f_unbounded)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for n in (3, 5, 3):
+            n_t = torch.tensor(n, dtype=torch.int32)
+            worst = max(worst, check_close(
+                f"unbounded while_loop n={n} card vs CPU",
+                staged(x.cuda(), n_t.cuda()).cpu(), f_unbounded(x, n_t),
+                1e-5, 1e-5))
+    st = staged.stats()
+    log(f"  [control flow 29d] unbounded while_loop staged: {st}")
+    if st["graph_breaks"] != 1 or st["graphs"]:
+        fail(f"unbounded while_loop: staging {st} (a graph break that runs "
+             f"eagerly expected)")
+    return worst
+
+
+def export_phases(pt, K):
+    """Phase 29: exported programs, the inference predictor, static mode
+    and tensor control flow on the card (29a-29d). -> ({kernel: numbers
+    for its JSON entry}, the phase's numbers)"""
+    t0 = time.perf_counter()
+    acc = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        model, path, bert = export_bert(pt, K, tmp, acc)
+        over = op_overhead(K)
+        gpt = export_gpt(pt, K, acc)
+        cpu = export_cpu_to_card(pt, K, acc, tmp)
+        serve = serve_predictor(pt, K, model, path, acc)
+        del model
+        free()
+        static = static_programs(pt, K, tmp, acc)
+    cf_small = control_flow_cases(pt)
+    zl = zloss_training(pt, K)
+    log(f"[export] phase 29 in {time.perf_counter() - t0:.1f} s; launches "
+        f"through exported programs {acc}")
+    extra = {name: {"export_launches": n} for name, n in acc.items()}
+    return extra, {"bert": bert, "gpt": gpt, "cpu_to_card": cpu,
+                   "op_overhead": over, "serve": serve, "static": static,
+                   "control_flow_worst": cf_small, "zloss": zl}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -7344,6 +7965,13 @@ def main():
         next(e for e in kernels if e["name"] == name).update(numbers)
     for e in kernels:
         e.setdefault("incubate_launches", 0)
+    # -------- phase 29: exported programs, the predictor, static mode and
+    # tensor control flow
+    exp_extra, _ = export_phases(pt, K)
+    for name, numbers in exp_extra.items():
+        next(e for e in kernels if e["name"] == name).update(numbers)
+    for e in kernels:
+        e.setdefault("export_launches", 0)
     for e in kernels:
         e["max_abs_err"] = max([e["max_abs_err"]] + [
             v for k, v in e.items() if k.endswith("_max_abs_err")])

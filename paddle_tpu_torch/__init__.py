@@ -184,11 +184,28 @@ from .ops.kernels import flash_attention_bshd
 from .optimizer import (LBFGS, SGD, Adadelta, Adagrad, Adam, Adamax, AdamW,
                         Lamb, Momentum, RMSProp, Rprop)
 from .serving.engine import ServingEngine
+from . import inference, static  # noqa: E402
+
+
+def disable_static(place=None):
+    """Reference: paddle.disable_static — back to dygraph (eager) mode."""
+    from .static.program import disable_static_mode
+    disable_static_mode()
+
+
+def enable_static():
+    """Reference: paddle.enable_static — switch to Program recording: ops
+    on ``paddle.static.data()`` Variables append to the default main
+    Program; ``Executor.run(feed, fetch_list)`` evaluates it
+    (``static/program.py``)."""
+    from .static.program import enable_static_mode
+    enable_static_mode()
 
 
 def in_dynamic_mode():
-    """Always True: the port runs eagerly (``jit.to_static`` stages)."""
-    return True
+    """False between :func:`enable_static` and :func:`disable_static`."""
+    from .static.program import in_static_mode
+    return not in_static_mode()
 
 
 def set_printoptions(precision=None, threshold=None, edgeitems=None,
@@ -255,7 +272,8 @@ __all__ = ["GPTConfig", "GPTForCausalLM", "GPTPretrainingCriterion",
            "is_compiled_with_tpu", "seed", "get_rng_state", "set_rng_state",
            "get_cuda_rng_state", "set_cuda_rng_state", "grad", "no_grad",
            "enable_grad", "is_grad_enabled", "set_grad_enabled",
-           "in_dynamic_mode", "set_printoptions", "disable_signal_handler",
+           "in_dynamic_mode", "set_printoptions", "enable_static",
+           "disable_static", "static", "inference", "disable_signal_handler",
            "is_compiled_with_cuda", "is_compiled_with_xpu",
            "is_compiled_with_cinn", "is_compiled_with_rocm",
            "is_compiled_with_custom_device", "is_grad_enabled_",

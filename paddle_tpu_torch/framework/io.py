@@ -44,6 +44,15 @@ def _pack(obj):
     return obj
 
 
+def _numpy(t):
+    """A host numpy copy of ``t``: bfloat16 as float32 (numpy has no
+    bfloat16 without ``ml_dtypes``); a non-tensor as ``np.asarray``."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return np.asarray(t)
+
+
 def _tensor(arr, trainable, device, bf16=False):
     t = torch.from_numpy(np.ascontiguousarray(arr))
     if bf16:

@@ -380,13 +380,13 @@ class Model:
     def save(self, path, training=True):
         """``path + ".pdparams"`` (the network's parameters and buffers)
         and ``path + ".pdopt"`` (the optimizer's state) in the JAX
-        package's format. ``training=False``, the inference export through
-        ``jit.save``, is not ported yet."""
+        package's format; ``training=False`` exports the network for
+        inference through ``jit.save`` with the model's ``inputs`` specs
+        (``paddle_tpu/hapi/model.py:502-507``)."""
         if not training:
-            raise NotImplementedError(
-                "Model.save(training=False) exports through jit.save, "
-                "which the port has not ported yet (ROADMAP Queue 1 "
-                "item 2)")
+            from ..jit.save_load import save as _jit_save
+            _jit_save(self.network, path, input_spec=self._inputs)
+            return
         from ..framework import save as _save
         _save(self.network.state_dict(keep_vars=True), path + ".pdparams")
         if self._optimizer is not None:

@@ -19,7 +19,8 @@ from __future__ import annotations
 import torch
 
 from ..nn import functional as F
-from ..ops.kernels import RMSNormFunction, paged_attention_reference
+from ..ops.kernels import paged_attention_reference
+from ..ops.kernels.library import rms_norm_fn
 from ..ops.kernels import paged_attention as _paged_attention_kernel
 from . import autograd, nn  # noqa: F401
 
@@ -39,7 +40,7 @@ def fused_rms_norm(x, norm_weight, norm_bias=None, epsilon=1e-6,
     is added in f32 inside the kernel (the JAX kernel's arm); the JAX jnp
     arm adds it after casting to x's type, which differs from this by at
     most one rounding in bf16."""
-    return RMSNormFunction.apply(x, norm_weight, norm_bias, float(epsilon))
+    return rms_norm_fn(x, norm_weight, norm_bias, epsilon)
 
 
 class _PagedAttention(torch.autograd.Function):

@@ -71,10 +71,19 @@ slots and host counters are snapshotted before it and restored when it
 breaks, as JAX's trace restores them in its ``finally``
 (``api.py:611-631``). Later calls run the function.
 
-Not ported here: ``jit.save`` / ``jit.load``, ``jit/control_flow.py``
-and the dy2static AST converter, so a tensor-valued ``if`` inside a
-staged function is a host sync and a graph break where JAX stages it
-through ``lax.cond``; ``aot_compile`` and ``compiled_text`` (XLA's).
+**Control flow** (``api.py:197-210``, ``:239``): unless
+``convert_control_flow=False``, the function's own ``if`` / ``while`` /
+``for range`` are rewritten by ``jit/dy2static.py``, so a tensor-valued
+``if`` stages through ``jit/control_flow.py``'s ``cond`` (both branches,
+selected on the device) instead of breaking the graph at its host read.
+An ``if`` whose branches do more than assign tensors to names (a call
+such as ``opt.step()``, an in-place method, a store), and an unbounded
+``while``, still read their predicate on the host: a break where the
+call is staged or captured, and a plain read in the card's warm-up call,
+which really runs.
+``build_strategy``, ``backend`` and ``donate_state`` are accepted, as in
+JAX, and do nothing here. Not ported: ``aot_compile`` and
+``compiled_text`` (XLA's).
 Whole-step staging keeps its optimizers' step counters and bias
 corrections advancing once per replay; a scheduler stepped inside the
 staged function steps only when the function's Python runs, as in JAX:
@@ -82,8 +91,10 @@ step it outside.
 """
 from __future__ import annotations
 
+import inspect
 import threading
 import time
+import types
 import warnings
 
 import torch
@@ -117,6 +128,14 @@ _SYNC_OPS = frozenset({
 
 class _SyncDetector(TorchDispatchMode):
     """Raises :class:`GraphBreak` at a host sync while it is active."""
+
+    def __enter__(self):
+        _tls.detecting = getattr(_tls, "detecting", 0) + 1
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        _tls.detecting -= 1
+        return super().__exit__(*exc)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -178,6 +197,13 @@ def is_staging():
     return getattr(_tls, "depth", 0) > 0
 
 
+def host_reads_break():
+    """True while this thread stages or captures under the sync detector
+    (a CPU staging call, a capture): a host read there is a graph break.
+    False in a warm-up call on the card, which really runs."""
+    return getattr(_tls, "detecting", 0) > 0
+
+
 class _staging:
     """Marks the thread as staging: a StaticFunction called inside runs
     its function inline (nested ``jax.jit`` inlines too)."""
@@ -192,11 +218,13 @@ class _staging:
 
 # ------------------------------------------------------------ key parts
 class InputSpec:
-    """Reference: paddle.static.InputSpec. Kept for the API; a staged
+    """Reference: paddle.static.InputSpec: a shape (``None`` or ``-1``
+    for a dynamic size) and a dtype. ``jit.save`` exports by it; a staged
     function keys on the tensors it is called with."""
 
     def __init__(self, shape, dtype="float32", name=None, stop_gradient=True):
-        self.shape = list(shape)
+        self.shape = [None if d is None or int(d) < 0 else int(d)
+                      for d in shape]
         self.dtype = getattr(torch, dtype) if isinstance(dtype, str) \
             else dtype
         self.name = name
@@ -365,7 +393,8 @@ class StaticFunction:
     program_translator.py ASTStaticFunction)."""
 
     def __init__(self, function, input_spec=None, capture=None,
-                 full_graph=False):
+                 build_strategy=None, backend=None, full_graph=False,
+                 donate_state=True, convert_control_flow=True):
         self._raw_fn = function
         self._input_spec = input_spec
         self._capture = list(capture) if capture is not None else None
@@ -389,6 +418,8 @@ class StaticFunction:
             owner = getattr(function, "__self__", None)
             if isinstance(owner, torch.nn.Module):
                 self._layer = owner
+        if convert_control_flow:
+            self._fn = _convert_fn(self._fn)
 
     # -- state discovery --
     def invalidate(self):
@@ -840,6 +871,19 @@ def _restore(snap, params, buffers, opts):
                     c[k].copy_(v)
                 else:
                     c[k] = v
+
+
+def _convert_fn(fn):
+    """The dy2static pass (``jit/dy2static.py``): a tensor-valued ``if`` /
+    ``while`` / ``for range`` of the function stages through
+    ``jit/control_flow.py``; a bound method is converted on its
+    ``__func__`` and bound again (``api.py:197-210``)."""
+    from .dy2static import convert_to_static
+    if inspect.ismethod(fn):
+        conv = convert_to_static(fn.__func__)
+        return fn if conv is fn.__func__ else types.MethodType(
+            conv, fn.__self__)
+    return convert_to_static(fn)
 
 
 def to_static(function=None, input_spec=None, build_strategy=None,

@@ -41,6 +41,7 @@ import torch
 from ...core.dtype import float_of
 from ...framework.flags import flag
 from ...ops.kernels import flash_attention_bshd
+from ...ops.kernels import library as _library
 
 __all__ = [
     "linear", "dropout", "dropout2d", "dropout3d", "pad", "embedding",
@@ -130,8 +131,12 @@ def _flash_eligible(query, attn_mask, dropout_p, training):
     ``nn/functional/common.py:204-226``, without its TPU test and A/B
     gate): a CUDA tensor, no mask, no dropout while training, 4-D input
     and a head dim of at most 128 — and, the kernels' own limits, a head
-    dim that is a multiple of 16 and f32, bf16 or f16 inputs."""
-    return (query.device.type == "cuda" and attn_mask is None
+    dim that is a multiple of 16 and f32, bf16 or f16 inputs. While a
+    program is traced (``ops/kernels/library.py`` ``recording``) the
+    device does not count: the program holds the ``flash_fwd`` op, which
+    launches the kernel wherever the program runs."""
+    return ((query.device.type == "cuda" or _library.recording(query))
+            and attn_mask is None
             and not (dropout_p > 0 and training) and query.dim() == 4
             and query.shape[-1] <= 128 and query.shape[-1] % 16 == 0
             and query.dtype in (torch.float32, torch.bfloat16,

@@ -11,7 +11,7 @@ import math
 
 import torch
 
-from ...ops.kernels import LayerNormFunction, RMSNormFunction
+from ...ops.kernels.library import layer_norm_fn, rms_norm_fn
 from .common import _amp_cast
 
 __all__ = ["layer_norm", "batch_norm", "group_norm", "instance_norm",
@@ -21,13 +21,14 @@ __all__ = ["layer_norm", "batch_norm", "group_norm", "instance_norm",
 def layer_norm_rows(x, normalized_shape, weight, bias, epsilon):
     """LayerNorm of ``x`` over its trailing ``normalized_shape`` axes by
     :class:`~...ops.kernels.LayerNormFunction` (the Triton kernel on a
-    CUDA tensor, the plain version on a CPU one): the trailing axes are
-    contiguous, so they are viewed as one row of their product."""
+    CUDA tensor, the plain version on a CPU one), or, in a traced program,
+    the ``layer_norm`` op: the trailing axes are contiguous, so they are
+    viewed as one row of their product."""
     k = len(normalized_shape)
     if k == 1:
-        return LayerNormFunction.apply(x, weight, bias, epsilon)
+        return layer_norm_fn(x, weight, bias, epsilon)
     n = math.prod(normalized_shape)
-    y = LayerNormFunction.apply(
+    y = layer_norm_fn(
         x.reshape(*x.shape[:-k], n),
         None if weight is None else weight.reshape(n),
         None if bias is None else bias.reshape(n), epsilon)
@@ -108,9 +109,10 @@ def rms_norm(x, weight=None, epsilon=1e-6, name=None):
     statistics, output in x's type, in f32 under ``auto_cast``
     (``rms_norm`` is on the black list). Runs
     :class:`~...ops.kernels.RMSNormFunction`: the ``rms_norm`` kernel on a
-    CUDA tensor, its plain version on a CPU tensor."""
+    CUDA tensor, its plain version on a CPU tensor; the ``rms_norm`` op in
+    a traced program."""
     x, weight = _amp_cast("rms_norm", x, weight)
-    return RMSNormFunction.apply(x, weight, None, float(epsilon))
+    return rms_norm_fn(x, weight, None, epsilon)
 
 
 def _channel_axis(data_format, ndim):

@@ -30,11 +30,17 @@ zero them all. A CUDA graph replays kernels without running their
 wrappers, so whoever replays one adds the launches its capture recorded
 (:func:`add_launch_counts`): the counts stay the launches issued on the
 card.
+
+``library`` registers the flash forward and the two norms as
+``torch.library`` ops (``paddle_tpu_torch::flash_fwd``, ``::layer_norm``,
+``::rms_norm``), which exported and static programs hold in place of the
+wrappers, and holds the differentiable entries that choose between an op
+and its ``autograd.Function`` (``flash_attention_bshd``,
+``library.layer_norm_fn``, ``library.rms_norm_fn``; see that module).
 """
-from .flash_attention import (flash_attention_bshd, flash_bwd_dkv,
-                              flash_bwd_dkv_reference, flash_bwd_dq,
-                              flash_bwd_dq_reference, flash_delta, flash_fwd,
-                              flash_fwd_reference)
+from .flash_attention import (flash_bwd_dkv, flash_bwd_dkv_reference,
+                              flash_bwd_dq, flash_bwd_dq_reference,
+                              flash_delta, flash_fwd, flash_fwd_reference)
 from .fused_adamw import fused_adamw, fused_adamw_reference
 from .layer_norm import (LayerNormFunction, layer_norm,
                          layer_norm_bwd_reference, layer_norm_reference)
@@ -45,6 +51,8 @@ from .ragged_attention import (ragged_paged_attention,
                                ragged_row_index)
 from .rms_norm import (RMSNormFunction, rms_norm, rms_norm_bwd_reference,
                        rms_norm_reference)
+from . import library  # noqa: E402  (the kernels as torch.library ops)
+from .library import flash_attention_bshd  # noqa: E402
 
 __all__ = ["layer_norm", "layer_norm_reference", "layer_norm_bwd_reference",
            "LayerNormFunction", "ragged_paged_attention",

@@ -18,21 +18,22 @@ The port of ``paddle_tpu/ops/pallas/flash_attention.py``:
   ``csrc/flash_attention.cu``. On a CPU tensor each
   runs its plain version; on a CUDA tensor it launches its kernel or
   raises, and counts the launch. See the sources for their designs and bounds.
-* :func:`flash_attention_bshd` — the differentiable entry point with the
-  semantics of ``flash_attention.py:368-393``: forward kernel, then the
-  backward computes ``delta = rowsum(dO * O)`` (:256) and runs the dQ and
-  dK/dV kernels. The S tail is masked in the kernels rather than padded.
+* ``_FlashAttention`` — the differentiable form, with the semantics of
+  ``flash_attention.py:368-393``: forward kernel, then the backward
+  computes ``delta = rowsum(dO * O)`` (:256) and runs the dQ and dK/dV
+  kernels. The S tail is masked in the kernels rather than padded. Its
+  entry point, ``flash_attention_bshd``, is in ``library.py``, which
+  takes the ``flash_fwd`` op instead in a traced program.
 """
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
 __all__ = ["flash_fwd_reference", "flash_bwd_dq_reference",
            "flash_bwd_dkv_reference", "flash_fwd", "flash_bwd_dq",
-           "flash_bwd_dkv", "flash_delta", "flash_attention_bshd"]
+           "flash_bwd_dkv", "flash_delta"]
 
 NEG_INF = -1e30
 # the kernels' type codes: 0 runs flash_attention.cu, 1 and 2 the sm90 file
@@ -313,11 +314,3 @@ class _FlashAttention(torch.autograd.Function):
                                ctx.causal)
         return dq, dk, dv, None, None
 
-
-def flash_attention_bshd(q, k, v, causal=True, scale=None):
-    """Flash attention on ``[B, S, H, D]`` tensors (paddle's layout) ->
-    ``[B, Sq, H, D]``, differentiable in q, k and v; ``scale`` defaults to
-    ``1/sqrt(D)``."""
-    scale = float(scale if scale is not None else 1.0 / math.sqrt(
-        q.shape[-1]))
-    return _FlashAttention.apply(q, k, v, scale, bool(causal))

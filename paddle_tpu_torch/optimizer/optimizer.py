@@ -83,8 +83,11 @@ class Optimizer:
                  weight_decay=None, grad_clip=None, multi_precision=False,
                  name=None):
         if parameters is None:
-            raise ValueError("parameters is required: pass "
-                             "model.parameters()")
+            from ..static import program as _sp
+            if not _sp.in_static_mode():
+                raise ValueError("parameters is required: pass "
+                                 "model.parameters()")
+            parameters = []   # minimize fills them from the Program
         parameters = list(parameters)
         if parameters and isinstance(parameters[0], dict):
             self._param_groups = []
@@ -270,7 +273,13 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):
-        """``backward`` then ``step`` (the dygraph form). -> (None, None)"""
+        """``backward`` then ``step`` (the dygraph form). -> (None, None).
+        On a static program's loss it records the step, which
+        ``Executor.run`` replays (``static/program.py``)."""
+        from ..static import program as _sp
+        if isinstance(loss, _sp.Variable):
+            loss._program.minimize_ops.append((self, loss))
+            return None, None
         self.backward(loss)
         self.step()
         return None, None

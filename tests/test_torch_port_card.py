@@ -2281,3 +2281,173 @@ def test_tensor_checker_raises_on_card_and_stays_silent_in_capture():
     finally:
         dbg.disable_tensor_checker()
     assert not op_hook.installed()
+
+
+# ------------------------------------------- exported programs (slice 19)
+def _tiny_bert(pt, device):
+    model = pt.BertForSequenceClassification(pt.bert_tiny(), device=device,
+                                             seed=0)
+    model.eval()
+    return model
+
+
+@pytest.mark.cuda
+def test_cpu_exported_program_launches_kernels_on_card(tmp_path):
+    """A program exported on the CPU holds the ``flash_fwd`` and
+    ``layer_norm`` ops; loaded on the card it launches kernels 1 and 8 (2
+    and 5 a call for ``bert_tiny``) and gives the CPU model's logits."""
+    _need_cuda()
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import device as port_device
+    before = port_device.DEFAULT_DEVICE
+    port_device.DEFAULT_DEVICE = "cpu"
+    try:
+        model = _tiny_bert(pt, "cpu")
+        pt.jit.save(model, str(tmp_path / "b"),
+                    input_spec=[pt.jit.InputSpec([None, 16], "int64")])
+    finally:
+        port_device.DEFAULT_DEVICE = before
+    layer = pt.jit.load(str(tmp_path / "b"), device="cuda")
+    ids = np.random.RandomState(0).randint(0, 1024, (3, 16))
+    for _ in range(3):
+        K.reset_launch_counts()
+        got = layer(ids)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in K.launch_counts().items() if v} == {
+            "flash_fwd": 2, "layer_norm": 5}
+    with torch.no_grad():
+        want = model(torch.from_numpy(ids))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_translated_layer_captures_a_graph_per_shape_on_card(tmp_path):
+    """On the card a loaded program runs as one CUDA graph per input
+    shape (the shape's first call warms up, its second captures), and a
+    returned output is a copy that the next replay leaves alone."""
+    _need_cuda()
+    import paddle_tpu_torch as pt
+    model = _tiny_bert(pt, "cuda")
+    pt.jit.save(model, str(tmp_path / "b"),
+                input_spec=[pt.jit.InputSpec([None, 16], "int64")])
+    layer = pt.jit.load(str(tmp_path / "b"))
+    rng = np.random.RandomState(1)
+    a, b = (torch.from_numpy(rng.randint(0, 1024, (4, 16))).cuda()
+            for _ in range(2))
+    for n in (2, 4):
+        for _ in range(3):
+            layer(a[:n])
+    st = layer.stats()
+    assert st["graphs"] == 2 and st["warmups"] == 2 and st["replays"] == 4
+    first = layer(a)
+    kept = first.clone()
+    second = layer(b)
+    torch.cuda.synchronize()
+    assert torch.equal(first, kept) and not torch.equal(first, second)
+    with torch.no_grad():
+        torch.testing.assert_close(first, model(a), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_staged_cond_step_is_one_graph_on_card():
+    """A Python ``if`` on a device tensor inside a staged train step runs
+    both branches and selects on the card: one graph, no break, and each
+    replay follows the flag's value."""
+    _need_cuda()
+    import paddle_tpu_torch as pt
+    torch.manual_seed(0)
+    lin = pt.nn.Linear(16, 16, device="cuda")
+    opt = pt.SGD(learning_rate=0.0, parameters=lin.parameters())
+
+    def step(x, w):
+        loss = lin(x).square().mean()
+        if w > 0:
+            loss = loss + w * lin(x).abs().mean()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    staged = pt.jit.to_static(step, capture=(lin, opt), full_graph=True)
+    x = torch.randn(8, 16, device="cuda")
+    for v in (1.0, -1.0, 0.5, -2.0, 2.0):
+        w = torch.tensor(v, device="cuda")
+        got = staged(x, w)
+        with torch.no_grad():
+            want = lin(x).square().mean() + (
+                v * lin(x).abs().mean() if v > 0 else 0.0)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    st = staged.stats()
+    assert st["graphs"] == 1 and st["graph_breaks"] == 0 \
+        and st["replays"] == 4
+
+
+@pytest.mark.cuda
+def test_staged_if_with_effects_runs_only_the_taken_branch_on_card():
+    """A Python ``if`` on a device tensor whose branch calls
+    ``opt.step()`` cannot be selected after both branches ran: the
+    warm-up call reads the predicate as Python does, the capture breaks
+    the graph, and every call steps only when the flag holds."""
+    _need_cuda()
+    import paddle_tpu_torch as pt
+    torch.manual_seed(0)
+    lin = pt.nn.Linear(16, 16, device="cuda")
+    opt = pt.SGD(learning_rate=0.1, parameters=lin.parameters())
+
+    def step(x, w):
+        loss = lin(x).square().mean()
+        loss.backward()
+        if w > 0:
+            opt.step()
+        opt.clear_grad()
+        return loss
+
+    staged = pt.jit.to_static(step, capture=(lin, opt))
+    x = torch.randn(8, 16, device="cuda")
+    w0 = lin.weight.detach().clone()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for _ in range(3):
+            staged(x, torch.tensor(-1.0, device="cuda"))
+        assert torch.equal(lin.weight, w0)
+        staged(x, torch.tensor(1.0, device="cuda"))
+    assert not torch.equal(lin.weight, w0)
+    st = staged.stats()
+    assert st["warmups"] == 1 and st["graph_breaks"] == 1 \
+        and st["graphs"] == 0
+
+
+@pytest.mark.cuda
+def test_batching_predictor_returns_every_row_on_card(tmp_path):
+    """Concurrent single-example callers through ``BatchingPredictor``
+    over a dynamic-batch export on the card: every caller gets its own
+    row, and each bucket is one captured graph."""
+    _need_cuda()
+    import threading
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.inference import (BatchingPredictor, Config,
+                                            Predictor)
+    model = _tiny_bert(pt, "cuda")
+    path = str(tmp_path / "b")
+    pt.jit.save(model, path,
+                input_spec=[pt.jit.InputSpec([None, 16], "int64")])
+    pred = Predictor(Config(path))
+    ids = np.random.RandomState(2).randint(0, 1024, (48, 16))
+    res = [None] * len(ids)
+
+    def client(c):
+        for i in range(c, len(ids), 8):
+            res[i] = bp.predict(ids[i])
+
+    with BatchingPredictor(pred, max_batch_size=8, max_wait_ms=2.0,
+                           batch_buckets=[1, 2, 4, 8]) as bp:
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+    with torch.no_grad():
+        want = model(torch.from_numpy(ids).cuda()).cpu().numpy()
+    np.testing.assert_allclose(np.stack(res), want, rtol=1e-4, atol=1e-4)
+    assert pred._layer.stats()["graph_breaks"] == 0
