@@ -47,8 +47,8 @@ exit code:
    the two rounds' bf16 errors.
 5. **profile** — a steady decode round of 16 rows on the host clock and
    under ``torch.profiler``: device busy share and device time by kernel
-   family, for eager rounds (``jit=False``) and replays (``jit=True``) in
-   turns (eager, replay, replay, eager), the host ms split into the
+   family, for eager rounds (``jit=False``), then replays (``jit=True``),
+   the host ms split into the
    scheduler and assembly, the program call (staging copy and replay, or
    the eager forward) and the wait on the fetch. A replayed round's trace
    must show the ragged attention and LayerNorm kernels.
@@ -464,6 +464,32 @@ exit code:
     for ``z_weight`` 1e-4 and 0: 1 graph, 0 breaks, launches exact a
     replay, the staged step-0 loss the eager one's, ms a step beside
     phase 22c's.
+30. **resilient training** — BERT-base classification (BERT-base's
+    hidden dropout 0.1, attention-probability dropout 0) fine-tuned by
+    ``Model.fit`` at B 32 x S 128, O1 bf16, staged, 48 steps with
+    ``lineage``, ``snapshot_interval=16``, ``async_snapshot=True`` and
+    ``integrity=True``, as jobs of the port's launcher
+    (``python -m paddle_tpu_torch.distributed.launch --nproc_per_node 1
+    chip_smoke.py --resilience-worker``): (a) uninterrupted, alone on the
+    card: every step's loss, a CRC32 digest of the parameters, launches
+    exact over the replayed steps, the fit step's ms beside 24b's, the
+    snapshot's bytes, the training thread's stall a snapshot (sync and
+    async) and the write rate; then three jobs at once: (b) SIGTERM in
+    step 23 -> a sync save, ``PREEMPT_SAVED 24``, exit 75, relaunched
+    with ``--max_restarts 0`` ("does not consume max_restarts"),
+    ``RESUMED`` at 24; (c) ``crash@step:40,torn_write@ckpt:3`` with sync
+    snapshots and ``--max_restarts 1``: rc 43, a restart, the torn step-32
+    snapshot skipped by its CRC, resumed at 16; (e) ``hang@step:30`` under
+    ``--watchdog_timeout 30`` (a capture of the step beside two other jobs
+    outlasted 10 s): the watchdog's flight-recorder dump and
+    exit 19, the launcher's post-mortem naming rank 0 and its last step,
+    a restart and a resume at 16. Every loss and the digest of (b), (c)
+    and (e) bit-equal to (a)'s; each resume's seconds from the relaunch
+    to its first step and the steps lost. (d) Meanwhile in this process:
+    ``loss_spike@batch:21`` (the batch's labels leave the classes: a NaN
+    loss) under ``integrity={"rewind_after": 1}``: the guard rewinds to
+    the step-16 snapshot and skips step 20; the digest and every loss
+    equal a clean run over the same data without that batch.
 
 The lines before the last carry the ``{"kernels": [...]}`` JSON (all eight
 kernels; the ``fused_adamw`` entry adds the master and bf16-moment modes'
@@ -495,7 +521,9 @@ over 28b's 10 replayed steps and 28c's prefill and decode steps, and to
 ``paged_attention`` the ``incubate_*`` numbers at 28c's decode shape;
 phase 29 adds to every entry ``export_launches``, its launches through
 the exported programs of 29a-29c (loaded programs, the predictor, the
-saved static program); every ``max_abs_err`` is
+saved static program); phase 30 adds to every entry
+``resilience_launches``, its launches over 30a-30e's workers and 30d's
+two fits; every ``max_abs_err`` is
 the largest of its entry's errors) and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the repository beside it, the script exits
@@ -513,6 +541,7 @@ import sys
 import tempfile
 import time
 import warnings
+import zlib
 
 import numpy as np
 import torch
@@ -529,6 +558,15 @@ NUMBERS = {}   # numbers a later phase prints beside its own
 
 def log(*a):
     print(*a, flush=True)
+
+
+_START = time.perf_counter()
+
+
+def clock(what):
+    """Log the seconds since the script started as ``what`` begins (each
+    phase's share of the run)."""
+    log(f"[clock] {time.perf_counter() - _START:.1f} s: {what}")
 
 
 def fail(msg):
@@ -562,7 +600,7 @@ def queued_ms(fn, iters, host_ms):
     return a.elapsed_time(b) / iters if queued else None
 
 
-def time_ms(fn, iters=20, warmup=3):
+def time_ms(fn, iters=10, warmup=3):
     """-> ``(ms, wall_ms, source)`` per call. ``ms`` is device time: the
     summed duration of every GPU kernel and copy the ``iters`` calls
     launched, from a ``torch.profiler`` trace, over ``iters``. A trace can
@@ -827,12 +865,12 @@ def profile_decode_rounds(eng, vocab, n_rounds=20):
 
 def report_round_profiles(tag, eng, vocab, families_needed, absent=(),
                           unit="round"):
-    """Phase 5 / 11: :func:`profile_decode_rounds` for eager rounds and
-    replays in turns (eager, replay, replay, eager) on ``eng``; fails if
+    """Phase 5 / 11: :func:`profile_decode_rounds` for eager rounds, then
+    replays, on ``eng``; fails if
     a trace holds no device events, lacks any of ``families_needed`` (for
     a replay: the trace cannot see the kernels inside the graph) or holds
     one of ``absent``."""
-    for jit in (False, True, True, False):
+    for jit in (False, True):
         eng._jit = jit
         round_ms, busy_ms, families, top, split, host = \
             profile_decode_rounds(eng, vocab)
@@ -4477,7 +4515,7 @@ def zoo_phase(pt, B=8, B_time=64, factories=ZOO_FACTORIES, hw=224,
     the CPU's f32 convolutions round differently through up to 264
     layers), one train-mode forward and backward at B 8 with every
     gradient finite, then forward plus backward timed at B 64 (1 warm-up
-    and 3 timed steps, host clock around a synchronise) with its peak
+    and 2 timed steps, host clock around a synchronise) with its peak
     memory. -> {label: numbers}"""
     F = pt.nn.functional
     zoo = pt.vision.models
@@ -4530,7 +4568,7 @@ def zoo_phase(pt, B=8, B_time=64, factories=ZOO_FACTORIES, hw=224,
         gc.collect()
         torch.cuda.reset_peak_memory_stats()
         times = []
-        for _ in range(3):
+        for _ in range(2):
             t1 = time.perf_counter()
             fwd_bwd()
             torch.cuda.synchronize()
@@ -7565,6 +7603,470 @@ def export_phases(pt, K):
                    "control_flow_worst": cf_small, "zloss": zl}
 
 
+# ------------------------------------------------------------- phase 30
+# resilient training: a BERT-base fine-tune through Model.fit under the
+# port's launcher, through a preemption, a crash with a torn snapshot, a
+# loss spike and a hung step
+RES_STEPS, RES_B, RES_S, RES_INTERVAL = 48, 32, 128, 16
+# what the launcher starts as phase 30's worker
+RES_WORKER = [os.path.abspath(__file__), "--resilience-worker"]
+
+
+def resilience_model(pt, drop=()):
+    """Phase 30's job: ``BertForSequenceClassification(bert_base(),
+    num_classes=2)`` from seed 0 with BERT-base's hidden dropout (0.1;
+    the attention-probability dropout 0, as the flash kernels have none:
+    with it the attention takes the plain chain), ``AdamW(wd 0.01)`` at
+    2e-5 under 24b's warm-up and linear decay, ``amp_configs="O1"``
+    (bf16), on ``steps * B`` token sequences (numpy seed 40) less the
+    batches ``drop`` names. -> (model, dataset)."""
+    steps, B, S = RES_STEPS, RES_B, RES_S
+    cfg = pt.bert_base()
+    net = pt.BertForSequenceClassification(cfg, num_classes=2, seed=SEED)
+    for m in net.modules():
+        if isinstance(m, pt.nn.MultiHeadAttention):
+            m.dropout = 0.0
+    warm = steps // 10
+    lr = pt.optimizer.lr
+    sched = lr.LinearWarmup(lr.PolynomialDecay(2e-5, steps - warm, 0.0),
+                            warm, 0.0, 2e-5)
+    opt = pt.AdamW(sched, parameters=net.parameters(), weight_decay=0.01)
+    model = pt.Model(net)
+    model.prepare(opt, pt.nn.CrossEntropyLoss(), amp_configs="O1")
+    ids = np.random.RandomState(SEED + 40).randint(
+        0, cfg.vocab_size, (steps * B, S))
+    keep = [i for i in range(steps * B) if i // B not in set(drop)]
+    ids = ids[keep]
+    labels = (ids[:, 0] < cfg.vocab_size // 2).astype(np.int64)
+    return model, array_dataset(pt, ids, labels)
+
+
+def params_digest(net):
+    """CRC32 over every parameter's bytes, in order (hex)."""
+    crc = 0
+    for p in net.parameters():
+        crc = zlib.crc32(p.detach().cpu().contiguous().numpy().tobytes(),
+                         crc)
+    return f"{crc & 0xFFFFFFFF:08x}"
+
+
+def resilience_fit(pt, K, model, data, lineage, async_snapshot=True,
+                   preempt_at=None, out=print, integrity=True, shuffle=True):
+    """``model.fit`` as phase 30 runs it (one epoch, the epoch-keyed
+    shuffle or none, ``lineage``, ``snapshot_interval=16``,
+    ``integrity``), printing through
+    ``out`` a ``STEP <i> <loss> <host clock> <launch counts>`` line a
+    step, the wall clock at the first step's end and a ``SAVE`` line
+    (host ms on the training thread) per snapshot; SIGTERM to itself as
+    step ``preempt_at`` begins."""
+    import signal
+    from paddle_tpu_torch.distributed import resumable
+
+    class Rec(pt.hapi.callbacks.Callback):
+        first = True
+
+        def on_train_batch_begin(self, step, logs=None):
+            if step == preempt_at:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        def on_train_batch_end(self, step, logs=None):
+            if self.first:
+                self.first = False
+                out(f"FIRST_STEP_DONE {time.time()!r}")
+            out(f"STEP {step} {logs['loss']!r} {time.perf_counter()!r} "
+                f"{json.dumps(K.launch_counts())}")
+
+    saves = []
+    real_save = resumable.ResumableTraining._save
+
+    def timed_save(rt, epoch, step_in_epoch, sync=False):
+        t0 = time.perf_counter()
+        real_save(rt, epoch, step_in_epoch, sync)
+        ms = (time.perf_counter() - t0) * 1e3
+        h = rt.lineage._inflight
+        kind = "async" if h is not None else "sync"
+        saves.append((rt.global_step, kind, ms, h))
+        out(f"SAVE {rt.global_step} {kind} {ms!r}")
+
+    resumable.ResumableTraining._save = timed_save
+    try:
+        model.fit(data, batch_size=RES_B, epochs=1, verbose=0,
+                  shuffle=shuffle,
+                  lineage=lineage, snapshot_interval=RES_INTERVAL,
+                  async_snapshot=async_snapshot, integrity=integrity,
+                  callbacks=[Rec(), pt.hapi.callbacks.LRScheduler(
+                      by_step=True)])
+    finally:
+        resumable.ResumableTraining._save = real_save
+    for step, kind, ms, h in saves:
+        if h is not None and h.stats:
+            out(f"ASYNC_STATS {step} {json.dumps(h.stats)}")
+    return saves
+
+
+def process_start_time():
+    """This process's start on the wall clock (``/proc/self/stat``'s start
+    time after the boot time of ``/proc/stat``)."""
+    with open("/proc/self/stat") as f:
+        ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/stat") as f:
+        boot = next(int(line.split()[1]) for line in f
+                    if line.startswith("btime"))
+    return boot + ticks / os.sysconf("SC_CLK_TCK")
+
+
+def resilience_worker():
+    """``chip_smoke.py --resilience-worker``: one incarnation of phase
+    30's job under the port's launcher (``R_DIR`` the lineage,
+    ``R_PREEMPT_AT`` a step to be preempted at, ``R_SYNC=1`` for sync
+    snapshots). Prints the ``STEP`` / ``SAVE`` lines of
+    :func:`resilience_fit`, ``DIGEST`` and ``DONE`` at the end."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed import watchdog
+    from paddle_tpu_torch.ops import kernels as K
+    print(f"SPAWNED {process_start_time()!r}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    K.reset_launch_counts()
+    model, data = resilience_model(pt)
+    at = os.environ.get("R_PREEMPT_AT")
+    resilience_fit(pt, K, model, data, os.environ["R_DIR"],
+                   async_snapshot=os.environ.get("R_SYNC") != "1",
+                   preempt_at=None if at is None else int(at),
+                   out=lambda s: print(s, flush=True))
+    watchdog.stop_step_watchdog()
+    torch.cuda.synchronize()
+    print(f"DIGEST {params_digest(model.network)}", flush=True)
+    print("DONE", flush=True)
+    return 0
+
+
+def parse_incarnations(log_dir):
+    """The worker logs of one job, one dict an incarnation: ``losses``
+    {step: float}, ``ends`` {step: host clock}, ``launches`` (the counts
+    at its last step; ``first_launches`` at its first), ``saves`` [(step, kind, ms)], ``async`` {step:
+    stats}, ``first_done`` (wall clock), ``digest``, ``text``."""
+    out = []
+    names = sorted((n for n in os.listdir(log_dir)
+                    if n.startswith("workerlog.0")),
+                   key=lambda n: int(n.split("restart")[1])
+                   if "restart" in n else 0)
+    for name in names:
+        with open(os.path.join(log_dir, name)) as f:
+            text = f.read()
+        inc = {"losses": {}, "ends": {}, "launches": {}, "saves": [],
+               "async": {}, "first_done": None, "digest": None,
+               "spawned": None, "text": text}
+        for line in text.splitlines():
+            w = line.split(" ", 4)
+            if w[0] == "STEP":
+                i = int(w[1])
+                inc["losses"][i] = float(w[2])
+                inc["ends"][i] = float(w[3])
+                inc["launches"] = json.loads(w[4])
+                inc.setdefault("first_launches", inc["launches"])
+            elif w[0] == "SAVE":
+                inc["saves"].append((int(w[1]), w[2], float(w[3])))
+            elif w[0] == "ASYNC_STATS":
+                inc["async"][int(w[1])] = json.loads(line.split(" ", 2)[2])
+            elif w[0] == "FIRST_STEP_DONE":
+                inc["first_done"] = float(w[1])
+            elif w[0] == "SPAWNED":
+                inc["spawned"] = float(w[1])
+            elif w[0] == "DIGEST":
+                inc["digest"] = w[1]
+        out.append(inc)
+    return out
+
+
+def start_job(tag, root, args, env):
+    """Start one launcher job of phase 30 in a process of its own
+    (``python -m paddle_tpu_torch.distributed.launch``, which starts the
+    workers) -> a handle for :func:`finish_job`."""
+    log_dir = os.path.join(root, f"{tag}_logs")
+    err = open(os.path.join(root, f"{tag}_launcher.txt"), "w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--nproc_per_node", "1", "--log_dir", log_dir] + args + RES_WORKER,
+        env=dict(os.environ, **{k: str(v) for k, v in env.items()}),
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=err,
+        stderr=subprocess.STDOUT)
+    return tag, proc, log_dir, err, time.perf_counter()
+
+
+def finish_job(job, timeout=600):
+    """Wait for a job of :func:`start_job` -> (rc, what the launcher
+    printed, its incarnations as :func:`parse_incarnations` reads them)."""
+    tag, proc, log_dir, err, t0 = job
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = None
+    err.seek(0)
+    text = err.read()
+    err.close()
+    incs = parse_incarnations(log_dir) if os.path.isdir(log_dir) else []
+    log(f"  [{tag}] launcher rc {rc} in {time.perf_counter() - t0:.1f} s, "
+        f"{len(incs)} incarnation(s); launcher said:")
+    for line in text.splitlines():
+        log(f"    {line}")
+    return rc, text, incs
+
+
+def merged(incs):
+    """Losses over the incarnations, the later ones winning."""
+    out = {}
+    for inc in incs:
+        out.update(inc["losses"])
+    return out
+
+
+def check_equal_run(tag, ref, incs):
+    """Every loss and the final digest bit-equal to the uninterrupted
+    run's."""
+    got = merged(incs)
+    if sorted(got) != list(range(RES_STEPS)):
+        fail(f"resilience {tag}: steps {sorted(got)}")
+    bad = [i for i in range(RES_STEPS) if got[i] != ref["losses"][i]]
+    if bad:
+        fail(f"resilience {tag}: losses differ from the uninterrupted run "
+             f"at steps {bad[:8]} (e.g. {got[bad[0]]!r} vs "
+             f"{ref['losses'][bad[0]]!r})")
+    if incs[-1]["digest"] != ref["digest"]:
+        fail(f"resilience {tag}: digest {incs[-1]['digest']} != "
+             f"{ref['digest']}")
+
+
+def resume_seconds(incs):
+    """Seconds from each relaunch (the worker process's start) to its
+    first step done."""
+    return [inc["first_done"] - inc["spawned"] for inc in incs[1:]
+            if inc["first_done"] is not None and inc["spawned"]]
+
+
+def add_launches(acc, counts):
+    for k, v in counts.items():
+        acc[k] = acc.get(k, 0) + v
+
+
+def check_job(tag, rc, err, incs, ref, markers, launcher_says):
+    """A resumed job's checks: rc 0, two incarnations, the launcher's
+    lines and the workers' markers present, every loss and the digest
+    bit-equal to 30a's."""
+    text = "".join(i["text"] for i in incs)
+    missing = [m for m in launcher_says if m not in err] + \
+        [m for m in markers if m not in text]
+    if rc != 0 or len(incs) != 2 or missing:
+        fail(f"resilience {tag}: rc {rc}, {len(incs)} incarnations, "
+             f"missing {missing}\n{err}\n{text[-3000:]}")
+    check_equal_run(tag, ref, incs)
+
+
+def resilience_phases(pt, K, plain_step_ms):
+    """Phase 30 (see the module docstring): 30a alone (its times are the
+    phase's step, stall and write numbers), then 30b, 30c and 30e as
+    three launcher jobs at once while 30d runs in this process. ->
+    ({kernel: its ``resilience_launches``}, the phase's numbers)."""
+    import shutil
+    from paddle_tpu_torch.distributed import fault
+    t_phase = time.perf_counter()
+    free()
+    root = tempfile.mkdtemp(prefix="resilience_")
+    L = pt.bert_base().num_layers
+    per_step = {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+                "layer_norm": 2 * L + 1, "fused_adamw": 1}
+    acc, numbers = {}, {}
+    try:
+        # ---- 30a: uninterrupted, alone on the card
+        rc, err, incs = finish_job(start_job(
+            "30a", root, ["--max_restarts", "0"],
+            {"R_DIR": os.path.join(root, "a")}))
+        a = incs[0] if incs else {}
+        if rc != 0 or len(incs) != 1 or a["digest"] is None or \
+                sorted(a["losses"]) != list(range(RES_STEPS)):
+            fail(f"resilience 30a: rc {rc}, {len(incs)} incarnations\n"
+                 + (incs[-1]["text"][-3000:] if incs else err))
+        ref = a
+        replayed = {k: a["launches"][k] - a["first_launches"][k]
+                    for k in per_step}
+        want = {k: v * (RES_STEPS - 1) for k, v in per_step.items()}
+        if replayed != want:
+            fail(f"resilience 30a: launches over the {RES_STEPS - 1} "
+                 f"replayed steps {replayed} != {want}")
+        if not all(math.isfinite(v) for v in a["losses"].values()):
+            fail(f"resilience 30a: losses {a['losses']}")
+        gaps = np.diff([a["ends"][i] for i in range(RES_STEPS)]) * 1e3
+        saved = {s for s, _, _ in a["saves"]}
+        step_ms = float(np.median([g for i, g in enumerate(gaps, 1)
+                                   if i not in saved and i - 1 not in saved
+                                   and i > 1]))
+        syncs = [ms for _, kind, ms in a["saves"] if kind == "sync"]
+        asyncs = [ms for _, kind, ms in a["saves"] if kind == "async"]
+        excess = [float(gaps[s] - step_ms) for s, kind, _ in a["saves"]
+                  if kind == "async" and s < len(gaps)]
+        stats = list(a["async"].values())
+        snap_bytes = stats[0]["bytes"] if stats else None
+        numbers["30a"] = {
+            "fit_step_ms_median": step_ms,
+            "plain_24b_step_ms": plain_step_ms, "snapshot_bytes": snap_bytes,
+            "sync_stall_ms": syncs, "async_stall_ms": asyncs,
+            "async_next_step_excess_ms": excess, "async_stats": a["async"],
+            "write_gb_per_s": [st["bytes"] / st["write_s"] / 1e9
+                               for st in stats if st.get("write_s")],
+            "serialize_crc_gb_per_s": [
+                st["bytes"] / st["serialize_crc_s"] / 1e9 for st in stats
+                if st.get("serialize_crc_s")],
+            "first_last_loss": [a["losses"][0], a["losses"][RES_STEPS - 1]],
+            "digest": a["digest"]}
+        add_launches(acc, a["launches"])
+        rates = {k: [round(x, 3) for x in numbers["30a"][k]]
+                 for k in ("write_gb_per_s", "serialize_crc_gb_per_s")}
+        log(f"  30a: {RES_STEPS} steps, digest {a['digest']}; fit step "
+            f"{step_ms:.3f} ms median with lineage, async snapshots and "
+            f"integrity on (24b's plain fit step {plain_step_ms} ms); "
+            f"snapshot {snap_bytes} B; training-thread stall a snapshot: "
+            f"sync {[round(x, 1) for x in syncs]} ms, async "
+            f"{[round(x, 1) for x in asyncs]} ms (the next step "
+            f"{[round(x, 3) for x in excess]} ms longer); async write "
+            f"{rates['write_gb_per_s']} GB/s after serialize + CRC at "
+            f"{rates['serialize_crc_gb_per_s']} GB/s; launches exact over "
+            f"the replayed steps")
+        shutil.rmtree(os.path.join(root, "a"), ignore_errors=True)
+
+        # ---- 30b, 30c, 30e: three jobs at once
+        jobs = [
+            # 30b: SIGTERM in step 23 -> PREEMPT_SAVED 24
+            start_job("30b", root, ["--max_restarts", "0"],
+                      {"R_DIR": os.path.join(root, "b"),
+                       "R_PREEMPT_AT": 23}),
+            # 30c: crash at step 40 with the step-32 snapshot torn (sync
+            # snapshots: a torn async one never commits; the ckpt hits
+            # are the baseline at 0, then 16, then 32)
+            start_job("30c", root, ["--max_restarts", "1"],
+                      {"R_DIR": os.path.join(root, "c"), "R_SYNC": "1",
+                       "PADDLE_TPU_FAULTS":
+                           "crash@step:40,torn_write@ckpt:3"}),
+            # 30e: a hung step under the watchdog; 30 s, as the step's
+            # capture beside two other jobs can outlast 10 s
+            start_job("30e", root, ["--max_restarts", "1",
+                                    "--watchdog_timeout", "30"],
+                      {"R_DIR": os.path.join(root, "e"),
+                       "PADDLE_TPU_FLIGHT_RECORDER": "256",
+                       "PADDLE_TPU_FAULTS": "hang@step:30"})]
+
+        # ---- 30d: a loss spike, in this process meanwhile. The poisoned
+        # batch's labels scaled 1000x leave the classes: its loss is NaN
+        # (JAX's fill-mode gather) and its gradient finite (the NaN rows
+        # pass none), so one trip is all the guard sees: rewind_after=1.
+        # Both runs read the data in order, so the twin's batches are the
+        # poisoned run's less the window
+        K.reset_launch_counts()
+        guard = {"rewind_after": 1}
+        lines = []
+        fault.set_fault_spec("loss_spike@batch:21")
+        try:
+            model, data = resilience_model(pt)
+            resilience_fit(pt, K, model, data, os.path.join(root, "d"),
+                           out=lines.append, integrity=guard, shuffle=False)
+        finally:
+            fault.set_fault_spec(None)
+        poisoned = params_digest(model.network)
+        got = {}
+        for line in lines:
+            if line.startswith("STEP "):
+                w = line.split(" ", 4)
+                got[int(w[1])] = float(w[2])
+        del model, data
+        free()
+        window = (20, 20)
+        drop = range(window[0], window[1] + 1)
+        model, data = resilience_model(pt, drop=drop)
+        twin_lines = []
+        resilience_fit(pt, K, model, data, os.path.join(root, "d2"),
+                       out=twin_lines.append, integrity=guard, shuffle=False)
+        twin = params_digest(model.network)
+        tl = [float(line.split(" ", 4)[2]) for line in twin_lines
+              if line.startswith("STEP ")]
+        del model, data
+        free()
+        kept = [i for i in range(RES_STEPS) if i not in drop]
+        if sorted(got) != kept:
+            fail(f"resilience 30d: steps recorded {sorted(got)} (the guard "
+                 f"should have rewound at step 20 and skipped it)")
+        if poisoned != twin or [got[i] for i in kept] != tl:
+            fail(f"resilience 30d: the rewound run ({poisoned}) differs "
+                 f"from the clean run that skips steps {window} ({twin})")
+        add_launches(acc, K.launch_counts())
+        numbers["30d"] = {"digest": poisoned, "skip_window": list(window)}
+        log(f"  30d: loss_spike@batch:21 -> a NaN loss at step 20, the "
+            f"guard's rewind to the step-16 snapshot, window {window} "
+            f"skipped; digest {poisoned} equal to the clean run without "
+            f"that batch, its {len(kept)} losses bit-equal")
+
+        (rb, eb, ib), (rc_, ec, ic), (re_, ee, ie) = \
+            [finish_job(j) for j in jobs]
+        check_job("30b", rb, eb, ib, ref,
+                  ["PREEMPT_SAVED 24", "RESUMED epoch=0 step=24 "
+                   "global_step=24"],
+                  ["rc=75", "does not consume max_restarts"])
+        pre_sync = [ms for s, k, ms in ib[0]["saves"] if s == 24 and
+                    k == "sync"]
+        numbers["30b"] = {"resume_s": resume_seconds(ib), "steps_lost": 0,
+                          "preempt_sync_save_ms": pre_sync}
+        log(f"  30b: SIGTERM in step 23 -> PREEMPT_SAVED 24, exit 75, "
+            f"relaunched without consuming max_restarts, RESUMED at 24; "
+            f"the sync save {[round(x, 1) for x in pre_sync]} ms; resume "
+            f"{numbers['30b']['resume_s']} s; 0 steps lost; every loss and "
+            f"the digest bit-equal to 30a")
+        check_job("30c", rc_, ec, ic, ref,
+                  ["skipping snapshot step_00000032",
+                   "RESUMED epoch=0 step=16 global_step=16"],
+                  ["rc=43", "restarting workers (1/1)"])
+        done = max(ic[0]["losses"])
+        numbers["30c"] = {"resume_s": resume_seconds(ic),
+                          "steps_lost": done + 1 - 16,
+                          "sync_save_ms": [ms for _, _, ms in ic[0]["saves"]]}
+        log(f"  30c: crashed (rc 43) after step {done}; the torn step-32 "
+            f"snapshot skipped by its CRC, resumed at 16; resume "
+            f"{numbers['30c']['resume_s']} s; {done + 1 - 16} steps lost; "
+            f"sync snapshots "
+            f"{[round(x, 1) for x in numbers['30c']['sync_save_ms']]} ms; "
+            f"every loss and the digest bit-equal to 30a")
+        done = max(ie[0]["losses"]) if ie else -1
+        pm = re.search(r"rank 0 \[watchdog_timeout\]: completed step "
+                       r"seq=\d+ \(step (\d+)\)", ee)
+        if pm is None or int(pm.group(1)) != done + 1:
+            fail(f"resilience 30e: the post-mortem does not name rank 0 at "
+                 f"step {done + 1}\n{ee}")
+        check_job("30e", re_, ee, ie, ref,
+                  ["RESUMED epoch=0 step=16 global_step=16"],
+                  ["rc=19", "[post-mortem]"])
+        numbers["30e"] = {"resume_s": resume_seconds(ie),
+                          "steps_lost": done + 1 - 16,
+                          "post_mortem_step": int(pm.group(1))}
+        log(f"  30e: hung before step {done + 1}; the watchdog (30 s) "
+            f"dumped the ring and exited 19; the post-mortem names rank 0 "
+            f"at step {pm.group(1)}; restarted, resumed at 16; resume "
+            f"{numbers['30e']['resume_s']} s; {done + 1 - 16} steps lost; "
+            f"every loss and the digest bit-equal to 30a")
+        for inc in ib + ic + ie:
+            add_launches(acc, inc["launches"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for k in per_step:
+        if not acc.get(k):
+            fail(f"resilience: kernel {k} never launched")
+    numbers["launches"] = {k: acc.get(k, 0) for k in per_step}
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 30 launches {numbers['launches']}; "
+        f"{numbers['phase_s']:.1f} s")
+    log("  " + json.dumps(numbers, default=str))
+    return {k: {"resilience_launches": acc.get(k, 0)} for k in per_step}, \
+        numbers
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -7591,6 +8093,7 @@ def main():
     log(f"[device] {smi} | torch {torch.__version__} CUDA "
         f"{torch.version.cuda} | {kind} x{torch.cuda.device_count()}")
 
+    clock("phase 1")
     # ------------------------------------------------------ phase 1: build
     t0 = time.perf_counter()
     libs = _build.build_all()
@@ -7603,6 +8106,7 @@ def main():
                 if "registers" in line or "spill" in line:
                     log(f"  ptxas {name}: {line.strip()}")
 
+    clock("phase 2")
     # ---------------------------------------------- phase 2: kernel parity
     log("[parity] ragged_paged_attention vs plain (H=16, D=128, page 16)")
     for kvh in (16, 4):
@@ -7656,6 +8160,7 @@ def main():
     del eng, small
     torch.cuda.empty_cache()
 
+    clock("phase 3")
     # ---------------------------------------------------- phase 3: serve
     cfg = pt.gpt_1p3b(dropout=0.0)
     t0 = time.perf_counter()
@@ -7752,6 +8257,7 @@ def main():
         check_replay_matches_eager("serve", label, run_round,
                                    rounds[key][1])
 
+    clock("phase 4")
     # --------------------------------------------------- phase 4: timing
     H, KVH, D, page = cfg.num_heads, cfg.num_kv_heads, 128, 16
     kernels = []
@@ -7830,6 +8336,7 @@ def main():
         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": lib_ms})
 
+    clock("phase 5")
     # ------------------------------------- phase 5: where the time goes
     report_round_profiles("profile", eng, cfg.vocab_size,
                           ("ragged_paged_attention", "layer_norm (triton)"))
@@ -7838,6 +8345,7 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
+    clock("phase 6")
     # ------------------------------------- phase 6: train-kernel parity
     log("[train parity] flash forward / dQ / dK/dV vs plain at "
         "[2, S, 16, 128] (f32 within 1e-4, bf16 within 2e-2 and a relative "
@@ -7845,15 +8353,18 @@ def main():
     train_kernel_parity(K)
     torch.cuda.empty_cache()
 
+    clock("phase 7")
     # ------------------------------- phase 7: 2-layer train-step parity
     log("[train parity] 2-layer f32 model at gpt_1p3b widths, one step "
         "(B=2, S=512) vs autograd through a dense plain forward")
     train_parity(pt, K)
     torch.cuda.empty_cache()
 
+    clock("phase 8")
     # ------------------------------------------------- phase 8: train
     t_model, t_opt, t_step, t_launches = train_slice(pt, K)
 
+    clock("phase 9")
     # ------------------------------- phase 9: train timing and profile
     report_profile("train", t_step)
     log("[train timing] the new kernels at the slice's shapes, held "
@@ -7862,6 +8373,7 @@ def main():
     del t_model, t_opt, t_step
     torch.cuda.empty_cache()
 
+    clock("phase 10")
     # ---------------------------------------- phase 10: bucketed parity
     bucketed_kernel_parity(K)
     log("[bucketed parity] 2-layer f32 gpt_1p3b(use_rms_norm=True) through "
@@ -7869,6 +8381,7 @@ def main():
     bucketed_model_parity(pt)
     torch.cuda.empty_cache()
 
+    clock("phase 11")
     # ------------------------------------------ phase 11: bucketed serve
     b_eng, b_model, rec, b_launches = bucketed_serve(pt, K)
     report_round_profiles("bucketed profile", b_eng,
@@ -7876,6 +8389,7 @@ def main():
                           ("paged_attention", "rms_norm (triton)"),
                           absent=("ragged_paged_attention",), unit="step")
 
+    clock("phase 12")
     # ----------------------------------------- phase 12: bucketed timing
     kernels += bucketed_timing(K, b_eng, b_model, rec, b_launches)
     b_eng.close()
@@ -7883,9 +8397,11 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
+    clock("phase 13")
     # ------------------------------------------------ phase 13: O2 train
     o_model, o_opt, _, o_launches = o2_train(pt, K)
 
+    clock("phase 14")
     # --------------------------- phase 14: master-mode kernel and resume
     log("[o2 timing] fused_adamw master and bf16-moment modes over the "
         "model's tensors, held against the plain version, then timed")
@@ -7894,6 +8410,7 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     resume_and_scaler_check(pt, K)
+    clock("phase 15")
     # ------------------------------------------------ phase 15: generate
     log("[generate parity] flash_fwd at one query row (the dense-cache "
         "step) vs plain")
@@ -7908,6 +8425,7 @@ def main():
                                flash_sq1["sq1_max_abs_err"])
     next(e for e in kernels if e["name"] == "layer_norm").update(ln_gen)
 
+    clock("phase 16")
     # ---------------------------------------------- phase 16: operations
     ops = operations_phase(pt, K)
     for name, n in ops["launches"].items():
@@ -7922,49 +8440,58 @@ def main():
     adam.update(adam_o2)
     adam["o2_launches"] = o_launches["fused_adamw"]
 
+    clock("phases 17-21")
     # ------------------------------- phases 17-21: the other models
     extra, resnet_losses = models_phases(pt, K)
     for name, numbers in extra.items():
         next(e for e in kernels if e["name"] == name).update(numbers)
 
+    clock("phase 22")
     # ---------------------------------------------- phase 22: to_static
     for name, numbers in static_phases(pt, K, resnet_losses).items():
         next(e for e in kernels if e["name"] == name).update(numbers)
     for e in kernels:
         e.setdefault("to_static_launches", 0)
 
+    clock("phase 23")
     # ------------------------------- phase 23: the zoo, the optimizers
     for name, numbers in zoo_optimizer_phases(pt).items():
         next(e for e in kernels if e["name"] == name).update(numbers)
 
+    clock("phase 24")
     # ------------------------------------- phase 24: the high-level API
-    hapi, _ = hapi_phases(pt, K)
+    hapi, hapi_numbers = hapi_phases(pt, K)
     for name, numbers in hapi.items():
         next(e for e in kernels if e["name"] == name).update(numbers)
+    clock("phase 25")
     # ------------------------------------------- phase 25: the op surface
     surface, _ = surface_phases(pt, K)
     for name, numbers in surface.items():
         next(e for e in kernels if e["name"] == name).update(numbers)
     for e in kernels:
         e.setdefault("surface_launches", 0)
+    clock("phase 26")
     # ------------------------------------- phase 26: nn.Layer, ParamAttr
     layer, _ = layer_phases(pt, K)
     for name, numbers in layer.items():
         next(e for e in kernels if e["name"] == name).update(numbers)
     for e in kernels:
         e.setdefault("layer_launches", 0)
+    clock("phase 27")
     # ---------------------------------------- phase 27: the rest of nn
     nn_extra, _ = nn_phases(pt, K)
     for name, numbers in nn_extra.items():
         next(e for e in kernels if e["name"] == name).update(numbers)
     for e in kernels:
         e.setdefault("nn_launches", 0)
+    clock("phase 28")
     # ------------- phase 28: the core runtime modules, the incubate surface
     inc_extra, _ = incubate_phases(pt, K)
     for name, numbers in inc_extra.items():
         next(e for e in kernels if e["name"] == name).update(numbers)
     for e in kernels:
         e.setdefault("incubate_launches", 0)
+    clock("phase 29")
     # -------- phase 29: exported programs, the predictor, static mode and
     # tensor control flow
     exp_extra, _ = export_phases(pt, K)
@@ -7972,10 +8499,19 @@ def main():
         next(e for e in kernels if e["name"] == name).update(numbers)
     for e in kernels:
         e.setdefault("export_launches", 0)
+    clock("phase 30")
+    # ------------------------------------- phase 30: resilient training
+    res_extra, _ = resilience_phases(
+        pt, K, hapi_numbers["bert"]["step_ms_median"])
+    for name, numbers in res_extra.items():
+        next(e for e in kernels if e["name"] == name).update(numbers)
+    for e in kernels:
+        e.setdefault("resilience_launches", 0)
     for e in kernels:
         e["max_abs_err"] = max([e["max_abs_err"]] + [
             v for k, v in e.items() if k.endswith("_max_abs_err")])
 
+    clock("the result")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -7987,4 +8523,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:] == ["--sigterm-child"]:
         sys.exit(sigterm_child())
+    if sys.argv[1:] == ["--resilience-worker"]:
+        sys.exit(resilience_worker())
     sys.exit(main())

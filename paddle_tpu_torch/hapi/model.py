@@ -16,11 +16,15 @@ for a batch (stacked on the device, one sync), on the JAX cadence: with
 no metrics attached ``fit`` keeps each step's loss as a lazy device
 scalar and fetches every ``loss_fetch_every`` steps and once an epoch.
 
-Not ported yet, and refused rather than ignored: ``fit(lineage=...)``
-and ``fit(integrity=...)`` (resumable training and the integrity guard,
-ROADMAP Queue 1 item 4), ``save(training=False)`` (``jit.save``, Queue 1
-item 2) and ``prepare`` under an initialized ``torch.distributed`` with
-more than one rank (``DataParallel``, Queue 1 item 6). ``fit``'s and
+``fit(lineage=...)`` makes the loop resumable and ``fit(integrity=...)``
+arms the training integrity guard, as in JAX (``:232-301``; the
+``distributed.resumable`` and ``distributed.integrity`` modules). Not
+ported yet, and refused rather than ignored: ``prepare`` under an
+initialized ``torch.distributed`` with more than one rank
+(``DataParallel``, which comes with the port's parallel training); the
+integrity guard's gradient fingerprints, which need its bucketed
+data-parallel scheduler, degrade to the health gates as JAX's do without
+one. ``fit``'s and
 ``evaluate``'s ``num_workers`` is ignored, as in JAX (``:201-227``), and so
 is ``fit``'s ``drop_last``: pass a :class:`~..io.DataLoader` with workers
 or ``drop_last=True``.
@@ -204,10 +208,23 @@ class Model:
         return self.network(x)
 
     # ---- loops ----
-    def _loader(self, data, batch_size, shuffle):
+    def _loader(self, data, batch_size, shuffle, epoch_keyed=False):
         if isinstance(data, DataLoader):
             return data
         if isinstance(data, Dataset):
+            if epoch_keyed and shuffle:
+                # resumable fit: the plain RandomSampler draws from the
+                # numpy global RNG, which snapshots do not capture — a
+                # resumed incarnation would iterate a DIFFERENT
+                # permutation and skip the wrong batches. The sharded
+                # sampler at nranks=1 shuffles epoch-keyed
+                # (RandomState(epoch)), identical across incarnations.
+                from ..io import DistributedBatchSampler
+                sampler = DistributedBatchSampler(
+                    data, batch_size=batch_size, num_replicas=1, rank=0,
+                    shuffle=True)
+                return DataLoader(data, batch_sampler=sampler,
+                                  places=self._device())
             return DataLoader(data, batch_size=batch_size, shuffle=shuffle,
                               places=self._device())
         raise TypeError(f"expected Dataset or DataLoader, got {type(data)}")
@@ -229,17 +246,31 @@ class Model:
         fetched value between fetches; epoch means and ``history`` are
         exact either way.
 
-        ``lineage`` (resumable training) and ``integrity`` (the training
-        integrity guard) raise ``NotImplementedError``: the port has not
-        ported them yet (ROADMAP Queue 1 item 4)."""
-        if lineage is not None:
-            raise NotImplementedError(
-                "fit(lineage=...) (resumable training) is not ported yet "
-                "(ROADMAP Queue 1 item 4)")
-        if integrity is not None and integrity is not False:
-            raise NotImplementedError(
-                "fit(integrity=...) (the training integrity guard) is not "
-                "ported yet (ROADMAP Queue 1 item 4)")
+        ``lineage`` (a ``distributed.fault.CheckpointLineage`` or a root
+        directory path) makes the loop RESUMABLE: on entry the newest
+        verified snapshot restores model/optimizer/RNG and the exact
+        epoch+batch position (already-consumed batches of the resumed
+        epoch are skipped, never double-counted), snapshots land every
+        ``snapshot_interval`` steps and at every epoch boundary
+        (``async_snapshot=True`` overlaps the device-to-host copy,
+        serialization, IO and the commit with training), and SIGTERM
+        converts into a synchronized save + exit 75 which the launcher
+        resumes without consuming its restart budget. When
+        ``train_data`` is a Dataset the loop makes the iteration order
+        deterministic itself (an epoch-keyed shuffle, identical across
+        incarnations); a user-supplied DataLoader must provide that
+        determinism for exact batch-skip resume (shuffle=False or a
+        seeded/epoch-keyed shuffle).
+
+        ``integrity`` (True / a dict of ``TrainingGuard`` knobs / a
+        guard instance) arms the training integrity guard
+        (``distributed.integrity``): per-step loss health gates
+        (median+MAD z-score with NaN/Inf folded in) and automatic
+        rewind-and-skip through ``lineage`` on a sustained anomaly. The
+        guard needs the host loss value every step, so it forces the
+        blocking fetch the amortized cadence otherwise avoids — a
+        documented cost of ``integrity=``; with it unset (the default)
+        the loop is structurally unchanged."""
         from .callbacks import ProgBarLogger
         cbs = _as_list(callbacks)
         if verbose and not any(isinstance(c, ProgBarLogger) for c in cbs):
@@ -255,7 +286,24 @@ class Model:
                 cbs.append(tm)
         for c in cbs:
             c.set_model(self)
-        loader = self._loader(train_data, batch_size, shuffle)
+        loader = self._loader(train_data, batch_size, shuffle,
+                              epoch_keyed=lineage is not None)
+        rt = None
+        if lineage is not None:
+            from ..distributed.resumable import ResumableTraining
+            rt = ResumableTraining(
+                lineage, network=self.network, optimizer=self._optimizer,
+                interval=snapshot_interval, async_snapshot=async_snapshot)
+            rt.restore()
+        guard = None
+        if integrity is not None and integrity is not False:
+            from ..distributed.integrity import make_guard
+            guard = make_guard(integrity)
+            guard.attach_fingerprints(self.network)
+            if rt is not None:
+                # a rewind target must exist even if an anomaly trips
+                # before the first interval snapshot
+                rt.ensure_baseline()
         history = {"loss": []}
         # amortized loss-fetch cadence: align with the tightest progress
         # logger so every PRINTED loss is fresh, never force a per-step
@@ -268,16 +316,24 @@ class Model:
         lazy_loss = not self._metrics
         for c in cbs:
             c.on_train_begin()
-        it = 0
+        it = rt.global_step if rt is not None else 0
         done = False
         try:
-            for epoch in range(epochs):
+            # explicit epoch cursor (not a range): the integrity guard's
+            # rewind restores rt to an earlier epoch/step and the loop
+            # must re-enter there to replay with the window skipped
+            epoch = rt.epoch if rt is not None else 0
+            rewound = False
+            suspect = False    # guard flagged the latest step
+            while epoch < epochs:
                 if done:
                     break
                 self.network.train()
                 sampler = getattr(loader, "batch_sampler", None)
                 if hasattr(sampler, "set_epoch"):
-                    # per-epoch reshuffle (reference set_epoch idiom)
+                    # per-epoch reshuffle (reference set_epoch idiom) — and
+                    # the key a resumed incarnation replays the same
+                    # permutation from
                     sampler.set_epoch(epoch)
                 for c in cbs:
                     c.on_epoch_begin(epoch)
@@ -285,19 +341,36 @@ class Model:
                     m.reset()
                 epoch_losses = []
                 shown_loss = None  # most recently FETCHED loss float
+                suspect = False
                 for step, batch in enumerate(loader):
+                    if rt is not None and rt.skip_batch(epoch, step):
+                        continue  # consumed before the restart
                     if num_iters is not None and it >= num_iters:
                         done = True
                         break
+                    if rt is not None:
+                        rt.poll_preempt(epoch, step)
                     x, y = batch[0], batch[1]
+                    if guard is not None:
+                        y = guard.maybe_poison(y)
                     if tm is not None:
                         tm.batch_ready(x)  # data wait ends here
                     for c in cbs:
                         c.on_train_batch_begin(step)
                     loss = self.train_batch(x, y, sync=not lazy_loss)
+                    if guard is not None and isinstance(loss, torch.Tensor):
+                        # the health gate scores every step's HOST value:
+                        # integrity= pays the per-step fetch (documented
+                        # cost), through the one counted funnel
+                        _telemetry.mark_sync_begin()
+                        loss = self._fetch_scalar(loss)
+                        shown_loss = loss
                     if isinstance(loss, torch.Tensor):
                         # lazy loss: fetch on the cadence, keep the card's
-                        # queue full in between
+                        # queue full in between. shown_loss None means no
+                        # fetch has happened yet THIS epoch (e.g. a
+                        # mid-epoch resume skipped past step 0): fetch so
+                        # callbacks never see logs={"loss": None}
                         if step % loss_fetch_every == 0 or \
                                 shown_loss is None:
                             _telemetry.mark_sync_begin()
@@ -305,6 +378,14 @@ class Model:
                             shown_loss = loss
                     else:
                         shown_loss = loss
+                    if guard is not None:
+                        verdict = guard.observe_loss(loss, epoch, step, it)
+                        if verdict == "rewind":
+                            guard.rewind(rt, epoch, step)
+                            it = rt.global_step
+                            rewound = True
+                            break
+                        suspect = verdict is not None
                     epoch_losses.append(loss)
                     logs = {"loss": shown_loss}
                     for m in self._metrics:
@@ -312,7 +393,26 @@ class Model:
                     for c in cbs:
                         c.on_train_batch_end(step, logs)
                     it += 1
+                    if rt is not None:
+                        try:
+                            last = step + 1 == len(loader)
+                        except TypeError:  # unsized iterable loader
+                            last = False
+                        rt.step_done(epoch, step, defer_to_epoch=last,
+                                     suspect=suspect)
+                        if tm is not None:
+                            # a sync interval snapshot must not read as
+                            # data wait in the next step's split
+                            tm.note_pause()
+                if rewound:
+                    rewound = False
+                    epoch = rt.epoch
+                    continue  # replay from the restored snapshot state
                 if not epoch_losses:
+                    if rt is not None and epoch == rt.epoch \
+                            and rt.step_in_epoch > 0:
+                        epoch += 1
+                        continue  # resumed exactly at this epoch's end
                     break
                 epoch_losses = self._resolve_losses(epoch_losses)
                 logs = {"loss": float(np.mean(epoch_losses))}
@@ -329,16 +429,37 @@ class Model:
                     c.on_epoch_end(epoch, logs)
                 if save_dir and (epoch + 1) % save_freq == 0:
                     self.save(f"{save_dir}/{epoch}")
+                if rt is not None and not done and not suspect:
+                    # a num_iters cut mid-epoch must NOT snapshot the epoch
+                    # as complete — resuming would silently skip its tail;
+                    # a guard-suspect tail must not snapshot possibly-
+                    # corrupted parameters as the boundary either
+                    rt.epoch_done(epoch)
                 if any(getattr(c, "stop_training", False) for c in cbs):
                     break
+                epoch += 1
+        except BaseException:
+            if rt is not None:
+                # drain the in-flight overlapped snapshot so the error
+                # path still leaves a complete, committed last snapshot
+                try:
+                    rt.finalize()
+                except Exception:
+                    pass  # never mask the training error
+            raise
         finally:
             if tm is not None:
                 # the error path must clear the module-global telemetry
                 # clock and flush the last window too (idempotent: the
                 # success path's on_train_end below becomes a no-op)
-                tm.on_train_end()
+                try:
+                    tm.on_train_end()
+                except Exception:
+                    pass
         for c in cbs:
             c.on_train_end()
+        if rt is not None:
+            rt.finalize()
         return history
 
     def evaluate(self, eval_data, batch_size=1, log_freq=10, verbose=2,

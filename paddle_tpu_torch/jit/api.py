@@ -26,7 +26,9 @@ as in JAX:
   (the models' dropout generators) are registered with the graph, so
   every replay draws a fresh mask, as JAX derives a fresh key per call
   (``api.py:528-531``); the default generator is the graph's own. As in
-  JAX, the parameters' ``.grad`` are None after a staged step.
+  JAX, the parameters' ``.grad`` are None after a staged step, and every
+  call first beats the step watchdog (``distributed.watchdog.beat``, the
+  ``step`` fault site) before the step runs.
 * **forward staging** (``to_static(layer)`` or ``to_static(fn)``,
   ``api.py:373-449``): without autograd (eval, ``no_grad``) one forward
   graph; with autograd a graphed autograd function, a forward graph and a
@@ -99,6 +101,8 @@ import warnings
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+
+from ..distributed import watchdog as _watchdog
 
 __all__ = ["to_static", "not_to_static", "InputSpec", "StaticFunction",
            "ignore_module", "GraphBreak"]
@@ -485,6 +489,11 @@ class StaticFunction:
     def __call__(self, *args, **kwargs):
         if getattr(_tls, "depth", 0):
             return self._fn(*args, **kwargs)
+        if self._capture is not None:
+            # the step watchdog's heartbeat (if armed) and the ``step``
+            # fault site, before the step runs — replayed, captured or
+            # eager alike (``paddle_tpu/jit/api.py:331``, ``:369``)
+            _watchdog.beat()
         try:
             if self._capture is not None:
                 return self._call_whole_step(args, kwargs)

@@ -37,8 +37,15 @@ def _reduce(val, reduction):
 
 def _pick(logp, label, axis):
     """``logp`` at the class ``label`` names along ``axis`` (``label``
-    has ``logp``'s shape without that axis)."""
-    return logp.gather(axis, label.unsqueeze(axis)).squeeze(axis)
+    has ``logp``'s shape without that axis). A label outside
+    ``[-C, C)`` picks NaN, as ``jnp.take_along_axis``'s fill mode gives
+    in the JAX package (never an index error on the CPU or a device-side
+    assert on the card); a negative one counts from the end."""
+    n = logp.shape[axis]
+    inb = (label >= -n) & (label < n)
+    idx = torch.where(inb, label % n, torch.zeros_like(label))
+    picked = logp.gather(axis, idx.unsqueeze(axis)).squeeze(axis)
+    return torch.where(inb, picked, torch.full_like(picked, float("nan")))
 
 
 def cross_entropy(input, label, weight=None, ignore_index=-100,
@@ -74,7 +81,7 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
             + label_smoothing * logp.mean(dim=axis)
     loss = -picked
     if weight is not None:
-        wc = weight.float()[safe]
+        wc = weight.float()[safe % n_classes]
         loss = loss * wc
     loss = torch.where(valid, loss, torch.zeros_like(loss))
     if reduction == "mean":

@@ -390,6 +390,24 @@ def flush():
     return reg.flush() if reg is not None else None
 
 
+def observe_replication(head_seq, acked_seq, shipped=0, torn=0):
+    """Replication-plane telemetry of the log-shipped store failover
+    (``paddle_tpu/observability/metrics.py:467``):
+    ``store_replication_lag`` gauge (primary WAL head minus the standby's
+    acked seq) plus shipped/torn counters. Called from
+    ``distributed.tcp_store.LogShipper.ship_once``; one ``None`` check
+    when metrics are off."""
+    reg = _REG if _loaded else _load()
+    if reg is None:
+        return
+    reg.gauge("store_replication_lag").set(
+        max(0, int(head_seq) - int(acked_seq)))
+    if shipped:
+        reg.counter("store_wal_shipped_total").inc(int(shipped))
+    if torn:
+        reg.counter("store_wal_torn_total").inc(int(torn))
+
+
 # ---------------------------------------------------------- hardware table
 
 def peak_flops(device_kind=""):

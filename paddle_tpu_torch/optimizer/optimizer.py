@@ -329,8 +329,16 @@ class Optimizer:
             if key == "master_weights":
                 for pname, w in value.items():
                     p = by_name.get(pname)
-                    if p is not None:
-                        self._master_weights[p] = torch.as_tensor(w).to(
+                    if p is None:
+                        continue
+                    w = torch.as_tensor(w)
+                    have = self._master_weights.get(p)
+                    if have is not None and have.shape == w.shape:
+                        # in place: a captured step's graph reads this
+                        # storage (an in-process rewind restores into it)
+                        have.copy_(w)
+                    else:
+                        self._master_weights[p] = w.to(
                             p.device, torch.float32).clone()
                 continue
             # key = f"{param name}_{accumulator}": the longest name that is

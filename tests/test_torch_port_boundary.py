@@ -33,7 +33,8 @@ def _port_sources():
     out = [os.path.join(REPO, f) for f in ("chip_smoke.py",
                                            "flash_variants.py",
                                            "paged_splits.py",
-                                           "layer_overhead.py")]
+                                           "layer_overhead.py",
+                                           "tests/torch_resilience_worker.py")]
     for root, _, files in os.walk(PKG):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)

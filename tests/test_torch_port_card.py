@@ -2451,3 +2451,112 @@ def test_batching_predictor_returns_every_row_on_card(tmp_path):
         want = model(torch.from_numpy(ids).cuda()).cpu().numpy()
     np.testing.assert_allclose(np.stack(res), want, rtol=1e-4, atol=1e-4)
     assert pred._layer.stats()["graph_breaks"] == 0
+
+
+@pytest.mark.cuda
+def test_snapshot_with_fused_adamw_state_round_trips_on_card(tmp_path):
+    """A CUDA model's parameters and fused-AdamW state (O2: f32 masters
+    and bf16 moments) through ``CheckpointLineage`` (an async save: pinned
+    buffers on a side stream) back onto the card: bit-equal, copied into
+    the same storage, and a step after the load equals a step after the
+    save."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed.fault import CheckpointLineage
+
+    def build():
+        net = pt.BertForSequenceClassification(pt.bert_tiny(), num_classes=2,
+                                               seed=3)
+        opt = pt.AdamW(1e-3, parameters=net.parameters(),
+                       multi_precision=True)
+        net, opt = pt.amp.decorate(net, opt, level="O2")
+        # every accumulator up front, as a staged step and a resume make
+        # them (a parameter with no gradient here would have none)
+        opt.materialize()
+        return net, opt
+
+    ids = torch.randint(0, 512, (4, 16), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(1))
+    y = ids[:, 0] % 2
+
+    def step(net, opt):
+        with pt.auto_cast(level="O2", dtype="bfloat16"):
+            loss = pt.nn.functional.cross_entropy(net(ids), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.float().item()
+
+    net, opt = build()
+    for _ in range(2):
+        step(net, opt)
+    lin = CheckpointLineage(str(tmp_path))
+    lin.save({"model": net.state_dict(), "opt": opt.state_dict()}, 2,
+             async_save=True)
+    want = step(net, opt)          # overwrites the tensors in place
+    lin.wait()
+    after = {k: v.clone() for k, v in net.state_dict().items()}
+    net2, opt2 = build()
+    target = {"model": net2.state_dict(), "opt": opt2.state_dict()}
+    assert lin.load_latest(target) == 2
+    opt2.set_state_dict(target["opt"])
+    masters = {id(p): w.data_ptr() for p, w in opt2._master_weights.items()}
+    opt2.set_state_dict(target["opt"])     # a rewind: in place again
+    assert masters == {id(p): w.data_ptr()
+                       for p, w in opt2._master_weights.items()}
+    assert step(net2, opt2) == want
+    for k, v in net2.state_dict().items():
+        assert torch.equal(v, after[k]), k
+
+
+@pytest.mark.cuda
+def test_staged_step_rng_restored_across_a_resume_on_card(tmp_path):
+    """A staged step with dropout (the model's own CUDA generator,
+    registered with the graph, and the default generator) advances its
+    Philox offset at every replay; a resume in a fresh model from the
+    step-3 snapshot (eager warm-up, then a capture) puts the next steps at
+    the uninterrupted run's offsets: the losses are bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed.resumable import ResumableTraining
+
+    def build():
+        pt.seed(0)
+        net = pt.BertForSequenceClassification(pt.bert_tiny(), num_classes=2,
+                                               seed=5)
+        opt = pt.AdamW(1e-3, parameters=net.parameters())
+        F = pt.nn.functional
+
+        def train_step(x, y):
+            with pt.auto_cast(level="O1", dtype="bfloat16"):
+                loss = F.cross_entropy(F.dropout(net(x), 0.3, training=True),
+                                       y)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+        return net, opt, pt.jit.to_static(train_step, capture=(net, opt))
+
+    g = torch.Generator("cuda").manual_seed(2)
+    batches = [torch.randint(0, 512, (4, 16), device="cuda", generator=g)
+               for _ in range(8)]
+
+    def run(step, lo, hi):
+        return [float(step(b, b[:, 0] % 2)) for b in batches[lo:hi]]
+
+    net, opt, step = build()
+    full = run(step, 0, 8)
+    net, opt, step = build()
+    rt = ResumableTraining(str(tmp_path), network=net, optimizer=opt,
+                           verbose=False)
+    rt.restore()
+    run(step, 0, 3)
+    rt.global_step = 3
+    rt._save(0, 3, sync=True)
+    net, opt, step = build()
+    rt = ResumableTraining(str(tmp_path), network=net, optimizer=opt,
+                           verbose=False)
+    assert rt.restore() == 3
+    assert run(step, 3, 8) == full[3:]

@@ -28,6 +28,8 @@ width the CPU runs quickly.
 
 Tolerances: f32 ``rtol 1e-4 / atol 1e-5`` unless a case says otherwise.
 """
+import zlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -65,11 +67,69 @@ def _port_device():
     port_device.DEFAULT_DEVICE = before
 
 
+def _global_state():
+    """The process-wide settings another test file could leave behind on
+    this worker, in both packages and in torch, numpy and JAX."""
+    from importlib import import_module as mod  # modules that functions
+    jamp = mod("paddle_tpu.amp.auto_cast")      # of their names shadow
+    jgrad = mod("paddle_tpu.core.autograd")
+    jdtype = mod("paddle_tpu.core.dtype")
+    jflags = mod("paddle_tpu.framework.flags")
+    tamp = mod("paddle_tpu_torch.amp.auto_cast")
+    tflags = mod("paddle_tpu_torch.framework.flags")
+    return {
+        "torch": (torch.get_default_dtype(), torch.is_grad_enabled(),
+                  torch.are_deterministic_algorithms_enabled(),
+                  torch.get_num_threads()),
+        "port": (tamp.amp_key(), pt.in_dynamic_mode(),
+                 {k: f.value for k, f in tflags._registry.items()}),
+        "jax_config": {k: getattr(jax.config, k) for k in (
+            "jax_enable_x64", "jax_default_matmul_precision",
+            "jax_numpy_dtype_promotion", "jax_default_prng_impl")},
+        "paddle_tpu": (jamp.amp_key_cached()[:3], paddle.in_dynamic_mode(),
+                       jgrad.is_grad_enabled(), jdtype.get_default_dtype(),
+                       {k: f.value for k, f in jflags._registry.items()}),
+        "numpy": np.geterr(),
+    }
+
+
+@pytest.fixture(autouse=True)
+def _record_what_came_before(request):
+    """Prints (shown only when a case fails) the global settings it ran
+    under and the tests this worker ran before it, oldest first: a case
+    that fails only after other files on the same ``pytest-xdist`` worker
+    then names what ran there and what it left set."""
+    tr = request.config.pluginmanager.get_plugin("terminalreporter")
+    reports = [r for v in (tr.stats.values() if tr else ())
+               for r in v if getattr(r, "when", None) == "call"]
+    reports.sort(key=lambda r: getattr(r, "start", 0.0))
+    print("global state:", _global_state())
+    print(f"ran before on this worker ({len(reports)}):")
+    for r in reports:
+        print(f"  {r.outcome} {r.nodeid}")
+    yield
+
+
+_RNG = [None]
+
+
+@pytest.fixture(autouse=True)
+def _case_rng(request):
+    """Each case draws its initial weights from a numpy stream of its own,
+    seeded by the case's name: under ``pytest-xdist``'s load scheduling
+    which of the module's cases a worker ran before one is a matter of
+    timing, so a stream shared by the module gave a case different
+    weights from run to run."""
+    _RNG[0] = np.random.default_rng(
+        zlib.crc32(request.node.name.encode()))
+    yield
+    _RNG[0] = None
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _numpy_init():
     """The JAX layers' initial weights drawn with numpy (see the module
-    docstring); put back after the module."""
-    rng = np.random.default_rng(1234)
+    docstring) from the case's stream; put back after the module."""
     orig = JI.Initializer.__call__
 
     def draw(self, shape, dtype=None):
@@ -77,7 +137,7 @@ def _numpy_init():
         if isinstance(self, JI.Constant):
             return jnp.full(shape, self.value, jnp.float32)
         fan = JI._compute_fans(shape)[0]
-        return jnp.asarray(rng.standard_normal(shape, dtype=np.float32)
+        return jnp.asarray(_RNG[0].standard_normal(shape, dtype=np.float32)
                            / np.float32(np.sqrt(max(fan, 1))))
 
     JI.Initializer.__call__ = draw
