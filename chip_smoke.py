@@ -490,6 +490,39 @@ exit code:
     loss) under ``integrity={"rewind_after": 1}``: the guard rewinds to
     the step-16 snapshot and skips step 20; the digest and every loss
     equal a clean run over the same data without that batch.
+31. **elastic training and resumable distributed linear algebra** —
+    jobs of the port's launcher under ``--np 2:3 --max_restarts 0``
+    (``chip_smoke.py --dlinalg-worker`` / ``--elastic-worker``), rank 2
+    SIGKILLing itself mid-run in the first incarnation; 31a, then 31b,
+    each alone on the card. (a) ``dlinalg``
+    on the device backend (torch f64): ``summa_matmul`` at world 3
+    (threads on one ``LocalExchange``, as ``bench.py``'s linalg leg) of
+    a 4096 x 4096 by 4096 x 16 product, block 256, relative residual
+    under 1e-12 against ``matmul_reference``, GFLOP/s; then the
+    resumable eigensolve (N 4096, block 256: 16 panels a sweep, p 16,
+    seed 5, tol 1e-9; every rank builds A by a host QR of a 4096 x 4096
+    Gaussian in every incarnation, which sets its size; two BLAS
+    threads a rank), killed in
+    sweep 1: a scale event and a relaunch at world 2, both survivors
+    resumed at the last committed (sweep, panel) with no panel
+    recomputed, ``DONE`` residual and ``THETA_ERR`` (against the
+    spectrum the construction fixes) under 1e-6; the recovery time
+    (``SELF_SIGKILL`` to the first resumed ``PANEL``) and a sweep's
+    time. (b) phase 30's BERT-base classifier through ``Model.fit``
+    wrapped in ``DataParallel`` over gloo (each rank's shard of 512
+    sequences, B 32 x S 128 a rank, O1, sync snapshots every 4 steps
+    through a ``CheckpointLineage`` and its store commit barrier), rank
+    2 killed after its 5th step: a scale event, a relaunch at world 2,
+    both survivors resumed at exactly global step 4 (the last committed
+    snapshot) and ran each remaining batch once, one graph break each
+    (the gloo sync runs eagerly, never in a graph), the first synced
+    step's averaged gradients in each incarnation held against the plain
+    mean of every rank's own (gathered over gloo as CPU tensors: the
+    small leaves element by element, every leaf by its sum and a seeded
+    projection, within 2^-20 of the ranks' summed magnitudes), bit-equal
+    parameter digests, the flash trio's, LayerNorm's and AdamW's launches exact
+    for the steps each incarnation ran; the step time at world 3 and 2,
+    the all-reduce's share of a step and the recovery time.
 
 The lines before the last carry the ``{"kernels": [...]}`` JSON (all eight
 kernels; the ``fused_adamw`` entry adds the master and bf16-moment modes'
@@ -523,7 +556,8 @@ phase 29 adds to every entry ``export_launches``, its launches through
 the exported programs of 29a-29c (loaded programs, the predictor, the
 saved static program); phase 30 adds to every entry
 ``resilience_launches``, its launches over 30a-30e's workers and 30d's
-two fits; every ``max_abs_err`` is
+two fits; phase 31 adds to every entry ``elastic_launches``, its
+launches over 31b's workers; every ``max_abs_err`` is
 the largest of its entry's errors) and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the repository beside it, the script exits
@@ -5599,7 +5633,7 @@ def surface_sampling(pt, slots=16, vocab=50304, draws=4096, ps=0.9,
     return {"tv": tv, "nucleus_sizes": sorted(len(n) for n in nucleus)}
 
 
-def surface_overhead(pt, n=20000):
+def surface_overhead(pt, n=5000):
     """Phase 25d: host us a call of ``pt.add`` (tensor and Python-number
     operands, f32 and bf16), ``pt.multiply`` and ``pt.clip`` with
     numbers, ``pt.add_``,
@@ -7185,7 +7219,7 @@ def export_cpu_to_card(pt, K, acc, tmp):
     return {"max_abs_err": err}
 
 
-def op_overhead(K, n=20000):
+def op_overhead(K, n=5000):
     """Host us a call of each kernel op against its bare wrapper on a
     small CUDA tensor (the dispatcher's own cost; phase 25d's method: two
     turns each, the lower taken)."""
@@ -8067,6 +8101,603 @@ def resilience_phases(pt, K, plain_step_ms):
         numbers
 
 
+# ------------------------------------------------------------- phase 31
+# elastic training and resumable distributed linear algebra: jobs of the
+# port's launcher under --np 2:3, rank 2 SIGKILLing itself mid-run
+DLA_N, DLA_BLOCK, DLA_P, DLA_SEED, DLA_TOL = 4096, 256, 16, 5, 1e-9
+# the eigensolve's kill: rank 2 after 21 committed panels, the fifth
+# panel of sweep 1 (16 panels a sweep)
+DLA_KILL = "2:21"
+# 31b: B 32 x S 128 a rank over 512 sequences (an epoch is 6 steps at
+# world 3, the last one short, and 8 at world 2), a sync snapshot every 4
+# steps, rank 2 killed at the end of its 5th step: one snapshot in each
+# incarnation (the second at the epoch's end)
+EL_B, EL_S, EL_INTERVAL, EL_KILL_AFTER = 32, 128, 4, 5
+EL_SAMPLES = 16 * EL_B
+# the host BLAS threads of each eigensolve rank: three host QRs of A at
+# once on the card machine's 8 cores
+DLA_THREADS = 2
+# what the launcher starts as phase 31's workers
+EL_WORKER = {"dlinalg": [os.path.abspath(__file__), "--dlinalg-worker"],
+             "elastic": [os.path.abspath(__file__), "--elastic-worker"]}
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dla_matrix(n, p, seed):
+    """``tests/workers/dlinalg_worker.py``'s symmetric A with a spectral
+    gap, built on the host (a QR of an n x n Gaussian: at n 4096 that QR
+    sets the size of phase 31a's job) -> (A, its p dominant eigenvalues,
+    which the construction fixes)."""
+    rng = np.random.default_rng(seed)
+    V, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    d = np.concatenate([np.linspace(p + 1.0, 2.0, p),
+                        np.sort(rng.uniform(0.0, 0.05, n - p))[::-1]])
+    return (V * d) @ V.T, d[:p]
+
+
+def dlinalg_worker():
+    """``chip_smoke.py --dlinalg-worker``: one incarnation of 31a's
+    eigensolve under the launcher, as ``tests/torch_dlinalg_worker.py``
+    runs it (its markers; ``PADDLE_TPU_DLA_KILL`` once a job), on the
+    device backend, with THETA_ERR against the spectrum the construction
+    fixes and ``START`` / ``BUILT`` stamps."""
+    import signal
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import dlinalg, fault
+    print(f"SPAWNED {process_start_time()!r}", flush=True)
+    dist.init_parallel_env()
+    world, rank = dist.get_world_size(), dist.get_rank()
+    inc = int(os.environ.get("PADDLE_TPU_RESTART_NUM", "0"))
+    print(f"WORLD {world}", flush=True)
+    root = os.environ["PADDLE_TPU_CKPT_DIR"]
+    store = None
+    if world > 1:
+        store = dist.TCPStore(
+            "127.0.0.1", int(os.environ["PADDLE_TPU_FT_STORE_PORT"]),
+            is_master=(rank == 0), world_size=world, timeout=120)
+    lineage = fault.CheckpointLineage(root, store=store, world_size=world,
+                                      rank=rank)
+    t0 = time.perf_counter()
+    A_full, ref = dla_matrix(DLA_N, DLA_P, DLA_SEED)
+    print(f"BUILT {time.perf_counter() - t0!r}", flush=True)
+    A = dlinalg.ShardedMatrix.from_global(A_full, DLA_BLOCK, world=world,
+                                          rank=rank)
+    del A_full
+    exchange = (dlinalg.StoreExchange(store, job="chip") if store
+                else dlinalg.LocalExchange())
+    spec = dlinalg.SweepSpec(DLA_N, DLA_P, block_rows=DLA_BLOCK,
+                             seed=DLA_SEED, tol=DLA_TOL, max_sweeps=60,
+                             checkpoint_panels=True, backend="xla")
+    solver = dlinalg.SubspaceEigensolver(A, spec, exchange, lineage=lineage,
+                                         job="chip")
+    if store is not None:
+        exchange.barrier(f"start/i{inc}", world, timeout=120)
+    step = solver.restore()
+    if store is not None:
+        exchange.barrier(f"restored/i{inc}", world, timeout=120)
+    print("FRESH" if step is None else f"RESUMED step={step} sweep="
+          f"{solver.sweep} panel={solver.panel}", flush=True)
+    kill_rank, kill_after = (int(x) for x in
+                             os.environ.get("PADDLE_TPU_DLA_KILL",
+                                            "-1:0").split(":"))
+    marker = os.path.join(root, "chaos_killed.marker")
+    committed = 0
+
+    def on_panel(s, b):
+        nonlocal committed
+        committed += 1
+        print(f"PANEL {s} {b} {time.time():.6f}", flush=True)
+        if rank == kill_rank and committed == kill_after and \
+                not os.path.exists(marker):
+            with open(marker, "w") as f:
+                f.write(f"i{inc} s{s} b{b}\n")
+            print(f"SELF_SIGKILL {time.time():.6f}", flush=True)
+            os.kill(os.getpid(), signal.SIGKILL)
+
+    def on_sweep(s, resid):
+        print(f"SWEEP {s} {resid:.6e} {time.time():.6f}", flush=True)
+
+    print(f"START {time.time():.6f}", flush=True)
+    try:
+        theta, _, _ = solver.run(on_panel=on_panel, on_sweep=on_sweep)
+    except dlinalg.OracleViolation as e:
+        print(f"ORACLE_FAIL {e.what} {e.value:.6e}", flush=True)
+        return fault.EXIT_ORACLE
+    err = float(np.max(np.abs(theta - ref)) / np.max(np.abs(ref)))
+    print(f"THETA_ERR {err:.6e}", flush=True)
+    if store is not None:
+        exchange.barrier(f"exit/i{inc}", world, timeout=60)
+    print(f"DONE {solver.sweep} {solver.residual_history[-1]:.6e}",
+          flush=True)
+    return 0
+
+
+def elastic_model(pt):
+    """31b's job: phase 30's BERT-base classifier (seed 0, hidden dropout
+    0.1, attention-probability dropout 0) under ``AdamW(2e-5, wd 0.01)``
+    and ``amp_configs="O1"``, prepared in the parallel env (so wrapped in
+    ``DataParallel`` at world > 1), on ``EL_SAMPLES`` token sequences
+    (numpy seed 41). -> (model, dataset)."""
+    cfg = pt.bert_base()
+    net = pt.BertForSequenceClassification(cfg, num_classes=2, seed=SEED)
+    for m in net.modules():
+        if isinstance(m, pt.nn.MultiHeadAttention):
+            m.dropout = 0.0
+    model = pt.Model(net)
+    model.prepare(pt.AdamW(2e-5, parameters=net.parameters(),
+                           weight_decay=0.01),
+                  pt.nn.CrossEntropyLoss(), amp_configs="O1")
+    ids = np.random.RandomState(SEED + 41).randint(
+        0, cfg.vocab_size, (EL_SAMPLES, EL_S))
+    labels = (ids[:, 0] < cfg.vocab_size // 2).astype(np.int64)
+    return model, array_dataset(pt, ids, labels)
+
+
+# the largest leaf 31b's gradient check compares element by element
+GRAD_CHECK_SMALL = 65536
+
+
+def grad_sync_check(dp, sync):
+    """Run ``sync`` (``DataParallel._sync_grads``) on ``dp`` and hold the
+    averaged gradients against the plain mean of every rank's own
+    (pre-sync) gradients, gathered as CPU tensors over the same gloo
+    group: every leaf of up to ``GRAD_CHECK_SMALL`` elements element by
+    element, and every leaf by its f64 sum and its dot with a seeded
+    random vector (the same on every rank). The bound is 2^-20 of the
+    summed magnitudes over the ranks (f32 sums and a division round at
+    most 3 x 2^-24 of them): a wrong division, a bucket copied back at a
+    wrong offset or a stale buffer exceeds it. -> {"leaves", "small",
+    "elem_ratio", "proj_ratio"} (the worst error over its bound; <= 1
+    passes)."""
+    import torch.distributed as tdist
+    grads = [p.grad for p in dp.parameters() if p.grad is not None]
+    world = tdist.get_world_size()
+
+    def weights(i, g):
+        gen = torch.Generator(device=g.device)
+        gen.manual_seed(1000 + i)
+        return torch.randn(g.numel(), generator=gen, device=g.device,
+                           dtype=torch.float64)
+
+    def stats(with_abs):
+        rows = []
+        for i, g in enumerate(grads):
+            gd, wd = g.detach().reshape(-1).double(), weights(i, g)
+            row = [gd.sum(), (gd * wd).sum()]
+            if with_abs:
+                row += [gd.abs().sum(), (gd * wd).abs().sum()]
+            rows.append(torch.stack(row))
+        return torch.stack(rows).cpu()
+
+    small = [i for i, g in enumerate(grads) if g.numel() <= GRAD_CHECK_SMALL]
+    local = torch.cat([grads[i].detach().reshape(-1).float()
+                       for i in small]).cpu()
+    pre = stats(True)
+    sync(dp)
+    post = stats(False)
+    after = torch.cat([grads[i].detach().reshape(-1).double()
+                       for i in small]).cpu()
+    tdist.all_reduce(pre)
+    gathered = [torch.empty_like(local) for _ in range(world)]
+    tdist.all_gather(gathered, local)
+    every = torch.stack(gathered).double()
+    bound = 2.0 ** -20
+    elem = ((after - every.mean(0)).abs()
+            / (bound * every.abs().sum(0)).clamp_min(1e-300))
+    proj = ((post - pre[:, :2] / world).abs()
+            / (bound * pre[:, 2:]).clamp_min(1e-300))
+    return {"leaves": len(grads), "small": int(local.numel()),
+            "elem_ratio": float(elem.max()),
+            "proj_ratio": float(proj.max())}
+
+
+def elastic_worker():
+    """``chip_smoke.py --elastic-worker``: one incarnation of 31b under
+    the launcher. Prints ``WORLD``, fit's ``RESUMED`` line, a ``BATCH
+    <epoch> <step> <executed> <wall clock> <host clock> <all-reduce s>
+    <launch counts>`` line a step (the loss fetched every step), and
+    ``DIGEST`` / ``DONE`` at the end; rank 2 of the first incarnation
+    SIGKILLs itself at the end of step ``EL_KILL_AFTER``."""
+    import signal
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import fault, parallel
+    from paddle_tpu_torch.ops import kernels as K
+    print(f"SPAWNED {process_start_time()!r}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_parallel_env()
+    world, rank = dist.get_world_size(), dist.get_rank()
+    inc = int(os.environ.get("PADDLE_TPU_RESTART_NUM", "0"))
+    print(f"WORLD {world}", flush=True)
+    store = dist.TCPStore("127.0.0.1",
+                          int(os.environ["PADDLE_TPU_FT_STORE_PORT"]),
+                          is_master=(rank == 0), world_size=world,
+                          timeout=120)
+    lineage = fault.CheckpointLineage(os.environ["PADDLE_TPU_CKPT_DIR"],
+                                      store=store, world_size=world,
+                                      rank=rank)
+    # the all-reduce's time: the gradient sync between two card syncs
+    sync_s = []
+    real_sync = parallel.DataParallel._sync_grads
+
+    def timed_sync(self):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if sync_s:
+            real_sync(self)
+        else:
+            # the first synced step of the incarnation: its average held
+            # against the plain mean of every rank's gradients
+            got = grad_sync_check(self, real_sync)
+            ok = got["elem_ratio"] <= 1.0 and got["proj_ratio"] <= 1.0
+            print(f"GRAD_SYNC world={world} {json.dumps(got)} "
+                  f"{'ok' if ok else 'BAD'}", flush=True)
+            if not ok:
+                raise RuntimeError(f"DataParallel's gradient average is "
+                                   f"off its plain mean: {got}")
+        torch.cuda.synchronize()
+        sync_s.append(time.perf_counter() - t0)
+
+    parallel.DataParallel._sync_grads = timed_sync
+    K.reset_launch_counts()
+    model, data = elastic_model(pt)
+
+    class Markers(pt.hapi.callbacks.Callback):
+        executed = 0
+        epoch = 0
+
+        def on_epoch_begin(self, epoch, logs=None):
+            self.epoch = epoch
+
+        def on_train_batch_end(self, step, logs=None):
+            self.executed += 1
+            ar = sync_s[-1] if sync_s else 0.0
+            print(f"BATCH {self.epoch} {step} {self.executed} "
+                  f"{time.time():.6f} {time.perf_counter()!r} {ar!r} "
+                  f"{json.dumps(K.launch_counts())}", flush=True)
+            if inc == 0 and rank == 2 and self.executed == EL_KILL_AFTER:
+                print(f"SELF_SIGKILL {time.time():.6f}", flush=True)
+                os.kill(os.getpid(), signal.SIGKILL)
+
+    model.fit(data, batch_size=EL_B, epochs=1, shuffle=False, verbose=0,
+              lineage=lineage, snapshot_interval=EL_INTERVAL,
+              async_snapshot=False, loss_fetch_every=1,
+              callbacks=[Markers()])
+    parallel.DataParallel._sync_grads = real_sync
+    torch.cuda.synchronize()
+    print(f"GRAPH_BREAKS {model._step_fn.stats()['graph_breaks']}",
+          flush=True)
+    print(f"DIGEST {params_digest(model.network)}", flush=True)
+    print("DONE", flush=True)
+    return 0
+
+
+def run_elastic_job(tag, root, mode, env, timeout=420):
+    """One ``--np 2:3 --max_restarts 0`` job of the port's launcher over
+    ``chip_smoke.py``'s ``mode`` worker -> (rc, what the launcher
+    printed, log dir, seconds)."""
+    log_dir = os.path.join(root, f"{tag}_logs")
+    env = dict(os.environ, PADDLE_TPU_CKPT_DIR=os.path.join(root, tag),
+               PADDLE_TPU_FT_STORE_PORT=str(free_port()),
+               **{k: str(v) for k, v in env.items()})
+    t0 = time.perf_counter()
+    # a session of its own: a job past its time is killed whole, the
+    # launcher and its workers
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--np", "2:3", "--max_restarts", "0",
+         "--master", f"127.0.0.1:{free_port()}",
+         "--elastic_port", str(free_port()),
+         "--terminate_grace", "5", "--log_dir", log_dir] + EL_WORKER[mode],
+        env=env, cwd=HERE, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        _, err = proc.communicate(timeout=timeout)
+        rc = proc.returncode
+    except subprocess.TimeoutExpired:
+        import signal
+        os.killpg(proc.pid, signal.SIGKILL)
+        _, err = proc.communicate()
+        rc = None
+    secs = time.perf_counter() - t0
+    log(f"  [{tag}] launcher rc {rc} in {secs:.1f} s; launcher said:")
+    for line in err.splitlines():
+        if line.startswith("[") or "scale event" in line:
+            log(f"    {line}")
+    return rc, err, log_dir, secs
+
+
+def rank_log(log_dir, rank):
+    """A rank's logs, its incarnations in order."""
+    names = sorted((n for n in os.listdir(log_dir)
+                    if n.split(".")[:2] == ["workerlog", str(rank)]),
+                   key=lambda n: int(n.split("restart")[1])
+                   if "restart" in n else 0)
+    text = ""
+    for n in names:
+        with open(os.path.join(log_dir, n)) as f:
+            text += f.read()
+    return text
+
+
+def scale_checks(tag, rc, err, log_dir):
+    """The launcher's scale event, and rank 2's self-kill at world 3."""
+    if rc != 0 or "scale event" not in err or \
+            "relaunching at world_size=2" not in err:
+        fail(f"{tag}: rc {rc}, no scale event to world 2\n{err[-3000:]}\n"
+             + rank_log(log_dir, 0)[-3000:])
+    k = rank_log(log_dir, 2)
+    if "WORLD 3" not in k or "SELF_SIGKILL" not in k:
+        fail(f"{tag}: rank 2 did not SIGKILL itself at world 3\n{k[-2000:]}")
+    return float(re.search(r"SELF_SIGKILL ([\d.]+)", k).group(1))
+
+
+def dlinalg_phase(pt):
+    """31a: the SUMMA matmul at world 3 in this process, then the elastic
+    eigensolve job. -> its numbers."""
+    import threading
+    from paddle_tpu_torch.distributed import dlinalg
+    out = {}
+    # ---- the matmul: thread-per-rank world 3 on one LocalExchange, as
+    # bench.py's linalg leg runs it, A N x N times B N x p
+    world = 3
+    # a product of one block a rank warms the card's GEMMs first; the
+    # full one is timed once
+    for n in (world * DLA_BLOCK, DLA_N):
+        rng = np.random.default_rng(7)
+        A_full = rng.standard_normal((n, n))
+        B_full = rng.standard_normal((n, DLA_P))
+        ex = dlinalg.LocalExchange()
+        res, errs = [None] * world, []
+
+        def target(r):
+            try:
+                A = dlinalg.ShardedMatrix.from_global(A_full, DLA_BLOCK,
+                                                      world=world, rank=r)
+                B = dlinalg.ShardedMatrix.from_global(B_full, DLA_BLOCK,
+                                                      world=world, rank=r)
+                res[r] = dlinalg.summa_matmul(A, B, ex, tag="chip",
+                                              backend="xla")
+            except BaseException as e:  # noqa: BLE001 - failed below
+                errs.append(e)
+
+        threads = [threading.Thread(target=target, args=(r,), daemon=True)
+                   for r in range(world)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        wall = time.perf_counter() - t0
+        if errs or any(t.is_alive() for t in threads):
+            fail(f"dlinalg summa: {errs[:1]}")
+    ref = dlinalg.matmul_reference(A_full, B_full)
+    C = np.zeros_like(ref)
+    for r in range(world):
+        for b in res[r].owned:
+            lo, hi = res[r].layout.row_range(b)
+            C[lo:hi] = res[r].block(b)
+    resid = float(np.linalg.norm(C - ref) / np.linalg.norm(ref))
+    gflops = 2.0 * DLA_N * DLA_N * DLA_P / wall / 1e9
+    log(f"  31a summa_matmul world 3 (threads), N {DLA_N} x p {DLA_P}, "
+        f"block {DLA_BLOCK}, device backend (torch f64): {wall * 1e3:.2f} "
+        f"ms, {gflops:.3f} GFLOP/s, relative residual {resid:.3e}")
+    if not resid < 1e-12:
+        fail(f"dlinalg summa: relative residual {resid} >= 1e-12")
+    out["summa"] = {"ms": wall * 1e3, "gflop_per_s": gflops,
+                    "residual": resid}
+    del A_full, B_full, C, ref, res
+
+    # ---- the elastic eigensolve
+    root = tempfile.mkdtemp(prefix="dlinalg_")
+    try:
+        rc, err, log_dir, secs = run_elastic_job(
+            "31a", root, "dlinalg", {
+                "PADDLE_TPU_DLA_KILL": DLA_KILL,
+                **{v: DLA_THREADS for v in ("OMP_NUM_THREADS",
+                                            "OPENBLAS_NUM_THREADS",
+                                            "MKL_NUM_THREADS")}})
+        killed_at = scale_checks("dlinalg 31a", rc, err, log_dir)
+        k = rank_log(log_dir, 2)
+        if not re.search(r"PANEL 1 \d", k):
+            fail("dlinalg 31a: rank 2 committed no panel of sweep 1")
+        first_panel, sweep_s = [], []
+        for rank in (0, 1):
+            text = rank_log(log_dir, rank)
+            if "WORLD 3" not in text or "WORLD 2" not in text:
+                fail(f"dlinalg 31a: rank {rank} missed an incarnation\n"
+                     f"{text[-2000:]}")
+            round1 = text.split("WORLD 2", 1)[1]
+            m = re.search(r"RESUMED step=(\d+) sweep=(\d+) panel=(\d+)",
+                          round1)
+            if m is None:
+                fail(f"dlinalg 31a: rank {rank} resumed fresh\n"
+                     f"{round1[-2000:]}")
+            sweep, panel = int(m.group(2)), int(m.group(3))
+            panels = [(int(a), int(b), float(c)) for a, b, c in re.findall(
+                r"PANEL (\d+) (\d+) ([\d.]+)", round1)]
+            if not panels or panels[0][:2] != (sweep, panel) or \
+                    (sweep, panel) < (1, 0):
+                fail(f"dlinalg 31a: rank {rank} resumed at "
+                     f"{(sweep, panel)} but its first panel was "
+                     f"{panels[:1]}")
+            if len(set(p[:2] for p in panels)) != len(panels):
+                fail(f"dlinalg 31a: rank {rank} recomputed a panel")
+            done = re.search(r"DONE (\d+) ([\d.eE+-]+)", round1)
+            th = re.search(r"THETA_ERR ([\d.eE+-]+)", round1)
+            if done is None or th is None or not float(done.group(2)) \
+                    < 1e-6 or not float(th.group(1)) < 1e-6:
+                fail(f"dlinalg 31a: rank {rank}: {done and done.group(0)} "
+                     f"{th and th.group(0)}\n{round1[-1500:]}")
+            first_panel.append(panels[0][2])
+            stamps = [float(s) for s in re.findall(
+                r"SWEEP \d+ \S+ ([\d.]+)", round1)]
+            sweep_s += list(np.diff(stamps))
+            if rank == 0:
+                out["resumed_at"] = [sweep, panel]
+                out["residual"] = float(done.group(2))
+                out["theta_err"] = float(th.group(1))
+                out["sweeps"] = int(done.group(1))
+        t0 = rank_log(log_dir, 0)
+        w3 = t0.split("WORLD 2", 1)[0]
+        start = float(re.search(r"START ([\d.]+)", w3).group(1))
+        sweep0 = float(re.search(r"SWEEP 0 \S+ ([\d.]+)", w3).group(1))
+        built = [float(x) for x in re.findall(r"BUILT ([\d.eE+-]+)", t0)]
+        out.update({
+            "recovery_s": min(first_panel) - killed_at,
+            "sweep_s_world3": sweep0 - start,
+            "sweep_s_world2_median": float(np.median(sweep_s))
+            if sweep_s else None,
+            "matrix_build_s": built, "job_s": secs})
+        log(f"  31a eigensolve N {DLA_N}, block {DLA_BLOCK}, p {DLA_P}, "
+            f"tol {DLA_TOL}, --np 2:3: rank 2 SIGKILLed itself in sweep 1, "
+            f"a scale event, both survivors resumed at (sweep, panel) "
+            f"{out['resumed_at']} with no panel recomputed; DONE after "
+            f"{out['sweeps']} sweeps, residual {out['residual']:.3e}, "
+            f"THETA_ERR {out['theta_err']:.3e}; recovery (SELF_SIGKILL to "
+            f"the first resumed PANEL) {out['recovery_s']:.2f} s; a sweep "
+            f"{out['sweep_s_world3']:.2f} s at world 3 (sweep 0), "
+            f"{out['sweep_s_world2_median']} s at world 2 (median); host "
+            f"build of A {[round(b, 2) for b in built]} s a rank; job "
+            f"{secs:.1f} s")
+    finally:
+        import shutil
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def elastic_phase(pt):
+    """31b: the elastic BERT-base fine-tune. -> ({kernel: its launches},
+    the numbers)."""
+    L = pt.bert_base().num_layers
+    per_step = {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+                "layer_norm": 2 * L + 1, "fused_adamw": 1}
+    root = tempfile.mkdtemp(prefix="elastic_")
+    acc, out = {}, {}
+    try:
+        rc, err, log_dir, secs = run_elastic_job("31b", root, "elastic", {})
+        killed_at = scale_checks("elastic 31b", rc, err, log_dir)
+        digests, steps, shares, first = [], {3: [], 2: []}, \
+            {3: [], 2: []}, []
+        grad_checks = []
+        last_committed = (EL_KILL_AFTER - 1) // EL_INTERVAL * EL_INTERVAL
+        per_epoch2 = EL_SAMPLES // (2 * EL_B)
+        for rank in (0, 1, 2):
+            text = rank_log(log_dir, rank)
+            incs = [c for c in re.split(r"(?=SPAWNED )", text) if c.strip()]
+            for c in incs:
+                world = int(re.search(r"WORLD (\d+)", c).group(1))
+                g = re.search(r"GRAD_SYNC world=\d+ (\{.*\}) ok", c)
+                if g is None:
+                    fail(f"elastic 31b: rank {rank} world {world}: no "
+                         f"passing gradient check\n{c[-2000:]}")
+                grad_checks.append(json.loads(g.group(1)))
+                rows = [line.split(" ", 7) for line in c.splitlines()
+                        if line.startswith("BATCH ")]
+                if rows:
+                    got = json.loads(rows[-1][7])
+                    want = {k: v * len(rows) for k, v in per_step.items()}
+                    if {k: got.get(k, 0) for k in per_step} != want:
+                        fail(f"elastic 31b: rank {rank} world {world}: "
+                             f"launches {got} != {want} for {len(rows)} "
+                             f"steps")
+                    add_launches(acc, got)
+                if rank == 2:
+                    continue
+                host = [float(r[5]) for r in rows]
+                ar = [float(r[6]) for r in rows]
+                saved = set(range(EL_INTERVAL - 1, 64, EL_INTERVAL))
+                for i in range(2, len(rows)):
+                    if int(rows[i][2]) - 1 in saved:
+                        continue    # the sync snapshot before this step
+                    steps[world].append((host[i] - host[i - 1]) * 1e3)
+                    shares[world].append(ar[i] / (host[i] - host[i - 1]))
+                if world == 2:
+                    m = re.search(r"RESUMED epoch=(\d+) step=(\d+) "
+                                  r"global_step=(\d+)", c)
+                    if m is None or int(m.group(3)) != last_committed:
+                        fail(f"elastic 31b: rank {rank} resumed at "
+                             f"{m and m.group(0)}, the last committed step "
+                             f"is {last_committed}\n{c[-2000:]}")
+                    order = [(int(r[1]), int(r[2])) for r in rows]
+                    want = [(0, s) for s in range(int(m.group(2)),
+                                                  per_epoch2)]
+                    if order != want:
+                        fail(f"elastic 31b: rank {rank} ran batches {order}"
+                             f" after the resume, not {want}")
+                    if "RESUMED_RESHARDED world=3->2" not in c or \
+                            "GRAPH_BREAKS 1" not in c:
+                        fail(f"elastic 31b: rank {rank}: no reshard note "
+                             f"or not one graph break\n{c[-1500:]}")
+                    first.append(float(rows[0][4]))
+                    d = re.search(r"DIGEST (\w+)", c)
+                    digests.append(d and d.group(1))
+        if len(digests) != 2 or digests[0] is None or \
+                digests[0] != digests[1]:
+            fail(f"elastic 31b: replicas' digests {digests}")
+        for k in per_step:
+            if not acc.get(k):
+                fail(f"elastic 31b: kernel {k} never launched")
+        out = {
+            "step_ms_world3": steps[3], "step_ms_world2": steps[2],
+            "step_ms_world3_median": float(np.median(steps[3])),
+            "step_ms_world2_median": float(np.median(steps[2])),
+            "allreduce_share_world3": float(np.median(shares[3])),
+            "allreduce_share_world2": float(np.median(shares[2])),
+            "recovery_s": min(first) - killed_at, "digest": digests[0],
+            "grad_sync": {
+                "checks": len(grad_checks),
+                "leaves": grad_checks[0]["leaves"],
+                "small_elements": grad_checks[0]["small"],
+                "elem_ratio_max": max(c["elem_ratio"] for c in grad_checks),
+                "proj_ratio_max": max(c["proj_ratio"]
+                                      for c in grad_checks)},
+            "resumed_at_global_step": last_committed, "job_s": secs,
+            "launches": {k: acc.get(k, 0) for k in per_step}}
+        log(f"  31b BERT-base fit, B {EL_B} x S {EL_S} a rank, O1, "
+            f"DataParallel over gloo, --np 2:3: rank 2 SIGKILLed itself "
+            f"after step {EL_KILL_AFTER}, a scale event, ranks 0 and 1 "
+            f"resumed at global step {last_committed} (the last committed "
+            f"snapshot) at world 2 and ran each remaining batch once; "
+            f"digests bit-equal ({digests[0]}); the first synced step's "
+            f"average held against the plain mean of the ranks' "
+            f"gradients in each incarnation ({out['grad_sync']}; errors "
+            f"over their bound, <= 1 passes); step "
+            f"{out['step_ms_world3_median']:.1f} ms at world 3, "
+            f"{out['step_ms_world2_median']:.1f} ms at world 2 (medians; "
+            f"eager: the gloo sync breaks the staged step); the "
+            f"all-reduce {out['allreduce_share_world3']:.1%} / "
+            f"{out['allreduce_share_world2']:.1%} of a step; recovery "
+            f"(SELF_SIGKILL to the first resumed step's end) "
+            f"{out['recovery_s']:.2f} s; launches exact an incarnation "
+            f"{out['launches']}; job {secs:.1f} s")
+    finally:
+        import shutil
+        shutil.rmtree(root, ignore_errors=True)
+    return {k: {"elastic_launches": acc.get(k, 0)} for k in per_step}, out
+
+
+def elastic_phases(pt, K):
+    """Phase 31: 31a, then 31b, each alone on the card. -> ({kernel: its
+    ``elastic_launches``}, the numbers)."""
+    t0 = time.perf_counter()
+    free()
+    numbers = {"31a": dlinalg_phase(pt)}
+    free()
+    launches, numbers["31b"] = elastic_phase(pt)
+    numbers["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 31 {numbers['phase_s']:.1f} s")
+    log("  " + json.dumps(numbers, default=str))
+    return launches, numbers
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -8507,6 +9138,13 @@ def main():
         next(e for e in kernels if e["name"] == name).update(numbers)
     for e in kernels:
         e.setdefault("resilience_launches", 0)
+    clock("phase 31")
+    # ------------ phase 31: elastic training, resumable linear algebra
+    el_extra, _ = elastic_phases(pt, K)
+    for name, numbers in el_extra.items():
+        next(e for e in kernels if e["name"] == name).update(numbers)
+    for e in kernels:
+        e.setdefault("elastic_launches", 0)
     for e in kernels:
         e["max_abs_err"] = max([e["max_abs_err"]] + [
             v for k, v in e.items() if k.endswith("_max_abs_err")])
@@ -8525,4 +9163,8 @@ if __name__ == "__main__":
         sys.exit(sigterm_child())
     if sys.argv[1:] == ["--resilience-worker"]:
         sys.exit(resilience_worker())
+    if sys.argv[1:] == ["--dlinalg-worker"]:
+        sys.exit(dlinalg_worker())
+    if sys.argv[1:] == ["--elastic-worker"]:
+        sys.exit(elastic_worker())
     sys.exit(main())

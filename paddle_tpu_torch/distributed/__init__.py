@@ -1,8 +1,12 @@
 """paddle_tpu_torch.distributed — the parts ported so far: ``fleet``'s
-activation recomputation and the resilient-training control plane
-(fault injection, checkpoint lineage and the sharded checkpoint, the
-resumable loop, the integrity guard, the TCP store, the flight recorder,
-the step watchdog and the single-host launcher), after
+activation recomputation, the resilient-training control plane (fault
+injection, checkpoint lineage and the sharded checkpoint, the resumable
+loop, the integrity guard, the TCP store, the flight recorder, the step
+watchdog), the elastic control plane (the membership registry, the
+launcher's ``--np`` and ``--nnodes`` paths, the node agents), the
+process group (``init_parallel_env`` over gloo), ``DataParallel``,
+``topology.FailureDomainMap`` and the
+fault-tolerant distributed linear algebra (``dlinalg``), after
 ``paddle_tpu/distributed/__init__.py``.
 """
 from . import fault, fleet  # noqa: F401
@@ -32,4 +36,14 @@ from .watchdog import (  # noqa: F401
 )
 from . import integrity  # noqa: F401
 from .resumable import ResumableTraining  # noqa: F401
+from .env import (  # noqa: F401
+    get_rank, get_world_size, init_parallel_env, is_initialized,
+)
+from .parallel import DataParallel, shard_batch  # noqa: F401
+from .elastic import (  # noqa: F401
+    ElasticManager, ElasticStatus, NodeRegistry, QuarantineList,
+    render_node_round, worker_from_env,
+)
+from .topology import FailureDomainMap  # noqa: F401
+from . import dlinalg  # noqa: F401
 from . import launch  # noqa: F401

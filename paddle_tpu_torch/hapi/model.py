@@ -18,13 +18,15 @@ scalar and fetches every ``loss_fetch_every`` steps and once an epoch.
 
 ``fit(lineage=...)`` makes the loop resumable and ``fit(integrity=...)``
 arms the training integrity guard, as in JAX (``:232-301``; the
-``distributed.resumable`` and ``distributed.integrity`` modules). Not
-ported yet, and refused rather than ignored: ``prepare`` under an
-initialized ``torch.distributed`` with more than one rank
-(``DataParallel``, which comes with the port's parallel training); the
-integrity guard's gradient fingerprints, which need its bucketed
-data-parallel scheduler, degrade to the health gates as JAX's do without
-one. ``fit``'s and
+``distributed.resumable`` and ``distributed.integrity`` modules).
+``prepare`` in an initialized parallel env of more than one rank wraps
+the network in :class:`~..distributed.parallel.DataParallel`, as JAX's
+does (``:52-56``): its gradient sync is a gloo all-reduce on the host,
+which breaks the staged step into the eager fallback (see
+``distributed/parallel.py``). The integrity guard's gradient
+fingerprints, which need JAX's bucketed data-parallel scheduler
+(ROADMAP Queue 1 item 8), degrade to the health gates as JAX's do
+without one. ``fit``'s and
 ``evaluate``'s ``num_workers`` is ignored, as in JAX (``:201-227``), and so
 is ``fit``'s ``drop_last``: pass a :class:`~..io.DataLoader` with workers
 or ``drop_last=True``.
@@ -80,16 +82,12 @@ class Model:
 
     def prepare(self, optimizer=None, loss=None, metrics=None,
                 amp_configs=None):
-        """Reference: Model.prepare (hapi/model.py:2006); amp_configs
-        ('O1'/'O2' or {'level': ...}) stages the train step under
-        auto_cast in bfloat16."""
-        import torch.distributed as dist
-        if dist.is_available() and dist.is_initialized() and \
-                dist.get_world_size() > 1:
-            raise NotImplementedError(
-                "Model.prepare under torch.distributed with more than one "
-                "rank wraps the network in DataParallel, which the port "
-                "has not ported yet (ROADMAP Queue 1 item 6)")
+        """Reference: Model.prepare (hapi/model.py:2006) — including the
+        distributed adapter (:821): when the parallel env is initialized
+        with more than one rank, the network is wrapped in DataParallel
+        so fit() trains data-parallel; amp_configs ('O1'/'O2' or
+        {'level': ...}) stages the train step under auto_cast in
+        bfloat16."""
         self._optimizer = optimizer
         self._loss = loss
         self._metrics = _as_list(metrics)
@@ -99,6 +97,11 @@ class Model:
                 self._amp_level = amp_configs
             elif isinstance(amp_configs, dict):
                 self._amp_level = amp_configs.get("level", "O1")
+        from ..distributed import env as _denv
+        from ..distributed.parallel import DataParallel
+        if _denv.is_initialized() and _denv.get_world_size() > 1 and \
+                not isinstance(self.network, DataParallel):
+            self.network = DataParallel(self.network)
         self._step_fn = None
 
     def _device(self):
@@ -212,6 +215,15 @@ class Model:
         if isinstance(data, DataLoader):
             return data
         if isinstance(data, Dataset):
+            from ..distributed import env as _denv
+            if _denv.is_initialized() and _denv.get_world_size() > 1:
+                # one process a rank: each loads its own shard
+                # (reference: fit's DistributedBatchSampler path)
+                from ..io import DistributedBatchSampler
+                sampler = DistributedBatchSampler(
+                    data, batch_size=batch_size, shuffle=shuffle)
+                return DataLoader(data, batch_sampler=sampler,
+                                  places=self._device())
             if epoch_keyed and shuffle:
                 # resumable fit: the plain RandomSampler draws from the
                 # numpy global RNG, which snapshots do not capture — a

@@ -10,18 +10,22 @@
   traces, and its CLI.
 * :mod:`.telemetry` — the per-step training clock ``hapi.Model.fit``
   attaches (step time split into data wait, compute and sync; tokens/s;
-  MFU against :func:`.metrics.peak_flops`).
+  MFU against :func:`.metrics.peak_flops`), and its
+  :class:`~.telemetry.TelemetryCallback`.
+* :mod:`.report` — the launcher's cross-rank run report over the
+  per-rank metrics snapshots.
 
 The serving engine feeds the same registry and trace buffer. Disabled
-(the default), every hook in the hot paths is a constant-time no-op. The
-launcher report (``report.py``) of the JAX package is not ported.
+(the default), every hook in the hot paths is a constant-time no-op.
 """
 from . import metrics  # noqa: F401
+from . import report  # noqa: F401
 from . import telemetry  # noqa: F401
 from . import trace_report  # noqa: F401
 from . import tracing  # noqa: F401
 from .metrics import MetricsRegistry, get_registry  # noqa: F401
+from .telemetry import TelemetryCallback  # noqa: F401
 from .tracing import span  # noqa: F401
 
-__all__ = ["metrics", "tracing", "trace_report", "telemetry",
-           "MetricsRegistry", "get_registry", "span"]
+__all__ = ["metrics", "tracing", "trace_report", "telemetry", "report",
+           "MetricsRegistry", "TelemetryCallback", "get_registry", "span"]

@@ -6,8 +6,9 @@ from .decode import (ab_compare, paged_decode_attention,
                      paged_prefill_attention, resolve_backend)
 from .engine import ServingEngine
 from .kv_cache import BlockAllocator, OutOfPages, PagedKVCache, pages_for
-from .load import (make_mixed_length_prompts, make_shared_prefix_prompts,
-                   run_poisson_load, summarize_requests)
+from .load import (make_mixed_length_prompts, make_session_prompts,
+                   make_shared_prefix_prompts, run_poisson_load,
+                   summarize_requests)
 from .metrics import ServingMetrics
 from .prefix_cache import PrefixCache
 from .ragged_attention import (PAD_FLOOR, ab_compare_ragged,
@@ -18,7 +19,8 @@ from .scheduler import (ContinuousBatchingScheduler, EngineClosed,
 
 __all__ = ["ServingEngine", "BlockAllocator", "OutOfPages", "PagedKVCache",
            "pages_for", "make_mixed_length_prompts",
-           "make_shared_prefix_prompts", "run_poisson_load",
+           "make_shared_prefix_prompts", "make_session_prompts",
+           "run_poisson_load",
            "summarize_requests", "ServingMetrics", "PrefixCache",
            "PAD_FLOOR", "pad_total_tokens", "ragged_paged_attention",
            "ab_compare_ragged", "paged_decode_attention",

@@ -100,6 +100,35 @@ def make_mixed_length_prompts(n_requests, prompt_len, vocab,
     return prompts, news
 
 
+def make_session_prompts(n_sessions, requests_per_session, head_len,
+                         tail_len, vocab, seed=0, interleave=True):
+    """The fleet workload (``paddle_tpu/serving/load.py:146``):
+    ``n_sessions`` sessions, each with its own ``head_len``-token head
+    shared by that session's ``requests_per_session`` requests (random
+    tails of a length in ``tail_len``), arrivals interleaved round-robin
+    across sessions, so affinity has to hold mid-stream and a session
+    spilling to a second engine shares its prefix across engines. The
+    same prompts as JAX's for a seed. -> ``(prompts, session_ids)``."""
+    rng = np.random.RandomState(seed)
+    lo, hi = tail_len
+    heads = [rng.randint(1, vocab, size=int(head_len)).tolist()
+             for _ in range(int(n_sessions))]
+    per = [[heads[s] + rng.randint(
+        1, vocab, size=rng.randint(lo, hi + 1)).tolist()
+        for _ in range(int(requests_per_session))]
+        for s in range(int(n_sessions))]
+    if interleave:
+        prompts = [per[s][r] for r in range(int(requests_per_session))
+                   for s in range(int(n_sessions))]
+        sids = [s for _ in range(int(requests_per_session))
+                for s in range(int(n_sessions))]
+    else:
+        prompts = [p for sess in per for p in sess]
+        sids = [s for s in range(int(n_sessions))
+                for _ in range(int(requests_per_session))]
+    return prompts, sids
+
+
 def run_poisson_load(engine, n_requests=32, qps=10.0, prompt_len=(8, 24),
                      max_new_tokens=12, eos_token_id=None, seed=0,
                      timeout=300.0, prompts=None):

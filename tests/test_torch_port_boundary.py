@@ -34,7 +34,10 @@ def _port_sources():
                                            "flash_variants.py",
                                            "paged_splits.py",
                                            "layer_overhead.py",
-                                           "tests/torch_resilience_worker.py")]
+                                           "tests/torch_resilience_worker.py",
+                                           "tests/torch_elastic_worker.py",
+                                           "tests/torch_dlinalg_worker.py",
+                                           "tests/torch_dp_worker.py")]
     for root, _, files in os.walk(PKG):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)

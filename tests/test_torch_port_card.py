@@ -2560,3 +2560,22 @@ def test_staged_step_rng_restored_across_a_resume_on_card(tmp_path):
                            verbose=False)
     assert rt.restore() == 3
     assert run(step, 3, 8) == full[3:]
+
+
+@pytest.mark.cuda
+def test_dlinalg_device_backend_on_card():
+    """``dlinalg``'s device backend (``"xla"``: torch in float64 on the
+    card) against the host numpy f64 reference: GEMM and the sign-fixed
+    reduced QR within 1e-12, the results host float64."""
+    _need_cuda()
+    from paddle_tpu_torch.distributed import dlinalg
+    rng = np.random.default_rng(3)
+    a, b = rng.standard_normal((256, 512)), rng.standard_normal((512, 16))
+    got = dlinalg.gemm(a, b, backend="xla")
+    assert got.dtype == np.float64
+    np.testing.assert_allclose(got, a @ b, rtol=0, atol=1e-12)
+    y = rng.standard_normal((512, 16))
+    q, r = dlinalg.local_qr(y, backend="xla")
+    q0, r0 = dlinalg.local_qr(y)
+    np.testing.assert_allclose(q, q0, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(r, r0, rtol=0, atol=1e-12)

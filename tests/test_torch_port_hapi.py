@@ -712,12 +712,22 @@ def test_parts_not_ported_raise(tmp_path, monkeypatch):
     # needs the Model's inputs, as in JAX
     with pytest.raises(ValueError, match="input_spec"):
         tmodel.save(str(tmp_path / "infer"), training=False)
-    import torch.distributed as dist
-    monkeypatch.setattr(dist, "is_initialized", lambda: True)
-    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
-    with pytest.raises(NotImplementedError, match="DataParallel"):
-        tmodel.prepare(pt.Adam(1e-3, parameters=tmodel.parameters()),
-                       pt.nn.CrossEntropyLoss())
+    # ported since: DataParallel (tests/test_torch_port_dp.py holds two
+    # gloo ranks against JAX's). In a parallel env of two ranks, prepare
+    # wraps the network, as JAX's does; the wrap-time broadcast needs a
+    # real group, which that file's workers have
+    from paddle_tpu_torch.distributed import env as port_env
+    from paddle_tpu_torch.distributed import parallel as port_parallel
+    monkeypatch.setattr(port_env, "_initialized", True)
+    for mod in (port_env, port_parallel):
+        monkeypatch.setattr(mod, "get_world_size", lambda group=None: 2)
+    monkeypatch.setattr(port_parallel.DataParallel, "_sync_params_buffers",
+                        lambda self: None)
+    net = tmodel.network
+    tmodel.prepare(pt.Adam(1e-3, parameters=tmodel.parameters()),
+                   pt.nn.CrossEntropyLoss())
+    assert isinstance(tmodel.network, port_parallel.DataParallel)
+    assert tmodel.network._layers is net
 
 
 def test_update_false_accumulates_gradients_eagerly():

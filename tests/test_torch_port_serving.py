@@ -138,3 +138,20 @@ def test_port_engine_metrics_count_the_run():
     assert h["serving_ttft_ms{engine=e0}"]["count"] == 2
     assert h["serving_inter_token_ms{engine=e0}"]["count"] == 8
     assert [len(r.result(1)) for r in reqs] == [5, 5]
+
+
+@pytest.mark.parametrize("interleave", [True, False])
+def test_session_prompts_equal_jaxs(interleave):
+    """``serving.make_session_prompts`` (the fleet workload) gives JAX's
+    prompts and session ids for the same seed."""
+    from paddle_tpu.serving import make_session_prompts as jax_sessions
+    from paddle_tpu_torch.serving import make_session_prompts
+    args = (3, 4, 6, (2, 5), 97)
+    for seed in (0, 11):
+        got = make_session_prompts(*args, seed=seed, interleave=interleave)
+        want = jax_sessions(*args, seed=seed, interleave=interleave)
+        assert got == want
+    prompts, sids = got
+    assert len(prompts) == 12 and sorted(set(sids)) == [0, 1, 2]
+    heads = {s: p[:6] for p, s in zip(prompts, sids)}
+    assert all(p[:6] == heads[s] for p, s in zip(prompts, sids))
