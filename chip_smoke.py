@@ -523,6 +523,39 @@ exit code:
     parameter digests, the flash trio's, LayerNorm's and AdamW's launches exact
     for the steps each incarnation ran; the step time at world 3 and 2,
     the all-reduce's share of a step and the recovery time.
+32. **the serving fleet** — (a) in this process: ``gpt_1p3b`` bf16 (24
+    layers) on engines e0 and e1 at phase 16's settings, each with a
+    ``PageShareClient`` on a ``TCPStore`` of this host, behind a
+    ``FleetRouter``: (1) a 128-token head prefilled on e0 and published
+    (8 pages), then imported by e1's admission, each page bit-equal to
+    e0's and e1's greedy tokens equal to e0's on the same prompt; (2) a
+    session piled on e0 spills to e1, whose prefetch (the router's own
+    thread) imports the head before the request is admitted; (3) a
+    hedge on a stalled e0 wins on e1, the loser aborted (its pages at
+    refcount 0, its ``on_done`` never fired); (4) 8 sessions x 6
+    requests (head 128, tails 16-256, 32 new) at 16 req/s through
+    ``run_poisson_load`` on the router, every token the argmax of a
+    no-cache forward within phase 15's tolerance, TTFT split by
+    remote-hit, local-hit and cold admission; (5) ``engine_die@
+    serve_loop`` aimed at e1 mid-load, its requests re-dispatched to e0
+    (their tokens, and the hedge's, equal to e0 alone or a near-tie
+    within that tolerance at the first divergence); (6) an
+    ``EngineAutoscaler`` strikes e1, scales a warm third engine (512
+    pages) up under a burst and down when idle, both scale events
+    counted. Launches exact over every round of every engine (24
+    attention, 49 LayerNorm); publish, fetch and import ms a page and
+    MB/s through the store. (b) two engine processes
+    (``chip_smoke.py --fleet-engine-worker``: the remote module's
+    ``main`` at ``gpt_1p3b`` widths, 24 layers, bf16, 512 pages, page
+    share), a primary and a shadow ``frontdoor`` process; 24 requests by
+    client id (the primary's go to e0, the rest to e1, which imports
+    e0's heads); the primary SIGKILLs itself at its 13th dispatch
+    (``router_die@route``), the shadow adopts (``adopt_s``), every
+    request finishes once (one leg each, streams without a duplicate),
+    its tokens equal to an in-process engine of the same configuration
+    and seed or a near-tie; a resubmitted terminal id is answered from
+    the ledger with no engine's submissions or decode tokens moving;
+    each engine process's launches exact for its rounds.
 
 The lines before the last carry the ``{"kernels": [...]}`` JSON (all eight
 kernels; the ``fused_adamw`` entry adds the master and bf16-moment modes'
@@ -557,7 +590,10 @@ the exported programs of 29a-29c (loaded programs, the predictor, the
 saved static program); phase 30 adds to every entry
 ``resilience_launches``, its launches over 30a-30e's workers and 30d's
 two fits; phase 31 adds to every entry ``elastic_launches``, its
-launches over 31b's workers; every ``max_abs_err`` is
+launches over 31b's workers; phase 32 adds to every entry
+``fleet_launches``, its launches over phase 32, and apart
+``fleet_launches_in_process`` (32a) and ``fleet_launches_processes``
+(32b's engine processes); every ``max_abs_err`` is
 the largest of its entry's errors) and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the repository beside it, the script exits
@@ -8698,6 +8734,821 @@ def elastic_phases(pt, K):
     return launches, numbers
 
 
+# ----------------------------------------------- the serving fleet (32)
+FLEET_JOB = "p32"
+FL_SESSIONS, FL_PER_SESSION, FL_HEAD, FL_TAILS = 8, 6, 128, (16, 256)
+FL_NEW, FL_QPS = 32, 16.0
+FL_BURST, FL_WAVE, FL_BURST_NEW = 24, 8, 16
+FD_REQUESTS, FD_NEW, FD_LAYERS, FD_POOL, FD_DIE_AT = 24, 32, 24, 512, 13
+FD_DEVICE = "cuda"
+FD_WORKER = [os.path.abspath(__file__), "--fleet-engine-worker"]
+
+
+class FleetTimers:
+    """Host seconds of one engine's page-share work, by wrapping its
+    cache's and share client's methods: the gather and copy of a publish
+    (``_page_payload``), the store writes (``publish``), an insert's whole
+    stall (``insert``, a prompt's publish inside its round), the store
+    reads of an import (``fetch``) and its writes into the pools
+    (``_write_page``)."""
+
+    def __init__(self, eng):
+        self.s = {k: 0.0 for k in ("gather", "publish", "insert", "fetch",
+                                   "write")}
+        self.n = {k: 0 for k in self.s}
+        self.fetched_bytes = 0
+        self.inserts = []        # (seconds, pages published) per insert
+        self.remote_prompts = set()
+        cache, share = eng.prefix, eng.prefix.share
+        for obj, name, key in ((cache, "_page_payload", "gather"),
+                               (share, "publish", "publish"),
+                               (share, "fetch", "fetch"),
+                               (cache, "_write_page", "write")):
+            setattr(obj, name, self._timed(getattr(obj, name), key))
+        insert, lookup = cache.insert, cache.lookup
+
+        def timed_insert(tokens, pages):
+            before, t0 = share.published, time.perf_counter()
+            insert(tokens, pages)
+            dt = time.perf_counter() - t0
+            self.s["insert"] += dt
+            self.n["insert"] += 1
+            self.inserts.append((dt, share.published - before))
+
+        def recording_lookup(tokens):
+            before = share.remote_hits
+            out = lookup(tokens)
+            if share.remote_hits > before:
+                self.remote_prompts.add(tuple(int(t) for t in tokens))
+            return out
+
+        cache.insert, cache.lookup = timed_insert, recording_lookup
+
+    def _timed(self, fn, key):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            self.s[key] += time.perf_counter() - t0
+            self.n[key] += 1
+            if key == "fetch" and out is not None:
+                self.fetched_bytes += len(out)
+            return out
+        return timed
+
+
+def fleet_pages(eng, tokens, n):
+    """The local pages of ``tokens``' first ``n`` full pages in ``eng``'s
+    trie, walked from the root."""
+    ps, node, out = eng.page_size, -1, []
+    for i in range(n):
+        node = eng.prefix._index[(node, tuple(tokens[i * ps:(i + 1) * ps]))]
+        out.append(node)
+    return out
+
+
+def fleet_drive(engines, until, max_steps=2000):
+    """Step ``engines`` round-robin (no serve loops) until ``until()``."""
+    for _ in range(max_steps):
+        for e in engines:
+            if not e._closed:
+                e.step()
+        if until():
+            return
+    fail("fleet: the engines did not converge")
+
+
+class FleetLaunches:
+    """Phase 32a's launch accounting: segments between resets, each held
+    against the rounds the engines launched in it (24 attention and 49
+    LayerNorm launches a round at 24 layers; a pad captured in the
+    segment launches its eager warm-up beside its first replay)."""
+
+    def __init__(self, K, L):
+        self.K, self.L, self.total, self.rounds = K, L, {}, 0
+        self.start([])
+
+    def start(self, engines):
+        torch.cuda.synchronize()
+        self.K.reset_launch_counts()
+        self.marks = {id(e): e.launched for e in engines}
+
+    def check(self, tag, engines, extra_rounds=0):
+        rounds = extra_rounds + sum(
+            e.launched - self.marks.get(id(e), 0) for e in engines)
+        got = check_launches(self.K, f"fleet {tag}", rounds, self.L)
+        add_launches(self.total, got)
+        self.rounds += rounds
+        self.start(engines)
+        return rounds
+
+
+def near_tie_check(model, prompt, got, want):
+    """``got`` against ``want`` (greedy tokens of one prompt): equal, or
+    at the first divergence both are argmaxes within phase 15's bf16
+    tolerance of one no-cache forward over ``got`` -> "equal" or
+    "near-tie at i"; fails otherwise."""
+    if got == want:
+        return "equal"
+    i = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+    for seq in (got, want):
+        ids = torch.tensor([prompt + seq[:i + 1]], device=model.device)
+        _, _, short, ok = teacher_forced(model, ids, len(prompt))
+        if not ok:
+            fail(f"fleet: tokens diverge at {i} and are no near-tie "
+                 f"(shortfall {short:.4g})")
+    return f"near-tie at {i}"
+
+
+def fleet_teacher_forced(model, frs):
+    """Every request's greedy tokens against one no-cache forward over
+    prompt + tokens (phase 15's tolerance) -> (at the reference, tokens,
+    largest shortfall)."""
+    top = n = 0
+    worst = 0.0
+    for fr in frs:
+        ids = torch.tensor([fr.prompt_ids + fr.generated],
+                           device=model.device)
+        a, b, short, ok = teacher_forced(model, ids, len(fr.prompt_ids))
+        if not ok:
+            fail(f"fleet: request {fr.request_id}: a greedy token is not "
+                 f"the argmax of the no-cache forward (shortfall "
+                 f"{short:.4g})")
+        top, n, worst = top + a, n + b, max(worst, short)
+    return top, n, worst
+
+
+def fleet_share_checks(acc, model, e0, e1, r):
+    """32a (1) and (2): a head published on e0, imported by e1 bit for
+    bit; a prefetch on an affinity spill imports a head before the
+    spilled request is admitted. Engines stepped by hand here."""
+    rng = np.random.RandomState(SEED + 32)
+    V, ps = model.config.vocab_size, e0.page_size
+    head = rng.randint(1, V, FL_HEAD).tolist()
+    n_pages = FL_HEAD // ps
+    a = r.submit(head + rng.randint(1, V, 40).tolist(), max_new_tokens=16,
+                 engine="e0")
+    fleet_drive([e0], a.done)
+    if e0.prefix.share.published != n_pages:
+        fail(f"fleet: e0 published {e0.prefix.share.published} pages, "
+             f"not {n_pages}")
+    tail_b = head + rng.randint(1, V, 24).tolist()
+    # a session key of its own: no affinity to e0, so no prefetch, and
+    # e1's admission imports the head itself
+    b = r.submit(tail_b, max_new_tokens=16, engine="e1", session="b")
+    e1.step()
+    leg = b._leg
+    if leg.prefix_hit_tokens != FL_HEAD or \
+            e1.prefix.share.remote_hits != 1:
+        fail(f"fleet: e1's admission hit {leg.prefix_hit_tokens} tokens "
+             f"({e1.prefix.share.remote_hits} remote hits), not the "
+             f"{FL_HEAD}-token head")
+    mine, theirs = fleet_pages(e1, tail_b, n_pages), \
+        fleet_pages(e0, tail_b, n_pages)
+    for p1, p0 in zip(mine, theirs):
+        if e1.prefix._page_payload(p1) != e0.prefix._page_payload(p0):
+            fail(f"fleet: imported page {p1} differs from e0's {p0}")
+    fleet_drive([e1], b.done)
+    c = r.submit(tail_b, max_new_tokens=16, engine="e0", session="c")
+    fleet_drive([e0], c.done)
+    if b.result(1) != c.result(1):
+        fail(f"fleet: e1 (imported head) {b.result(1)} != e0 (its own "
+             f"head) {c.result(1)}")
+    acc.check("page sharing", [e0, e1])
+    log(f"  (1) page sharing: e0 published {n_pages} pages of its "
+        f"{FL_HEAD}-token head; e1's admission imported them "
+        f"({e1.prefix.share.remote_hit_tokens} tokens), each page's "
+        f"{len(e0.prefix._page_payload(theirs[0]))} B bit-equal to e0's; "
+        f"e1's {len(b.generated)} greedy tokens equal e0's on the same "
+        f"prompt")
+    # (2) a second session's head on e0; five fillers pile on e0 so the
+    # session's next request spills to e1, whose prefetch (the router's
+    # own thread) imports the head while e1 is not stepping
+    head2 = rng.randint(1, V, FL_HEAD).tolist()
+    d = r.submit(head2 + rng.randint(1, V, 20).tolist(), max_new_tokens=8,
+                 engine="e0")
+    fleet_drive([e0], d.done)
+    fillers = [r.submit(rng.randint(1, V, 16).tolist(), max_new_tokens=4,
+                        engine="e0") for _ in range(5)]
+    hit0, tok0, pf0 = e1.prefix.share.remote_hits, \
+        e1.prefix.share.remote_hit_tokens, r.prefetch_pages
+    spill = r.submit(head2 + rng.randint(1, V, 20).tolist(),
+                     max_new_tokens=8)
+    if spill.engine_id != "e1":
+        fail(f"fleet: the session did not spill ({spill.engine_id})")
+    t0 = time.perf_counter()
+    while r.prefetch_pages - pf0 < n_pages and \
+            time.perf_counter() - t0 < 60:
+        time.sleep(0.005)
+    t_pf = time.perf_counter() - t0
+    if r.prefetch_pages - pf0 != n_pages or \
+            spill._leg.state != "waiting" or \
+            e1.prefix.share.remote_hit_tokens - tok0 != FL_HEAD:
+        fail(f"fleet: prefetch imported {r.prefetch_pages - pf0} pages "
+             f"(request {spill._leg.state})")
+    e1.step()
+    if spill._leg.prefix_hit_tokens != FL_HEAD or \
+            e1.prefix.share.remote_hits != hit0 + 1:
+        fail(f"fleet: the spilled request hit "
+             f"{spill._leg.prefix_hit_tokens} tokens")
+    fleet_drive([e0, e1], lambda: all(f.done() for f in fillers + [spill]))
+    acc.check("prefetch", [e0, e1])
+    log(f"  (2) affinity spill: the session's request went to e1 "
+        f"(e0 {len(fillers)} deeper); the router's prefetch thread "
+        f"imported {r.prefetch_pages - pf0} pages in {t_pf * 1e3:.1f} ms, "
+        f"before admission; "
+        f"its admission then hit the {FL_HEAD}-token head locally")
+    return [a, b, c, d, spill] + fillers
+
+
+def fleet_hedge_check(acc, model, e0, e1):
+    """32a (3): a hedge on a stalled e0; the duplicate on e1 wins, the
+    loser is aborted (slot and pages back at refcount 0, its on_done never
+    fired)."""
+    from paddle_tpu_torch.serving.fleet import FleetRouter
+    r = FleetRouter(hedge_after_s=0.5)
+    r.add_engine(e0, "e0")
+    r.add_engine(e1, "e1")
+    done_legs = []
+    on_done = r._on_leg_done
+
+    def recording(leg):
+        done_legs.append(leg)
+        on_done(leg)
+
+    r._on_leg_done = recording
+    prompt = np.random.RandomState(SEED + 33).randint(
+        1, model.config.vocab_size, 200).tolist()
+    stream = []
+    fr = r.submit(prompt, max_new_tokens=24, engine="e0",
+                  on_token=lambda q, t, fin: stream.append(t))
+    e0.step()
+    e0.step()
+    leg0 = fr._leg
+    pages0 = list(leg0.pages)
+    if r.hedge_sweep(now=fr.t_submit + 99.0) != 1:
+        fail("fleet: no hedge fired")
+    fleet_drive([e1], fr.done)
+    alloc = e0.kv.allocator
+    if not (r.hedges_won == 1 and r.aborts == 1 and leg0.state == "aborted"
+            and not e0.scheduler.active and fr.engine_id == "e1"
+            and all(alloc.refcount(p) == 0 for p in pages0)
+            and leg0 not in done_legs and stream == fr.result(1)):
+        fail(f"fleet: hedge won {r.hedges_won}, aborts {r.aborts}, loser "
+             f"{leg0.state}, e0 active {len(e0.scheduler.active)}, "
+             f"refcounts {[alloc.refcount(p) for p in pages0]}")
+    acc.check("hedge", [e0, e1])
+    log(f"  (3) hedge: e0 stalled after 2 rounds; the duplicate on e1 won "
+        f"({len(fr.generated)} tokens, the stream without a duplicate), "
+        f"the loser aborted: {len(pages0)} pages at refcount 0, its "
+        f"on_done never fired")
+    return fr, prompt
+
+
+def fleet_load(acc, model, e0, e1, r, timers):
+    """32a (4): the session load through the router on the serve loops,
+    e1 killed mid-load by ``engine_die@serve_loop``."""
+    import threading
+    from paddle_tpu_torch.distributed import fault
+    from paddle_tpu_torch.serving import (make_session_prompts,
+                                          run_poisson_load)
+    prompts, _ = make_session_prompts(
+        FL_SESSIONS, FL_PER_SESSION, FL_HEAD, FL_TAILS,
+        model.config.vocab_size, seed=SEED + 34)
+    sent = []
+    submit = r.submit
+
+    def recording_submit(prompt, **kw):
+        sent.append(submit(prompt, **kw))
+        return sent[-1]
+
+    os.environ["PADDLE_TPU_FAULT_ENGINE"] = "e1"
+    r.submit = recording_submit
+    killed = {}
+
+    def kill_e1():
+        while len(sent) < len(prompts) // 2 or not e1.scheduler.active:
+            if len(sent) >= len(prompts):
+                return
+            time.sleep(0.002)
+        killed["at"] = len(sent)
+        fault.set_fault_spec("engine_die@serve_loop:1")
+
+    r.start()
+    watcher = threading.Thread(target=kill_e1, daemon=True)
+    watcher.start()
+    try:
+        res = run_poisson_load(r, qps=FL_QPS, prompts=prompts,
+                               max_new_tokens=FL_NEW, seed=SEED,
+                               timeout=300.0, by_engine=True)
+    finally:
+        del r.submit
+        watcher.join(5)
+        fault.set_fault_spec(None)
+        os.environ.pop("PADDLE_TPU_FAULT_ENGINE", None)
+    if e1._loop_error is None or "engine_die" not in str(e1._loop_error):
+        fail(f"fleet: e1 did not die mid-load ({e1._loop_error})")
+    if res["requests_ok"] != len(prompts) or res["requests_failed"] or \
+            res["tokens"] != len(prompts) * FL_NEW:
+        fail(f"fleet load: {res['requests_failed']} failed, "
+             f"{res['tokens']} tokens of {len(prompts) * FL_NEW}")
+    moved = [f for f in sent if f.redispatches]
+    if not moved or any(f.engine_ids[-1] != "e0" for f in moved):
+        fail(f"fleet: {len(moved)} requests re-dispatched from e1, "
+             f"ending on {[f.engine_ids for f in moved]}")
+    groups = {"remote hit": [], "local hit": [], "cold": []}
+    remote = timers["e0"].remote_prompts | timers["e1"].remote_prompts
+    for f in sent:
+        if tuple(f.prompt_ids) in remote:
+            groups["remote hit"].append(f)
+        elif f._leg is not None and f._leg.prefix_hit_tokens and \
+                not f.redispatches:
+            groups["local hit"].append(f)
+        else:
+            groups["cold"].append(f)
+    ttft = {k: (len(v),
+                float(np.percentile([f.ttft_s() * 1e3 for f in v], 50))
+                if v else None,
+                float(np.percentile([f.ttft_s() * 1e3 for f in v], 99))
+                if v else None) for k, v in groups.items()}
+    log(f"  (4) session load ({FL_SESSIONS} sessions x {FL_PER_SESSION}, "
+        f"head {FL_HEAD}, tails {FL_TAILS}, {FL_NEW} new, Poisson "
+        f"{FL_QPS} req/s) through the router: {res['tokens_per_sec']} "
+        f"tokens/s, TTFT p50 {res['ttft_ms_p50']} / p99 "
+        f"{res['ttft_ms_p99']} ms, ITL p50 {res['itl_ms_p50']} / p99 "
+        f"{res['itl_ms_p99']} ms; by engine {json.dumps(res['by_engine'])}")
+    log("      TTFT by admission (requests, p50, p99 ms): " + ", ".join(
+        f"{k} {n} / {p50 and round(p50, 2)} / {p99 and round(p99, 2)}"
+        for k, (n, p50, p99) in ttft.items()))
+    log(f"  (5) engine loss: engine_die@serve_loop aimed at e1 after "
+        f"{killed.get('at')} submissions; {len(moved)} of its requests "
+        f"re-dispatched to e0 and finished")
+    rounds = acc.check("load", [e0, e1])
+    res["ttft_by_admission"] = ttft
+    res["rounds"] = rounds
+    return res, sent, moved
+
+
+def fleet_autoscale(acc, model, e0, r, reg):
+    """32a (6): a burst on the one live engine spawns a warm third
+    (512 pages); idle, the autoscaler drains it again."""
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.serving.fleet import EngineAutoscaler
+    spawned = {}
+
+    def spawn(eid):
+        # "pallas": the kernel, without the measure-only A/B gate a
+        # construction would otherwise time (its launches are no round's)
+        eng = ServingEngine(model, engine_id=eid, attn_backend="pallas",
+                            **{**OPS_ENGINE, "num_pages": 512})
+        count_rounds(eng)
+        # the launch counts are process-wide: warm (capture) while the
+        # live engine's rounds wait, so no replay lands in a capture
+        with e0._step_lock:
+            eng.spawn_pads = len(eng.warm_ragged())
+        spawned[eid] = eng
+        return eng
+
+    sc = EngineAutoscaler(r, spawn, min_engines=1, max_engines=2,
+                          queue_high=4.0, queue_low=0.5, up_ticks=2,
+                          down_ticks=2, cooldown_s=0.0)
+    rng = np.random.RandomState(SEED + 35)
+    V = model.config.vocab_size
+    burst = [r.submit(rng.randint(1, V, int(n)).tolist(),
+                      max_new_tokens=FL_BURST_NEW)
+             for n in rng.randint(16, 256, FL_BURST)]
+    acts, now = [], 0.0
+    while "up" not in acts and now < 20:
+        now += 1.0
+        acts.append(sc.tick(now=now))
+    wave = [r.submit(rng.randint(1, V, int(n)).tolist(),
+                     max_new_tokens=FL_BURST_NEW)
+            for n in rng.randint(16, 256, FL_WAVE)]
+    for f in burst + wave:
+        f.result(120)
+    spare = spawned.get("a0")
+    while "down" not in acts and now < 40:
+        now += 1.0
+        acts.append(sc.tick(now=now))
+    c = reg.snapshot()["counters"]
+    ev = {d: c.get(f"serving_scale_events_total{{direction={d}}}", 0)
+          for d in ("up", "down")}
+    if spare is None or acts.count("up") != 1 or acts.count("down") != 1 \
+            or ev != {"up": 1, "down": 1} or not spare._closed \
+            or set(r.handles()) != {"e0"} or spare.launched <= \
+            spare.spawn_pads:
+        fail(f"fleet autoscale: actions {acts}, scale events {ev}, "
+             f"roster {sorted(r.handles())}")
+    served = sum(1 for f in wave if "a0" in f.engine_ids)
+    acc.check("autoscale", [e0, spare], extra_rounds=spare.spawn_pads)
+    log(f"  (6) autoscaler: e1 struck ({sc.quarantine.quarantined()}); "
+        f"a burst of {FL_BURST} on e0 -> scale up after "
+        f"{acts.index('up') + 1} ticks (a0: 512 pages, "
+        f"{spare.spawn_pads} pads captured before rotation), a wave of "
+        f"{FL_WAVE} ({served} on a0), idle -> scale down; "
+        f"serving_scale_events_total {ev}; events "
+        f"{[(e['dir'], e['engine'], e['n_engines']) for e in sc.events]}")
+    sc.close()
+    return burst + wave
+
+
+def fleet_inprocess(pt, K):
+    """32a: the fleet in this process -> (launches, numbers)."""
+    from paddle_tpu_torch.distributed.tcp_store import TCPStore
+    from paddle_tpu_torch.observability import metrics as obsm
+    from paddle_tpu_torch.serving.fleet import FleetRouter, PageShareClient
+    t0 = time.perf_counter()
+    cfg = pt.gpt_1p3b(dropout=0.0)
+    L = cfg.num_layers
+    model = pt.GPTForCausalLM(cfg, dtype=torch.bfloat16, seed=SEED)
+    port = free_port()
+    master = TCPStore("127.0.0.1", port, is_master=True)
+    reg = obsm.enable(out_dir=None, interval_s=0)
+    engines, timers = {}, {}
+    for eid in ("e0", "e1"):
+        share = PageShareClient(TCPStore("127.0.0.1", port), eid,
+                                job=FLEET_JOB)
+        eng = pt.ServingEngine(model, engine_id=eid, page_share=share,
+                               **OPS_ENGINE)
+        eng.warm_ragged()
+        count_rounds(eng)
+        timers[eid] = FleetTimers(eng)
+        engines[eid] = eng
+    e0, e1 = engines["e0"], engines["e1"]
+    log(f"[fleet] 32a: gpt_1p3b bf16, e0 and e1 ({e0.kv.nbytes() / 1e9:.2f}"
+        f" GB of KV each, {e0.stats()['graphs']} graphs each, page share "
+        f"over a TCPStore on this host) behind a FleetRouter; set up in "
+        f"{time.perf_counter() - t0:.1f} s")
+    acc = FleetLaunches(K, L)
+    try:
+        r = FleetRouter()
+        r.add_engine(e0, "e0")
+        r.add_engine(e1, "e1")
+        frs = fleet_share_checks(acc, model, e0, e1, r)
+        h_fr, h_prompt = fleet_hedge_check(acc, model, e0, e1)
+        res, load_frs, moved = fleet_load(acc, model, e0, e1, r, timers)
+        burst = fleet_autoscale(acc, model, e0, r, reg)
+        launches = dict(acc.total)
+        # correctness of every token (after the launch counts: these
+        # forwards launch kernels of their own)
+        e0.stop()
+        top, n, worst = fleet_teacher_forced(
+            model, frs + [h_fr] + load_frs + burst)
+        verdicts = [near_tie_check(model, f.prompt_ids, f.result(1),
+                                   e0.generate(f.prompt_ids,
+                                               max_new_tokens=FL_NEW))
+                    for f in moved]
+        verdicts.append(near_tie_check(
+            model, h_prompt, h_fr.result(1),
+            e0.generate(h_prompt, max_new_tokens=24)))
+        log(f"  tokens: {top} of {n} at the no-cache forward's argmax, the "
+            f"rest within phase 15's tolerance (largest shortfall "
+            f"{worst:.4g}); re-dispatched and hedged requests against e0 "
+            f"alone: {verdicts}")
+        num = fleet_share_numbers(timers)
+        r.close()
+    finally:
+        obsm.disable()
+        for eng in engines.values():
+            eng.close()
+        del master
+    out = {"load": {k: res[k] for k in (
+        "tokens_per_sec", "ttft_ms_p50", "ttft_ms_p99", "itl_ms_p50",
+        "itl_ms_p99", "requests_ok", "by_engine", "ttft_by_admission",
+        "rounds")},
+        "share": num, "redispatched": len(moved),
+        "redispatch_verdicts": verdicts, "rounds": acc.rounds,
+        "teacher_forced": {"at_argmax": top, "tokens": n,
+                           "worst_shortfall": worst},
+        "phase_s": time.perf_counter() - t0}
+    return launches, out
+
+
+def fleet_share_numbers(timers):
+    """Publish, fetch and import host times over both engines."""
+    tot = {k: sum(t.s[k] for t in timers.values())
+           for k in ("gather", "publish", "insert", "fetch", "write")}
+    cnt = {k: sum(t.n[k] for t in timers.values()) for k in tot}
+    nbytes = sum(t.fetched_bytes for t in timers.values())
+    pages = sum(p for t in timers.values() for _, p in t.inserts)
+    stalls = [dt * 1e3 for t in timers.values() for dt, p in t.inserts
+              if p]
+    num = {
+        "published_pages": pages,
+        "publish_ms_per_page": (tot["gather"] + tot["publish"]) * 1e3
+        / max(pages, 1),
+        "gather_ms_per_page": tot["gather"] * 1e3 / max(cnt["gather"], 1),
+        "store_set_ms_per_page": tot["publish"] * 1e3
+        / max(cnt["publish"], 1),
+        "insert_stall_ms_p50": float(np.median(stalls)) if stalls else None,
+        "insert_stall_ms_max": max(stalls) if stalls else None,
+        "fetched_pages": cnt["write"],
+        "fetch_ms_per_page": tot["fetch"] * 1e3 / max(cnt["write"], 1),
+        "import_write_ms_per_page": tot["write"] * 1e3
+        / max(cnt["write"], 1),
+        "fetch_MB_per_s": nbytes / 1e6 / tot["fetch"] if tot["fetch"]
+        else None}
+    log(f"  page share: {pages} pages published, "
+        f"{num['publish_ms_per_page']:.3f} ms a page (gather and copy "
+        f"{num['gather_ms_per_page']:.3f}, store writes "
+        f"{num['store_set_ms_per_page']:.3f}); an insert that publishes "
+        f"stalls its round {num['insert_stall_ms_p50']} ms (median), "
+        f"{num['insert_stall_ms_max']} ms (max); {num['fetched_pages']} "
+        f"pages imported, fetch {num['fetch_ms_per_page']:.3f} ms a page "
+        f"({num['fetch_MB_per_s']} MB/s through the store), write into "
+        f"the pools {num['import_write_ms_per_page']:.3f} ms a page")
+    return num
+
+
+def fleet_engine_worker(argv):
+    """``chip_smoke.py --fleet-engine-worker ARGS``: one engine process of
+    32b, ``paddle_tpu_torch.serving.fleet.remote.main(ARGS)``, with its
+    rounds, the legs it was given and its kernels' launches counted from
+    the start of its store-RPC loop and printed at exit as ``FLEET_ENGINE
+    {...}``."""
+    from paddle_tpu_torch.ops import kernels as K
+    from paddle_tpu_torch.serving import engine as E
+    remote = importlib.import_module("paddle_tpu_torch.serving.fleet.remote")
+    counts = {"rounds": 0, "legs": 0}
+    ragged_fn, submit = E.ServingEngine._ragged_fn, \
+        E.ServingEngine.submit_request
+    serve = remote.serve_over_store
+    held = []
+
+    def counting_fn(self, *a, **kw):
+        counts["rounds"] += 1
+        return ragged_fn(self, *a, **kw)
+
+    def counting_submit(self, req, block=True, timeout=10.0):
+        counts["legs"] += 1
+        return submit(self, req, block=block, timeout=timeout)
+
+    def counted_serve(eng, *a, **kw):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        counts.update(rounds=0, legs=0, graphs=eng.stats()["graphs"])
+        held.append(eng)
+        print(f"FLEET_ENGINE_READY {time.time():.6f}", flush=True)
+        return serve(eng, *a, **kw)
+
+    E.ServingEngine._ragged_fn = counting_fn
+    E.ServingEngine.submit_request = counting_submit
+    remote.serve_over_store = counted_serve
+    rc = remote.main(argv)
+    torch.cuda.synchronize()
+    eng = held[0]
+    st = eng.stats()
+    print("FLEET_ENGINE " + json.dumps({
+        "layers": eng.cfg.num_layers, "rounds": counts["rounds"],
+        "legs": counts["legs"], "decode_tokens": st["decode_tokens"],
+        "launches": {k: v for k, v in K.launch_counts().items() if v},
+        "remote_hits": st.get("prefix_remote_hits"),
+        "published": st.get("prefix_published_pages"),
+        "graphs": counts["graphs"]}), flush=True)
+    return rc
+
+
+def fleet_spawn(args, env, tag, root):
+    """Start one process of 32b, its output into ``root/tag.log``."""
+    out = open(os.path.join(root, f"{tag}.log"), "w")
+    proc = subprocess.Popen(args, env=env, cwd=HERE, stdout=out,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    proc.log_path = out.name
+    out.close()
+    return proc
+
+
+def fleet_log(proc):
+    with open(proc.log_path) as f:
+        return f.read()
+
+
+def fleet_frontdoor(pt):
+    """32b: two engine processes, a primary and a shadow front door, the
+    primary SIGKILLed mid-stream -> (launches, numbers)."""
+    import signal
+    import threading
+    from paddle_tpu_torch.distributed import keyspace
+    from paddle_tpu_torch.distributed.tcp_store import TCPStore
+    from paddle_tpu_torch.serving import make_session_prompts
+    from paddle_tpu_torch.serving.fleet import (EngineRegistry,
+                                                RouterClient, RouterLease)
+    t0 = time.perf_counter()
+    job = "fd"
+    port = free_port()
+    master = TCPStore("127.0.0.1", port, is_master=True)
+    store = f"127.0.0.1:{port}"
+    cfg = pt.gpt_1p3b(dropout=0.0)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PADDLE_TPU_")}
+    root = tempfile.mkdtemp(prefix="fleet_")
+    eng_args = ["--store", store, "--job", job, "--seed", str(SEED),
+                "--share", "--device", FD_DEVICE, "--dtype", "bfloat16",
+                "--vocab", str(cfg.vocab_size), "--hidden",
+                str(cfg.hidden_size), "--layers", str(FD_LAYERS),
+                "--heads", str(cfg.num_heads), "--seq",
+                str(cfg.max_seq_len), "--page", "16", "--pool",
+                str(FD_POOL), "--slots", "16", "--chunk", "256",
+                "--idle-timeout", "300"]
+    procs = {eid: fleet_spawn([sys.executable] + FD_WORKER + eng_args
+                              + ["--engine-id", eid], env, eid, root)
+             for eid in ("e0", "e1")}
+    registry = EngineRegistry(TCPStore("127.0.0.1", port), job=job)
+    out = {}
+    try:
+        deadline = time.perf_counter() + 300
+        while set(registry.engines()) != {"e0", "e1"}:
+            for eid, p in procs.items():
+                if p.poll() is not None:
+                    fail(f"fleet 32b: engine {eid} exited {p.returncode}\n"
+                         + fleet_log(p)[-3000:])
+            if time.perf_counter() > deadline:
+                fail("fleet 32b: the engine processes never registered")
+            time.sleep(0.2)
+        t_engines = time.perf_counter() - t0
+        fd = [sys.executable, "-m", "paddle_tpu_torch.serving.fleet."
+              "frontdoor", "--store", store, "--job", job, "--engines",
+              "e0,e1", "--ttl", "1.0"]
+        procs["primary"] = fleet_spawn(
+            fd + ["--role", "primary"],
+            dict(env, PADDLE_TPU_FAULTS=f"router_die@route:{FD_DIE_AT}"),
+            "primary", root)
+        procs["shadow"] = fleet_spawn(fd + ["--role", "shadow", "--grace",
+                                            "2.0"], env, "shadow", root)
+        watch = RouterLease(TCPStore("127.0.0.1", port), job=job)
+        while watch.read() is None:
+            if time.perf_counter() > deadline or \
+                    procs["primary"].poll() is not None:
+                fail("fleet 32b: the primary never leased\n"
+                     + fleet_log(procs["primary"])[-3000:])
+            time.sleep(0.1)
+        prompts, _ = make_session_prompts(4, FD_REQUESTS // 4, FL_HEAD,
+                                          (16, 128), cfg.vocab_size,
+                                          seed=SEED + 36)
+        rpc = {eid: keyspace.fleet_engine_rpc(job, eid)
+               for eid in ("e0", "e1")}
+        streams = [[] for _ in prompts]
+        results, errors = [None] * len(prompts), []
+        t_submit = time.perf_counter()
+
+        def one(i):
+            # the primary's dispatches go to e0, the shadow's to e1, which
+            # imports the sessions' heads e0 published
+            client = RouterClient(TCPStore("127.0.0.1", port), job=job,
+                                  resubmit_after=2.0)
+            client.submit(f"fd-{i}", prompts[i], max_new_tokens=FD_NEW,
+                          engine="e0" if i < FD_DIE_AT - 1 else "e1")
+            try:
+                results[i] = client.result(
+                    f"fd-{i}", timeout=240.0,
+                    on_token=lambda t, fin, s=streams[i]: s.append(t))
+            except Exception as e:
+                errors.append(f"fd-{i}: {type(e).__name__}: {e}")
+
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        t_done = time.perf_counter() - t_submit
+        procs["primary"].wait(60)
+        plog = fleet_log(procs["primary"])
+        if errors or procs["primary"].returncode != -signal.SIGKILL or \
+                "ROUTER_DIE" not in plog:
+            fail(f"fleet 32b: errors {errors}; primary rc "
+                 f"{procs['primary'].returncode}\n{plog[-3000:]}")
+        bad = [i for i, (s, t) in enumerate(zip(streams, results))
+               if s != t or len(t) != FD_NEW]
+        if bad:
+            fail(f"fleet 32b: requests {bad} streamed tokens other than "
+                 f"their result, or not {FD_NEW}")
+        # a resubmitted terminal id: answered from the ledger, no engine
+        # touched (their submission logs and decode counters stand still)
+        time.sleep(1.0)
+        heads = {e: int(master.add(f"{k}/in_seq", 0))
+                 for e, k in rpc.items()}
+        decoded = {e: registry.record(e)["decode_tokens"] for e in rpc}
+        again = RouterClient(TCPStore("127.0.0.1", port), job=job)
+        t_re = time.perf_counter()
+        again.submit("fd-0", prompts[0], max_new_tokens=FD_NEW)
+        replay = again.result("fd-0", timeout=60.0)
+        replay_ms = (time.perf_counter() - t_re) * 1e3
+        time.sleep(2.0)          # a heartbeat and a few router ticks
+        heads2 = {e: int(master.add(f"{k}/in_seq", 0))
+                  for e, k in rpc.items()}
+        decoded2 = {e: registry.record(e)["decode_tokens"] for e in rpc}
+        if replay != results[0] or heads2 != heads or decoded2 != decoded:
+            fail(f"fleet 32b: the terminal replay {replay} vs "
+                 f"{results[0]}; engine submissions {heads} -> {heads2}, "
+                 f"decode tokens {decoded} -> {decoded2}")
+        master.set(f"{keyspace.fleet_registry(job)}/stop", b"1")
+        for name, p in procs.items():
+            if name != "primary":
+                p.wait(120)
+        slog = fleet_log(procs["shadow"])
+        m = re.search(r"ROUTER_ADOPTED term=(\d+) adopt_s=([\d.]+) "
+                      r"adopted=(\d+)", slog)
+        if procs["shadow"].returncode != 0 or m is None:
+            fail(f"fleet 32b: the shadow (rc "
+                 f"{procs['shadow'].returncode}) did not adopt\n"
+                 f"{slog[-3000:]}")
+        acc, legs, per = {}, 0, {}
+        for eid in ("e0", "e1"):
+            text = fleet_log(procs[eid])
+            g = re.search(r"FLEET_ENGINE (\{.*\})", text)
+            if procs[eid].returncode != 0 or g is None:
+                fail(f"fleet 32b: engine {eid} rc "
+                     f"{procs[eid].returncode}\n{text[-3000:]}")
+            rec = json.loads(g.group(1))
+            L = rec["layers"]
+            want = {"ragged_paged_attention": rec["rounds"] * L,
+                    "layer_norm": rec["rounds"] * (2 * L + 1)}
+            if rec["rounds"] <= 0 or rec["launches"] != want:
+                fail(f"fleet 32b: engine {eid} launches "
+                     f"{rec['launches']} != {want}")
+            add_launches(acc, rec["launches"])
+            legs += rec["legs"]
+            per[eid] = rec
+        if legs != FD_REQUESTS or not per["e1"]["remote_hits"]:
+            fail(f"fleet 32b: the engines generated {legs} legs for "
+                 f"{FD_REQUESTS} requests; e1 imported "
+                 f"{per['e1']['remote_hits']} heads from e0")
+        out = {"adopt_s": float(m.group(2)), "adopted": int(m.group(3)),
+               "term": int(m.group(1)), "engines": per,
+               "engines_ready_s": t_engines, "requests_s": t_done,
+               "replay_ms": replay_ms}
+        log(f"[fleet] 32b: two engine processes at gpt_1p3b widths, "
+            f"{FD_LAYERS} layers, bf16, {FD_POOL} pages, page share "
+            f"(ready in {t_engines:.1f} s); primary and shadow front "
+            f"doors; {FD_REQUESTS} requests by client id; the primary "
+            f"SIGKILLed itself at its {FD_DIE_AT}th dispatch "
+            f"(router_die@route); the shadow adopted term {m.group(1)} in "
+            f"{m.group(2)} s ({m.group(3)} in-flight records); every "
+            f"request done once ({legs} engine legs, streams without a "
+            f"duplicate) in {t_done:.1f} s; a resubmitted terminal id "
+            f"answered from the ledger in {replay_ms:.1f} ms, no engine "
+            f"touched; engine launches exact: "
+            + "; ".join(f"{e} {r['rounds']} rounds over {r['graphs']} "
+                        f"graphs {r['launches']}, {r['legs']} legs, "
+                        f"{r['remote_hits']} remote hits"
+                        for e, r in per.items()))
+        out["prompts"], out["results"] = prompts, results
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+        import shutil
+        shutil.rmtree(root, ignore_errors=True)
+        del master
+    return acc, out
+
+
+def fleet_reference(pt, out):
+    """32b's tokens against an in-process engine of the processes'
+    configuration and seed: equal, or a near-tie (bf16 rounds of another
+    batch)."""
+    cfg = pt.gpt_1p3b(dropout=0.0)
+    cfg.num_layers = FD_LAYERS
+    model = pt.GPTForCausalLM(cfg, dtype=torch.bfloat16, seed=SEED)
+    eng = pt.ServingEngine(model, **{**OPS_ENGINE, "num_pages": FD_POOL})
+    eng.warm_ragged()
+    reqs = [eng.submit(p, max_new_tokens=FD_NEW) for p in out["prompts"]]
+    eng.run_until_idle()
+    verdicts = [near_tie_check(model, p, got, req.result(1))
+                for p, got, req in zip(out["prompts"], out["results"],
+                                       reqs)]
+    eng.close()
+    log(f"  32b tokens against an in-process engine of the same "
+        f"configuration and seed: {verdicts.count('equal')} of "
+        f"{len(verdicts)} equal, the rest "
+        f"{[v for v in verdicts if v != 'equal']}")
+    return verdicts
+
+
+def fleet_phases(pt, K):
+    """Phase 32: 32a, then 32b. -> ({kernel: its fleet launches}, the
+    numbers)."""
+    t0 = time.perf_counter()
+    free()
+    in_proc, numbers = fleet_inprocess(pt, K)
+    numbers = {"32a": numbers}
+    free()
+    procs, numbers["32b"] = fleet_frontdoor(pt)
+    numbers["32b"]["verdicts"] = fleet_reference(pt, numbers["32b"])
+    del numbers["32b"]["prompts"], numbers["32b"]["results"]
+    free()
+    numbers["phase_s"] = time.perf_counter() - t0
+    log(f"  phase 32 {numbers['phase_s']:.1f} s")
+    log("  " + json.dumps(numbers, default=str))
+    names = set(in_proc) | set(procs)
+    return {k: {"fleet_launches": in_proc.get(k, 0) + procs.get(k, 0),
+                "fleet_launches_in_process": in_proc.get(k, 0),
+                "fleet_launches_processes": procs.get(k, 0)}
+            for k in names}, numbers
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -9145,6 +9996,15 @@ def main():
         next(e for e in kernels if e["name"] == name).update(numbers)
     for e in kernels:
         e.setdefault("elastic_launches", 0)
+    clock("phase 32")
+    # ------------------------------------------------ phase 32: the fleet
+    fl_extra, _ = fleet_phases(pt, K)
+    for name, numbers in fl_extra.items():
+        next(e for e in kernels if e["name"] == name).update(numbers)
+    for e in kernels:
+        for key in ("fleet_launches", "fleet_launches_in_process",
+                    "fleet_launches_processes"):
+            e.setdefault(key, 0)
     for e in kernels:
         e["max_abs_err"] = max([e["max_abs_err"]] + [
             v for k, v in e.items() if k.endswith("_max_abs_err")])
@@ -9167,4 +10027,6 @@ if __name__ == "__main__":
         sys.exit(dlinalg_worker())
     if sys.argv[1:] == ["--elastic-worker"]:
         sys.exit(elastic_worker())
+    if sys.argv[1:2] == ["--fleet-engine-worker"]:
+        sys.exit(fleet_engine_worker(sys.argv[2:]))
     sys.exit(main())

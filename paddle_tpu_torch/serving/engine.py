@@ -69,7 +69,12 @@ The operational surface of the JAX engine:
   :meth:`~ServingEngine.readmit_request`,
   :meth:`~ServingEngine.abort_request`, ``submit(on_done=)`` and a
   request's ``migrate_hook``: the KV page migration of
-  :mod:`.fleet.disagg`.
+  :mod:`.fleet.disagg`; ``page_share=`` (a
+  :class:`~.fleet.page_share.PageShareClient`) makes the prefix cache
+  fleet-wide (:class:`~.fleet.page_share.SharedPrefixCache`: published
+  pages imported into this engine's pools in place) and
+  :meth:`~ServingEngine.prefetch_prefix` imports a head ahead of its
+  traffic, as the fleet router does on an affinity spill.
 * **the A/B gate** — ``attn_backend`` (:func:`.decode.resolve_backend`)
   measures the plain version against the kernel at the engine's own
   launch shape and reports it in ``stats()["attn_ab"]``; the kernel stays
@@ -78,7 +83,7 @@ The operational surface of the JAX engine:
   (``PADDLE_TPU_FAULTS``, narrowed to one engine by
   ``PADDLE_TPU_FAULT_ENGINE``).
 
-Mesh sharding and the fleet's page-share client are not ported.
+Mesh sharding is not ported.
 """
 from __future__ import annotations
 
@@ -167,7 +172,8 @@ class ServingEngine:
                  prefill_batch_buckets=None, attn_backend=None, jit=True,
                  registry=None,
                  prefill_chunk=None, prefill_token_budget=None,
-                 prefix_cache=True, ragged=None, engine_id=None):
+                 prefix_cache=True, ragged=None, engine_id=None,
+                 page_share=None):
         cfg = model.config
         self.model = model
         self.model.eval()
@@ -187,8 +193,16 @@ class ServingEngine:
                                self.page_size, KVH, Dh, dtype=model.dtype,
                                device=self.device)
         self.num_kv_heads = KVH
-        self.prefix = PrefixCache(self.kv.allocator, self.page_size) \
-            if prefix_cache else None
+        # with a fleet PageShareClient the trie is fleet-wide: a local miss
+        # consults the store's index and imports the published pages
+        if not prefix_cache:
+            self.prefix = None
+        elif page_share is not None:
+            from .fleet.page_share import SharedPrefixCache
+            self.prefix = SharedPrefixCache(self.kv, self.page_size,
+                                            page_share)
+        else:
+            self.prefix = PrefixCache(self.kv.allocator, self.page_size)
         self.scheduler = ContinuousBatchingScheduler(
             self.kv.allocator, self.max_slots, self.page_size,
             cfg.max_seq_len, max_queue=max_queue,
@@ -907,11 +921,15 @@ class ServingEngine:
             occ = self.kv.occupancy_pct()
             self._peak_occupancy = max(self._peak_occupancy, occ)
             alloc = self.kv.allocator
+            share = getattr(self.prefix, "share", None)
             self.metrics.sample_state(
                 len(self.scheduler.active), self.scheduler.queue_depth(),
                 occ,
                 shared_pages=alloc.shared_pages() if self.prefix else None,
-                cached_pages=alloc.cached_pages if self.prefix else None)
+                cached_pages=alloc.cached_pages if self.prefix else None,
+                remote_hits=share.remote_hits if share else None,
+                remote_hit_tokens=share.remote_hit_tokens
+                if share else None)
             self._steps += 1
             return emitted
 
@@ -1050,10 +1068,28 @@ class ServingEngine:
 
     def prefetch_prefix(self, tokens):
         """Warm this engine's prefix cache with a prompt head published
-        elsewhere in the fleet -> the number of pages imported. The
-        fleet's page-share client is not ported, and without one there is
-        nothing to import: 0, as the JAX engine returns without one."""
-        return 0
+        elsewhere in the fleet (the router's prefetch on an affinity
+        spill): walk the shared trie, import the remote pages into the
+        LOCAL pools, then drop the lookup's references so the pages park
+        indexed and reclaimable — the session's next request here
+        prefix-hits locally. Runs under the step lock (the router calls
+        it from a thread of its own), so its page writes are ordered
+        against the rounds as an admission's import is. -> the number of
+        pages imported (0 without a share client)."""
+        share = getattr(self.prefix, "share", None)
+        if share is None or self._closed or self._draining:
+            return 0
+        with self._step_lock:
+            t0 = share.remote_hit_tokens
+            pages, _n = self.prefix.lookup(tokens)
+            if pages:
+                # the lookup took one reader reference a page for an
+                # admission that is not happening: the trie keeps them
+                self.kv.allocator.free(pages)
+            imported = (share.remote_hit_tokens - t0) // self.page_size
+        if imported:
+            self.metrics.on_prefetch_pages(imported)
+        return imported
 
     def generate(self, prompt_ids, timeout=120.0, **kw):
         """Synchronous helper: submit + drive (foreground when no serve
@@ -1262,4 +1298,11 @@ class ServingEngine:
                 "prefix_shared_pages": self.kv.allocator.shared_pages(),
                 "prefix_reclaimed_pages": self.prefix.reclaimed_pages,
             })
+            share = getattr(self.prefix, "share", None)
+            if share is not None:
+                out.update({
+                    "prefix_remote_hits": share.remote_hits,
+                    "prefix_remote_hit_tokens": share.remote_hit_tokens,
+                    "prefix_published_pages": share.published,
+                })
         return out

@@ -13,7 +13,8 @@ import time
 import numpy as np
 
 __all__ = ["run_poisson_load", "summarize_requests",
-           "make_shared_prefix_prompts", "make_mixed_length_prompts"]
+           "make_shared_prefix_prompts", "make_mixed_length_prompts",
+           "make_session_prompts"]
 
 
 def _pct(values, q):
@@ -21,8 +22,12 @@ def _pct(values, q):
         if values else None
 
 
-def summarize_requests(requests, wall_s):
-    """Reduce finished requests -> one summary dict (times in ms)."""
+def summarize_requests(requests, wall_s, by_engine=False):
+    """Reduce finished requests -> one summary dict (times in ms).
+
+    ``by_engine=True`` adds per-engine rows (requests that carry an
+    ``engine_id``, as fleet-routed :class:`~.fleet.router.FleetRequest`\\ s
+    do), so a fleet run shows where the load landed."""
     ok = [r for r in requests if r.error is None and r.t_done is not None]
     # never-finished requests (result() deadline hit, engine wedged) are
     # failures — without this a hung run reads as healthy
@@ -54,6 +59,31 @@ def summarize_requests(requests, wall_s):
     for k, v in list(out.items()):
         if isinstance(v, float) and k.endswith(("p50", "p99")):
             out[k] = round(v, 2)
+    if by_engine:
+        groups = {}
+        for r in requests:
+            eid = getattr(r, "engine_id", None)
+            groups.setdefault(eid if eid is not None else "?",
+                              []).append(r)
+        rows = {}
+        for eid, reqs in sorted(groups.items()):
+            g_ok = [r for r in reqs if r.error is None
+                    and r.t_done is not None]
+            g_ttft = [r.ttft_s() * 1e3 for r in g_ok
+                      if r.ttft_s() is not None]
+            g_itl = [dt * 1e3 for r in g_ok for dt in r.inter_token_s()]
+            rows[eid] = {
+                "requests_ok": len(g_ok),
+                "requests_failed": len(reqs) - len(g_ok),
+                "tokens": sum(len(r.generated) for r in g_ok),
+                "ttft_ms_p99": _pct(g_ttft, 99),
+                "itl_ms_p99": _pct(g_itl, 99),
+                "redispatches": sum(getattr(r, "redispatches", 0)
+                                    for r in reqs),
+                "migrations": sum(getattr(r, "migrations", 0)
+                                  for r in reqs),
+            }
+        out["by_engine"] = rows
     return out
 
 
@@ -131,11 +161,19 @@ def make_session_prompts(n_sessions, requests_per_session, head_len,
 
 def run_poisson_load(engine, n_requests=32, qps=10.0, prompt_len=(8, 24),
                      max_new_tokens=12, eos_token_id=None, seed=0,
-                     timeout=300.0, prompts=None):
+                     timeout=300.0, shared_prefix=None, prompts=None,
+                     by_engine=False):
     """Submit ``n_requests`` at Poisson arrivals of rate ``qps`` (prompts
     uniform-random token ids of uniform-random length in ``prompt_len``),
     wait for completion, -> summary dict. The engine must be ``start()``ed
-    (open loop: submission never waits on decode).
+    (open loop: submission never waits on decode). A started
+    :class:`~.fleet.router.FleetRouter` is driven the same way, through
+    its ``cfg`` and ``submit``.
+
+    ``shared_prefix=N`` switches to the shared-system-prompt workload:
+    every prompt is one common ``N``-token head plus the random tail
+    (:func:`make_shared_prefix_prompts`); ``prompt_len`` then sizes the
+    tail. ``by_engine`` adds :func:`summarize_requests`' per-engine rows.
 
     ``prompts=`` overrides generation entirely (a pre-built workload such
     as :func:`make_mixed_length_prompts`); ``max_new_tokens`` may then be a
@@ -146,6 +184,9 @@ def run_poisson_load(engine, n_requests=32, qps=10.0, prompt_len=(8, 24),
     if prompts is not None:
         n_requests = len(prompts)
     gaps = rng.exponential(1.0 / qps, size=n_requests)
+    if prompts is None and shared_prefix:
+        prompts = make_shared_prefix_prompts(
+            n_requests, prompt_len, vocab, shared_prefix, seed=seed)
     per_req_new = max_new_tokens if hasattr(max_new_tokens, "__len__") \
         else [max_new_tokens] * n_requests
     if len(per_req_new) != n_requests:
@@ -173,7 +214,7 @@ def run_poisson_load(engine, n_requests=32, qps=10.0, prompt_len=(8, 24),
         except Exception:
             pass  # summarized as failed below
     wall_s = time.perf_counter() - t_start
-    out = summarize_requests(requests, wall_s)
+    out = summarize_requests(requests, wall_s, by_engine=by_engine)
     out["qps_offered"] = float(qps)
     out["n_requests"] = int(n_requests)
     return out

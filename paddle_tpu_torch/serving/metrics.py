@@ -28,7 +28,13 @@ lands in the registry of :mod:`paddle_tpu_torch.observability.metrics`
   ``serving_prefetch_pages_total`` (prefix pages imported ahead of
   traffic), ``serving_prefix_remote_hits`` /
   ``serving_prefix_remote_hit_tokens`` gauges (cross-engine prefix
-  imports), and ``serving_phase_ms{phase=migrate}``
+  imports), and ``serving_phase_ms{phase=migrate|route}``
+* the router's and the autoscaler's rows (an unlabeled frontend):
+  ``serving_hedges_{fired,won}_total`` (straggler duplicates),
+  ``serving_router_requests_replayed_total`` (terminal request ids
+  answered from the ledger), ``serving_router_failover_s`` (a shadow
+  router's takeover time), ``serving_scale_events_total{direction=up|
+  down}`` and ``serving_fleet_engines`` (the autoscaler's roster size)
 
 ``engine="e0"`` labels every row. Every hook is a no-op when the registry
 is off (one ``None`` check).
@@ -179,6 +185,18 @@ class ServingMetrics:
             self._gauge("serving_prefix_remote_hit_tokens").set(
                 remote_hit_tokens)
 
+    def on_hedge_fired(self):
+        """The router duplicated a straggler leg on a second engine."""
+        if self._reg is None:
+            return
+        self._counter("serving_hedges_fired_total").inc()
+
+    def on_hedge_won(self):
+        """A hedge duplicate finished first (the original was aborted)."""
+        if self._reg is None:
+            return
+        self._counter("serving_hedges_won_total").inc()
+
     def on_prefetch_pages(self, n_pages):
         """Prefix pages imported ahead of traffic (fleet prefetch)."""
         if self._reg is None:
@@ -191,6 +209,29 @@ class ServingMetrics:
         if self._reg is None:
             return
         self._counter("serving_aborts_total").inc()
+
+    def on_router_replay(self):
+        """A resubmitted terminal request id was answered from the
+        ledger's recorded result, no engine touched."""
+        if self._reg is None:
+            return
+        self._counter("serving_router_requests_replayed_total").inc()
+
+    def on_router_failover(self, seconds):
+        """A shadow router adopted the front door; ``seconds`` is the
+        takeover time (lease-stale detection through ledger adoption)."""
+        if self._reg is None:
+            return
+        self._gauge("serving_router_failover_s").set(float(seconds))
+
+    def on_scale_event(self, direction, n_engines):
+        """The autoscaler changed the fleet size (``direction`` "up" or
+        "down"); the gauge tracks the resulting roster size."""
+        if self._reg is None:
+            return
+        self._counter("serving_scale_events_total",
+                      direction=str(direction)).inc()
+        self._gauge("serving_fleet_engines").set(n_engines)
 
     def on_prefill_chunk(self, n_tokens):
         if self._reg is None:

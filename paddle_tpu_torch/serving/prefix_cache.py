@@ -60,6 +60,9 @@ class PrefixCache:
         on last-reader free to park the page in the reclaimable LRU.)"""
         return int(page) in self._entry
 
+    def indexed_pages(self):
+        return len(self._entry)
+
     def hit_rate(self):
         n = self.hits + self.misses
         return self.hits / n if n else 0.0
@@ -162,7 +165,8 @@ class PrefixCache:
                 if child is None:
                     self._index.pop(k, None)
                     continue
-                # route through _drop_entry: subclasses may hook it
+                # route through _drop_entry: the fleet's SharedPrefixCache
+                # unpublishes dropped pages from the store's index there
                 self._drop_entry(k, child)
                 stack.append(child)
         self.reclaimed_pages += 1

@@ -2579,3 +2579,49 @@ def test_dlinalg_device_backend_on_card():
     q0, r0 = dlinalg.local_qr(y)
     np.testing.assert_allclose(q, q0, rtol=0, atol=1e-12)
     np.testing.assert_allclose(r, r0, rtol=0, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_page_share_import_replays_the_publishers_tokens_on_card():
+    """A ``jit=True`` engine imports a 4-page head another engine
+    published through a store on this host: the import writes each page
+    into the pools in place (their storage unchanged), the imported pages
+    equal the publisher's bit for bit, and its replayed rounds, which
+    read them, give the publisher's greedy tokens."""
+    _need_cuda()
+    import socket
+    from paddle_tpu_torch import ServingEngine
+    from paddle_tpu_torch.distributed.tcp_store import TCPStore
+    from paddle_tpu_torch.serving.fleet import PageShareClient
+    model = _two_layer_1p3b(torch.bfloat16)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    master = TCPStore("127.0.0.1", port, is_master=True)
+    kw = _engine_kw(True)
+    engines = [ServingEngine(model, jit=True, engine_id=eid, page_share=(
+        PageShareClient(TCPStore("127.0.0.1", port), eid, job="card")),
+        **kw) for eid in ("A", "B")]
+    for eng in engines:
+        eng.warm_ragged()
+    a, b = engines
+    prompt = np.random.RandomState(4).randint(
+        1, model.config.vocab_size, size=70).tolist()
+    want = a.generate(prompt, max_new_tokens=8)
+    assert a.prefix.share.published == 4
+    pools = [(t, t.data_ptr()) for t in b.kv.k + b.kv.v]
+    req = b.submit(prompt, max_new_tokens=8)
+    b.step()
+    assert req.prefix_hit_tokens == 64 and b.prefix.share.remote_hits == 1
+    assert all(t.data_ptr() == p for t, p in pools)
+    node = -1                  # the trie's root
+    for i, mine in enumerate(req.pages[:4]):
+        node = a.prefix._index[(node, tuple(prompt[16 * i:16 * i + 16]))]
+        assert b.prefix._page_payload(mine) == \
+            a.prefix._page_payload(node)
+    b.run_until_idle()
+    assert req.result(60) == want
+    assert b.stats()["graphs"] == b.stats()["distinct_programs"]
+    for eng in engines:
+        eng.close()
+    del master

@@ -30,7 +30,6 @@ import paddle_tpu as paddle
 
 import paddle_tpu_torch as pt
 
-ITEM7 = "Queue 1 item 7 (the serving fleet)"
 ITEM8 = "Queue 1 item 8 (parallel training and sharded serving)"
 ITEM9 = "Queue 1 item 9 (long tail)"
 NO_DISPATCH = ("the JAX package's dispatch entry; the port has no single "
@@ -49,13 +48,6 @@ MISSING = {
     "serving": {n: ITEM8 for n in (
         "sharded_paged_attention", "sharded_paged_prefill",
         "sharded_ragged_attention")},
-    "serving.fleet": {n: ITEM7 for n in (
-        "EngineAutoscaler", "EngineRegistry", "FleetRequest", "FleetRouter",
-        "FleetSaturated", "LocalEngineHandle", "PageShareClient",
-        "RemoteEngineHandle", "RequestLedger", "RouterClient",
-        "RouterDeposedError", "RouterLease", "SharedPrefixCache",
-        "autoscale", "frontdoor", "ledger", "page_share", "registry",
-        "remote", "router", "serve_over_store", "serve_router")},
     "distributed": {
         "world_mesh": ITEM8 + ": JAX's device Mesh; the port's world is "
                       "its torch.distributed process group",
@@ -95,21 +87,17 @@ MISSING = {
 
 _MODELS_ARGS = ("the port's models take device, dtype and seed (and the "
                 "factories **kw) after JAX's parameters (Queue 3)")
-_FLEET = "its fleet arguments come with Queue 1 item 7"
 SIG_DEVIATIONS = {
     "distributed": {"AsyncSaveHandle": (
         "built by save_state_dict, never by a user: the port's handle "
         "holds the host copy its writer thread writes")},
     "serving": {
         "PagedKVCache": "the pool's device follows JAX's parameters",
-        "ServingEngine": ITEM8 + " (mesh, mesh_axis) and " + ITEM7
-                         + " (page_share)",
+        "ServingEngine": ITEM8 + " (mesh, mesh_axis)",
         "ab_compare": "the kernel's split scratch is an argument",
         "ab_compare_ragged": "the kernel's split scratch is an argument",
         "paged_decode_attention": "the Pallas backend switch is gone",
-        "ragged_paged_attention": "the Pallas backend switch is gone",
-        "run_poisson_load": _FLEET + " (shared_prefix, by_engine)",
-        "summarize_requests": _FLEET + " (by_engine)"},
+        "ragged_paged_attention": "the Pallas backend switch is gone"},
     "models": {n: _MODELS_ARGS for n in (
         "AlexNet", "BertForMaskedLM", "BertForSequenceClassification",
         "BertModel", "GPTForCausalLM", "GPTModel", "LeNet", "MobileNetV1",
