@@ -556,6 +556,34 @@ exit code:
     and seed or a near-tie; a resubmitted terminal id is answered from
     the ledger with no engine's submissions or decode tokens moving;
     each engine process's launches exact for its rounds.
+33. **tensor-parallel serving** — ``gpt_1p3b`` bf16 (24 layers, 16
+    heads) at mp 2: the mp 1 ragged and bucketed engines in this process
+    serve 12 requests (32-200 prompt tokens from the seed, 32 new, greedy,
+    submitted at once, ``step()`` until idle) as the reference; then a
+    launcher job (``--nproc_per_node 2``, both ranks on the one card,
+    gloo; ``chip_smoke.py --tp-worker``) in which each rank: (a) runs
+    ``all_reduce`` (f32 and bf16), ``broadcast``, ``all_gather``,
+    ``reduce_scatter`` and ``all_to_all`` on CUDA tensors over the
+    model-parallel group, each equal to a host computation of every
+    rank's inputs (bf16 within one rounding); (b) calls the three serving
+    wrappers and ``sharded_flash_attention`` with whole 16-head tensors:
+    the stitched output against the unsharded kernel on all 16 heads
+    (ragged 4e-3, paged 2e-2, flash phase 6's limits), each rank's
+    launch recorded at 8 heads, the local call on the rank's contiguous
+    slice, and a strided head slice of the pools refused by the local
+    call and by the kernel; (c) derives ``gpt_1p3b`` from the seed on the
+    card, keeps its shard (``params_from_paddle_tpu``), and serves the
+    same 12 requests on the ragged engine at mp 2 (``mesh=``, every round
+    eager: no graph); (d) the same on the bucketed engine. Launches are
+    counted on each rank and must be exact: 24 ragged attention and 49
+    LayerNorm a round, 24 flash forward a dense prefill, 24 paged decode
+    a decode step, every attention launch at 8 heads. The two ranks'
+    tokens are equal, and each request's equals the mp 1 engine's or, at
+    the first divergence, both argmaxes lie within phase 15's tolerance
+    of a no-cache forward. Prints, beside the card's name and power
+    limit, the steady decode round's ms at mp 2 against mp 1, the share
+    of the mp 2 rounds in collectives (each timed after a card sync),
+    tokens/s and the launches per rank.
 
 The lines before the last carry the ``{"kernels": [...]}`` JSON (all eight
 kernels; the ``fused_adamw`` entry adds the master and bf16-moment modes'
@@ -593,7 +621,9 @@ two fits; phase 31 adds to every entry ``elastic_launches``, its
 launches over 31b's workers; phase 32 adds to every entry
 ``fleet_launches``, its launches over phase 32, and apart
 ``fleet_launches_in_process`` (32a) and ``fleet_launches_processes``
-(32b's engine processes); every ``max_abs_err`` is
+(32b's engine processes); phase 33 adds to every entry ``tp_launches``,
+its launches over both ranks' engines and 33b's wrappers, and to the
+attention entries ``tp_max_abs_err``; every ``max_abs_err`` is
 the largest of its entry's errors) and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the repository beside it, the script exits
@@ -9549,6 +9579,450 @@ def fleet_phases(pt, K):
             for k in names}, numbers
 
 
+# --------------------------------------- phase 33: tensor-parallel serving
+TP_MP = 2
+TP_REQUESTS = 12
+TP_NEW = 32
+TP_PROMPT = (32, 200)
+TP_WORKER = [os.path.abspath(__file__), "--tp-worker"]
+# the engines of phase 33, at mp 1 in this process and mp 2 in the ranks
+TP_ENGINE = dict(page_size=16, num_pages=512, max_slots=16,
+                 attn_backend="pallas", jit=True)
+TP_KINDS = (("ragged", dict(prefill_chunk=256)), ("bucketed",
+                                                   dict(ragged=False)))
+TP_DEVICE = "cuda"     # where phase 33's own tensors go (a CPU rehearsal)
+
+
+def tp_prompts(vocab, seed=SEED + 33):
+    """Phase 33's requests: TP_REQUESTS prompts of 32-200 tokens, their
+    lengths from the seed and their tokens from ``seed`` (another seed
+    gives the warm-up load: the same round shapes, no prefix hit)."""
+    lens = np.random.RandomState(SEED + 33).randint(
+        TP_PROMPT[0], TP_PROMPT[1] + 1, TP_REQUESTS)
+    rng = np.random.RandomState(seed)
+    return [rng.randint(1, vocab, size=int(n)).tolist() for n in lens]
+
+
+def tp_serve(eng, prompts):
+    """Submit every prompt (TP_NEW greedy tokens each) at once, then step
+    until idle, each step ended by a card sync -> dict: the tokens, the
+    wall seconds, each step's seconds and the decode-only steps' (no
+    request queued or mid-prefill before the step) seconds."""
+    reqs = [eng.submit(p, max_new_tokens=TP_NEW) for p in prompts]
+    steps, decode = [], []
+    t_all = time.perf_counter()
+    while eng.scheduler.has_work():
+        steady = eng.scheduler.queue_depth() == 0 and not any(
+            r.state == "prefilling" for r in eng.scheduler.active.values())
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+        if steady:
+            decode.append(steps[-1])
+    wall = time.perf_counter() - t_all
+    return {"tokens": [r.result(60) for r in reqs], "wall_s": wall,
+            "steps": len(steps), "step_s": steps, "decode_s": decode,
+            "tokens_per_s": TP_REQUESTS * TP_NEW / wall,
+            "decode_ms_median": 1e3 * float(np.median(decode))
+            if decode else None}
+
+
+def tp_collectives(C, group, rank, world):
+    """33a: all_reduce, broadcast, all_gather, reduce_scatter and
+    all_to_all over the model-parallel group on CUDA tensors, each against
+    a host computation from every rank's inputs (each rank draws them all
+    from the seed) -> {op: max abs err}."""
+    g = torch.Generator(device=TP_DEVICE)
+    xs = [torch.randn(4096, device=TP_DEVICE,
+                      generator=g.manual_seed(330 + r))
+          for r in range(world)]
+    host = [x.cpu() for x in xs]
+    total = sum(host[1:], host[0].clone())
+    errs = {}
+
+    def check(name, got, want, tol=0.0):
+        if got.device.type != TP_DEVICE:
+            fail(f"33a {name}: the result left the card ({got.device})")
+        err = float((got.float().cpu() - want.float()).abs().max())
+        bound = tol * float(want.float().abs().max())
+        log(f"  33a {name}: max_abs_err={err:.3e} (bound {bound:.3e}) "
+            f"{'ok' if err <= bound else 'MISMATCH'}")
+        if err > bound:
+            fail(f"33a {name} disagrees with the host computation")
+        errs[name] = err
+
+    t = xs[rank].clone()
+    C.all_reduce(t, group=group)
+    check("all_reduce f32", t, total)
+    t = xs[rank].to(torch.bfloat16)
+    C.all_reduce(t, group=group)
+    want = sum((h.to(torch.bfloat16).float() for h in host[1:]),
+               host[0].to(torch.bfloat16).float())
+    check("all_reduce bf16", t, want, tol=2.0 ** -8)
+    t = xs[rank].clone()
+    C.broadcast(t, src=1, group=group)
+    check("broadcast", t, host[1])
+    parts = []
+    C.all_gather(parts, xs[rank], group=group)
+    check("all_gather", torch.stack(parts), torch.stack(host))
+    c = 4096 // world
+    t = torch.empty(c, device=TP_DEVICE)
+    C.reduce_scatter(t, xs[rank], group=group)
+    check("reduce_scatter", t, total[rank * c:(rank + 1) * c])
+    got = []
+    C.all_to_all(got, list(xs[rank].view(world, c).unbind(0)), group=group)
+    check("all_to_all", torch.stack(got),
+          torch.stack([h.view(world, c)[rank] for h in host]))
+    return errs
+
+
+def tp_wrappers(pt, K, mesh, rank, world, heads):
+    """33b: the three serving wrappers and sharded_flash_attention with
+    JAX's whole-head signature at gpt_1p3b's widths (H 16, D 128, bf16):
+    each rank's kernel launch runs on its contiguous head slice; the
+    stitched output against the unsharded kernel on all 16 heads, to the
+    tolerance of phases 4 and 10; each local call on the rank's slice; a
+    strided head slice of the pools refused by the local call and by the
+    kernel. -> ({name: max abs err}, {kernel: launches}, refusals)."""
+    S = pt.serving
+    errs, refused = {}, {}
+    K.reset_launch_counts()
+    heads.clear()
+    for kvh in (16, 4):
+        args = mixed_launch(16, kvh, 128, torch.bfloat16, seed=33 + kvh)
+        full = K.ragged_paged_attention(*args)
+        f = S.sharded_ragged_attention(mesh)
+        errs[f"ragged KVH={kvh}"] = check_close(
+            f"33b sharded_ragged_attention KVH={kvh} (16 heads stitched)",
+            f(*args), full, 4e-3, 4e-3)
+        q, k, v = args[:3]
+        h, kh = 16 // world, kvh // world
+        mine = (q[:, rank * h:(rank + 1) * h],
+                k[:, :, rank * kh:(rank + 1) * kh],
+                v[:, :, rank * kh:(rank + 1) * kh])
+        errs[f"ragged local KVH={kvh}"] = check_close(
+            f"33b ragged local call KVH={kvh}",
+            f.local(*(x.contiguous() for x in mine), *args[3:]),
+            full[:, rank * h:(rank + 1) * h], 4e-3, 4e-3)
+        for who, fn in (("local call", f.local), ("kernel",
+                                                  K.ragged_paged_attention)):
+            try:
+                fn(mine[0].contiguous(), mine[1], mine[2], *args[3:])
+            except ValueError as e:
+                refused[f"ragged {who} KVH={kvh}"] = str(e)
+            else:
+                fail(f"33b: the {who} read a strided head slice of the "
+                     "pools")
+        args = paged_decode_inputs(16, kvh, 128, torch.bfloat16,
+                                   seed=34 + kvh)
+        errs[f"paged KVH={kvh}"] = check_close(
+            f"33b sharded_paged_attention KVH={kvh} (16 heads stitched)",
+            S.sharded_paged_attention(mesh)(*args),
+            K.paged_attention(*args), 2e-2, 2e-2)
+    dev = TP_DEVICE
+    g = torch.Generator(device=dev).manual_seed(35)
+    q = torch.randn(2, 64, 16, 128, device=dev, generator=g).to(
+        torch.bfloat16)
+    kp, vp = (torch.randn(96, 16, 4, 128, device=dev, generator=g).to(
+        torch.bfloat16) for _ in range(2))
+    bt = (torch.randperm(95, device=dev, generator=g)[:40] + 1).to(
+        torch.int32).view(2, 20)
+    start = torch.tensor([0, 200], dtype=torch.int32, device=dev)
+    lens = torch.tensor([64, 40], dtype=torch.int32, device=dev)
+    want = K.paged_prefill_reference(q, kp, vp, bt, start, lens)
+    got = S.sharded_paged_prefill(mesh)(q, kp, vp, bt, start, lens)
+    errs["prefill"] = check_close("33b sharded_paged_prefill (no kernel)",
+                                  got[1, :40], want[1, :40], 2e-2, 2e-2)
+    check_close("33b sharded_paged_prefill row 0", got[0], want[0], 2e-2,
+                2e-2)
+    q, k, v = (torch.randn(2, 256, 16, 128, device=dev,
+                           generator=g).to(torch.bfloat16) for _ in range(3))
+    # the unsharded kernel through its wrapper (the instrumented call
+    # records the sharded launches only)
+    want = K.flash_fwd(q, k, v, 1.0 / math.sqrt(128), True)[0]
+    errs["flash"] = check_close(
+        "33b sharded_flash_attention (16 heads stitched)",
+        pt.ops.kernels.sharded_flash_attention(mesh)(q, k, v), want,
+        FLASH_BF16_TOL, FLASH_BF16_TOL, FLASH_BF16_NORM_TOL)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in K.launch_counts().items() if v}
+    return errs, launches, refused, sorted(heads)
+
+
+def tp_instrument(pt):
+    """Record the heads each attention kernel launch of this rank runs on,
+    and time every collective (after a card sync, so the time is the
+    collective's own: gloo stages a CUDA tensor through the host, which
+    waits for the card anyway) -> (the heads set, the timer)."""
+    import importlib
+    from paddle_tpu_torch.distributed import collective as C
+    heads = set()
+    coll = {"s": 0.0, "n": 0}
+    ra = importlib.import_module("paddle_tpu_torch.serving.ragged_attention")
+    de = importlib.import_module("paddle_tpu_torch.serving.decode")
+    fa = importlib.import_module("paddle_tpu_torch.ops.kernels."
+                                 "flash_attention")
+
+    def seen(name, fn, dim):
+        def run(q, *a, **kw):
+            heads.add((name, int(q.shape[dim])))
+            return fn(q, *a, **kw)
+        return run
+
+    # the serving modules' own names for the wrappers, and the flash
+    # autograd function's forward (the wrappers' names in their own
+    # modules count their launches)
+    ra._kernel = seen("ragged_paged_attention", ra._kernel, 1)
+    de.paged_attention = seen("paged_attention", de.paged_attention, 1)
+    forward = fa._FlashAttention.forward
+
+    def flash_forward(ctx, q, *a):
+        heads.add(("flash_fwd", int(q.shape[2])))
+        return forward(ctx, q, *a)
+
+    fa._FlashAttention.forward = staticmethod(flash_forward)
+
+    def timed(fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                coll["s"] += time.perf_counter() - t0
+                coll["n"] += 1
+        return run
+
+    C._run_all_reduce = timed(C._run_all_reduce)
+    C.all_gather = timed(C.all_gather)
+    return heads, coll
+
+
+def tp_worker():
+    """``chip_smoke.py --tp-worker``: one rank of phase 33 under the
+    launcher (``--nproc_per_node 2``, both ranks on the one card, gloo):
+    33a and 33b, then ``gpt_1p3b`` bf16 derived from the seed on the card,
+    cut to this rank's shard, served at mp 2 by the ragged and the
+    bucketed engine (33c, 33d). Writes ``rank<r>.json`` into
+    ``CS_TP_ROOT``."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.ops import kernels as K
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    dist.init_parallel_env()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": world,
+                               "pp_degree": 1, "sharding_degree": 1,
+                               "sep_degree": 1}
+    hcg = fleet.init(is_collective=True, strategy=strategy)
+    group = hcg.get_model_parallel_group()
+    res = {"rank": rank, "world": world}
+    res["33a"] = tp_collectives(C, group, rank, world)
+    heads, coll = tp_instrument(pt)
+    (res["33b"], res["33b_launches"], res["33b_refused"],
+     res["33b_heads"]) = tp_wrappers(pt, K, hcg.mesh, rank, world, heads)
+    t0 = time.perf_counter()
+    cfg = pt.gpt_1p3b(dropout=0.0)
+    full = pt.GPTForCausalLM(cfg, dtype=torch.bfloat16, seed=SEED)
+    model = pt.params_from_paddle_tpu(
+        full.state_dict(), pt.gpt_1p3b(dropout=0.0, tensor_parallel=True),
+        device=TP_DEVICE, dtype=torch.bfloat16, mp_rank=rank,
+        mp_degree=world)
+    del full
+    free()
+    torch.cuda.synchronize()
+    res["shard_s"] = time.perf_counter() - t0
+    res["shard_params"] = sum(p.numel() for p in model.parameters())
+    prompts = tp_prompts(cfg.vocab_size)
+    for tag, kw in TP_KINDS:
+        eng = pt.ServingEngine(model, mesh=hcg.mesh, mesh_axis="model",
+                               **TP_ENGINE, **kw)
+        tp_serve(eng, tp_prompts(cfg.vocab_size, SEED + 34))   # warm-up
+        before = eng.stats()
+        heads.clear()
+        coll.update(s=0.0, n=0)
+        K.reset_launch_counts()
+        run = tp_serve(eng, prompts)
+        run["launches"] = {k: v for k, v in K.launch_counts().items() if v}
+        st = eng.stats()
+        run["stats"] = {k: st[k] for k in (
+            "mp_degree", "graphs", "jit", "num_kv_heads",
+            "distinct_programs")}
+        # the timed load's own rounds and launches
+        for k in ("eager_rounds", "steps"):
+            run["stats"][k] = st[k] - before[k]
+        run["stats"]["bucketed_launches"] = {
+            k: v - before["bucketed_launches"][k]
+            for k, v in st["bucketed_launches"].items()}
+        run["heads"] = sorted(heads)
+        run["collective_s"], run["collectives"] = coll["s"], coll["n"]
+        run["collective_share"] = coll["s"] / sum(run["step_s"])
+        eng.close()
+        res[tag] = run
+        log(f"  rank {rank} {tag}: {run['steps']} steps, "
+            f"{run['tokens_per_s']:.1f} tokens/s, launches "
+            f"{run['launches']}, heads {run['heads']}")
+    res["worker_s"] = time.perf_counter() - t_start
+    with open(os.path.join(os.environ["CS_TP_ROOT"],
+                           f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    print("TP33 DONE", flush=True)
+    return 0
+
+
+def tp_job(root):
+    """Phase 33's launcher job (2 ranks) -> (rc, seconds)."""
+    t0 = time.perf_counter()
+    out = open(os.path.join(root, "launcher.txt"), "w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--nproc_per_node", str(TP_MP), "--master",
+         f"127.0.0.1:{free_port()}", "--log_dir",
+         os.path.join(root, "logs")] + TP_WORKER,
+        env=dict(os.environ, CS_TP_ROOT=root), cwd=HERE, stdout=out,
+        stderr=subprocess.STDOUT)
+    try:
+        rc = proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = None
+    out.seek(0)
+    text = out.read()
+    out.close()
+    secs = time.perf_counter() - t0
+    log(f"  [33] launcher rc {rc} in {secs:.1f} s")
+    if rc != 0:
+        logs = os.path.join(root, "logs")
+        for name in sorted(os.listdir(logs)) if os.path.isdir(logs) else []:
+            with open(os.path.join(logs, name)) as f:
+                log(f"  --- {name}\n{f.read()[-4000:]}")
+        fail(f"phase 33: the launcher job ended with rc {rc}\n{text[-3000:]}")
+    return secs
+
+
+def tp_phases(pt, K, smi):
+    """Phase 33: the mp 1 engines in this process (the reference), then the
+    mp 2 job, and every check of 33a-33d. -> ({kernel: its launches over
+    both ranks' engines and 33b's wrappers}, the numbers)."""
+    t_phase = time.perf_counter()
+    free()
+    cfg = pt.gpt_1p3b(dropout=0.0)
+    L = cfg.num_layers
+    prompts = tp_prompts(cfg.vocab_size)
+    model = pt.GPTForCausalLM(cfg, dtype=torch.bfloat16, seed=SEED)
+    ref = {}
+    for tag, kw in TP_KINDS:
+        eng = pt.ServingEngine(model, **TP_ENGINE, **kw)
+        # the warm-up load captures the graphs of the round shapes the
+        # timed load meets
+        tp_serve(eng, tp_prompts(cfg.vocab_size, SEED + 34))
+        graphs = eng.stats()["graphs"]
+        ref[tag] = tp_serve(eng, prompts)
+        ref[tag]["graphs"] = eng.stats()["graphs"]
+        ref[tag]["graphs_captured_timed"] = ref[tag]["graphs"] - graphs
+        eng.close()
+        free()
+    root = tempfile.mkdtemp(prefix="cs_tp_")
+    job_s = tp_job(root)
+    ranks = [json.load(open(os.path.join(root, f"rank{r}.json")))
+             for r in range(TP_MP)]
+    numbers = {"job_s": job_s, "card": smi}
+    acc, errs = {}, {}
+    for res in ranks:
+        r = res["rank"]
+        log(f"  33a rank {r}: {res['33a']}")
+        if sorted(map(tuple, res["33b_heads"])) != [
+                ("flash_fwd", 8), ("paged_attention", 8),
+                ("ragged_paged_attention", 8)]:
+            fail(f"33b rank {r}: kernel launches at heads "
+                 f"{res['33b_heads']}, not the rank's 8")
+        for name, n in res["33b_launches"].items():
+            acc[name] = acc.get(name, 0) + n
+        for name, e in res["33b"].items():
+            errs[name] = max(errs.get(name, 0.0), e)
+        log(f"  33b rank {r}: launches {res['33b_launches']}, refusals "
+            f"{sorted(res['33b_refused'])}")
+    verdicts = {}
+    for tag, _ in TP_KINDS:
+        rows = []
+        for res in ranks:
+            run, st = res[tag], res[tag]["stats"]
+            n = st["eager_rounds"]
+            if st["graphs"] != 0 or st["mp_degree"] != TP_MP or n <= 0:
+                fail(f"33 {tag} rank {res['rank']}: {st} (a round at mp "
+                     f"{TP_MP} runs eagerly, no graph)")
+            got = run["launches"]
+            if tag == "ragged":
+                want = {"ragged_paged_attention": L * n,
+                        "layer_norm": (2 * L + 1) * n}
+                kinds = [["ragged_paged_attention", 8]]
+            else:
+                b = st["bucketed_launches"]
+                want = {"flash_fwd": L * b["prefill"],
+                        "paged_attention": L * b["decode"],
+                        "layer_norm": (2 * L + 1) * sum(b.values())}
+                kinds = [["flash_fwd", 8], ["paged_attention", 8]]
+            want = {k: v for k, v in want.items() if v}
+            if got != want or run["heads"] != kinds:
+                fail(f"33 {tag} rank {res['rank']}: launches {got} != "
+                     f"{want} counted from {n} eager rounds, heads "
+                     f"{run['heads']} (want {kinds})")
+            for name, v in got.items():
+                acc[name] = acc.get(name, 0) + v
+            rows.append(run)
+        a, b = (r["tokens"] for r in rows)
+        if a != b:
+            fail(f"33 {tag}: the two ranks decoded different tokens")
+        verdicts[tag] = [near_tie_check(model, p, g, w) for p, g, w in zip(
+            prompts, a, ref[tag]["tokens"])]
+        mp1, mp2 = ref[tag], rows[0]
+        numbers[tag] = {
+            "rounds_mp1": mp1["steps"], "rounds_mp2": mp2["steps"],
+            "decode_round_ms_mp1": mp1["decode_ms_median"],
+            "decode_round_ms_mp2": [r["decode_ms_median"] for r in rows],
+            "collective_share_mp2": [r["collective_share"] for r in rows],
+            "collectives_mp2": [r["collectives"] for r in rows],
+            "tokens_per_s_mp1": mp1["tokens_per_s"],
+            "tokens_per_s_mp2": [r["tokens_per_s"] for r in rows],
+            "launches_per_rank": [r["launches"] for r in rows],
+            "graphs_mp1": mp1["graphs"],
+            "graphs_captured_in_timed_mp1": mp1["graphs_captured_timed"],
+            "tokens": f"{verdicts[tag].count('equal')} of {TP_REQUESTS} "
+                      "equal to mp 1, the rest near-ties"}
+        log(f"  [33 {tag}] {smi}: decode round "
+            f"{numbers[tag]['decode_round_ms_mp2']} ms at mp 2 (eager) vs "
+            f"{mp1['decode_ms_median']:.2f} ms at mp 1 (graphs); "
+            f"collectives {numbers[tag]['collective_share_mp2']} of the "
+            f"rounds; {numbers[tag]['tokens_per_s_mp2']} tokens/s vs "
+            f"{mp1['tokens_per_s']:.1f}; launches per rank "
+            f"{numbers[tag]['launches_per_rank']}; tokens "
+            f"{verdicts[tag]}")
+    numbers["shard_s"] = [r["shard_s"] for r in ranks]
+    numbers["worker_s"] = [r["worker_s"] for r in ranks]
+    numbers["33a_max_abs_err"] = max(max(r["33a"].values()) for r in ranks)
+    numbers["33b_max_abs_err"] = errs
+    del model
+    free()
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 33 {numbers['phase_s']:.1f} s ({smi})")
+    log("  " + json.dumps(numbers, default=str))
+    names = {"ragged_paged_attention": "ragged", "paged_attention": "paged",
+             "flash_fwd": "flash", "layer_norm": None}
+    out = {}
+    for name in acc:
+        key = names.get(name)
+        e = max((v for k, v in errs.items() if key and k.startswith(key)),
+                default=0.0)
+        out[name] = {"tp_launches": acc[name], "tp_max_abs_err": e}
+    return out, numbers
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -10005,6 +10479,13 @@ def main():
         for key in ("fleet_launches", "fleet_launches_in_process",
                     "fleet_launches_processes"):
             e.setdefault(key, 0)
+    clock("phase 33")
+    # ------------------------------------- phase 33: tensor-parallel serving
+    tp_extra, _ = tp_phases(pt, K, smi)
+    for name, numbers in tp_extra.items():
+        next(e for e in kernels if e["name"] == name).update(numbers)
+    for e in kernels:
+        e.setdefault("tp_launches", 0)
     for e in kernels:
         e["max_abs_err"] = max([e["max_abs_err"]] + [
             v for k, v in e.items() if k.endswith("_max_abs_err")])
@@ -10029,4 +10510,6 @@ if __name__ == "__main__":
         sys.exit(elastic_worker())
     if sys.argv[1:2] == ["--fleet-engine-worker"]:
         sys.exit(fleet_engine_worker(sys.argv[2:]))
+    if sys.argv[1:] == ["--tp-worker"]:
+        sys.exit(tp_worker())
     sys.exit(main())

@@ -16,6 +16,18 @@ copies as it is; a missing, unexpected or misshapen name raises. The
 parameters stay trainable. ``params_to_numpy(model)`` goes the other way
 (parameters and buffers), so trained weights can be compared.
 
+**The tensor-parallel split.** A tensor-parallel model (``GPTConfig(
+tensor_parallel=True)``) holds each rank's shard, while the arrays are the
+whole weights (a JAX model's, or an unsplit port model's ``state_dict``).
+Each sharded parameter carries its cut (``tp_split``, set by
+``distributed.fleet.mp_layers``): rows of the vocabulary, columns of a
+column-parallel linear (the fused QKV's head-coherent ones), rows of a
+row-parallel one. ``params_from_paddle_tpu`` gives the rank its slices;
+its ``mp_rank`` / ``mp_degree``, when given, must be the model's own (its
+model-parallel group's), or it raises rather than hand a rank another
+rank's slices. The arrays may be torch tensors (on any device: the slice
+is cut where they lie) as well as numpy arrays.
+
 An optimizer's state crosses the same way.
 ``opt_state_from_paddle_tpu(state, name_map)`` turns a JAX optimizer's
 ``state_dict`` (``paddle_tpu/optimizer/optimizer.py:181-204``: numpy
@@ -38,17 +50,21 @@ __all__ = ["params_from_paddle_tpu", "params_to_numpy",
 
 
 def params_from_paddle_tpu(named_arrays, config_or_model, device=None,
-                           dtype=torch.float32):
+                           dtype=torch.float32, mp_rank=None,
+                           mp_degree=None):
     """-> the port model filled from ``named_arrays`` (a mapping or an
     iterable of ``(name, array)`` pairs): ``config_or_model`` itself when
     it is a module, else a ``GPTForCausalLM`` built from that config on
-    ``device`` (``cuda`` unless ``"cpu"``) in ``dtype``."""
+    ``device`` (``cuda`` unless ``"cpu"``) in ``dtype``. A
+    tensor-parallel model takes its rank's slices of the whole arrays
+    (see the module docstring)."""
     arrays = dict(named_arrays.items() if hasattr(named_arrays, "items")
                   else named_arrays)
     model = config_or_model
     if not isinstance(model, torch.nn.Module):
         model = GPTForCausalLM(config_or_model, device=device, dtype=dtype,
                                seed=None)
+    _check_mp(model, mp_rank, mp_degree)
     targets = model.state_dict(keep_vars=True)
     missing = sorted(set(targets) - set(arrays))
     unexpected = sorted(set(arrays) - set(targets))
@@ -57,12 +73,39 @@ def params_from_paddle_tpu(named_arrays, config_or_model, device=None,
                        f"unexpected {unexpected}")
     with torch.no_grad():
         for name, t in targets.items():
-            a = np.asarray(arrays[name])
+            a = _rank_slice(arrays[name], getattr(t, "tp_split", None))
             if tuple(a.shape) != tuple(t.shape):
-                raise ValueError(f"{name}: array {a.shape} vs "
+                raise ValueError(f"{name}: array {tuple(a.shape)} vs "
                                  f"{tuple(t.shape)}")
-            t.copy_(torch.from_numpy(np.array(a, dtype=np.float32)))
+            t.copy_(a if torch.is_tensor(a)
+                    else torch.from_numpy(np.array(a, dtype=np.float32)))
     return model
+
+
+def _check_mp(model, mp_rank, mp_degree):
+    """Raise unless the given rank and degree are ``model``'s own."""
+    if mp_rank is None and mp_degree is None:
+        return
+    group = getattr(model, "mp_group", None)
+    own = (group.rank, group.nranks) if group is not None else (0, 1)
+    want = (own[0] if mp_rank is None else int(mp_rank),
+            own[1] if mp_degree is None else int(mp_degree))
+    if want != own:
+        raise ValueError(
+            f"mp_rank / mp_degree {want} are not the model's own {own} "
+            "(its model-parallel group's rank and size)")
+
+
+def _rank_slice(array, split):
+    """``array`` cut to a sharded parameter's ``(dim, index)`` (as it is
+    for a parameter that is not sharded): on the tensor's device for a
+    torch tensor, else with numpy."""
+    if split is None:
+        return array if torch.is_tensor(array) else np.asarray(array)
+    dim, index = split
+    if torch.is_tensor(array):
+        return array.index_select(dim, index.to(array.device))
+    return np.take(np.asarray(array), index.numpy(), axis=dim)
 
 
 def params_to_numpy(model):

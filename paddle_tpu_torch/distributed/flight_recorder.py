@@ -11,11 +11,13 @@ exactly the evidence needed to diagnose a hang; this module keeps it:
 1. **Ring buffer** — env-gated (``PADDLE_TPU_FLIGHT_RECORDER=<capacity>``)
    lock-cheap ring of events: monotonic per-rank seq + per-group seq, op
    kind, group, shape/dtype, step number, caller site and wall
-   timestamps. In the port it is fed by the staged train step's
-   heartbeat (``watchdog.beat``), ``resumable.py``'s step boundaries and
-   resume markers, the integrity guard's anomaly and rewind markers and
-   ``tcp_store.barrier``; the collectives that feed it in the JAX
-   package come with the port's parallel training. Disabled (the
+   timestamps. In the port it is fed by the eager collectives
+   (``collective.py``, ``comm_extra.py``, ``stream.py``), the staged
+   train step's heartbeat (``watchdog.beat``), ``resumable.py``'s step
+   boundaries and resume markers, the integrity guard's anomaly and
+   rewind markers and ``tcp_store.barrier``. Each completed entry feeds
+   ``observability.metrics.observe_collective`` and
+   ``observability.tracing.collective_event``, as in JAX. Disabled (the
    default) every hook is a constant-time no-op.
 
 2. **Desync detection** — opt-in (``PADDLE_TPU_DESYNC_CHECK=1``): a
@@ -47,6 +49,7 @@ import traceback
 
 from . import fault as _fault
 from ..observability import metrics as _obs_metrics
+from ..observability import tracing as _obs_tracing
 
 __all__ = [
     "FlightRecorder", "CollectiveDesyncError", "get_recorder", "enable",
@@ -240,10 +243,14 @@ class FlightRecorder:
         e["t_complete"] = time.time()
         e["status"] = "completed"
         self.last_completed = e
-        # the JAX ring also feeds each collective issue→complete pair to
-        # the latency histogram and the trace; the port records no
-        # collectives yet (they come with the parallel-training item), and
-        # both feeds skip the ``step``-group markers it does record
+        # the ring doubles as a metrics/trace source: each issue→complete
+        # pair feeds the per-kind x group latency histogram and (when
+        # tracing) a collective event; both are one None check when off
+        try:
+            _obs_metrics.observe_collective(e)
+            _obs_tracing.collective_event(e)
+        except Exception:
+            pass  # telemetry must never break a collective
 
     def entries(self):
         """Live ring contents, oldest first."""

@@ -49,8 +49,8 @@ class StaticDecoder:
         dev, dt = model.device, model.dtype
         self.model = model
         self.total = int(total)
-        shape = (batch, self.total, cfg.num_kv_heads,
-                 cfg.hidden_size // cfg.num_heads)
+        attn = model.gpt.h[0].attn   # this rank's KV heads
+        shape = (batch, self.total, attn.num_kv_heads, attn.head_dim)
         self.k = [torch.zeros(shape, dtype=dt, device=dev)
                   for _ in range(cfg.num_layers)]
         self.v = [torch.zeros(shape, dtype=dt, device=dev)
@@ -181,12 +181,13 @@ def generate_compiled(model, input_ids, max_new_tokens, eos_token_id,
                       replay=None):
     """Greedy decode of ``input_ids`` [B, P] over the static cache ->
     ``[B, P + max_new_tokens]`` in ``input_ids``' type, as JAX's
-    ``_generate_compiled`` returns it. ``replay`` (default: on CUDA)
-    replays the step's graph; ``replay=False`` runs the same step
-    eagerly."""
+    ``_generate_compiled`` returns it. ``replay`` (default: on CUDA, for
+    a model that is not split over ranks) replays the step's graph;
+    ``replay=False`` runs the same step eagerly, as a tensor-parallel
+    model's steps run (a gloo collective cannot be captured)."""
     B, P = input_ids.shape
     if replay is None:
-        replay = input_ids.device.type == "cuda"
+        replay = input_ids.device.type == "cuda" and model.mp_degree == 1
     eos = -1 if eos_token_id is None else int(eos_token_id)
     progs = model.decode_programs
     dec = progs.decoder(model, B, P + max_new_tokens)

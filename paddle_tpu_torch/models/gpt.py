@@ -88,9 +88,26 @@ package either): f32 under O1, a bf16 product under O2.
 without one; greedy with the cache runs the static cache as one CUDA
 graph a step (:mod:`.generate`).
 
+**Tensor parallelism** (``GPTConfig(tensor_parallel=True)``,
+``gpt.py:250-262, 438-446, 480-483, 708-717``): the layers of
+``distributed.fleet.mp_layers`` over the model-parallel group of
+``fleet.init``'s topology, each rank holding its shard. The fused QKV is
+one column-parallel linear whose columns are **head-coherent**
+(:func:`qkv_columns`: rank ``r`` holds its query heads, its K heads and
+its V heads, ``[q_r | k_r | v_r]``), so a rank's attention runs on its
+``H / mp`` query and ``KVH / mp`` KV heads (every cache arm, the serving
+pools included, holds those); ``out_proj`` and ``fc2`` are row-parallel
+(one all-reduce each), ``fc1`` column-parallel, the token embedding
+vocab-parallel, and the tied head gives vocab-split logits that are
+all-gathered before anything reads them. :class:`GPTPretrainingCriterion`
+takes those gathered logits and runs ``ParallelCrossEntropy`` on this
+rank's vocabulary slice. ``sequence_parallel=True`` (and
+``GPTForCausalLMPipe``) are not ported yet.
+
 Each hand-written kernel runs on a CUDA tensor, its plain version on a CPU
-tensor. The tensor/sequence-parallel paths (and ``GPTForCausalLMPipe``)
-are not ported yet.
+tensor. A serving cache dict may carry ``"attn_impl"``: the engine's
+head-sharded attention (``serving/decode.py``, ``ragged_attention.py``),
+called in place of the kernel wrapper with the same arguments.
 """
 from __future__ import annotations
 
@@ -98,6 +115,11 @@ import torch
 
 from .. import nn as pnn
 from ..amp import amp_cast
+from ..distributed.fleet.mp_layers import (ColumnParallelLinear,
+                                           ParallelCrossEntropy,
+                                           RowParallelLinear,
+                                           VocabParallelEmbedding,
+                                           concat_last, copy_in)
 from ..distributed.fleet.recompute import recompute
 from ..nn import functional as F
 from ..ops.kernels import (paged_attention, paged_prefill_reference,
@@ -107,8 +129,10 @@ from .generate import DecodePrograms, generate_compiled
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTBlock", "GPTModel",
            "GPTForCausalLM", "GPTPretrainingCriterion", "ragged_write_index",
-           "paged_write_index", "gpt_tiny", "gpt_small", "gpt_1p3b",
-           "gpt_13b"]
+           "paged_write_index", "qkv_columns", "gpt_tiny", "gpt_small",
+           "gpt_1p3b", "gpt_13b"]
+
+_SP = ("sequence-parallel GPT is not ported yet (ROADMAP Queue 1 item 8)")
 
 
 class GPTConfig:
@@ -243,6 +267,40 @@ def _pool_write(pool, new, index):
     return pool
 
 
+def qkv_columns(H, KVH, Dh, rank, nranks):
+    """The fused QKV's columns that rank ``rank`` of ``nranks`` holds, head
+    by head: its ``H / nranks`` query heads, then its ``KVH / nranks`` K
+    and V heads, out of the ``[q (H*Dh) | k (KVH*Dh) | v (KVH*Dh)]``
+    layout. A contiguous split of the columns would give rank 0 all of q
+    and half of k."""
+    if H % nranks or KVH % nranks:
+        raise ValueError(
+            f"heads ({H} query / {KVH} KV) not divisible by the "
+            f"model-parallel degree {nranks}")
+    hq, hk = H // nranks, KVH // nranks
+
+    def heads(base, n):
+        return base + torch.arange(rank * n * Dh, (rank + 1) * n * Dh)
+
+    return torch.cat([heads(0, hq), heads(H * Dh, hk),
+                      heads((H + KVH) * Dh, hk)])
+
+
+class HeadParallelQKV(ColumnParallelLinear):
+    """The tensor-parallel fused QKV: a column-parallel linear whose
+    columns are :func:`qkv_columns` (``H``, ``KVH`` and ``Dh`` global)."""
+
+    def __init__(self, hidden, H, KVH, Dh, **kw):
+        # read by _columns, which the base constructor calls
+        self._qkv_heads = (H, KVH, Dh)
+        super().__init__(hidden, (H + 2 * KVH) * Dh, gather_output=False,
+                         **kw)
+
+    def _columns(self, out_features):
+        g = self._group
+        return qkv_columns(*self._qkv_heads, g.rank, g.nranks)
+
+
 class GPTAttention(pnn.Layer):
     def __init__(self, config, device=None, dtype=None, generator=None):
         super().__init__()
@@ -257,8 +315,19 @@ class GPTAttention(pnn.Layer):
         # fused QKV: [q (H*Dh) | k (KVH*Dh) | v (KVH*Dh)]
         qkv_out = h + 2 * self.num_kv_heads * self.head_dim
         kw = dict(device=device, dtype=dtype, generator=generator)
-        self.qkv_proj = pnn.Linear(h, qkv_out, **kw)
-        self.out_proj = pnn.Linear(h, h, **kw)
+        if config.tensor_parallel:
+            self.qkv_proj = HeadParallelQKV(
+                h, self.num_heads, self.num_kv_heads, self.head_dim, **kw)
+            self.out_proj = RowParallelLinear(
+                h, h, input_is_parallel=True, tp_overlap=config.tp_overlap,
+                **kw)
+            # this rank's heads
+            n = self.qkv_proj._group.nranks
+            self.num_heads //= n
+            self.num_kv_heads //= n
+        else:
+            self.qkv_proj = pnn.Linear(h, qkv_out, **kw)
+            self.out_proj = pnn.Linear(h, h, **kw)
 
     def _expand_kv(self, t):
         """Broadcast each KV head over its query-head group for the dense
@@ -292,7 +361,8 @@ class GPTAttention(pnn.Layer):
                              write_index)
             vp = _pool_write(cache["v_pool"], v.reshape(b * s, KVH, Dh),
                              write_index)
-            out = ragged_paged_attention(
+            impl = cache.get("attn_impl") or ragged_paged_attention
+            out = impl(
                 q.reshape(b * s, H, Dh).contiguous(), kp, vp,
                 cache["row_starts"], cache["row_lens"], cache["kv_lens"],
                 cache["block_tables"], scratch=cache.get("split_scratch"))
@@ -304,12 +374,12 @@ class GPTAttention(pnn.Layer):
             pos, bt = cache["positions"], cache["block_tables"]
             if s == 1:
                 # the row's own K/V is written: context = positions + 1
-                out = paged_attention(q[:, 0].contiguous(), kp, vp, bt,
-                                      pos + 1,
-                                      scratch=cache.get("split_scratch"))
+                impl = cache.get("attn_impl") or paged_attention
+                out = impl(q[:, 0].contiguous(), kp, vp, bt, pos + 1,
+                           scratch=cache.get("split_scratch"))
             else:
-                out = paged_prefill_reference(q, kp, vp, bt, pos,
-                                              cache["chunk_lens"])
+                impl = cache.get("prefill_impl") or paged_prefill_reference
+                out = impl(q, kp, vp, bt, pos, cache["chunk_lens"])
         elif cache.get("static"):
             ln = cache["len"]
             kbuf = _cache_write(cache["k"], k, ln)
@@ -339,7 +409,7 @@ class GPTAttention(pnn.Layer):
             out = F.scaled_dot_product_attention(
                 q, self._expand_kv(k), self._expand_kv(v), is_causal=s > 1,
                 dropout_p=0.0, training=False)
-        return self.out_proj(out.reshape(b, s, h))
+        return self.out_proj(out.reshape(b, s, H * Dh))
 
 
 class GPTMLP(pnn.Layer):
@@ -347,8 +417,14 @@ class GPTMLP(pnn.Layer):
         super().__init__()
         h, ffn = config.hidden_size, config.intermediate_size
         kw = dict(device=device, dtype=dtype, generator=generator)
-        self.fc1 = pnn.Linear(h, ffn, **kw)
-        self.fc2 = pnn.Linear(ffn, h, **kw)
+        if config.tensor_parallel:
+            self.fc1 = ColumnParallelLinear(h, ffn, gather_output=False,
+                                            **kw)
+            self.fc2 = RowParallelLinear(ffn, h, input_is_parallel=True,
+                                         tp_overlap=config.tp_overlap, **kw)
+        else:
+            self.fc1 = pnn.Linear(h, ffn, **kw)
+            self.fc2 = pnn.Linear(ffn, h, **kw)
         self.dropout = pnn.Dropout(config.dropout)
 
     def forward(self, x):
@@ -379,7 +455,12 @@ class GPTModel(pnn.Layer):
         super().__init__()
         self.config = config
         kw = dict(device=device, dtype=dtype, generator=generator)
-        self.wte = pnn.Embedding(config.vocab_size, config.hidden_size, **kw)
+        if config.tensor_parallel:
+            self.wte = VocabParallelEmbedding(config.vocab_size,
+                                              config.hidden_size, **kw)
+        else:
+            self.wte = pnn.Embedding(config.vocab_size, config.hidden_size,
+                                     **kw)
         self.wpe = pnn.Embedding(config.max_seq_len, config.hidden_size,
                                  **kw)
         self.drop = pnn.Dropout(config.dropout)
@@ -448,9 +529,8 @@ class GPTForCausalLM(pnn.Layer):
     None)."""
 
     def __init__(self, config, device=None, dtype=torch.float32, seed=0):
-        if config.tensor_parallel or config.sequence_parallel:
-            raise NotImplementedError(
-                "tensor/sequence-parallel GPT is not ported yet")
+        if config.sequence_parallel:
+            raise NotImplementedError(_SP)
         super().__init__()
         dev, gen = init_generator(device, seed)
         self.sample_generator = None
@@ -485,6 +565,17 @@ class GPTForCausalLM(pnn.Layer):
     def dtype(self):
         return self.gpt.wte.weight.dtype
 
+    @property
+    def mp_group(self):
+        """The model-parallel group of a tensor-parallel model (None
+        otherwise)."""
+        return self.gpt.wte._group if self.config.tensor_parallel else None
+
+    @property
+    def mp_degree(self):
+        g = self.mp_group
+        return 1 if g is None else g.nranks
+
     def _head(self, hidden):
         """The LM head alone over ``hidden`` [..., h] (``ln_f``'s output),
         as :meth:`forward` applies it: the serving round takes it over
@@ -493,9 +584,15 @@ class GPTForCausalLM(pnn.Layer):
             # ``lm_head_tied`` is on neither AMP list: under O1 it computes
             # in its inputs' promoted type (f32 from ``ln_f``), as the JAX
             # einsum does; under O2 in bf16
+            tp = self.config.tensor_parallel
+            if tp:
+                # a column-parallel matmul over this rank's vocabulary rows
+                hidden = copy_in(hidden, self.mp_group)
             hidden, w = amp_cast("lm_head_tied", hidden, self.gpt.wte.weight)
             dtype = torch.promote_types(hidden.dtype, w.dtype)
-            return torch.matmul(hidden.to(dtype), w.to(dtype).t())
+            logits = torch.matmul(hidden.to(dtype), w.to(dtype).t())
+            # this rank's vocabulary slice: gathered before any reader
+            return concat_last(logits, self.mp_group) if tp else logits
         return self.lm_head(hidden)
 
     def forward(self, input_ids, caches=None, pos_offset=None):
@@ -597,18 +694,28 @@ class GPTPretrainingCriterion(pnn.Layer):
     ``criterion(logits [B, S, V], labels [B, S], loss_mask=None)``, the
     mean over every token, or over the tokens ``loss_mask`` marks. Labels
     equal to -100 contribute 0 (and still count in the plain mean, as in
-    the JAX package)."""
+    the JAX package). With a tensor-parallel config the logits are the
+    gathered ones a tensor-parallel ``GPTForCausalLM`` gives, and the loss
+    is ``ParallelCrossEntropy`` over this rank's vocabulary slice of
+    them."""
 
     def __init__(self, config=None):
         super().__init__()
-        if config is not None and config.tensor_parallel:
-            raise NotImplementedError("the tensor-parallel criterion is not "
-                                      "ported")
+        self._tp = bool(config is not None and config.tensor_parallel)
+        if self._tp:
+            self.pce = ParallelCrossEntropy()
 
     def forward(self, logits, labels, loss_mask=None):
         b, s, v = logits.shape
-        losses = F.cross_entropy(logits.reshape(b * s, v),
-                                 labels.reshape(b * s), reduction="none")
+        flat = logits.reshape(b * s, v)
+        if self._tp:
+            g = self.pce._group
+            per = v // g.nranks
+            losses = self.pce(flat[:, g.rank * per:(g.rank + 1) * per],
+                              labels.reshape(b * s))
+        else:
+            losses = F.cross_entropy(flat, labels.reshape(b * s),
+                                     reduction="none")
         if loss_mask is not None:
             m = loss_mask.reshape(b * s).float()
             return (losses * m).sum() / m.sum()

@@ -37,7 +37,8 @@ import time
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "env_rank",
            "exp_buckets", "get_registry", "enabled", "enable", "disable",
            "metric_key", "parse_metric_key", "counter", "gauge",
-           "histogram", "observe", "flush", "hist_quantile", "hist_mean",
+           "histogram", "observe", "observe_collective",
+           "observe_replication", "flush", "hist_quantile", "hist_mean",
            "peak_flops"]
 
 
@@ -388,6 +389,48 @@ def observe(name, value, **labels):
 def flush():
     reg = _REG if _loaded else _load()
     return reg.flush() if reg is not None else None
+
+
+def observe_collective(entry):
+    """Feed one completed flight-recorder ring entry into the per-
+    kind x group latency histogram and the wire-volume counter
+    (``paddle_tpu/observability/metrics.py:415``). Called from
+    ``FlightRecorder.complete``; one ``None`` check when metrics are off.
+    ``step``-group markers (heartbeats, resume markers) and aborted
+    entries are skipped; ``pipe``-group entries are compute and go to
+    ``pipeline_latency_us``. An awaited asynchronous collective that
+    carries ``t_wait`` and ``device_synced`` adds its issue-to-wait window
+    to the overlap counters (``comm_overlap_pct``)."""
+    reg = _REG if _loaded else _load()
+    if reg is None or entry is None:
+        return
+    group = entry.get("group", "?")
+    if group == "step" or entry.get("aborted"):
+        return
+    t0, t1 = entry.get("t_issue"), entry.get("t_complete")
+    if t0 is None or t1 is None:
+        return
+    kind = entry.get("kind", "?")
+    family = "pipeline_latency_us" if group == "pipe" \
+        else "collective_latency_us"
+    reg.histogram(family, kind=kind, group=group).observe(
+        (t1 - t0) * 1e6)
+    if group == "pipe":
+        return
+    nbytes = entry.get("nbytes")
+    if nbytes:
+        reg.counter("collective_bytes_total", kind=kind).inc(int(nbytes))
+    t_w = entry.get("t_wait")
+    if t_w is not None and entry.get("device_synced"):
+        inflight_us = (t1 - t0) * 1e6
+        hidden_us = min(max((t_w - t0) * 1e6, 0.0), inflight_us)
+        c_in = reg.counter("comm_inflight_us_total")
+        c_hid = reg.counter("comm_overlapped_us_total")
+        c_in.inc(inflight_us)
+        c_hid.inc(hidden_us)
+        if c_in.value > 0:
+            reg.gauge("comm_overlap_pct").set(
+                100.0 * c_hid.value / c_in.value)
 
 
 def observe_replication(head_seq, acked_seq, shipped=0, torn=0):

@@ -47,7 +47,8 @@ import zlib
 
 from . import metrics as _metrics
 
-__all__ = ["TraceBuffer", "span", "add_complete", "mint_context",
+__all__ = ["TraceBuffer", "span", "add_complete", "collective_event",
+           "mint_context",
            "req_event", "sampled", "finish_request", "enabled",
            "get_buffer", "start", "stop", "export", "_reset_state"]
 
@@ -356,6 +357,29 @@ def add_complete(name, ts_s, dur_s, cat="host", tid=None, args=None):
     buf = _TR if _loaded else _load()
     if buf is not None:
         buf.add(name, ts_s, dur_s, cat=cat, tid=tid, args=args)
+
+
+def collective_event(entry):
+    """Feed one completed flight-recorder entry as a trace event
+    (``paddle_tpu/observability/tracing.py:434``). ``step``-group markers
+    and aborted entries are skipped; pipeline micro-batch entries keep a
+    category of their own, so the collective lane holds collectives
+    only."""
+    buf = _TR if _loaded else _load()
+    if buf is None or entry is None:
+        return
+    group = entry.get("group")
+    if group == "step" or entry.get("aborted"):
+        return
+    t0, t1 = entry.get("t_issue"), entry.get("t_complete")
+    if t0 is None or t1 is None:
+        return
+    cat = "pipeline" if group == "pipe" else "collective"
+    args = {"group": group, "seq": entry.get("seq"),
+            "gseq": entry.get("gseq")}
+    if entry.get("shape") is not None:
+        args["shape"] = str(entry["shape"])
+    buf.add(entry.get("kind", "?"), t0, t1 - t0, cat=cat, args=args)
 
 
 # -------------------------------------------------- request-trace feeds

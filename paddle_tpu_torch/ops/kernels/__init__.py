@@ -40,7 +40,8 @@ and its ``autograd.Function`` (``flash_attention_bshd``,
 """
 from .flash_attention import (flash_bwd_dkv, flash_bwd_dkv_reference,
                               flash_bwd_dq, flash_bwd_dq_reference,
-                              flash_delta, flash_fwd, flash_fwd_reference)
+                              flash_delta, flash_fwd, flash_fwd_reference,
+                              sharded_flash_attention)
 from .fused_adamw import fused_adamw, fused_adamw_reference
 from .layer_norm import (LayerNormFunction, layer_norm,
                          layer_norm_bwd_reference, layer_norm_reference)
@@ -60,6 +61,7 @@ __all__ = ["layer_norm", "layer_norm_reference", "layer_norm_bwd_reference",
            "ragged_row_index", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
            "flash_fwd_reference", "flash_bwd_dq_reference",
            "flash_bwd_dkv_reference", "flash_delta", "flash_attention_bshd",
+           "sharded_flash_attention",
            "fused_adamw", "fused_adamw_reference", "paged_attention",
            "paged_prefill_reference", "rms_norm", "rms_norm_reference",
            "rms_norm_bwd_reference", "RMSNormFunction", "KERNELS",

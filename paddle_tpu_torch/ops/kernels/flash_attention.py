@@ -24,6 +24,9 @@ The port of ``paddle_tpu/ops/pallas/flash_attention.py``:
   kernels. The S tail is masked in the kernels rather than padded. Its
   entry point, ``flash_attention_bshd``, is in ``library.py``, which
   takes the ``flash_fwd`` op instead in a traced program.
+* :func:`sharded_flash_attention` (``flash_attention.py:337``) — the
+  forward split over a mesh: heads over the model axis, batch over the
+  data axis, each rank running the kernel on its slice.
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ import torch
 
 __all__ = ["flash_fwd_reference", "flash_bwd_dq_reference",
            "flash_bwd_dkv_reference", "flash_fwd", "flash_bwd_dq",
-           "flash_bwd_dkv", "flash_delta"]
+           "flash_bwd_dkv", "flash_delta", "sharded_flash_attention"]
 
 NEG_INF = -1e30
 # the kernels' type codes: 0 runs flash_attention.cu, 1 and 2 the sm90 file
@@ -314,3 +317,25 @@ class _FlashAttention(torch.autograd.Function):
                                ctx.causal)
         return dq, dk, dv, None, None
 
+
+
+def sharded_flash_attention(mesh, causal=True, scale=None,
+                            data_axis="data", model_axis="model",
+                            impl=None):
+    """Flash attention split over ``mesh`` (``paddle_tpu/ops/pallas/
+    flash_attention.py:337``): q / k / v ``[B, S, H, D]`` with batch over
+    ``data_axis`` and heads over ``model_axis``. Attention is head-local,
+    so each rank runs the kernel on its slice with no collective; called
+    with whole tensors, the ranks' outputs are all-gathered back
+    (``distributed/_mesh_shard.py``), and ``local`` runs the rank's own
+    slice. ``impl(q, k, v)`` defaults to ``flash_attention_bshd`` (the
+    forward kernel on CUDA tensors, its plain version on CPU ones)."""
+    from ...distributed._mesh_shard import MeshSharded
+    if impl is None:
+        from .library import flash_attention_bshd
+
+        def impl(q, k, v):
+            return flash_attention_bshd(q, k, v, causal=causal, scale=scale)
+    return MeshSharded(impl, mesh,
+                       [(data_axis, {0: 0, 1: 0, 2: 0}, 0),
+                        (model_axis, {0: 2, 1: 2, 2: 2}, 2)])

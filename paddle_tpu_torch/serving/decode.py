@@ -25,7 +25,17 @@ version, ``pallas`` the hand kernel) but only records what it measured:
 
 :func:`resolve_backend` keeps the JAX precedence: the explicit choice,
 then ``PADDLE_TPU_SERVING_ATTN``, then ``PADDLE_TPU_KERNELS``, then
-``auto``. Mesh sharding is not ported.
+``auto``.
+
+Multi-rank serving shards along **KV heads** over a mesh axis (``model``
+by default): :func:`sharded_paged_attention` and
+:func:`sharded_paged_prefill` run the decode kernel (the chunk step's
+attention) on this rank's head slice; block tables, positions and lengths
+are every rank's whole. Called with JAX's full-head signature they cut
+each rank's contiguous heads, run, and all-gather the output; their
+``local`` call takes the rank's own slices, as a tensor-parallel
+:class:`~.engine.ServingEngine` holds them
+(``distributed/_mesh_shard.py``).
 """
 from __future__ import annotations
 
@@ -36,7 +46,8 @@ import torch
 from ..ops.kernels import (paged_attention, paged_attention_reference,
                            paged_prefill_reference)
 
-__all__ = ["paged_decode_attention", "paged_prefill_attention", "BACKENDS",
+__all__ = ["paged_decode_attention", "paged_prefill_attention",
+           "sharded_paged_attention", "sharded_paged_prefill", "BACKENDS",
            "resolve_backend", "check_backend", "measure", "ab_compare"]
 
 BACKENDS = ("xla", "pallas", "auto")
@@ -59,6 +70,38 @@ def paged_prefill_attention(q, k_pool, v_pool, block_tables, q_start,
     and this chunk). Returns [B, S, H, Dh]."""
     return paged_prefill_reference(q, k_pool, v_pool, block_tables, q_start,
                                    q_lens, scale=scale)
+
+
+def sharded_paged_prefill(mesh, axis_name="model", scale=None):
+    """Chunked-prefill attention sharded along KV heads over
+    ``mesh[axis_name]``: query heads ride with their KV-head group;
+    tables, starts and lengths are whole on every rank. -> a
+    :class:`~..distributed._mesh_shard.MeshSharded` (the plain function
+    at degree 1)."""
+    from ..distributed._mesh_shard import MeshSharded
+
+    def _impl(q, kp, vp, bt, start, lens):
+        return paged_prefill_attention(q, kp, vp, bt, start, lens,
+                                       scale=scale)
+
+    return MeshSharded(_impl, mesh, [(axis_name, {0: 2, 1: 2, 2: 2}, 2)],
+                       dense=(1, 2))
+
+
+def sharded_paged_attention(mesh, axis_name="model", scale=None):
+    """Decode attention sharded along KV heads over ``mesh[axis_name]``:
+    each rank runs the paged decode kernel on its head slice against its
+    head slice of every page; tables and lengths are whole on every rank,
+    and the step makes no collective of its own (the ``local`` call).
+    ``scratch=`` passes through to the kernel."""
+    from ..distributed._mesh_shard import MeshSharded
+
+    def _impl(q, kp, vp, bt, lens, scratch=None):
+        return paged_attention(q, kp, vp, bt, lens, scale=scale,
+                               scratch=scratch)
+
+    return MeshSharded(_impl, mesh, [(axis_name, {0: 1, 1: 2, 2: 2}, 1)],
+                       dense=(1, 2))
 
 
 def resolve_backend(requested=None):

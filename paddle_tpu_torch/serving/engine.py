@@ -83,10 +83,32 @@ The operational surface of the JAX engine:
   (``PADDLE_TPU_FAULTS``, narrowed to one engine by
   ``PADDLE_TPU_FAULT_ENGINE``).
 
-Mesh sharding is not ported.
+**Tensor parallelism** (``mesh=``, ``mesh_axis=``, JAX's
+``engine.py:147-148, 247-260``): at a mesh axis of degree ``mp > 1`` the
+engine serves a tensor-parallel model (``GPTConfig(tensor_parallel=True)``
+under ``fleet.init``'s topology, each rank holding its shard) and
+allocates pools of ``KVH / mp`` heads; each layer's attention runs on the
+rank's heads through the sharded wrappers' ``local`` call
+(:func:`.ragged_attention.sharded_ragged_attention`,
+:func:`.decode.sharded_paged_attention`,
+:func:`.decode.sharded_paged_prefill`). JAX's engine is one controller;
+here every rank holds an engine of its own, and the ranks stay in
+lockstep: the same submissions in the same order, driven by
+:meth:`ServingEngine.step` (or ``run_until_idle``), never by a serve
+thread's clock (``start()`` refuses). Before each round's launch, and at
+the end of each step, the ranks compare a signature of the plan (the
+round's kind and shape, and a hash of its tokens, lengths and block
+tables) over the model-parallel group; ranks that diverge raise
+:class:`~..distributed.flight_recorder.CollectiveDesyncError` on every
+rank, naming the round, instead of decoding different batches. A gloo
+collective cannot be captured in a CUDA graph, so at ``mp > 1`` every
+round runs eagerly, one launch a kernel: ``stats()`` counts them as
+``eager_rounds`` and shows no graph. At ``mp = 1`` (``mesh=None`` or a
+degree-1 axis) the engine is the one-card engine above.
 """
 from __future__ import annotations
 
+import hashlib
 import os
 import sys
 import threading
@@ -115,6 +137,9 @@ from .scheduler import (ContinuousBatchingScheduler, EngineClosed,
                         EngineShuttingDown, GenerationRequest)
 
 __all__ = ["ServingEngine"]
+
+# the kinds of a tensor-parallel engine's plan signature (_sync_plan)
+_PLAN_KINDS = ("ragged", "prefill", "chunk", "decode", "step")
 
 
 def _select_token(logits_row, req):
@@ -169,8 +194,8 @@ class ServingEngine:
 
     def __init__(self, model, page_size=16, num_pages=64, max_slots=4,
                  max_queue=256, prefill_seq_buckets=None,
-                 prefill_batch_buckets=None, attn_backend=None, jit=True,
-                 registry=None,
+                 prefill_batch_buckets=None, attn_backend=None, mesh=None,
+                 mesh_axis="model", jit=True, registry=None,
                  prefill_chunk=None, prefill_token_budget=None,
                  prefix_cache=True, ragged=None, engine_id=None,
                  page_share=None):
@@ -188,7 +213,9 @@ class ServingEngine:
         H = cfg.num_heads
         KVH = cfg.num_kv_heads
         Dh = cfg.hidden_size // H
-        # GQA pools carry only the KV heads
+        H, KVH = self._shard_heads(mesh, mesh_axis, H, KVH, page_share)
+        self._heads = (H, KVH, Dh)      # this rank's
+        # GQA pools carry only the KV heads (this rank's under a mesh)
         self.kv = PagedKVCache(cfg.num_layers, int(num_pages),
                                self.page_size, KVH, Dh, dtype=model.dtype,
                                device=self.device)
@@ -281,6 +308,7 @@ class ServingEngine:
         self._chunk_shapes: set = set()
         self._bucketed_launches = {"prefill": 0, "chunk": 0, "decode": 0}
         self._steps = 0
+        self._eager_rounds = 0      # rounds run outside a program
         self._decode_tokens = 0
         self._chunk_tokens = 0
         self.capture_logits = None   # tests: a list collects per-round
@@ -298,12 +326,74 @@ class ServingEngine:
         # re-entrant so the serve loop's own step nests freely
         self._step_lock = threading.RLock()
 
+    # ------------------------------------------------- tensor parallelism
+    def _shard_heads(self, mesh, mesh_axis, H, KVH, page_share):
+        """Set up the mesh axis (``mp_degree``, the model-parallel group
+        and the sharded attention calls) -> this rank's (query, KV)
+        heads."""
+        from ..distributed.topology import mesh_degree
+        deg = mesh_degree(mesh, mesh_axis) if mesh is not None else 1
+        self.mp_degree = deg
+        self._tp = None
+        self._attn_impls = {}
+        if deg <= 1:
+            return H, KVH
+        if H % deg or KVH % deg:
+            raise ValueError(
+                f"heads ({H} query / {KVH} KV) not divisible by mesh "
+                f"axis {mesh_axis}={deg} — GQA sharding splits both,"
+                " keeping each query-head group with its KV head")
+        if self.model.mp_degree != deg:
+            raise ValueError(
+                f"a mesh axis {mesh_axis}={deg} serves a tensor-parallel "
+                f"model split as many ways (GPTConfig(tensor_parallel="
+                f"True) under fleet.init's topology); this model is split "
+                f"{self.model.mp_degree} way(s)")
+        if page_share is not None:
+            raise NotImplementedError(
+                "fleet-wide page sharing of a tensor-parallel engine is "
+                "not ported (ROADMAP Queue 1 item 8)")
+        from ..distributed.collective import Group
+        from .ragged_attention import sharded_ragged_attention
+        self._tp = Group(mesh, mesh_axis)
+        self._attn_impls = {
+            "ragged": sharded_ragged_attention(mesh, mesh_axis).local,
+            "decode": _decode.sharded_paged_attention(mesh,
+                                                      mesh_axis).local,
+            "prefill": _decode.sharded_paged_prefill(mesh,
+                                                     mesh_axis).local}
+        return H // deg, KVH // deg
+
+    def _sync_plan(self, key, parts):
+        """Compare this round's plan with every rank of the model-parallel
+        group: its kind and shape (``key``), the round index and a hash of
+        its host metadata ``parts``. Ranks that differ raise
+        ``CollectiveDesyncError`` on every rank."""
+        from ..distributed.collective import all_gather
+        from ..distributed.flight_recorder import verify_signatures
+        h = hashlib.blake2b(digest_size=8)
+        for p in parts:
+            h.update(np.ascontiguousarray(p, dtype=np.int64).tobytes())
+        dims = [int(d) for d in key[1:]] + [0, 0]
+        sig = torch.tensor(
+            [self._steps, _PLAN_KINDS.index(key[0]), dims[0], dims[1],
+             int.from_bytes(h.digest(), "little", signed=True)],
+            dtype=torch.int64)
+        rows = all_gather(None, sig, group=self._tp).tolist()
+        if all(r == rows[0] for r in rows):
+            return
+        verify_signatures(
+            {self._tp.ranks[i]: f"{_PLAN_KINDS[r[1]]} {r[2:4]} round "
+             f"{r[0]} plan {r[4] & (2 ** 64 - 1):016x}"
+             for i, r in enumerate(rows)},
+            what=f"serving round {self._steps}")
+
     # ------------------------------------------------------------ A/B gate
     def _gate_q(self, rows):
         g = torch.Generator(device=self.device).manual_seed(0)
-        H = self.cfg.num_heads
-        return torch.randn((rows, H, self.cfg.hidden_size // H),
-                           generator=g, device=self.device).to(self.kv.dtype)
+        H, _, Dh = self._heads
+        return torch.randn((rows, H, Dh), generator=g,
+                           device=self.device).to(self.kv.dtype)
 
     def _run_ab_gate(self):
         """The gate at this engine's decode shape (every slot one token
@@ -342,9 +432,14 @@ class ServingEngine:
         ``(next tokens, logit rows or None)`` on the host. With ``jit``
         (default: the engine's) ``key``'s program runs it; else it runs
         eagerly, its metadata copied to the device and its results back
-        from pageable memory."""
+        from pageable memory. At ``mp > 1`` the ranks first compare the
+        plan (:meth:`_sync_plan`), and the round runs eagerly."""
+        if self._tp is not None:
+            self._sync_plan(key, parts)
+            jit = False
         if self._jit if jit is None else jit:
             return self._rounds.run(key, fn, parts, need_rows)
+        self._eager_rounds += 1
         t0 = time.perf_counter()
         flat = np.concatenate([np.ravel(p) for p in parts]).astype(np.int32)
         with torch.no_grad():
@@ -372,7 +467,8 @@ class ServingEngine:
         caches = [{"ragged": True, "k_pool": self.kv.k[i],
                    "v_pool": self.kv.v[i], "block_tables": bt,
                    "row_starts": rs, "row_lens": rl, "kv_lens": kl,
-                   "split_scratch": self._split_scratch}
+                   "split_scratch": self._split_scratch,
+                   "attn_impl": self._attn_impls.get("ragged")}
                   for i in range(self.cfg.num_layers)]
         hidden = self.model.gpt(flat[None, :T], caches=caches)
         last = (rs + rl - 1).clamp(0, T - 1).long()
@@ -404,13 +500,11 @@ class ServingEngine:
         engine can run: the largest need (f32 partials, f32 max/sum pairs,
         int32 tickets) over every token pad up to ``max_slots`` whole
         ``max_seq_len`` rows, the most :meth:`warm_ragged` can reach."""
-        cfg = self.cfg
-        H = cfg.num_heads
-        sizes = [_ragged_scratch_sizes(p, H, cfg.num_kv_heads,
-                                       cfg.hidden_size // H, self.max_slots,
+        H, KVH, Dh = self._heads
+        sizes = [_ragged_scratch_sizes(p, H, KVH, Dh, self.max_slots,
                                        self.max_pages, self.page_size)
                  for p in self._ragged_pads(self.max_slots
-                                            * cfg.max_seq_len)]
+                                            * self.cfg.max_seq_len)]
         return tuple(max(col) for col in zip(*sizes))
 
     def warm_ragged(self, max_tokens=None):
@@ -720,7 +814,9 @@ class ServingEngine:
             c = {"paged": True, "k_pool": self.kv.k[i],
                  "v_pool": self.kv.v[i], "block_tables": bt,
                  "positions": positions,
-                 "split_scratch": self._split_scratch}
+                 "split_scratch": self._split_scratch,
+                 "attn_impl": self._attn_impls.get("decode"),
+                 "prefill_impl": self._attn_impls.get("prefill")}
             if chunk_lens is not None:
                 c["chunk_lens"] = chunk_lens
             caches.append(c)
@@ -930,6 +1026,12 @@ class ServingEngine:
                 remote_hits=share.remote_hits if share else None,
                 remote_hit_tokens=share.remote_hit_tokens
                 if share else None)
+            if self._tp is not None:
+                # a rank that ran fewer launches this step meets the
+                # others' next launch check here
+                self._sync_plan(("step",), [np.array(
+                    [emitted, len(self.scheduler.active),
+                     self.scheduler.queue_depth()])])
             self._steps += 1
             return emitted
 
@@ -1100,7 +1202,13 @@ class ServingEngine:
         return req.result(timeout=timeout)
 
     def start(self):
-        """Background serve loop (idempotent)."""
+        """Background serve loop (idempotent). A tensor-parallel engine
+        refuses: its ranks are stepped in lockstep by their callers."""
+        if self._tp is not None:
+            raise RuntimeError(
+                "a tensor-parallel engine (mp > 1) is driven by step() / "
+                "run_until_idle() on every rank in lockstep, not by a "
+                "serve thread's clock")
         if self._thread is not None:
             return
         self._stop_evt.clear()
@@ -1282,6 +1390,8 @@ class ServingEngine:
             "distinct_programs": len(self._programs),
             "jit": self._jit,
             "graphs": self._rounds.graphs,
+            "mp_degree": self.mp_degree,
+            "eager_rounds": self._eager_rounds,
             "graph_capture_s": self._rounds.capture_s,
             "round_host_s": dict(self._rounds.host_s),
             "prefill_shapes": sorted(self._prefill_shapes),

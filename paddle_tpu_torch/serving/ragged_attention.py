@@ -10,7 +10,9 @@ On a CUDA tensor the hand-written kernel runs, on a CPU tensor its plain
 version (``ops/kernels/ragged_attention.py``). :func:`ab_compare_ragged`
 is the engine's measure-only A/B gate at its ragged launch shape
 (:func:`.decode.measure`): it reports the plain version's time beside the
-kernel's and never demotes the kernel.
+kernel's and never demotes the kernel. :func:`sharded_ragged_attention`
+runs the kernel on this rank's KV heads over a mesh axis, as
+:mod:`.decode`'s sharded wrappers do.
 """
 from __future__ import annotations
 
@@ -18,8 +20,8 @@ from ..ops.kernels import ragged_paged_attention as _kernel
 from ..ops.kernels import ragged_paged_attention_reference as _plain
 from .decode import _int32, measure
 
-__all__ = ["ragged_paged_attention", "pad_total_tokens", "PAD_FLOOR",
-           "ab_compare_ragged"]
+__all__ = ["ragged_paged_attention", "sharded_ragged_attention",
+           "pad_total_tokens", "PAD_FLOOR", "ab_compare_ragged"]
 
 # smallest padded launch: decode-only rounds of small engines all share
 # one shape instead of one per active-row count
@@ -44,6 +46,23 @@ def ragged_paged_attention(q, k_pool, v_pool, row_starts, row_lens,
     [T, H, Dh]; pad tokens come back zeroed and the caller discards them."""
     return _kernel(q, k_pool, v_pool, row_starts, row_lens, kv_lens,
                    block_tables, scale=scale)
+
+
+def sharded_ragged_attention(mesh, axis_name="model", scale=None):
+    """Ragged attention sharded along KV heads over ``mesh[axis_name]``:
+    each rank attends its query-head groups against its head slice of
+    every page; row metadata and block tables are whole on every rank,
+    and the launch makes no collective of its own (the ``local`` call;
+    ``scratch=`` passes through). Called with whole tensors it cuts each
+    rank's contiguous heads and all-gathers the output."""
+    from ..distributed._mesh_shard import MeshSharded
+
+    def _impl(q, kp, vp, rs, rl, kl, bt, scratch=None):
+        return _kernel(q, kp, vp, rs, rl, kl, bt, scale=scale,
+                       scratch=scratch)
+
+    return MeshSharded(_impl, mesh, [(axis_name, {0: 1, 1: 2, 2: 2}, 1)],
+                       dense=(1, 2))
 
 
 def ab_compare_ragged(q, k_pool, v_pool, row_starts, row_lens, kv_lens,

@@ -37,7 +37,8 @@ def _port_sources():
                                            "tests/torch_resilience_worker.py",
                                            "tests/torch_elastic_worker.py",
                                            "tests/torch_dlinalg_worker.py",
-                                           "tests/torch_dp_worker.py")]
+                                           "tests/torch_dp_worker.py",
+                                           "tests/torch_tp_worker.py")]
     for root, _, files in os.walk(PKG):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)

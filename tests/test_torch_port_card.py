@@ -2625,3 +2625,42 @@ def test_page_share_import_replays_the_publishers_tokens_on_card():
     for eng in engines:
         eng.close()
     del master
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kvh", [16, 4])
+def test_sharded_ragged_attention_takes_a_contiguous_head_slice_on_card(kvh):
+    """A rank's share of ``gpt_1p3b``'s heads at mp 2 (8 of 16 query heads,
+    ``kvh / 2`` KV heads): ``sharded_ragged_attention``'s local call
+    launches the kernel once on the rank's contiguous head slice and
+    matches the unsharded kernel's heads (bf16, phase 4's 4e-3); a
+    strided head slice of the pools is refused by the local call and by
+    the kernel (which indexes a pool assuming a dense head stride), never
+    read as it lies."""
+    _need_cuda()
+    from paddle_tpu_torch.serving import sharded_ragged_attention
+    x = _mixed_launch(16, kvh, 128, seed=24 + kvh, page_size=16,
+                      num_pages=32, max_pages=4, T=24)
+    args = [_torch(x[n]).cuda() for n in ("q", "k", "v", "rs", "rl", "kl",
+                                          "bt")]
+    args[:3] = [a.to(torch.bfloat16) for a in args[:3]]
+    full = K.ragged_paged_attention(*args)
+    # one rank's call: the local call needs no process group
+    f = sharded_ragged_attention(None)
+    h, kh = 8, kvh // 2
+    for r in range(2):
+        q = args[0][:, r * h:(r + 1) * h]
+        k, v = (a[:, :, r * kh:(r + 1) * kh] for a in args[1:3])
+        before = K.ragged_paged_attention.launches
+        got = f.local(q.contiguous(), k.contiguous(), v.contiguous(),
+                      *args[3:])
+        torch.cuda.synchronize()
+        assert K.ragged_paged_attention.launches == before + 1
+        torch.testing.assert_close(got.float(),
+                                   full[:, r * h:(r + 1) * h].float(),
+                                   rtol=4e-3, atol=4e-3)
+        assert not k.is_contiguous()
+        with pytest.raises(ValueError, match="strided view"):
+            f.local(q.contiguous(), k, v, *args[3:])
+        with pytest.raises(ValueError, match="contiguous"):
+            K.ragged_paged_attention(q.contiguous(), k, v, *args[3:])

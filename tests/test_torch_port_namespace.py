@@ -45,40 +45,19 @@ MISSING = {
         "graph_khop_sampler", "graph_reindex", "graph_sample_neighbors",
         "graph_send_recv", "moe", "optimizer", "ring_attention",
         "segment_max", "segment_mean", "segment_min", "segment_sum")}},
-    "serving": {n: ITEM8 for n in (
-        "sharded_paged_attention", "sharded_paged_prefill",
-        "sharded_ragged_attention")},
-    "distributed": {
-        "world_mesh": ITEM8 + ": JAX's device Mesh; the port's world is "
-                      "its torch.distributed process group",
-        **{n: ITEM8 for n in (
-            "AutoTuner", "BucketedGradSync", "CommunicateTopology",
-            "CountFilterEntry", "DistAttr", "DistModel",
-            "Group", "HybridCommunicateGroup", "InMemoryDataset",
-            "ParallelEnv", "ParallelMode", "Partial", "Placement",
-            "ProbabilityEntry", "ProcessMesh", "QueueDataset", "ReduceOp",
-            "ReduceType", "Replicate", "Shard", "ShowClickEntry",
-            "Strategy", "all_gather", "all_gather_object", "all_reduce",
-            "all_to_all", "alltoall", "alltoall_single", "auto_parallel",
-            "auto_tuner", "barrier", "broadcast", "broadcast_object_list",
-            "build_mesh", "collective", "comm_extra",
-            "destroy_process_group", "dtensor_from_fn", "dtensor_from_local",
-            "fleet_executor", "gather", "get_backend", "get_group",
-            "get_hybrid_communicate_group", "gloo_barrier",
-            "gloo_init_parallel_env", "gloo_release", "io", "irecv",
-            "is_available", "isend", "new_group", "overlap", "passes",
-            "placement", "ps", "recv", "reduce", "reduce_scatter", "reshard",
-            "rpc", "scatter", "scatter_object_list", "send", "shard_layer",
-            "shard_optimizer", "shard_tensor", "spawn", "split", "stream",
-            "to_static", "wait")}},
+    "distributed": {n: ITEM8 for n in (
+        "AutoTuner", "BucketedGradSync", "CountFilterEntry", "DistAttr",
+        "DistModel", "InMemoryDataset", "Partial", "Placement",
+        "ProbabilityEntry", "ProcessMesh", "QueueDataset", "ReduceType",
+        "Replicate", "Shard", "ShowClickEntry", "Strategy", "auto_parallel",
+        "auto_tuner", "dtensor_from_fn", "dtensor_from_local",
+        "fleet_executor", "io", "overlap", "passes", "placement", "ps",
+        "reshard", "rpc", "shard_layer", "shard_optimizer", "shard_tensor",
+        "to_static")},
     "distributed.fleet": {n: ITEM8 for n in (
-        "ColumnParallelLinear", "DistributedStrategy",
         "DygraphShardingOptimizer", "HybridParallelClipGrad",
-        "HybridParallelOptimizer", "ParallelCrossEntropy",
-        "RowParallelLinear", "VocabParallelEmbedding", "distributed_model",
-        "distributed_optimizer", "get_hybrid_communicate_group",
-        "group_sharded_parallel", "init", "is_initialized",
-        "meta_optimizers", "metrics", "mp_layers", "pipeline",
+        "HybridParallelOptimizer", "distributed_optimizer",
+        "group_sharded_parallel", "meta_optimizers", "metrics", "pipeline",
         "pipeline_compiled", "sequence_parallel_utils", "sharding",
         "utils_fs")},
     "models": {"GPTForCausalLMPipe": ITEM8},
@@ -93,11 +72,12 @@ SIG_DEVIATIONS = {
         "holds the host copy its writer thread writes")},
     "serving": {
         "PagedKVCache": "the pool's device follows JAX's parameters",
-        "ServingEngine": ITEM8 + " (mesh, mesh_axis)",
         "ab_compare": "the kernel's split scratch is an argument",
         "ab_compare_ragged": "the kernel's split scratch is an argument",
         "paged_decode_attention": "the Pallas backend switch is gone",
-        "ragged_paged_attention": "the Pallas backend switch is gone"},
+        "ragged_paged_attention": "the Pallas backend switch is gone",
+        "sharded_paged_attention": "the Pallas backend switch is gone",
+        "sharded_ragged_attention": "the Pallas backend switch is gone"},
     "models": {n: _MODELS_ARGS for n in (
         "AlexNet", "BertForMaskedLM", "BertForSequenceClassification",
         "BertModel", "GPTForCausalLM", "GPTModel", "LeNet", "MobileNetV1",
